@@ -1,0 +1,177 @@
+"""Fused paged decode attention: the port of `fedml_tpu/ops/paged_attention.py`.
+
+Each slot's K/V pages are read IN PLACE through its page-table row; no
+virtually-contiguous gathered copy is made. Contract (one transformer
+layer):
+
+    q      [S, C, H, Dh]   float32 or bfloat16; C queries per slot at
+                           positions pos[s] .. pos[s] + C - 1 (C == 1 is the
+                           decode step, C > 1 a speculative verify window)
+    k/v    [P, page_size, H, Dh]   the page pool, in q's dtype or int8
+    pages  [S, max_pages] int32    page-table rows (entries past a slot's
+                           reservation are 0, the reserved null page)
+    pos    [S] int32       (a 0-d tensor broadcasts)
+    k_scales / v_scales [P, H] float32 per-(page, head) scales, passed
+                           together and only with an int8 pool
+    ->     [S, C, H, Dh]   q's dtype
+
+Query i of slot s attends the virtual positions <= pos[s] + i; online
+softmax in f32; pages past the slot's last query contribute nothing.
+
+On a CUDA tensor `paged_attention` launches the hand-written kernel
+`csrc/paged_attention.cu` (built at first use, `ops/_build.py`) or raises;
+on a CPU tensor it runs `paged_attention_ref`, the plain PyTorch version of
+the same blocked math with the same rounding points. It never falls back
+from the kernel to the plain version. `launch_count` counts kernel
+launches (and nothing else), so a run can show its path went through the
+kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+_NEG = -1e30
+MAX_C, MAX_PAGE_SIZE, MAX_DH = 16, 64, 256
+_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+launch_count = 0
+
+_lib = None
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = _build.load("paged_attention")
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.fedml_paged_attention.argtypes = [vp] * 8 + [i] * 8 + [vp]
+        lib.fedml_paged_attention.restype = i
+        lib.fedml_cuda_error_string.argtypes = [i]
+        lib.fedml_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _check(q, k_pool, v_pool, pages, pos, k_scales, v_scales) -> None:
+    """Raise on anything the kernel does not take (both devices check the
+    same contract, so the CPU tests exercise it)."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales must be passed together")
+    if q.dim() != 4 or q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q must be [S, C, H, Dh] float32/bfloat16; got "
+                         f"{tuple(q.shape)} {q.dtype}")
+    s_, c, h, dh = q.shape
+    if k_pool.dim() != 4 or k_pool.shape != v_pool.shape \
+            or k_pool.shape[2:] != (h, dh):
+        raise ValueError(f"k/v pools must both be [P, page_size, {h}, {dh}]; "
+                         f"got {tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
+    if k_pool.dtype != v_pool.dtype:
+        raise ValueError(f"k/v pool dtypes differ: {k_pool.dtype} / "
+                         f"{v_pool.dtype}")
+    quant = k_pool.dtype == torch.int8
+    if not quant and k_pool.dtype != q.dtype:
+        raise ValueError(f"a float pool must be in q's dtype {q.dtype}; got "
+                         f"{k_pool.dtype}")
+    if quant != (k_scales is not None):
+        raise ValueError("an int8 pool needs k_scales/v_scales, and only an "
+                         "int8 pool takes them")
+    if quant:
+        for sc in (k_scales, v_scales):
+            if sc.dtype != torch.float32 or sc.shape != (k_pool.shape[0], h):
+                raise ValueError(f"scales must be [{k_pool.shape[0]}, {h}] "
+                                 f"float32; got {tuple(sc.shape)} {sc.dtype}")
+    if pages.dtype != torch.int32 or pages.dim() != 2 \
+            or pages.shape[0] != s_:
+        raise ValueError(f"pages must be [{s_}, max_pages] int32; got "
+                         f"{tuple(pages.shape)} {pages.dtype}")
+    if pos.dtype != torch.int32 or pos.shape != (s_,):
+        raise ValueError(f"pos must be [{s_}] int32; got {tuple(pos.shape)} "
+                         f"{pos.dtype}")
+    if c > MAX_C or k_pool.shape[1] > MAX_PAGE_SIZE or dh > MAX_DH:
+        raise ValueError(
+            f"the paged-attention kernel takes C <= {MAX_C}, page_size <= "
+            f"{MAX_PAGE_SIZE}, Dh <= {MAX_DH}; got C={c}, page_size="
+            f"{k_pool.shape[1]}, Dh={dh}")
+    tensors = [q, k_pool, v_pool, pages, pos] + (
+        [k_scales, v_scales] if quant else [])
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("paged_attention operands must share one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("paged_attention operands must be contiguous")
+
+
+def paged_attention(q, k_pool, v_pool, pages, pos, k_scales=None,
+                    v_scales=None) -> torch.Tensor:
+    """Fused paged decode attention (module docstring has the contract)."""
+    global launch_count
+    if pos.dim() == 0:
+        pos = pos.expand(q.shape[0]).contiguous()
+    _check(q, k_pool, v_pool, pages, pos, k_scales, v_scales)
+    if q.device.type == "cpu":
+        return paged_attention_ref(q, k_pool, v_pool, pages, pos,
+                                   k_scales, v_scales)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention runs on cuda or cpu; got "
+                         f"{q.device}")
+    lib = _kernel_lib()
+    s_, c, h, dh = q.shape
+    out = torch.empty_like(q)
+    quant = k_scales is not None
+    with torch.cuda.device(q.device):
+        err = lib.fedml_paged_attention(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            pages.data_ptr(), pos.data_ptr(),
+            k_scales.data_ptr() if quant else None,
+            v_scales.data_ptr() if quant else None, out.data_ptr(),
+            s_, c, h, dh, k_pool.shape[1], pages.shape[1],
+            _KIND[q.dtype], _KIND[k_pool.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(
+            "paged_attention kernel launch failed: CUDA error "
+            f"{err} ({lib.fedml_cuda_error_string(err).decode()})")
+    launch_count += 1
+    return out
+
+
+def paged_attention_ref(q, k_pool, v_pool, pages, pos, k_scales=None,
+                        v_scales=None) -> torch.Tensor:
+    """The plain PyTorch version: the TPU kernel's page-by-page online
+    softmax, vectorised over slots and heads, with its rounding points
+    (int8 slabs dequantised then rounded to q's dtype; p rounded to V's
+    dtype before P.V). Pages past every slot's last query are not visited;
+    a page past ONE slot's last query is fully masked for it, which leaves
+    (m, l, o) exactly unchanged."""
+    s_, c, h, dh = q.shape
+    ps, max_pages = k_pool.shape[1], pages.shape[1]
+    scale = dh ** -0.5
+    dev = q.device
+    qf = q.float()
+    qpos = pos.long()[:, None] + torch.arange(c, device=dev)     # [S, C]
+    n_pages = min(max_pages, int(qpos.max()) // ps + 1)
+    m = torch.full((s_, h, c, 1), _NEG, dtype=torch.float32, device=dev)
+    l = torch.zeros((s_, h, c, 1), dtype=torch.float32, device=dev)
+    o = torch.zeros((s_, h, c, dh), dtype=torch.float32, device=dev)
+    for p in range(n_pages):
+        idx = pages[:, p].long()                                  # [S]
+        kb, vb = k_pool[idx], v_pool[idx]                         # [S,ps,H,Dh]
+        if k_scales is not None:
+            kb = (kb.float() * k_scales[idx][:, None, :, None]).to(q.dtype)
+            vb = (vb.float() * v_scales[idx][:, None, :, None]).to(q.dtype)
+        s = torch.einsum("schd,sthd->shct", qf, kb.float()) * scale
+        vpos = p * ps + torch.arange(ps, device=dev)
+        s = torch.where(vpos[None, None, None, :] <= qpos[:, None, :, None],
+                        s, _NEG)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        pr = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + pr.sum(-1, keepdim=True)
+        o = o * corr + torch.einsum("shct,sthd->shcd",
+                                    pr.to(vb.dtype).float(), vb.float())
+        m = m_new
+    out = o / torch.clamp(l, min=1e-30)
+    return out.permute(0, 2, 1, 3).to(q.dtype).contiguous()
