@@ -26,6 +26,21 @@ exits non-zero; nothing is caught and carried past):
              pool and with an int8 pool: decode tokens/s, TTFT p50, the int8
              engine's greedy match rate against bf16 (printed, not gated:
              the weights are random), kernel launches.
+6. flash   - the three flash-attention kernels (K1 forward, K2 dQ, K3
+             dK/dV) against their plain versions at the shape phase train
+             gives them (BH = 2 x 32, T = 2048, D = 128) in f32 and bf16,
+             each row's error relative to that row's magnitude; CUDA-event
+             medians of each kernel, of the forward and the backward, of the
+             plain versions and of the library yardstick (SDPA), and each
+             kernel's bound.
+7. train   - federated LoRA at full LLaMA-2-7B width and depth (bf16 base,
+             rank 8 on wq/wk/wv/wo, per-block remat, flash attention, bf16
+             compute): two FedAvg rounds of 2 clients x 4 sequences x 2048
+             tokens; losses finite, every adapter moved, the base bitwise
+             unchanged, launches K1 = 2 x layers x steps and K2 = K3 =
+             layers x steps. Then an f32 round at full width and 2 layers
+             (TF32 off) with flash and with dense attention from the same
+             adapters and batch schedule: the adapters agree.
 
 Then the `kernels` line, the raw `nvidia-smi` name/power-limit line, and as
 the last line {"ok": true, "device": {...}}. Imports nothing of JAX or of
@@ -44,8 +59,8 @@ import time
 
 import numpy as np
 
-PHASES = ("device", "build", "kernel", "engine", "serve")
-OPTIONAL = ("profile",)   # run only when named in --only
+PHASES = ("device", "build", "kernel", "engine", "serve", "flash", "train")
+OPTIONAL = ("profile", "train_profile")   # run only when named in --only
 DEV = "cuda"
 
 # the kernel check's shapes: LLaMA-2-7B attention at the engine's page size
@@ -58,6 +73,27 @@ N_SLOTS, MAX_LEN, PREFILL_CHUNK = 8, 1024, 256
 # rounding of p before P.V and of the output (2^-8 relative).
 TOL = {"f32": 1e-5, "bf16": 2e-2, "int8": 2e-2}
 NEAR_TIE = 1e-3   # top-2 logit margin under which a flipped argmax is a tie
+# train shapes: 2 clients x 4 sequences x 2048 tokens, batch 2 -> 2 local
+# steps per client, 4 per round
+TRAIN_CLIENTS, TRAIN_SEQS, TRAIN_T, TRAIN_BS, TRAIN_ROUNDS = 2, 4, 2048, 2, 2
+# flash check shapes: one LLaMA-2-7B layer's attention as phase `train`
+# launches it (B = TRAIN_BS sequences x H = 32 heads folded into BH),
+# T = 2048, Dh = 128; the plain versions block as the JAX module's
+# defaults do at T = 2048 (_auto_block(T, 512 / 1024))
+FLASH_BH, FLASH_T, FLASH_D = TRAIN_BS * H, TRAIN_T, DH
+FLASH_BQ, FLASH_BK = 512, 1024
+# kernel vs plain version under `flash_attention.rowwise_rel_err` (each
+# row's error relative to that row's largest magnitude, one ulp of the
+# output forgiven). f32: the same f32 products summed in another order
+# (tiles of 64 against blocks of 512/1024); read at <= 5.3e-6 on the H100
+# over two seeds. bf16: the order can also flip the bf16 rounding of p or
+# dS before a product; read at <= 4.4e-3 (O) and <= 2.2e-3 (dQ, dK, dV)
+# over two seeds, so 1e-2 is 2.3x the largest reading.
+FLASH_TOL = {"f32": 1e-4, "bf16": 1e-2}
+# flash-vs-dense f32 round: max |adapter difference| over max |adapter
+# update|. Both compute the same f32 attention up to summation order
+# (~1e-6 relative); two local steps carry it into the adapters.
+PARITY_TOL = 1e-3
 
 
 def emit(obj) -> None:
@@ -405,6 +441,20 @@ def phase_serve(reqs) -> dict:
     return {"bf16": st_b, "int8": st_q}
 
 
+def _kernel_rows(prof) -> list:
+    """(name, calls, device ms) of each kernel in a torch.profiler run,
+    longest first. Only the device's own events: a host op's row (aten::mm,
+    an autograd Function) carries the device time of the kernels it
+    launched, which the kernels' rows already hold."""
+    from torch.autograd import DeviceType
+
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    return sorted(rows, key=lambda r: -r[2])
+
+
 def phase_profile(reqs, top: int = 15) -> None:
     """Where a bf16 wave's device time goes: torch.profiler over the
     kernel engine serving `reqs` (after a warm-up request); device time per
@@ -431,9 +481,7 @@ def phase_profile(reqs, top: int = 15) -> None:
         steps = eng.decode_steps - steps0
     finally:
         eng.stop()
-    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[2])
+    rows = _kernel_rows(prof)
     busy_ms = sum(r[2] for r in rows)
     wall_ms = stats["wall_s"] * 1e3
     emit({"phase": "profile", "dtype": "bfloat16", "wall_ms": wall_ms,
@@ -443,6 +491,289 @@ def phase_profile(reqs, top: int = 15) -> None:
                    "share_of_busy": ms / busy_ms}
                   for k, n, ms in rows[:top]]})
     del model, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ phase 6
+def _flash_cost(kernel: str, bh: int, t: int, d: int, es: int):
+    """(bytes, flops) the function must move/do: each input read once,
+    each output written once; causal products count T(T+1)/2 score
+    entries, 2*D flops each. The forward does 2 products (S, P.V), dQ 2
+    (dP, dS.K), dK/dV 2 (P^T.dO, dS^T.Q): the backward's 4 products split
+    between its two kernels. Recomputing S (both), and dP in dK/dV, is the
+    kernels' choice and is not counted."""
+    tri = t * (t + 1) // 2
+    tile = bh * t * d * es       # one [BH, T, D] operand
+    row = bh * t * 4             # one [BH, T] f32 vector
+    flops = 4 * bh * d * tri
+    nbytes = {"fwd": 3 * tile + tile + row,              # q k v -> o lse
+              "dq": 4 * tile + 2 * row + tile,           # q k v dO lse dlt
+              "dkv": 4 * tile + 2 * row + 2 * tile,      # ... -> dK dV
+              "bwd": 5 * tile + row + 3 * tile}[kernel]  # q k v o dO lse
+    return nbytes, 2 * flops if kernel == "bwd" else flops
+
+
+def phase_flash(bw: float) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from fedml_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bh, t, d = FLASH_BH, FLASH_T, FLASH_D
+    rng = np.random.default_rng(2)
+    out = {}
+    for kind, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        q, k, v, do = (torch.from_numpy(
+            rng.standard_normal((bh, t, d), np.float32)).to(DEV, dt)
+            for _ in range(4))
+        o, lse = fa.flash_fwd(q, k, v)
+        delta = fa.flash_delta(o, do)
+        dq = fa.flash_dq(q, k, v, do, lse, delta)
+        dk, dv = fa.flash_dkv(q, k, v, do, lse, delta)
+        torch.cuda.synchronize()
+        # each kernel against its plain version on the same inputs
+        want_o, want_lse = fa.flash_fwd_ref(q, k, v, FLASH_BQ, FLASH_BK)
+        want_dq = fa.flash_dq_ref(q, k, v, do, lse, delta, FLASH_BQ,
+                                  FLASH_BK)
+        want_dk, want_dv = fa.flash_dkv_ref(q, k, v, do, lse, delta,
+                                            FLASH_BQ, FLASH_BK)
+        errs = {}
+        for name, got, want in (("o", o, want_o), ("lse", lse, want_lse),
+                                ("dq", dq, want_dq), ("dk", dk, want_dk),
+                                ("dv", dv, want_dv)):
+            check(torch.isfinite(got).all().item(), f"{kind} {name}: "
+                  "non-finite")
+            err = (got.float() - want.float()).abs().max().item()
+            rel = fa.rowwise_rel_err(got, want)
+            errs[name] = {"max_abs_err": err, "max_row_rel_err": rel}
+            check(rel <= FLASH_TOL[kind], f"flash {kind} {name}: "
+                  f"row-relative err {rel} > {FLASH_TOL[kind]}")
+        emit({"phase": "flash", "dtype": kind, "shape": [bh, t, d],
+              "errors": errs, "tol_row_rel": FLASH_TOL[kind]})
+        del want_o, want_lse, want_dq, want_dk, want_dv
+
+        ms = {"fwd": time_ms(lambda: fa.flash_fwd(q, k, v)),
+              "dq": time_ms(lambda: fa.flash_dq(q, k, v, do, lse, delta)),
+              "dkv": time_ms(lambda: fa.flash_dkv(q, k, v, do, lse, delta)),
+              "bwd": time_ms(lambda: fa.flash_bwd(q, k, v, o, lse, do))}
+        plain = {
+            "fwd": time_ms(lambda: fa.flash_fwd_ref(
+                q, k, v, FLASH_BQ, FLASH_BK), n=10, warmup=1),
+            "dq": time_ms(lambda: fa.flash_dq_ref(
+                q, k, v, do, lse, delta, FLASH_BQ, FLASH_BK), n=10,
+                warmup=1),
+            "dkv": time_ms(lambda: fa.flash_dkv_ref(
+                q, k, v, do, lse, delta, FLASH_BQ, FLASH_BK), n=10,
+                warmup=1),
+            "bwd": time_ms(lambda: fa.flash_bwd_ref(
+                q, k, v, o, lse, do, FLASH_BQ, FLASH_BK), n=10, warmup=1)}
+        # library yardstick, timed here only: SDPA on [B, H, T, D]
+        q4, k4, v4, do4 = (x.view(TRAIN_BS, H, t, d) for x in (q, k, v, do))
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q4, k4, v4))
+
+        def sdpa_fwd_bwd():
+            y = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+            torch.autograd.grad(y, (qg, kg, vg), do4)
+
+        library = {"fwd": time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True)), "fwd_bwd": time_ms(sdpa_fwd_bwd)}
+        bounds = {}
+        for name in ms:
+            nbytes, flops = _flash_cost(name, bh, t, d, q.element_size())
+            t_bytes = nbytes / bw * 1e3
+            t_ops = flops / peak_flops(dt) * 1e3
+            bounds[name] = {"bound_ms": max(t_bytes, t_ops),
+                            "bound_by": "bytes" if t_bytes >= t_ops
+                            else "operations", "bytes": nbytes,
+                            "flops": flops}
+        out[kind] = {"ms": ms, "plain_ms": plain, "library_ms": library,
+                     "bounds": bounds, "errors": errs}
+        emit({"phase": "flash", "dtype": kind, "ms": ms, "plain_ms": plain,
+              "library_ms": library, "bounds": bounds})
+        del q, k, v, do, o, lse, delta, dq, dk, dv, qg, kg, vg
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------------ phase 7
+def _token_data(vocab: int, seed: int) -> dict:
+    """{"x", "y": [clients, seqs, T] next-token pairs of random tokens,
+    "mask": [clients, seqs]} on the device, from numpy's generator."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    seqs = rng.integers(0, vocab, (TRAIN_CLIENTS, TRAIN_SEQS, TRAIN_T + 1))
+    return {"x": torch.from_numpy(seqs[..., :-1]).to(DEV),
+            "y": torch.from_numpy(seqs[..., 1:]).to(DEV),
+            "mask": torch.ones((TRAIN_CLIENTS, TRAIN_SEQS),
+                               dtype=torch.float32, device=DEV)}
+
+
+def _fed_lora(dims, state, t, flash: bool, seed: int = 1):
+    """(FedAvg over LoRA adapters, initial adapters, round fn) for a model
+    over `state` with per-block remat, rank 8 / alpha 16 on wq/wk/wv/wo."""
+    import torch
+
+    from fedml_tpu_torch.llm import federated_lora
+    from fedml_tpu_torch.llm.transformer import TransformerLM
+    from fedml_tpu_torch.ops.flash_attention import flash_attn_fn
+    from fedml_tpu_torch.parallel.round import build_round_fn
+
+    model = TransformerLM.from_state(
+        dims, state, attn_fn=flash_attn_fn if flash else None, remat=True)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    alg, adapters = federated_lora(model, state, t, gen, rank=8, alpha=16.0)
+    return alg, adapters, build_round_fn(alg)
+
+
+def _max_abs_diff(a: dict, b: dict) -> float:
+    return max((a[k][n] - b[k][n]).abs().max().item()
+               for k in a for n in ("a", "b"))
+
+
+def phase_train(dims=None, parity_layers: int = 2) -> dict:
+    """The slice's main path at `dims` (default LLaMA-2-7B), then the f32
+    flash-vs-dense round at the same widths and `parity_layers` layers."""
+    import dataclasses
+
+    import torch
+
+    from fedml_tpu_torch.config import TrainArgs
+    from fedml_tpu_torch.core.algorithm import make_batch_indices
+    from fedml_tpu_torch.llm import count_params
+    from fedml_tpu_torch.llm.transformer import LLAMA2_7B, init_params
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.parallel.round import client_generator
+
+    dims = dims or LLAMA2_7B
+    L = dims.n_layers
+    ids = np.arange(TRAIN_CLIENTS)
+    weights = np.full((TRAIN_CLIENTS,), float(TRAIN_SEQS), np.float32)
+    data = _token_data(dims.vocab_size, seed=0)
+    t0 = time.perf_counter()
+    state = init_params(dims, seed=0, dtype=torch.bfloat16, device=DEV)
+    base_copy = {k: v.clone() for k, v in state.items()}
+    t = TrainArgs(epochs=1, batch_size=TRAIN_BS, learning_rate=1e-3,
+                  compute_dtype="bfloat16")
+    alg, adapters, round_fn = _fed_lora(dims, state, t, flash=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    st = alg.server_init(adapters)
+    steps_per_round = TRAIN_CLIENTS * (TRAIN_SEQS // TRAIN_BS)
+    rounds = []
+    fa.launch_count.update(fwd=0, dq=0, dkv=0)
+    torch.cuda.reset_peak_memory_stats()
+    for r in range(TRAIN_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = round_fn(st, None, data, ids, weights, seed=r)
+        loss = out.metrics["train_loss"].item()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = out.server_state
+        tokens = steps_per_round * TRAIN_BS * TRAIN_T
+        rounds.append({"round": r, "wall_s": wall, "train_loss": loss,
+                       "tokens_per_s": tokens / wall,
+                       "ms_per_local_step": wall / steps_per_round * 1e3})
+    launches = dict(fa.launch_count)
+    steps = steps_per_round * TRAIN_ROUNDS
+    res = {"init_s": init_s, "rounds": rounds, "launches": launches,
+           "steps": steps,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "adapter_payload_fraction":
+               count_params(adapters) / count_params(state)}
+    moved = min((st.params[k][n] - adapters[k][n]).abs().max().item()
+                for k in adapters for n in ("a", "b"))
+    same_base = all(torch.equal(state[k], base_copy[k]) for k in state)
+    emit({"phase": "train", "dims": dataclasses.asdict(dims),
+          "clients": TRAIN_CLIENTS, "seqs_per_client": TRAIN_SEQS,
+          "seq_len": TRAIN_T, "batch_size": TRAIN_BS, **res,
+          "min_adapter_move": moved, "base_unchanged": same_base})
+    check(all(np.isfinite(r["train_loss"]) for r in rounds),
+          "a round's loss is not finite")
+    check(moved > 0, "an adapter did not move")
+    check(same_base, "the frozen base changed")
+    check(launches == {"fwd": 2 * L * steps, "dq": L * steps,
+                       "dkv": L * steps},
+          f"flash launches {launches} != K1 2 x {L} x {steps}, K2 = K3 "
+          f"{L} x {steps}")
+    del state, base_copy, alg, adapters, round_fn, st, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # f32 at full width, reduced depth: flash vs dense attention, one
+    # round from the same adapters and batch schedule
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pdims = dataclasses.replace(dims, n_layers=parity_layers)
+    state = init_params(pdims, seed=0, dtype=torch.float32, device=DEV)
+    t32 = dataclasses.replace(t, compute_dtype="float32")
+    sched = [make_batch_indices(client_generator(7, int(c)), TRAIN_SEQS,
+                                TRAIN_BS, 1) for c in ids]
+    after = {}
+    adapters = None
+    for flash in (True, False):
+        alg, drawn, round_fn = _fed_lora(pdims, state, t32, flash)
+        adapters = adapters or drawn     # both rounds start from these
+        o = round_fn(alg.server_init(adapters), None, data, ids, weights,
+                     seed=7, batch_idx=sched)
+        after[flash] = (o.server_state.params,
+                        o.metrics["train_loss"].item())
+    update = _max_abs_diff(after[True][0], adapters)
+    diff = _max_abs_diff(after[True][0], after[False][0])
+    parity = {"layers": parity_layers, "max_abs_adapter_diff": diff,
+              "max_abs_adapter_update": update, "ratio": diff / update,
+              "tol": PARITY_TOL, "loss_flash": after[True][1],
+              "loss_dense": after[False][1]}
+    emit({"phase": "train", "f32_flash_vs_dense": parity})
+    check(update > 0 and diff <= PARITY_TOL * update,
+          f"f32 flash vs dense round: adapter diff {diff} > {PARITY_TOL} x "
+          f"update {update}")
+    del state, alg, adapters, drawn, round_fn, after, o
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["f32_flash_vs_dense"] = parity
+    return res
+
+
+def phase_train_profile(top: int = 15) -> None:
+    """Where one bf16 local step's device time goes at LLaMA-2-7B width:
+    torch.profiler over one FedAvg round of one client with two local
+    steps, after a warm-up round."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fedml_tpu_torch.config import TrainArgs
+    from fedml_tpu_torch.llm.transformer import LLAMA2_7B, init_params
+
+    state = init_params(LLAMA2_7B, seed=0, dtype=torch.bfloat16, device=DEV)
+    t = TrainArgs(epochs=1, batch_size=TRAIN_BS, learning_rate=1e-3,
+                  compute_dtype="bfloat16")
+    alg, adapters, round_fn = _fed_lora(LLAMA2_7B, state, t, flash=True)
+    data = _token_data(LLAMA2_7B.vocab_size, seed=0)
+    ids, w = np.arange(1), np.ones(1, np.float32)
+    st = round_fn(alg.server_init(adapters), None, data, ids, w,
+                  seed=0).server_state
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        round_fn(st, None, data, ids, w, seed=1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = _kernel_rows(prof)
+    busy_ms = sum(r[2] for r in rows)
+    steps = TRAIN_SEQS // TRAIN_BS
+    emit({"phase": "train_profile", "dtype": "bfloat16", "wall_ms": wall_ms,
+          "local_steps": steps, "device_busy_ms": busy_ms,
+          "device_idle_share": 1 - busy_ms / wall_ms,
+          "top": [{"name": k[:90], "calls": n, "device_ms": ms,
+                   "share_of_busy": ms / busy_ms}
+                  for k, n, ms in rows[:top]]})
+    del state, alg, adapters, round_fn, st
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -486,6 +817,10 @@ def main() -> int:
         runs.update(phase_serve(reqs))
     if "profile" in args.only:
         phase_profile(reqs)
+    flash = phase_flash(bw) if "flash" in args.only else {}
+    train = phase_train() if "train" in args.only else {"launches": {}}
+    if "train_profile" in args.only:
+        phase_train_profile()
 
     kernels = []
     for kind, k in kern.items():
@@ -500,6 +835,24 @@ def main() -> int:
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+    # the flash kernels at the main path's dtype (bf16); f32 numbers are in
+    # the flash phase's lines
+    f = flash.get("bf16")
+    outputs = {"fwd": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
+    for fk, line in (("fwd", 58), ("dq", 204), ("dkv", 232)):
+        if f is None:
+            break
+        kernels.append({
+            "name": f"flash_{fk}", "route": "cuda",
+            "source": "fedml_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"fedml_tpu/ops/flash_attention.py:{line}",
+            "launches": train["launches"].get(fk, 0),
+            "max_abs_err": max(f["errors"][e]["max_abs_err"]
+                               for e in outputs[fk]),
+            "ms": f["ms"][fk], "plain_ms": f["plain_ms"][fk],
+            "bound_ms": f["bounds"][fk]["bound_ms"],
+            "bound_by": f["bounds"][fk]["bound_by"],
+            "library_ms": f["library_ms"]["fwd"] if fk == "fwd" else None})
     if set(PHASES) <= set(args.only):
         check(all(k["launches"] > 0 for k in kernels),
               "a kernel of the main path was never launched")

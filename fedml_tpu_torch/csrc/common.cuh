@@ -1,0 +1,55 @@
+// Element conversions and warp reductions shared by the port's kernels.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace fedml {
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(int8_t x) {
+  return static_cast<float>(x);
+}
+
+// round an f32 value to T (nearest-even) and widen it back: exact in f32
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  } else {
+    return x;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return __float2bfloat16_rn(x);
+  } else {
+    return x;
+  }
+}
+
+// reductions over the `width` lanes (a power of two) of an aligned group
+template <int width = 32>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int off = width / 2; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+template <int width = 32>
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int off = width / 2; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+}  // namespace fedml

@@ -49,50 +49,16 @@
 
 #include <type_traits>
 
+#include "common.cuh"
+
 namespace {
+
+using fedml::from_float;
+using fedml::round_to;
+using fedml::to_float;
 
 constexpr float kNeg = -1e30f;
 constexpr int kMaxC = 16;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_float(int8_t x) {
-  return static_cast<float>(x);
-}
-
-// round an f32 value to T (nearest-even) and widen it back: exact in f32
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  } else {
-    return x;
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return __float2bfloat16_rn(x);
-  } else {
-    return x;
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
 
 // QT: query/output dtype (float or bf16). PT: pool dtype (QT, or int8).
 template <typename QT, typename PT>
@@ -160,7 +126,7 @@ __global__ void paged_attention_kernel(
       const int c = pr / page_size, r = pr - c * page_size;
       float dot = 0.f;
       for (int d = lane; d < Dh; d += 32) dot += q_s[c * Dh + d] * kv_s[r * Dh + d];
-      dot = warp_sum(dot);
+      dot = fedml::group_sum(dot);
       if (lane == 0) {
         const int vpos = p * page_size + r;
         p_s[pr] = (vpos <= p0 + c) ? dot * scale : kNeg;
@@ -172,7 +138,7 @@ __global__ void paged_attention_kernel(
       float* row = p_s + c * page_size;
       float mx = kNeg;
       for (int r = lane; r < page_size; r += 32) mx = fmaxf(mx, row[r]);
-      mx = warp_max(mx);
+      mx = fedml::group_max(mx);
       const float m_old = m_s[c];
       const float m_new = fmaxf(m_old, mx);
       float sum = 0.f;
@@ -181,7 +147,7 @@ __global__ void paged_attention_kernel(
         sum += e;                 // l sums p in f32 ...
         row[r] = round_to<QT>(e); // ... P.V takes p rounded to V's dtype
       }
-      sum = warp_sum(sum);
+      sum = fedml::group_sum(sum);
       if (lane == 0) {
         const float corr = expf(m_old - m_new);
         corr_s[c] = corr;

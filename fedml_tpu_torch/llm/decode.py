@@ -151,7 +151,7 @@ def make_paged_kv_decode(n_heads: int, page_size: int,
         for i, bl in enumerate(model.blocks):
             ck, cv, ks, vs = layer_cache(cache, i)
             h = rms_norm(x, bl.RMSNorm_0.scale.to(dtype), eps)
-            q, k, v = project_qkv(bl, h, n_heads, dtype)
+            q, k, v = project_qkv(bl, None, 0.0, h, n_heads, dtype)
             q = _rope_rows(q, posr[None, :])
             k = _rope_rows(k, posr[None, :])
             write(ck, cv, ks, vs, wpage, woff, k[0], v[0])
@@ -164,9 +164,10 @@ def make_paged_kv_decode(n_heads: int, page_size: int,
             s = torch.where(live[None, None], s, _NEG)
             o = torch.einsum("bhqk,khd->bqhd", torch.softmax(s, -1), vv)
             x = x + o.reshape(x.shape) @ bl.wo.kernel.to(dtype)
-            x = swiglu_mlp(bl, x, dtype, eps)
+            x = swiglu_mlp(bl, None, 0.0, x, dtype, eps)
         last = x[0, length - 1]
-        return lm_head_logits(model, last[None, None], dtype, eps)[:, 0]
+        return lm_head_logits(model, None, 0.0, last[None, None], dtype,
+                              eps)[:, 0]
 
     def verify(model, cache, pages, pos, tokens, active):
         x = model.embed.embedding.to(dtype)[tokens]               # [S, C, D]
@@ -189,7 +190,7 @@ def make_paged_kv_decode(n_heads: int, page_size: int,
         for i, bl in enumerate(model.blocks):
             ck, cv, ks, vs = layer_cache(cache, i)
             h = rms_norm(x, bl.RMSNorm_0.scale.to(dtype), eps)
-            q, k, v = project_qkv(bl, h, n_heads, dtype)
+            q, k, v = project_qkv(bl, None, 0.0, h, n_heads, dtype)
             q = _rope_rows(q, posr)
             k = _rope_rows(k, posr)
             write(ck, cv, ks, vs, wpage, woff, k, v)
@@ -206,8 +207,8 @@ def make_paged_kv_decode(n_heads: int, page_size: int,
                 s = torch.where(live[:, None], s, _NEG)
                 o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), vv)
             x = x + o.reshape(x.shape) @ bl.wo.kernel.to(dtype)
-            x = swiglu_mlp(bl, x, dtype, eps)
-        return lm_head_logits(model, x, dtype, eps)
+            x = swiglu_mlp(bl, None, 0.0, x, dtype, eps)
+        return lm_head_logits(model, None, 0.0, x, dtype, eps)
 
     def step(model, cache, pages, pos, token, active):
         return verify(model, cache, pages, pos, token[:, None], active)[:, 0]

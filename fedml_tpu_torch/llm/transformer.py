@@ -11,9 +11,14 @@ are applied as `x @ W` (they are NOT transposed into `nn.Linear`'s
 `blocks.{i}.{wq,wk,wv,wo,w_gate,w_up,w_down}.kernel`,
 `final_norm.scale` and `lm_head.kernel`.
 
-Attention here is a plain dense causal attention: this module's forward
-is the full-recompute reference the decode path is held against. The
-serving hot path lives in `llm/decode.py`.
+The forward is the training path and the full-recompute reference the
+decode path is held against (the serving hot path lives in
+`llm/decode.py`). Attention is pluggable (`attn_fn`, default the plain
+dense causal attention; `ops.flash_attention.flash_attn_fn` runs the
+flash kernels), `remat=True` recomputes each block in the backward
+(`torch.utils.checkpoint`, the counterpart of flax's `nn.remat(Block)`),
+and the forward takes LoRA adapters, merged into each adapted kernel
+inside its block, and a compute dtype that the weights are cast to at use.
 """
 from __future__ import annotations
 
@@ -24,9 +29,13 @@ from typing import Mapping
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
-from .quant import lm_head_logits, project_qkv, rms_norm, swiglu_mlp
+from .quant import (
+    lm_head_logits, merged_kernel, project_qkv, rms_norm, split_adapters,
+    swiglu_mlp,
+)
 
 _NEG = -1e9   # fedml_tpu/parallel/seq.py's finite "-inf"
 _EPS = 1e-6   # flax RMSNorm eps
@@ -98,10 +107,11 @@ class Embed(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, dims: ModelDims, dtype, device):
+    def __init__(self, dims: ModelDims, dtype, device, attn_fn=None):
         super().__init__()
         d, ff = dims.d_model, dims.d_ff
         self.n_heads = dims.n_heads
+        self.attn_fn = attn_fn or dense_causal_attention
         self.RMSNorm_0 = RMSNorm(d, dtype, device)
         self.wq = Dense(d, d, dtype, device)
         self.wk = Dense(d, d, dtype, device)
@@ -112,41 +122,49 @@ class Block(nn.Module):
         self.w_up = Dense(d, ff, dtype, device)
         self.w_down = Dense(ff, d, dtype, device)
 
-    def forward(self, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-        h = rms_norm(x, self.RMSNorm_0.scale, _EPS)
-        q, k, v = project_qkv(self, h, self.n_heads, x.dtype)
-        o = dense_causal_attention(rope(q, pos), rope(k, pos), v)
-        x = x + o.reshape(x.shape) @ self.wo.kernel
-        return swiglu_mlp(self, x, x.dtype, _EPS)
+    def forward(self, x: torch.Tensor, pos: torch.Tensor, ad_l=None,
+                rank_scale: float = 0.0) -> torch.Tensor:
+        dt = x.dtype
+        h = rms_norm(x, self.RMSNorm_0.scale.to(dt), _EPS)
+        q, k, v = project_qkv(self, ad_l, rank_scale, h, self.n_heads, dt)
+        o = self.attn_fn(rope(q, pos), rope(k, pos), v)
+        x = x + o.reshape(x.shape) @ merged_kernel(self, ad_l, "wo",
+                                                   rank_scale, dt)
+        return swiglu_mlp(self, ad_l, rank_scale, x, dt, _EPS)
 
 
 class TransformerLM(nn.Module):
     """tokens [B, T] int -> logits [B, T, vocab]. Parameters are allocated
     uninitialised on `device` (CUDA unless the caller names "cpu"; "meta"
     allocates nothing); fill them with `from_state`, or load a state from
-    `init_params` / `params_from_flax`."""
+    `init_params` / `params_from_flax`. `attn_fn` ([B, T, H, Dh] q/k/v ->
+    [B, T, H, Dh]) defaults to `dense_causal_attention`; `remat`
+    recomputes each block in the backward instead of keeping its
+    activations."""
 
     def __init__(self, dims: ModelDims, *, dtype=torch.float32,
-                 device=None):
+                 device=None, attn_fn=None, remat: bool = False):
         super().__init__()
         dev = (torch.device("meta") if str(device) == "meta"
                else resolve_device(device))
         self.dims = dims
         self.n_layers, self.n_heads = dims.n_layers, dims.n_heads
         self.d_model = dims.d_model
+        self.remat = remat
         self.embed = Embed(dims.vocab_size, dims.d_model, dtype, dev)
-        self.blocks = nn.ModuleList(Block(dims, dtype, dev)
+        self.blocks = nn.ModuleList(Block(dims, dtype, dev, attn_fn)
                                     for _ in range(dims.n_layers))
         self.final_norm = RMSNorm(dims.d_model, dtype, dev)
         self.lm_head = Dense(dims.d_model, dims.vocab_size, dtype, dev)
 
     @classmethod
-    def from_state(cls, dims: ModelDims,
-                   state: Mapping[str, torch.Tensor]) -> "TransformerLM":
+    def from_state(cls, dims: ModelDims, state: Mapping[str, torch.Tensor],
+                   **kw) -> "TransformerLM":
         """A model whose parameters ARE the state's tensors (no copy): the
-        module is built on the meta device and the state assigned in."""
+        module is built on the meta device and the state assigned in.
+        `kw` (attn_fn, remat) go to the constructor."""
         dtype = next(iter(state.values())).dtype
-        model = cls(dims, dtype=dtype, device="meta")
+        model = cls(dims, dtype=dtype, device="meta", **kw)
         model.load_state_dict(state, strict=True, assign=True)
         return model
 
@@ -158,12 +176,24 @@ class TransformerLM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.embedding.device
 
-    def forward(self, tokens: torch.Tensor, pos_offset: int = 0):
+    def forward(self, tokens: torch.Tensor, pos_offset: int = 0,
+                adapters=None, alpha: float = 16.0, dtype=None):
+        """`adapters`: an `llm.lora` adapter dict, merged as
+        W + (alpha / rank) * A @ B into each adapted kernel inside its
+        block (so under remat the merge is recomputed, not kept). `dtype`:
+        the compute dtype (default the parameters'); the weights are cast
+        to it at use and the logits come back in it."""
+        dt = dtype or self.dtype
         pos = pos_offset + torch.arange(tokens.shape[1], device=tokens.device)
-        x = self.embed.embedding[tokens]
-        for blk in self.blocks:
-            x = blk(x, pos)
-        return lm_head_logits(self, x, x.dtype, _EPS)
+        ads, top, rank_scale = split_adapters(adapters, alpha, self.n_layers)
+        x = self.embed.embedding[tokens].to(dt)
+        for blk, ad_l in zip(self.blocks, ads):
+            if self.remat:
+                x = checkpoint(blk, x, pos, ad_l, rank_scale,
+                               use_reentrant=False)
+            else:
+                x = blk(x, pos, ad_l, rank_scale)
+        return lm_head_logits(self, top, rank_scale, x, dt, _EPS)
 
 
 def init_params(dims: ModelDims, seed: int = 0, dtype=torch.float32,

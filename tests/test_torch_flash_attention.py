@@ -1,0 +1,183 @@
+"""The port's flash attention (`fedml_tpu_torch/ops/flash_attention.py`)
+against the JAX package's Pallas kernels.
+
+On the CPU the JAX side runs `fedml_tpu.ops.flash_attention.flash_attention`
+in interpret mode, as tests/test_flash_attention.py runs it, and the port
+runs its plain versions (the Pallas kernels' blocked math with their
+rounding points). The CUDA kernels themselves are held against the plain
+versions by the `gpu`-marked test at the end, on the card.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fedml_tpu.ops.flash_attention import _blocked_lse
+from fedml_tpu.ops.flash_attention import flash_attention as jax_flash
+from fedml_tpu_torch.ops import flash_attention as fa
+
+torch.set_num_threads(2)
+
+
+def _qkv(seed, bh=4, t=128, d=32):
+    rs = np.random.RandomState(seed)
+    return tuple(rs.randn(bh, t, d).astype(np.float32) for _ in range(3))
+
+
+def _t(*arrays, dtype=torch.float32):
+    return [torch.from_numpy(a).to(dtype) for a in arrays]
+
+
+@pytest.mark.parametrize("t,bq,bk,seed", [(128, 32, 32, 0), (96, 32, 48, 1)])
+def test_values_and_lse_match_jax(t, bq, bk, seed):
+    """f32 at the JAX test's own tolerance (2e-5); the LSE against the JAX
+    module's blocked oracle."""
+    q, k, v = _qkv(seed, t=t)
+    want = np.asarray(jax_flash(*(jnp.asarray(x) for x in (q, k, v)),
+                                block_q=bq, block_k=bk))
+    got = fa.flash_attention(*_t(q, k, v), block_q=bq, block_k=bk)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    _o, lse = fa.flash_fwd(*_t(q, k, v), block_q=bq, block_k=bk)
+    want_lse = np.asarray(_blocked_lse(jnp.asarray(q), jnp.asarray(k), bk))
+    np.testing.assert_allclose(lse.numpy(), want_lse, rtol=2e-5, atol=2e-5)
+
+
+def test_grads_match_jax():
+    """dQ/dK/dV through torch.autograd against jax.grad of the Pallas
+    kernels (2e-4, the JAX test's tolerance)."""
+    q, k, v = _qkv(2, bh=2, t=64, d=16)
+
+    def loss_jax(q, k, v):
+        return (jax_flash(q, k, v, block_q=16, block_k=16) ** 2).sum()
+
+    want = jax.grad(loss_jax, argnums=(0, 1, 2))(
+        *(jnp.asarray(x) for x in (q, k, v)))
+    qt, kt, vt = (x.requires_grad_() for x in _t(q, k, v))
+    (fa.flash_attention(qt, kt, vt, block_q=16, block_k=16) ** 2).sum() \
+        .backward()
+    for got, w in zip((qt.grad, kt.grad, vt.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=2e-4,
+                                   atol=2e-4)
+
+
+def test_bf16_matches_jax():
+    """bf16 operands, auto blocks, values and gradients. Both sides round p
+    and dS to bf16 at the same points, but a last-bit difference in an f32
+    sum can flip one bf16 rounding, and the outputs are bf16 (2^-8
+    relative): 2e-2 of each output's largest magnitude."""
+    q, k, v = _qkv(3, bh=2, t=64, d=32)
+    do = np.random.RandomState(4).randn(2, 64, 32).astype(np.float32)
+    jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do))
+    o_j, vjp = jax.vjp(jax_flash, jq, jk, jv)
+    want = (o_j,) + vjp(jdo)
+    qt, kt, vt = (x.requires_grad_() for x in _t(q, k, v,
+                                                  dtype=torch.bfloat16))
+    o = fa.flash_attention(qt, kt, vt)
+    o.backward(torch.from_numpy(do).bfloat16())
+    for got, w in zip((o, qt.grad, kt.grad, vt.grad), want):
+        w = np.asarray(w.astype(jnp.float32))
+        err = np.abs(got.detach().float().numpy() - w).max()
+        assert err <= 2e-2 * np.abs(w).max(), err
+
+
+def test_flash_attn_fn_folds_heads():
+    """[B, T, H, D] in and out, equal to flash_attention on the folded
+    operands."""
+    rs = np.random.RandomState(5)
+    q, k, v = (torch.from_numpy(rs.randn(2, 32, 3, 16).astype(np.float32))
+               for _ in range(3))
+    got = fa.flash_attn_fn(q, k, v)
+    fold = lambda x: x.transpose(1, 2).reshape(6, 32, 16).contiguous()
+    want = fa.flash_attention(fold(q), fold(k), fold(v))
+    assert got.shape == (2, 32, 3, 16)
+    torch.testing.assert_close(got, want.reshape(2, 3, 32, 16)
+                               .transpose(1, 2), rtol=0, atol=0)
+
+
+def test_contract_errors():
+    q, k, v = _t(*_qkv(6, bh=2, t=96, d=16))
+    with pytest.raises(ValueError, match="divisible by block sizes"):
+        fa.flash_attention(q, k, v, block_q=64, block_k=32)
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match=r"\[BH, T, D\]"):
+        fa.flash_attention(q[None], k[None], v[None])
+    with pytest.raises(ValueError, match="match q's shape and dtype"):
+        fa.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="D <= 128"):
+        wide = torch.zeros((1, 8, 136))
+        fa.flash_attention(wide, wide, wide)
+    with pytest.raises(ValueError, match="D % 8 == 0"):
+        odd = torch.zeros((1, 8, 12))
+        fa.flash_attention(odd, odd, odd)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(0, 1), k.transpose(0, 1),
+                           v.transpose(0, 1))
+    with pytest.raises(ValueError, match="lse/delta"):
+        fa.flash_dq(q, k, v, q, torch.zeros(2, 96, dtype=torch.float64),
+                    torch.zeros(2, 96))
+
+
+def test_cpu_tensors_launch_no_kernel():
+    before = dict(fa.launch_count)
+    q, k, v = (x.requires_grad_() for x in _t(*_qkv(7, bh=1, t=32, d=8)))
+    fa.flash_attention(q, k, v).sum().backward()
+    assert fa.launch_count == before
+
+
+def test_rowwise_rel_err_rule():
+    """The rule the kernels are held to on the card: one ulp of the output
+    forgiven, the rest relative to the row's own magnitude (a late row
+    cannot hide behind an early row's large values), rows below 1e-2 held
+    to 1e-2; an LSE entry is a row of its own."""
+    want = torch.tensor([[[4.0, -2.0], [0.0625, 0.03125]]]).bfloat16()
+    one_ulp = want + torch.tensor([[[2 ** -5, 0.0], [2 ** -11, 0.0]]])
+    assert fa.rowwise_rel_err(one_ulp.bfloat16(), want) == 0.0
+    late = want.clone()
+    late[0, 1, 0] = 0.0625 + 2 ** -10  # two ulps (2^-11) of a 2^-4 row
+    assert fa.rowwise_rel_err(late, want) == pytest.approx(2 ** -7)
+    tiny = torch.zeros((1, 1, 2))
+    assert fa.rowwise_rel_err(tiny + 1e-6, tiny) == pytest.approx(1e-4)
+    lse = torch.tensor([[1.0, 8.0]])
+    assert fa.rowwise_rel_err(lse + 1e-3, lse) == pytest.approx(1e-3,
+                                                                rel=1e-3)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,t,d", [(3, 96, 16), (2, 200, 128), (1, 1, 8),
+                                    (2, 130, 40)])
+def test_cuda_kernels_match_plain_versions(cuda, dtype, bh, t, d):
+    """K1, K2 and K3 against their plain versions on the card, at ragged
+    tiles (T not a multiple of 64), D below one 16-lane column stripe and
+    at the limit, under the rule chip_smoke.py holds them to
+    (`rowwise_rel_err`: each row's error relative to that row's largest
+    magnitude, one ulp of the output forgiven): f32 within 1e-4 (sums in
+    another order), bf16 within 1e-2 (the order can also flip a bf16
+    rounding of p or dS before a product)."""
+    rs = np.random.RandomState(8)
+    q, k, v, do = (torch.from_numpy(rs.randn(bh, t, d).astype(np.float32))
+                   .to(cuda, dtype) for _ in range(4))
+    before = dict(fa.launch_count)
+    o, lse = fa.flash_fwd(q, k, v, block_q=t, block_k=t)
+    delta = fa.flash_delta(o, do)
+    dq = fa.flash_dq(q, k, v, do, lse, delta, block_q=t, block_k=t)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, block_q=t, block_k=t)
+    torch.cuda.synchronize()
+    assert fa.launch_count == {n: before[n] + 1 for n in before}
+    want_o, want_lse = fa.flash_fwd_ref(q, k, v, t, t)
+    want_dq = fa.flash_dq_ref(q, k, v, do, want_lse, delta, t, t)
+    want_dk, want_dv = fa.flash_dkv_ref(q, k, v, do, want_lse, delta, t, t)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for got, want in ((o, want_o), (lse, want_lse), (dq, want_dq),
+                      (dk, want_dk), (dv, want_dv)):
+        assert fa.rowwise_rel_err(got, want) <= tol
