@@ -13,9 +13,11 @@ exits non-zero; nothing is caught and carried past):
              the LLaMA-2-7B attention width (H=32, Dh=128, page_size=16,
              S=8 slots, 128-entry page tables over a 1100-page pool; mixed
              positions, null-page entries past each reservation, C in
-             {1, 5}) for f32, bf16 and int8 pools; then CUDA-event medians
+             {1, 5}) for f32, bf16 and int8 pools, each (s, c, h) row's
+             error relative to that row's magnitude; then CUDA-event medians
              of the kernel, the plain version, the library yardstick and the
-             HBM bound at C=1.
+             HBM bound at C=1, and of the kernel at the serve shape phase
+             `serve` gives it (64-entry tables, the wave's reservations).
 4. engine  - LLaMA-2-7B width in f32 (seeded random weights, TF32 off): the
              kernel engine and the gather engine, on the same weights, serve
              10 greedy requests (prompts 40-600 tokens, two sharing a
@@ -26,9 +28,10 @@ exits non-zero; nothing is caught and carried past):
              pool and with an int8 pool: decode tokens/s, TTFT p50, the int8
              engine's greedy match rate against bf16 (printed, not gated:
              the weights are random), kernel launches.
-6. flash   - the three flash-attention kernels (K1 forward, K2 dQ, K3
-             dK/dV) against their plain versions at the shape phase train
-             gives them (BH = 2 x 32, T = 2048, D = 128) in f32 and bf16,
+6. flash   - the flash-attention kernels (K1 forward: the tensor-core
+             kernel in bf16, the FMA kernel in f32; K2 dQ, K3 dK/dV)
+             against their plain versions at the shape phase train gives
+             them (BH = 2 x 32, T = 2048, D = 128) in f32 and bf16,
              each row's error relative to that row's magnitude; CUDA-event
              medians of each kernel, of the forward and the backward, of the
              plain versions and of the library yardstick (SDPA), and each
@@ -37,10 +40,11 @@ exits non-zero; nothing is caught and carried past):
              rank 8 on wq/wk/wv/wo, per-block remat, flash attention, bf16
              compute): two FedAvg rounds of 2 clients x 4 sequences x 2048
              tokens; losses finite, every adapter moved, the base bitwise
-             unchanged, launches K1 = 2 x layers x steps and K2 = K3 =
-             layers x steps. Then an f32 round at full width and 2 layers
-             (TF32 off) with flash and with dense attention from the same
-             adapters and batch schedule: the adapters agree.
+             unchanged, launches K1 = 2 x layers x steps (all through the
+             tensor-core forward) and K2 = K3 = layers x steps. Then an f32
+             round at full width and 2 layers (TF32 off) with flash (the FMA
+             forward) and with dense attention from the same adapters and
+             batch schedule: the adapters agree.
 
 Then the `kernels` line, the raw `nvidia-smi` name/power-limit line, and as
 the last line {"ok": true, "device": {...}}. Imports nothing of JAX or of
@@ -52,6 +56,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -65,13 +70,19 @@ DEV = "cuda"
 
 # the kernel check's shapes: LLaMA-2-7B attention at the engine's page size
 H, DH, PS, S_CHECK, MP_CHECK, P_CHECK = 32, 128, 16, 8, 128, 1100
+# pages reserved per slot: the check's mix, and the serve wave's
+# (ceil((prompt + max_new) / 16) for 8 of `_requests`) over 64-entry tables
+RES_CHECK = [128, 96, 64, 64, 40, 17, 8, 2]
+RES_SERVE, MP_SERVE = [20, 41, 5, 9, 24, 6, 32, 13], 64
 # engine shapes (phases 4-5)
 N_SLOTS, MAX_LEN, PREFILL_CHUNK = 8, 1024, 256
-# tolerances of the kernel against its plain version. f32: both sum the
-# same f32 products in a different order (~1e-7 relative per sum). bf16 and
-# int8 (dequantised to bf16): the order differences can flip the bf16
-# rounding of p before P.V and of the output (2^-8 relative).
-TOL = {"f32": 1e-5, "bf16": 2e-2, "int8": 2e-2}
+# the kernel against its plain version under `rowwise_rel_err` (each
+# (s, c, h) row's error relative to that row's largest value, one ulp of
+# the output forgiven). f32: both sum the same f32 products in another
+# order (split partials merged, ~1e-7 relative per sum). bf16 and int8
+# (dequantised to bf16): the order can also flip the bf16 rounding of p
+# before P.V (2^-8 relative).
+TOL = {"f32": 1e-5, "bf16": 1e-2, "int8": 1e-2}
 NEAR_TIE = 1e-3   # top-2 logit margin under which a flipped argmax is a tie
 # train shapes: 2 clients x 4 sequences x 2048 tokens, batch 2 -> 2 local
 # steps per client, 4 per round
@@ -103,6 +114,40 @@ def emit(obj) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def ptxas_summary(report: str) -> list:
+    """One line per compiled kernel of an `nvcc -Xptxas=-v` report: its
+    (shortened) name, registers and spill bytes."""
+    out, name, spill = [], None, ""
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            spill = ""
+            k = re.search(r"\d+([a-z_]+_kernel\w*?)(?:I|E|v)", m.group(1))
+            name = k.group(1) if k else m.group(1)[:60]
+            tmpl = re.search(r"_kernelI(.*?)EEv", m.group(1))
+            name += f"<{tmpl.group(1)}>" if tmpl else ""
+        elif "spill" in ln and name:
+            spill = ln.strip()
+        elif "registers" in ln and name:
+            regs = re.search(r"Used (\d+) registers", ln)
+            out.append(f"{name}: {regs.group(1) if regs else '?'} registers; "
+                       f"{spill}")
+            name = None
+    return out
+
+
+def sass_counts(lib: str) -> dict:
+    """Tensor-core instructions in a built library's SASS (`cuobjdump
+    -sass`): HMMA (mma.sync) and HGMMA (wgmma)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    sass = subprocess.run([f"{CUDA_HOME}/bin/cuobjdump", "-sass", lib],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    return {op: len(re.findall(rf"\b{op}\.", sass))
+            for op in ("HMMA", "HGMMA")}
 
 
 def nvidia_smi_line() -> str:
@@ -155,24 +200,27 @@ def time_ms(fn, n: int = 60, warmup: int = 5) -> float:
 
 
 # ------------------------------------------------------------------ phase 3
-def _kernel_case(rng, c: int, kind: str):
-    """Random pool, page tables and positions at the check shapes."""
+def _kernel_case(rng, c: int, kind: str, serve: bool = False):
+    """Random pool, page tables and positions at the check shape (or, with
+    `serve`, at the serve wave's tables and reservations)."""
     import torch
 
     dev = DEV
     qdt = torch.float32 if kind == "f32" else torch.bfloat16
-    n_res = [128, 96, 64, 64, 40, 17, 8, 2]         # pages reserved per slot
+    n_res, max_pages = (RES_SERVE, MP_SERVE) if serve else (RES_CHECK,
+                                                            MP_CHECK)
     perm = rng.permutation(np.arange(1, P_CHECK))
-    pages = np.zeros((S_CHECK, MP_CHECK), np.int32)  # 0 = the null page
+    pages = np.zeros((S_CHECK, max_pages), np.int32)  # 0 = the null page
     at = 0
     for s, n in enumerate(n_res):
         pages[s, :n] = perm[at:at + n]
         at += n
     pos = np.array([rng.integers(0, n * PS - c + 1) for n in n_res],
                    np.int32)
-    pos[0] = MP_CHECK * PS - c     # the table's last position
-    pos[7] = 0                     # one live row
-    pos[3] = 20                    # 64 pages reserved, 2 live: skips 62
+    if not serve:
+        pos[0] = max_pages * PS - c    # the table's last position
+        pos[7] = 0                     # one live row
+        pos[3] = 20                    # 64 pages reserved, 2 live: skips 62
     shape = (P_CHECK, PS, H, DH)
     if kind == "int8":
         k = torch.from_numpy(rng.integers(-127, 128, shape, np.int8))
@@ -206,67 +254,89 @@ def _case_cost(q, k, pages, pos, scales_on: bool):
     return nbytes, flops
 
 
-def phase_kernel(bw: float) -> dict:
+def _bound(nbytes: int, flops: int, dtype, bw: float) -> dict:
+    t_bytes = nbytes / bw * 1e3
+    t_ops = flops / peak_flops(dtype) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def _sdpa_gathered_ms(q, k, v, pages, pos, ks, vs) -> float:
+    """Library yardstick: SDPA on PRE-GATHERED contiguous K/V (gather and
+    dequant excluded from the time), the same causal mask."""
     import torch
     import torch.nn.functional as F
 
-    from fedml_tpu_torch.ops import paged_attention as pa
+    s_, c = q.shape[:2]
+    n_pg = int(((pos.long() + c - 1) // PS + 1).max())
+    idx = pages[:, :n_pg].long()
 
-    rng = np.random.default_rng(0)
+    def gathered(pool, sc):
+        g = pool[idx]
+        if sc is not None:
+            g = (g.float() * sc[idx][:, :, None, :, None]).to(q.dtype)
+        return g.reshape(s_, n_pg * PS, H, DH).transpose(1, 2).contiguous()
+
+    kk, vv = gathered(k, ks), gathered(v, vs)
+    qq = q.transpose(1, 2).contiguous()
+    vpos = torch.arange(n_pg * PS, device=DEV)
+    mask = (vpos[None, None, None, :]
+            <= (pos.long()[:, None] + torch.arange(
+                c, device=DEV))[:, None, :, None])
+    return time_ms(lambda: F.scaled_dot_product_attention(
+        qq, kk, vv, attn_mask=mask))
+
+
+def phase_kernel(bw: float) -> dict:
+    import torch
+
+    from fedml_tpu_torch.ops import paged_attention as pa
+    from fedml_tpu_torch.ops.tolerance import rowwise_rel_err
+
     out = {}
     for kind in ("f32", "bf16", "int8"):
-        errs = []
-        for c in (1, 5):
-            q, k, v, pages, pos, ks, vs = _kernel_case(rng, c, kind)
-            got = pa.paged_attention(q, k, v, pages, pos, ks, vs)
-            ref = pa.paged_attention_ref(q, k, v, pages, pos, ks, vs)
+        errs, rels = [], []
+        # every pool kind gets the same page tables and positions (one seed
+        # per case), so the kinds' times compare like with like
+        for seed, c, serve in ((0, 1, False), (1, 5, False), (2, 1, True)):
+            case = _kernel_case(np.random.default_rng(seed), c, kind, serve)
+            q, k, v, pages, pos, ks, vs = case
+            got = pa.paged_attention(*case)
+            ref = pa.paged_attention_ref(*case)
             torch.cuda.synchronize()
-            check(torch.isfinite(got).all().item(), f"{kind} C={c}: non-finite")
+            where = f"{kind} C={c}{' serve' if serve else ''}"
+            check(torch.isfinite(got).all().item(), f"{where}: non-finite")
             err = (got.float() - ref.float()).abs().max().item()
-            rel = err / ref.float().abs().max().item()
+            rel = rowwise_rel_err(got, ref)
             errs.append(err)
-            emit({"phase": "kernel", "pool": kind, "C": c, "max_abs_err": err,
-                  "max_rel_err": rel, "tol": TOL[kind]})
-            check(err <= TOL[kind], f"{kind} C={c}: max abs err {err} > "
+            rels.append(rel)
+            emit({"phase": "kernel", "pool": kind, "C": c, "serve": serve,
+                  "max_abs_err": err, "max_row_rel_err": rel,
+                  "tol_row_rel": TOL[kind]})
+            check(rel <= TOL[kind], f"{where}: row-relative err {rel} > "
                   f"{TOL[kind]}")
             if c != 1:
                 continue
             # timing at the decode step's C=1
-            ms = time_ms(lambda: pa.paged_attention(q, k, v, pages, pos, ks,
-                                                    vs))
-            plain_ms = time_ms(lambda: pa.paged_attention_ref(
-                q, k, v, pages, pos, ks, vs), n=50, warmup=2)
-            # library yardstick: SDPA on PRE-GATHERED contiguous K/V (gather
-            # and dequant excluded from the time), the same causal mask
-            n_pg = int(((pos.long() + c - 1) // PS + 1).max())
-            idx = pages[:, :n_pg].long()
-
-            def gathered(pool, sc):
-                g = pool[idx]
-                if sc is not None:
-                    g = (g.float() * sc[idx][:, :, None, :, None]).to(q.dtype)
-                return g.reshape(S_CHECK, n_pg * PS, H, DH).transpose(
-                    1, 2).contiguous()
-
-            kk, vv = gathered(k, ks), gathered(v, vs)
-            qq = q.transpose(1, 2).contiguous()
-            vpos = torch.arange(n_pg * PS, device=DEV)
-            mask = (vpos[None, None, None, :]
-                    <= (pos.long()[:, None] + torch.arange(
-                        c, device=DEV))[:, None, :, None])
-            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qq, kk, vv, attn_mask=mask))
+            ms = time_ms(lambda: pa.paged_attention(*case))
+            lib_ms = _sdpa_gathered_ms(*case)
             nbytes, flops = _case_cost(q, k, pages, pos, ks is not None)
-            t_bytes = nbytes / bw * 1e3
-            t_ops = flops / peak_flops(q.dtype) * 1e3
-            out[kind] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                         "bound_ms": max(t_bytes, t_ops),
-                         "bound_by": "bytes" if t_bytes >= t_ops
-                         else "operations",
-                         "bytes": nbytes, "flops": flops}
-            emit({"phase": "kernel", "pool": kind, "C": c, **out[kind]})
+            row = {"ms": ms, "library_ms": lib_ms,
+                   **_bound(nbytes, flops, q.dtype, bw)}
+            if serve:
+                out[kind]["serve_shape"] = row
+            else:
+                row["plain_ms"] = time_ms(
+                    lambda: pa.paged_attention_ref(*case), n=50, warmup=2)
+                out[kind] = row
+            emit({"phase": "kernel", "pool": kind, "C": c, "serve": serve,
+                  "max_pages": pages.shape[1],
+                  "pages_per_split": pa.pages_per_split(pages.shape[1]),
+                  **row})
         out[kind]["max_abs_err"] = max(errs)
-        del q, k, v
+        out[kind]["max_row_rel_err"] = max(rels)
+        del case, q, k, v
         torch.cuda.empty_cache()
     return out
 
@@ -528,7 +598,11 @@ def phase_flash(bw: float) -> dict:
         q, k, v, do = (torch.from_numpy(
             rng.standard_normal((bh, t, d), np.float32)).to(DEV, dt)
             for _ in range(4))
+        route = fa.fwd_route(q)   # bf16 D 128: the tensor-core forward
+        before = fa.launch_count[route]
         o, lse = fa.flash_fwd(q, k, v)
+        check(fa.launch_count[route] == before + 1,
+              f"flash {kind}: the forward did not launch {route}")
         delta = fa.flash_delta(o, do)
         dq = fa.flash_dq(q, k, v, do, lse, delta)
         dk, dv = fa.flash_dkv(q, k, v, do, lse, delta)
@@ -579,19 +653,13 @@ def phase_flash(bw: float) -> dict:
 
         library = {"fwd": time_ms(lambda: F.scaled_dot_product_attention(
             q4, k4, v4, is_causal=True)), "fwd_bwd": time_ms(sdpa_fwd_bwd)}
-        bounds = {}
-        for name in ms:
-            nbytes, flops = _flash_cost(name, bh, t, d, q.element_size())
-            t_bytes = nbytes / bw * 1e3
-            t_ops = flops / peak_flops(dt) * 1e3
-            bounds[name] = {"bound_ms": max(t_bytes, t_ops),
-                            "bound_by": "bytes" if t_bytes >= t_ops
-                            else "operations", "bytes": nbytes,
-                            "flops": flops}
+        bounds = {name: _bound(*_flash_cost(name, bh, t, d,
+                                            q.element_size()), dt, bw)
+                  for name in ms}
         out[kind] = {"ms": ms, "plain_ms": plain, "library_ms": library,
-                     "bounds": bounds, "errors": errs}
-        emit({"phase": "flash", "dtype": kind, "ms": ms, "plain_ms": plain,
-              "library_ms": library, "bounds": bounds})
+                     "bounds": bounds, "errors": errs, "fwd_route": route}
+        emit({"phase": "flash", "dtype": kind, "fwd_route": route, "ms": ms,
+              "plain_ms": plain, "library_ms": library, "bounds": bounds})
         del q, k, v, do, o, lse, delta, dq, dk, dv, qg, kg, vg
         gc.collect()
         torch.cuda.empty_cache()
@@ -664,7 +732,7 @@ def phase_train(dims=None, parity_layers: int = 2) -> dict:
     st = alg.server_init(adapters)
     steps_per_round = TRAIN_CLIENTS * (TRAIN_SEQS // TRAIN_BS)
     rounds = []
-    fa.launch_count.update(fwd=0, dq=0, dkv=0)
+    fa.launch_count.update(fwd=0, fwd_tc=0, dq=0, dkv=0)
     torch.cuda.reset_peak_memory_stats()
     for r in range(TRAIN_ROUNDS):
         torch.cuda.synchronize()
@@ -696,10 +764,10 @@ def phase_train(dims=None, parity_layers: int = 2) -> dict:
           "a round's loss is not finite")
     check(moved > 0, "an adapter did not move")
     check(same_base, "the frozen base changed")
-    check(launches == {"fwd": 2 * L * steps, "dq": L * steps,
+    check(launches == {"fwd": 0, "fwd_tc": 2 * L * steps, "dq": L * steps,
                        "dkv": L * steps},
-          f"flash launches {launches} != K1 2 x {L} x {steps}, K2 = K3 "
-          f"{L} x {steps}")
+          f"flash launches {launches} != K1 (tensor cores) 2 x {L} x "
+          f"{steps}, K2 = K3 {L} x {steps}")
     del state, base_copy, alg, adapters, round_fn, st, out
     gc.collect()
     torch.cuda.empty_cache()
@@ -715,6 +783,7 @@ def phase_train(dims=None, parity_layers: int = 2) -> dict:
                                 TRAIN_BS, 1) for c in ids]
     after = {}
     adapters = None
+    fa.launch_count.update(fwd=0, fwd_tc=0, dq=0, dkv=0)
     for flash in (True, False):
         alg, drawn, round_fn = _fed_lora(pdims, state, t32, flash)
         adapters = adapters or drawn     # both rounds start from these
@@ -727,7 +796,8 @@ def phase_train(dims=None, parity_layers: int = 2) -> dict:
     parity = {"layers": parity_layers, "max_abs_adapter_diff": diff,
               "max_abs_adapter_update": update, "ratio": diff / update,
               "tol": PARITY_TOL, "loss_flash": after[True][1],
-              "loss_dense": after[False][1]}
+              "loss_dense": after[False][1],
+              "launches": dict(fa.launch_count)}
     emit({"phase": "train", "f32_flash_vs_dense": parity})
     check(update > 0 and diff <= PARITY_TOL * update,
           f"f32 flash vs dense round: adapter diff {diff} > {PARITY_TOL} x "
@@ -803,10 +873,13 @@ def main() -> int:
 
     t0 = time.perf_counter()
     reports = _build.build_all()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": {k: [ln.strip() for ln in v.splitlines()
-                        if "registers" in ln or "spill" in ln]
-                    for k, v in reports.items()}})
+    build_s = time.perf_counter() - t0
+    sass = sass_counts(str(_build.lib_path("flash_attention")))
+    emit({"phase": "build", "seconds": build_s,
+          "ptxas": {k: ptxas_summary(v) for k, v in reports.items()},
+          "flash_attention_sass": sass})
+    check(sass["HMMA"] + sass["HGMMA"] > 0,
+          "the flash library holds no tensor-core instruction")
 
     kern = phase_kernel(bw) if "kernel" in args.only else {}
     reqs = _requests(32000)
@@ -827,38 +900,60 @@ def main() -> int:
         run = runs.get(kind, {"launches": 0, "decode_steps": 0})
         kernels.append({
             "name": f"paged_attention_{kind}", "route": "cuda",
+            "design": "split-page",
             "source": "fedml_tpu_torch/csrc/paged_attention.cu",
             "replaces": "fedml_tpu/ops/paged_attention.py:84",
             "launches": run["launches"],
             "launches_per_decode_step":
                 run["launches"] / max(run["decode_steps"], 1),
-            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
-    # the flash kernels at the main path's dtype (bf16); f32 numbers are in
-    # the flash phase's lines
-    f = flash.get("bf16")
+            "max_abs_err": k["max_abs_err"],
+            "max_row_rel_err": k["max_row_rel_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": k["library_ms"], "serve_shape": k["serve_shape"]})
+    # the flash kernels at the main path's dtype (bf16: K1 on the tensor
+    # cores), and K1's FMA kernel at f32. `launches` is each kernel's count
+    # from phase train's main path; `parity_launches` its count from the f32
+    # flash-vs-dense round after it, the only path that reaches the FMA
+    # forward (`fa.fwd_route` sends the main path's bf16 D 128 heads to
+    # the tensor cores)
     outputs = {"fwd": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
-    for fk, line in (("fwd", 58), ("dq", 204), ("dkv", 232)):
+    parity = train.get("f32_flash_vs_dense", {}).get("launches", {})
+    rows = (("flash_fwd_tc", "bf16", "fwd", "fwd_tc", 58, "wgmma+cp.async"),
+            ("flash_fwd", "f32", "fwd", "fwd", 58, "fma"),
+            ("flash_dq", "bf16", "dq", "dq", 204, "fma"),
+            ("flash_dkv", "bf16", "dkv", "dkv", 232, "fma"))
+    for kname, kind, fk, counter, line, design in rows:
+        f = flash.get(kind)
         if f is None:
-            break
+            continue
         kernels.append({
-            "name": f"flash_{fk}", "route": "cuda",
+            "name": kname, "route": "cuda", "design": design, "dtype": kind,
             "source": "fedml_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"fedml_tpu/ops/flash_attention.py:{line}",
-            "launches": train["launches"].get(fk, 0),
+            "launches": train["launches"].get(counter, 0),
+            "parity_launches": parity.get(counter, 0),
             "max_abs_err": max(f["errors"][e]["max_abs_err"]
                                for e in outputs[fk]),
+            "max_row_rel_err": max(f["errors"][e]["max_row_rel_err"]
+                                   for e in outputs[fk]),
             "ms": f["ms"][fk], "plain_ms": f["plain_ms"][fk],
             "bound_ms": f["bounds"][fk]["bound_ms"],
             "bound_by": f["bounds"][fk]["bound_by"],
             "library_ms": f["library_ms"]["fwd"] if fk == "fwd" else None})
     if set(PHASES) <= set(args.only):
-        check(all(k["launches"] > 0 for k in kernels),
+        # the FMA forward is off the main path (phase train checked its
+        # count is 0 there) and must have run in the parity round instead
+        check(all(k["launches"] > 0 for k in kernels
+                  if k["name"] != "flash_fwd"),
               "a kernel of the main path was never launched")
+        check(all(k["parity_launches"] > 0 for k in kernels
+                  if k["name"] == "flash_fwd"),
+              "the FMA flash forward was never launched by the f32 round")
     emit({"kernels": kernels})
     print(smi, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
 

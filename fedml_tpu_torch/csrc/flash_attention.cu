@@ -2,7 +2,9 @@
 // and dK/dV (K3).
 //
 // Replaces the Pallas TPU kernels of fedml_tpu/ops/flash_attention.py:
-//   K1 _fwd_kernel  (launched by _flash_fwd)   -> flash_fwd_kernel
+//   K1 _fwd_kernel  (launched by _flash_fwd)   -> flash_fwd_tc_kernel (bf16,
+//                   D % 16 == 0: tensor cores) and flash_fwd_kernel (f32,
+//                   and bf16 heads of other D: CUDA-core FMAs)
 //   K2 _dq_kernel   (launched by _pallas_bwd)  -> flash_dq_kernel
 //   K3 _dkv_kernel  (launched by _pallas_bwd)  -> flash_dkv_kernel
 // Contract, shared with the plain PyTorch versions in
@@ -44,12 +46,29 @@
 // What bounds it on the H100: at T = 2048, D = 128 attention does ~1000
 // flops per byte of q/k/v/o, far above the ridge, so the floor is the
 // products' flops over the tensor-core peak (bf16) or the CUDA-core f32
-// peak. This version does every product with scalar FMAs from shared
-// memory (two shared loads per four FMAs), so it reaches a fraction of the
-// f32 CUDA-core rate in both dtypes and leaves the tensor cores idle. Left
-// for later PRs: mma/wgmma products for bf16, TMA or cp.async double
-// buffering of the next tile, and more than one block per SM (the f32 tiles
-// take 116-166 KB of shared memory).
+// peak. The FMA kernels do every product with scalar FMAs from shared
+// memory (two shared loads per four FMAs), a fraction of the f32
+// CUDA-core rate; they stay for f32 (whose products must not go through
+// TF32) and for K2/K3, which a later PR moves to tensor cores.
+//
+// The bf16 forward (flash_fwd_tc_kernel) runs both products on the tensor
+// cores with wgmma (bf16 in, f32 accumulate in registers): one block of two
+// warpgroups per (bh, 128-row q tile), each warpgroup owning 64 query rows.
+// Q and the K/V tiles of 64 keys are bf16 in shared memory in the 128-byte
+// swizzle wgmma's descriptors read (64-column blocks of 128-byte rows, each
+// row's 16-byte chunks XOR-ed by the row's low 3 bits), the K/V tiles in a
+// ring of two stages filled by cp.async: the next tile's copy is in flight
+// behind the current tile's products. S = Q.K^T (m64n64k16, both operands
+// from shared memory, K-major) lands in registers; the online softmax
+// reduces each row over the four lanes that share it in the accumulator
+// layout; P is rounded to bf16 and fed from registers as the A operand of
+// O += P.V (m64n128k16, V read MN-major). Tiles past the diagonal are never
+// loaded, the causal mask is applied only on tiles that reach past a warp's
+// first row, and a warpgroup whose rows all precede a tile skips it. Rows
+// past T and columns past D are zero-filled on load and never stored. One
+// block per SM (157 registers a thread); still left: TMA-fed tiles and
+// warp specialisation, so that one warpgroup's softmax overlaps the other's
+// products.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -211,6 +230,303 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (tx == 0) lse[static_cast<size_t>(bh) * T_ + qpos] = m[i] + logf(den);
   }
 }
+
+// ------------------------------------------------------ K1, tensor cores
+// bf16, D % 16 == 0. kD (64 or 128) is D rounded up: columns past D are
+// zero in shared memory (they add nothing to Q.K^T) and are never stored.
+//
+// Register fragments (g = lane / 4, t = lane % 4; warp w of a warpgroup
+// owns its rows 16w .. 16w+15): an f32 accumulator of wgmma.m64nNk16 holds,
+// for each 8-column block j, d[j][0..1] = (row g, cols 8j+2t, +1) and
+// d[j][2..3] = (row g+8, same cols); an A operand from registers (m64k16)
+// holds a0 = (g, k 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..), a3 =
+// (g+8, 2t+8..), two bf16 per register. Hence S's accumulators over keys
+// 16kk..16kk+15 (blocks 2kk, 2kk+1), rounded to bf16, are exactly P's A
+// operand for the kk-th k-step of P.V.
+namespace tc {
+
+constexpr int kBM = 128;      // q rows per block: 2 warpgroups x 64
+constexpr int kBN = 64;       // keys per K/V tile
+constexpr int kThreads = 256;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// two f32 values rounded to bf16 (nearest-even), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ---------------------------------------------------- wgmma (sm_90a only)
+// shared-memory matrix descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (all in 16-byte units)
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// registers an asynchronous wgmma wrote are read only after this
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(r[i][e])::"memory");
+}
+
+// S (m64n64, f32) = A . B with A and B in shared memory (K-major
+// descriptors); `accumulate` 0 overwrites S
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// O (m64n64, f32) += A . B with A in registers (per warp, the A layout
+// of mma.m16n8k16) and B in shared memory (MN-major descriptor)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O (m64n128, f32) += A . B with A in registers (per warp, the A layout
+// of mma.m16n8k16) and B in shared memory (MN-major descriptor)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// byte offset of 16-byte chunk c of row r in a [rows][kD] bf16 tile laid
+// out for wgmma: kD / 64 column blocks of [rows][128 B] one after another,
+// each in the 128-byte swizzle (chunk c ^ (r % 8) within its row)
+template <int ROWS>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return static_cast<uint32_t>((c >> 3) * ROWS * 128 + r * 128 +
+                               (((c & 7) ^ (r & 7)) << 4));
+}
+
+// rows [row0, row0 + ROWS) of a [T, D] bf16 matrix -> such a tile, by
+// cp.async; rows past T and columns past D are zero-filled
+template <int ROWS, int kD>
+__device__ __forceinline__ void load_tile(uint32_t tile, const __nv_bfloat16* src,
+                                          int row0, int T_, int D) {
+  constexpr int kChunks = kD / 8;
+#pragma unroll
+  for (int it = 0; it < ROWS * kChunks / kThreads; ++it) {
+    const int i = it * kThreads + threadIdx.x;
+    const int r = i / kChunks, c = i % kChunks;
+    const bool ok = row0 + r < T_ && c * 8 < D;
+    const __nv_bfloat16* p = ok ? src + static_cast<size_t>(row0 + r) * D + c * 8 : src;
+    fedml::cp_async16(tile + swz<ROWS>(r, c), p, ok ? 16 : 0);
+  }
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                        int T_, int D, float scale) {
+  constexpr int kTile = kBN * kD * 2;  // bytes of one K or V tile
+  extern __shared__ __align__(1024) unsigned char smem_tc[];
+  const uint32_t q_s = fedml::smem_addr(smem_tc);
+  const uint32_t kv_s = q_s + kBM * kD * 2;  // stage st: K, then V
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBM;  // longest tiles first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wg = warp >> 2;                 // warpgroup: rows 64 wg .. 64 wg + 63
+  const int r0 = warp * 16;                 // the warp's first row in the tile
+  const size_t base = static_cast<size_t>(bh) * T_ * D;
+  const int n_kt = min((q0 + kBM + kBN - 1) / kBN, (T_ + kBN - 1) / kBN);
+  const float scale_log2 = scale * kLog2e;
+
+  load_tile<kBM, kD>(q_s, q + base, q0, T_, D);
+  load_tile<kBN, kD>(kv_s, k + base, 0, T_, D);
+  load_tile<kBN, kD>(kv_s + kTile, v + base, 0, T_, D);
+  fedml::cp_async_commit();
+
+  float acc[kD / 8][4];
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n_kt; ++j) {
+    fedml::cp_async_wait<0>();
+    // the tile's cp.async writes become visible to wgmma's async reads
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (j + 1 < n_kt) {
+      const uint32_t nxt = kv_s + ((j + 1) & 1) * 2 * kTile;
+      load_tile<kBN, kD>(nxt, k + base, (j + 1) * kBN, T_, D);
+      load_tile<kBN, kD>(nxt + kTile, v + base, (j + 1) * kBN, T_, D);
+      fedml::cp_async_commit();
+    }
+    const int k0 = j * kBN;
+    if (k0 > q0 + 64 * wg + 63) continue;  // every key past every row of the warpgroup
+    const uint32_t k_s = kv_s + (j & 1) * 2 * kTile, v_s = k_s + kTile;
+
+    // descriptors: one base each, stepped by compile-time offsets (the
+    // start address field counts 16-byte units)
+    const uint64_t da0 = gmma_desc(q_s + wg * 64 * 128, 16, 1024);
+    const uint64_t db0 = gmma_desc(k_s, 16, 1024);
+    float s[kBN / 8][4];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      wgmma_ss_n64(s, da0 + (((kk >> 2) * (kBM * 128) + (kk & 3) * 32) >> 4),
+                   db0 + (((kk >> 2) * (kBN * 128) + (kk & 3) * 32) >> 4), kk > 0);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(s);
+
+    if (k0 + kBN - 1 > q0 + r0) {
+      // key > row  <=>  8n + (e & 1) - 8 (e >> 1) > row_g - (k0 + 2 t4)
+      const int lim = q0 + r0 + g - k0 - 2 * t4;
+#pragma unroll
+      for (int n = 0; n < kBN / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (8 * n + (e & 1) - 8 * (e >> 1) > lim) s[n][e] = kNeg;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = kNeg;
+#pragma unroll
+      for (int n = 0; n < kBN / 8; ++n)
+        mx = fmaxf(mx, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx * scale);
+      const float corr = exp2f((m[h] - m_new) * kLog2e);
+      const float m_log2 = m_new * kLog2e;
+      m[h] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < kBN / 8; ++n)
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          const float p = exp2f(fmaf(s[n][e], scale_log2, -m_log2));
+          s[n][e] = p;
+          sum += p;
+        }
+      l[h] = l[h] * corr + sum;
+#pragma unroll
+      for (int n = 0; n < kD / 8; ++n) {
+        acc[n][2 * h] *= corr;
+        acc[n][2 * h + 1] *= corr;
+      }
+    }
+    uint32_t a[kBN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      a[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      a[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      a[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    }
+    const uint64_t dv0 = gmma_desc(v_s, kBN * 128, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      const uint64_t db = dv0 + ((kk * 16 * 128) >> 4);
+      if constexpr (kD == 128) wgmma_rs_n128(acc, a[kk], db);
+      else wgmma_rs_n64(acc, a[kk], db);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(acc);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int row = q0 + r0 + g + 8 * h;
+    if (row >= T_) continue;
+    const float den = fmaxf(l[h], 1e-30f);
+    __nv_bfloat16* orow = o + base + static_cast<size_t>(row) * D;
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n) {
+      const int d = 8 * n + 2 * t4;
+      if (d < D)
+        *reinterpret_cast<__nv_bfloat162*>(orow + d) =
+            __floats2bfloat162_rn(acc[n][2 * h] / den, acc[n][2 * h + 1] / den);
+    }
+    if (t4 == 0) lse[static_cast<size_t>(bh) * T_ + row] = m[h] + logf(den);
+  }
+}
+
+}  // namespace tc
 
 // ------------------------------------------------------------------ K2
 template <typename T, int NJ>
@@ -394,6 +710,20 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   return cudaGetLastError();
 }
 
+template <int kD>
+cudaError_t fwd_tc(const void* q, const void* k, const void* v, void* o, void* lse,
+                   int BH, int T_, int D, cudaStream_t st) {
+  const size_t smem = static_cast<size_t>(tc::kBM + 4 * tc::kBN) * kD * 2;
+  auto kernel = tc::flash_fwd_tc_kernel<kD>;
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(BH, (T_ + tc::kBM - 1) / tc::kBM), tc::kThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(lse), T_, D, softmax_scale(D));
+  return cudaGetLastError();
+}
+
 template <typename T, int NJ>
 cudaError_t dq(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dq_, int BH, int T_,
@@ -453,6 +783,22 @@ extern "C" int fedml_flash_fwd(const void* q, const void* k, const void* v, void
                                void* lse, int BH, int T_, int D, int kind,
                                void* stream) {
   FEDML_FLASH_DISPATCH(fwd, q, k, v, o, lse, BH, T_, D);
+}
+
+// the tensor-core forward: bf16 (kind 1) only, D % 16 == 0, q/k/v 16-byte
+// aligned (its cp.async copies are 16 bytes)
+extern "C" int fedml_flash_fwd_tc(const void* q, const void* k, const void* v,
+                                  void* o, void* lse, int BH, int T_, int D,
+                                  int kind, void* stream) {
+  if (kind != 1 || BH < 1 || T_ < 1 || D < 16 || D > kMaxD || D % 16 ||
+      (T_ + tc::kBM - 1) / tc::kBM > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v)) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(D <= 64 ? fwd_tc<64>(q, k, v, o, lse, BH, T_, D, st)
+                                  : fwd_tc<128>(q, k, v, o, lse, BH, T_, D, st));
 }
 
 extern "C" int fedml_flash_dq(const void* q, const void* k, const void* v,

@@ -28,8 +28,15 @@ Each of the three passes has a wrapper -- `flash_fwd` (K1), `flash_dq`
 tensor, or raises, and on a CPU tensor runs the plain PyTorch version
 (`flash_fwd_ref`, `flash_dq_ref`, `flash_dkv_ref`): the Pallas kernels'
 blocked math with their rounding points. It never falls back from a kernel
-to a plain version. `launch_count` counts each kernel's launches (and
-nothing else).
+to a plain version. K1 has two kernels, chosen by a shape rule
+(`fwd_route`): bf16 with D % 16 == 0 runs on the tensor cores
+(`flash_fwd_tc_kernel`); f32 (whose products must not go through TF32)
+and bf16 of any other D run on the CUDA-core FMA kernel. `launch_count`
+counts each kernel's launches (and nothing else): "fwd_tc" and "fwd" for
+the two forwards, "dq" and "dkv".
+
+`rowwise_rel_err` (from `ops/tolerance.py`) is the rule the kernels are
+held to against their plain versions on the card.
 """
 from __future__ import annotations
 
@@ -38,12 +45,13 @@ import ctypes
 import torch
 
 from . import _build
+from .tolerance import rowwise_rel_err  # noqa: F401  (fa.rowwise_rel_err)
 
 _NEG = -1e30
 MAX_D = 128
 _KIND = {torch.float32: 0, torch.bfloat16: 1}
 
-launch_count = {"fwd": 0, "dq": 0, "dkv": 0}
+launch_count = {"fwd": 0, "fwd_tc": 0, "dq": 0, "dkv": 0}
 
 _lib = None
 
@@ -53,8 +61,8 @@ def _kernel_lib() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load("flash_attention")
         vp, i = ctypes.c_void_p, ctypes.c_int
-        for fn, n_ptr in (("fedml_flash_fwd", 5), ("fedml_flash_dq", 7),
-                          ("fedml_flash_dkv", 8)):
+        for fn, n_ptr in (("fedml_flash_fwd", 5), ("fedml_flash_fwd_tc", 5),
+                          ("fedml_flash_dq", 7), ("fedml_flash_dkv", 8)):
             getattr(lib, fn).argtypes = [vp] * n_ptr + [i] * 4 + [vp]
             getattr(lib, fn).restype = i
         lib.fedml_flash_error_string.argtypes = [i]
@@ -126,17 +134,33 @@ def _launch(name: str, *tensors, bh: int, t: int, d: int, kind: int) -> None:
 
 
 # --------------------------------------------------------------- wrappers
+def fwd_route(q) -> str:
+    """Which K1 kernel takes q (its `launch_count` key): "fwd_tc", the
+    tensor-core kernel, for bf16 with D % 16 == 0; "fwd", the FMA kernel,
+    for f32 and for bf16 of any other D. A shape rule, never a fallback."""
+    if q.dtype == torch.bfloat16 and q.shape[-1] % 16 == 0:
+        return "fwd_tc"
+    return "fwd"
+
+
 def flash_fwd(q, k, v, block_q=None, block_k=None):
-    """(o [BH, T, D] in q's dtype, lse [BH, T] f32): K1 on CUDA, the plain
-    version on the CPU."""
+    """(o [BH, T, D] in q's dtype, lse [BH, T] f32): K1 on CUDA (the kernel
+    `fwd_route` names), the plain version on the CPU. The tensor-core
+    kernel copies 16-byte chunks, so there q, k and v must start 16-byte
+    aligned (a view at another storage offset raises)."""
     _check(q, k, v)
     bq, bk = _blocks(q.shape[1], block_q, block_k)
     if q.device.type == "cpu":
         return flash_fwd_ref(q, k, v, bq, bk)
+    route = fwd_route(q)
+    if route == "fwd_tc" and any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("the tensor-core flash forward needs q, k and v "
+                         "16-byte aligned; got a view at storage offsets "
+                         f"{[x.storage_offset() for x in (q, k, v)]}")
     bh, t, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q.device)
-    _launch("fwd", q, k, v, o, lse, bh=bh, t=t, d=d, kind=_KIND[q.dtype])
+    _launch(route, q, k, v, o, lse, bh=bh, t=t, d=d, kind=_KIND[q.dtype])
     return o, lse
 
 
@@ -329,28 +353,3 @@ def flash_bwd_ref(q, k, v, o, lse, do, block_q: int, block_k: int):
     delta = flash_delta(o, do)
     return (flash_dq_ref(q, k, v, do, lse, delta, block_q, block_k),
             *flash_dkv_ref(q, k, v, do, lse, delta, block_q, block_k))
-
-
-def rowwise_rel_err(got, want) -> float:
-    """The rule a kernel's output is held to against its plain version:
-    the largest |got - want| in a row (the last axis; each entry of a
-    [BH, T] LSE is a row of its own) relative to that row's max|want|,
-    after one unit in the last place of the element in the output's dtype
-    is forgiven. Attention outputs shrink along T (a late row averages
-    many values), so a rule relative to the whole tensor's maximum would
-    let late rows be wrong by their own size. Kernel and plain version
-    round their f32 sums to the output dtype at the same point, so a
-    last-bit difference in a sum can flip that rounding by one ulp (2^-7
-    of the element in bf16): that much is not an error of the kernel. For
-    inputs of unit scale, a row whose largest magnitude is below 1e-2 is
-    held to 1e-2: such rows are cancellations (dQ's first row, and dQ/dK
-    at T = 1, are 0 up to rounding), whose noise is not a signal."""
-    eps = torch.finfo(got.dtype).eps
-    g, w = got.float(), want.float()
-    if w.dim() == 2:
-        g, w = g[..., None], w[..., None]
-    ulp = torch.where(w == 0, 0.0, torch.ldexp(torch.full_like(w, eps / 2),
-                                               torch.frexp(w)[1]))
-    diff = ((g - w).abs() - ulp).clamp(min=0).amax(-1)
-    mag = w.abs().amax(-1)
-    return (diff / mag.clamp(min=1e-2)).max().item()

@@ -173,7 +173,8 @@ def test_cuda_kernels_match_plain_versions(cuda, dtype, bh, t, d):
     dq = fa.flash_dq(q, k, v, do, lse, delta, block_q=t, block_k=t)
     dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, block_q=t, block_k=t)
     torch.cuda.synchronize()
-    assert fa.launch_count == {n: before[n] + 1 for n in before}
+    launched = {fa.fwd_route(q), "dq", "dkv"}
+    assert fa.launch_count == {n: before[n] + (n in launched) for n in before}
     want_o, want_lse = fa.flash_fwd_ref(q, k, v, t, t)
     want_dq = fa.flash_dq_ref(q, k, v, do, want_lse, delta, t, t)
     want_dk, want_dv = fa.flash_dkv_ref(q, k, v, do, want_lse, delta, t, t)
@@ -181,3 +182,60 @@ def test_cuda_kernels_match_plain_versions(cuda, dtype, bh, t, d):
     for got, want in ((o, want_o), (lse, want_lse), (dq, want_dq),
                       (dk, want_dk), (dv, want_dv)):
         assert fa.rowwise_rel_err(got, want) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [1, 127, 128, 129, 2048])
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_tensor_core_forward_tile_edges(cuda, t, d):
+    """The bf16 tensor-core forward at its tile edges (T of 1, one row short
+    of, at and one row past a 128-row q tile, and 2048) against its plain
+    version, O and LSE row by row within 1e-2; then K2 and K3 fed its LSE
+    within the same rule."""
+    rs = np.random.RandomState(9)
+    bh = 2 if t == 2048 else 3
+    q, k, v, do = (torch.from_numpy(rs.randn(bh, t, d).astype(np.float32))
+                   .to(cuda, torch.bfloat16) for _ in range(4))
+    assert fa.fwd_route(q) == "fwd_tc"
+    before = dict(fa.launch_count)
+    o, lse = fa.flash_fwd(q, k, v, block_q=t, block_k=t)
+    torch.cuda.synchronize()
+    assert fa.launch_count == {**before, "fwd_tc": before["fwd_tc"] + 1}
+    want_o, want_lse = fa.flash_fwd_ref(q, k, v, t, t)
+    assert fa.rowwise_rel_err(o, want_o) <= 1e-2
+    assert fa.rowwise_rel_err(lse, want_lse) <= 1e-2
+    delta = fa.flash_delta(o, do)
+    dq = fa.flash_dq(q, k, v, do, lse, delta, block_q=t, block_k=t)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, block_q=t, block_k=t)
+    want_dq = fa.flash_dq_ref(q, k, v, do, lse, delta, t, t)
+    want_dk, want_dv = fa.flash_dkv_ref(q, k, v, do, lse, delta, t, t)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert fa.rowwise_rel_err(got, want) <= 1e-2
+
+
+@pytest.mark.gpu
+def test_cuda_tensor_core_forward_refuses_misaligned_views(cuda):
+    """A contiguous bf16 view 4 elements (8 bytes) into its storage is not
+    16-byte aligned: the tensor-core forward raises before any launch, and
+    the card still runs the next, aligned call."""
+    buf = torch.zeros(2 * 64 * 64 + 4, dtype=torch.bfloat16, device=cuda)
+    off = buf[4:].view(2, 64, 64)
+    before = dict(fa.launch_count)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_fwd(off, off, off)
+    assert fa.launch_count == before
+    o, _lse = fa.flash_fwd(off.clone(), off.clone(), off.clone())
+    torch.cuda.synchronize()
+    assert torch.isfinite(o.float()).all()
+
+
+def test_forward_route_rule():
+    """bf16 heads with D % 16 == 0 take the tensor-core forward; f32 and
+    bf16 of any other D the FMA forward."""
+    for d, dt, want in ((128, torch.bfloat16, "fwd_tc"),
+                        (64, torch.bfloat16, "fwd_tc"),
+                        (16, torch.bfloat16, "fwd_tc"),
+                        (40, torch.bfloat16, "fwd"),
+                        (8, torch.bfloat16, "fwd"),
+                        (128, torch.float32, "fwd")):
+        assert fa.fwd_route(torch.zeros((1, 4, d), dtype=dt)) == want
