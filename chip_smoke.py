@@ -28,23 +28,24 @@ exits non-zero; nothing is caught and carried past):
              pool and with an int8 pool: decode tokens/s, TTFT p50, the int8
              engine's greedy match rate against bf16 (printed, not gated:
              the weights are random), kernel launches.
-6. flash   - the flash-attention kernels (K1 forward: the tensor-core
-             kernel in bf16, the FMA kernel in f32; K2 dQ, K3 dK/dV)
-             against their plain versions at the shape phase train gives
-             them (BH = 2 x 32, T = 2048, D = 128) in f32 and bf16,
-             each row's error relative to that row's magnitude; CUDA-event
-             medians of each kernel, of the forward and the backward, of the
-             plain versions and of the library yardstick (SDPA), and each
-             kernel's bound.
+6. flash   - the flash-attention kernels (K1 forward, K2 dQ, K3 dK/dV: the
+             tensor-core kernels in bf16, the FMA kernels in f32) against
+             their plain versions at the shape phase train gives them
+             (BH = 2 x 32, T = 2048, D = 128) in f32 and bf16, each row's
+             error relative to that row's magnitude; CUDA-event medians of
+             each kernel, of the forward and the backward, of the plain
+             versions and of the library yardsticks (SDPA's forward, and its
+             backward alone, which computes dQ, dK and dV together), and
+             each kernel's bound.
 7. train   - federated LoRA at full LLaMA-2-7B width and depth (bf16 base,
              rank 8 on wq/wk/wv/wo, per-block remat, flash attention, bf16
              compute): two FedAvg rounds of 2 clients x 4 sequences x 2048
              tokens; losses finite, every adapter moved, the base bitwise
-             unchanged, launches K1 = 2 x layers x steps (all through the
-             tensor-core forward) and K2 = K3 = layers x steps. Then an f32
-             round at full width and 2 layers (TF32 off) with flash (the FMA
-             forward) and with dense attention from the same adapters and
-             batch schedule: the adapters agree.
+             unchanged, launches K1 = 2 x layers x steps and K2 = K3 =
+             layers x steps, all through the tensor-core kernels. Then an
+             f32 round at full width and 2 layers (TF32 off) with flash (the
+             FMA kernels, and only they) and with dense attention from the
+             same adapters and batch schedule: the adapters agree.
 
 Then the `kernels` line, the raw `nvidia-smi` name/power-limit line, and as
 the last line {"ok": true, "device": {...}}. Imports nothing of JAX or of
@@ -598,15 +599,20 @@ def phase_flash(bw: float) -> dict:
         q, k, v, do = (torch.from_numpy(
             rng.standard_normal((bh, t, d), np.float32)).to(DEV, dt)
             for _ in range(4))
-        route = fa.fwd_route(q)   # bf16 D 128: the tensor-core forward
-        before = fa.launch_count[route]
+        # bf16 D 128: the tensor-core kernels; f32: the FMA kernels
+        route, bwd = fa.fwd_route(q), fa.bwd_route(q)
+        tc = "_tc" if bwd == "tc" else ""
+        before = dict(fa.launch_count)
         o, lse = fa.flash_fwd(q, k, v)
-        check(fa.launch_count[route] == before + 1,
-              f"flash {kind}: the forward did not launch {route}")
         delta = fa.flash_delta(o, do)
         dq = fa.flash_dq(q, k, v, do, lse, delta)
         dk, dv = fa.flash_dkv(q, k, v, do, lse, delta)
         torch.cuda.synchronize()
+        launched = {route, "dq" + tc, "dkv" + tc}
+        check(fa.launch_count == {n: before[n] + (n in launched)
+                                  for n in before},
+              f"flash {kind}: launches {fa.launch_count} (before {before}) "
+              f"are not one each of {sorted(launched)}")
         # each kernel against its plain version on the same inputs
         want_o, want_lse = fa.flash_fwd_ref(q, k, v, FLASH_BQ, FLASH_BK)
         want_dq = fa.flash_dq_ref(q, k, v, do, lse, delta, FLASH_BQ,
@@ -643,7 +649,9 @@ def phase_flash(bw: float) -> dict:
                 warmup=1),
             "bwd": time_ms(lambda: fa.flash_bwd_ref(
                 q, k, v, o, lse, do, FLASH_BQ, FLASH_BK), n=10, warmup=1)}
-        # library yardstick, timed here only: SDPA on [B, H, T, D]
+        # library yardsticks, timed here only: SDPA on [B, H, T, D]; its
+        # backward alone ("bwd": the graph built once, then dQ, dK and dV
+        # together per call) is the one call that does K2's and K3's work
         q4, k4, v4, do4 = (x.view(TRAIN_BS, H, t, d) for x in (q, k, v, do))
         qg, kg, vg = (x.detach().requires_grad_() for x in (q4, k4, v4))
 
@@ -651,15 +659,21 @@ def phase_flash(bw: float) -> dict:
             y = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
             torch.autograd.grad(y, (qg, kg, vg), do4)
 
+        y = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
         library = {"fwd": time_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True)), "fwd_bwd": time_ms(sdpa_fwd_bwd)}
+            q4, k4, v4, is_causal=True)), "fwd_bwd": time_ms(sdpa_fwd_bwd),
+            "bwd": time_ms(lambda: torch.autograd.grad(
+                y, (qg, kg, vg), do4, retain_graph=True))}
+        del y
         bounds = {name: _bound(*_flash_cost(name, bh, t, d,
                                             q.element_size()), dt, bw)
                   for name in ms}
         out[kind] = {"ms": ms, "plain_ms": plain, "library_ms": library,
-                     "bounds": bounds, "errors": errs, "fwd_route": route}
-        emit({"phase": "flash", "dtype": kind, "fwd_route": route, "ms": ms,
-              "plain_ms": plain, "library_ms": library, "bounds": bounds})
+                     "bounds": bounds, "errors": errs, "fwd_route": route,
+                     "bwd_route": bwd}
+        emit({"phase": "flash", "dtype": kind, "fwd_route": route,
+              "bwd_route": bwd, "ms": ms, "plain_ms": plain,
+              "library_ms": library, "bounds": bounds})
         del q, k, v, do, o, lse, delta, dq, dk, dv, qg, kg, vg
         gc.collect()
         torch.cuda.empty_cache()
@@ -732,7 +746,7 @@ def phase_train(dims=None, parity_layers: int = 2) -> dict:
     st = alg.server_init(adapters)
     steps_per_round = TRAIN_CLIENTS * (TRAIN_SEQS // TRAIN_BS)
     rounds = []
-    fa.launch_count.update(fwd=0, fwd_tc=0, dq=0, dkv=0)
+    fa.launch_count.update(dict.fromkeys(fa.launch_count, 0))
     torch.cuda.reset_peak_memory_stats()
     for r in range(TRAIN_ROUNDS):
         torch.cuda.synchronize()
@@ -764,10 +778,10 @@ def phase_train(dims=None, parity_layers: int = 2) -> dict:
           "a round's loss is not finite")
     check(moved > 0, "an adapter did not move")
     check(same_base, "the frozen base changed")
-    check(launches == {"fwd": 0, "fwd_tc": 2 * L * steps, "dq": L * steps,
-                       "dkv": L * steps},
-          f"flash launches {launches} != K1 (tensor cores) 2 x {L} x "
-          f"{steps}, K2 = K3 {L} x {steps}")
+    check(launches == {"fwd": 0, "fwd_tc": 2 * L * steps, "dq": 0,
+                       "dq_tc": L * steps, "dkv": 0, "dkv_tc": L * steps},
+          f"flash launches {launches} != K1 2 x {L} x {steps}, K2 = K3 "
+          f"{L} x {steps}, all on the tensor cores")
     del state, base_copy, alg, adapters, round_fn, st, out
     gc.collect()
     torch.cuda.empty_cache()
@@ -783,7 +797,7 @@ def phase_train(dims=None, parity_layers: int = 2) -> dict:
                                 TRAIN_BS, 1) for c in ids]
     after = {}
     adapters = None
-    fa.launch_count.update(fwd=0, fwd_tc=0, dq=0, dkv=0)
+    fa.launch_count.update(dict.fromkeys(fa.launch_count, 0))
     for flash in (True, False):
         alg, drawn, round_fn = _fed_lora(pdims, state, t32, flash)
         adapters = adapters or drawn     # both rounds start from these
@@ -802,6 +816,10 @@ def phase_train(dims=None, parity_layers: int = 2) -> dict:
     check(update > 0 and diff <= PARITY_TOL * update,
           f"f32 flash vs dense round: adapter diff {diff} > {PARITY_TOL} x "
           f"update {update}")
+    pl = parity["launches"]
+    check(min(pl["fwd"], pl["dq"], pl["dkv"]) > 0
+          and pl["fwd_tc"] == pl["dq_tc"] == pl["dkv_tc"] == 0,
+          f"f32 round launches {pl}: not the FMA kernels alone")
     del state, alg, adapters, drawn, round_fn, after, o
     gc.collect()
     torch.cuda.empty_cache()
@@ -809,7 +827,7 @@ def phase_train(dims=None, parity_layers: int = 2) -> dict:
     return res
 
 
-def phase_train_profile(top: int = 15) -> None:
+def phase_train_profile(top: int = 25) -> None:
     """Where one bf16 local step's device time goes at LLaMA-2-7B width:
     torch.profiler over one FedAvg round of one client with two local
     steps, after a warm-up round."""
@@ -911,22 +929,29 @@ def main() -> int:
             "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"], "serve_shape": k["serve_shape"]})
-    # the flash kernels at the main path's dtype (bf16: K1 on the tensor
-    # cores), and K1's FMA kernel at f32. `launches` is each kernel's count
+    # the flash kernels at the main path's dtype (bf16: the tensor-core
+    # kernels) and the FMA kernels at f32. `launches` is each kernel's count
     # from phase train's main path; `parity_launches` its count from the f32
     # flash-vs-dense round after it, the only path that reaches the FMA
-    # forward (`fa.fwd_route` sends the main path's bf16 D 128 heads to
-    # the tensor cores)
+    # kernels (`fa.fwd_route` / `fa.bwd_route` send the main path's bf16
+    # D 128 heads to the tensor cores). K2's and K3's library yardstick is
+    # SDPA's backward, which computes dQ, dK and dV in one call
     outputs = {"fwd": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
     parity = train.get("f32_flash_vs_dense", {}).get("launches", {})
-    rows = (("flash_fwd_tc", "bf16", "fwd", "fwd_tc", 58, "wgmma+cp.async"),
+    tc = "wgmma+cp.async"
+    rows = (("flash_fwd_tc", "bf16", "fwd", "fwd_tc", 58, tc),
             ("flash_fwd", "f32", "fwd", "fwd", 58, "fma"),
-            ("flash_dq", "bf16", "dq", "dq", 204, "fma"),
-            ("flash_dkv", "bf16", "dkv", "dkv", 232, "fma"))
+            ("flash_dq_tc", "bf16", "dq", "dq_tc", 204, tc),
+            ("flash_dq", "f32", "dq", "dq", 204, "fma"),
+            ("flash_dkv_tc", "bf16", "dkv", "dkv_tc", 232, tc),
+            ("flash_dkv", "f32", "dkv", "dkv", 232, "fma"))
+    off_main_path = {kname for kname, kind, *_ in rows if kind == "f32"}
     for kname, kind, fk, counter, line, design in rows:
         f = flash.get(kind)
         if f is None:
             continue
+        lib_key, lib_call = (("fwd", "SDPA forward") if fk == "fwd" else
+                             ("bwd", "SDPA backward: dQ+dK+dV together"))
         kernels.append({
             "name": kname, "route": "cuda", "design": design, "dtype": kind,
             "source": "fedml_tpu_torch/csrc/flash_attention.cu",
@@ -940,16 +965,16 @@ def main() -> int:
             "ms": f["ms"][fk], "plain_ms": f["plain_ms"][fk],
             "bound_ms": f["bounds"][fk]["bound_ms"],
             "bound_by": f["bounds"][fk]["bound_by"],
-            "library_ms": f["library_ms"]["fwd"] if fk == "fwd" else None})
+            "library_ms": f["library_ms"][lib_key], "library_call": lib_call})
     if set(PHASES) <= set(args.only):
-        # the FMA forward is off the main path (phase train checked its
-        # count is 0 there) and must have run in the parity round instead
+        # the FMA flash kernels are off the main path (phase train checked
+        # their counts are 0 there) and must have run in the parity round
         check(all(k["launches"] > 0 for k in kernels
-                  if k["name"] != "flash_fwd"),
+                  if k["name"] not in off_main_path),
               "a kernel of the main path was never launched")
         check(all(k["parity_launches"] > 0 for k in kernels
-                  if k["name"] == "flash_fwd"),
-              "the FMA flash forward was never launched by the f32 round")
+                  if k["name"] in off_main_path),
+              "an FMA flash kernel was never launched by the f32 round")
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

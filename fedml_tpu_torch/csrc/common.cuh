@@ -65,6 +65,14 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                "l"(src), "r"(src_bytes) : "memory");
 }
 
+// 4 bytes (the .ca form: .cg takes 16 only), both addresses 4-byte
+// aligned; `src_bytes` 0 writes a zero
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes = 4) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

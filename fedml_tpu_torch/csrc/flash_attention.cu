@@ -1,12 +1,15 @@
 // Causal flash attention for NVIDIA Hopper (sm_90a): forward (K1), dQ (K2)
 // and dK/dV (K3).
 //
-// Replaces the Pallas TPU kernels of fedml_tpu/ops/flash_attention.py:
-//   K1 _fwd_kernel  (launched by _flash_fwd)   -> flash_fwd_tc_kernel (bf16,
-//                   D % 16 == 0: tensor cores) and flash_fwd_kernel (f32,
-//                   and bf16 heads of other D: CUDA-core FMAs)
-//   K2 _dq_kernel   (launched by _pallas_bwd)  -> flash_dq_kernel
-//   K3 _dkv_kernel  (launched by _pallas_bwd)  -> flash_dkv_kernel
+// Replaces the Pallas TPU kernels of fedml_tpu/ops/flash_attention.py, each
+// by two kernels: bf16 with D % 16 == 0 on the tensor cores, f32 and bf16
+// heads of other D on CUDA-core FMAs (ops/flash_attention.py's shape rule):
+//   K1 _fwd_kernel  (launched by _flash_fwd)   -> flash_fwd_tc_kernel,
+//                                                 flash_fwd_kernel
+//   K2 _dq_kernel   (launched by _pallas_bwd)  -> flash_dq_tc_kernel,
+//                                                 flash_dq_kernel
+//   K3 _dkv_kernel  (launched by _pallas_bwd)  -> flash_dkv_tc_kernel,
+//                                                 flash_dkv_kernel
 // Contract, shared with the plain PyTorch versions in
 // ops/flash_attention.py (flash_fwd_ref / flash_dq_ref / flash_dkv_ref):
 //
@@ -48,8 +51,8 @@
 // products' flops over the tensor-core peak (bf16) or the CUDA-core f32
 // peak. The FMA kernels do every product with scalar FMAs from shared
 // memory (two shared loads per four FMAs), a fraction of the f32
-// CUDA-core rate; they stay for f32 (whose products must not go through
-// TF32) and for K2/K3, which a later PR moves to tensor cores.
+// CUDA-core rate; they stay for f32, whose products must not go through
+// TF32.
 //
 // The bf16 forward (flash_fwd_tc_kernel) runs both products on the tensor
 // cores with wgmma (bf16 in, f32 accumulate in registers): one block of two
@@ -69,6 +72,36 @@
 // block per SM (157 registers a thread); still left: TMA-fed tiles and
 // warp specialisation, so that one warpgroup's softmax overlaps the other's
 // products.
+//
+// The bf16 backward on the tensor cores keeps the two passes, each bound
+// like the forward by its products' flops (three products per tile in
+// K2, four in K3, against the two the backward must do per pass), and
+// reuses the forward's machinery: the swizzled cp.async tiles, the
+// m64n64k16 product from shared memory and the m64nDk16 product with A
+// from registers, and the fragment map that turns an accumulator into an A
+// operand. p = exp(s * scale - lse) and dS = p (dP - delta) scale are
+// computed in registers from unrounded f32 p; they never touch shared
+// memory.
+//   flash_dq_tc_kernel (K2): one block of two warpgroups per (bh, 128-row
+//     q tile), each owning 64 rows, the longest tiles first. Q and dO
+//     stay in shared memory, K/V tiles of 64 keys stream through the
+//     forward's two-stage ring up to the diagonal, lse and delta of the
+//     thread's two rows sit in registers. S = Q.K^T and dP = dO.V^T read
+//     both operands K-major; dS, rounded to bf16, is the A operand of
+//     dQ += dS.K, which reads the same K tile MN-major (as P.V reads V).
+//     184 registers at D 128.
+//   flash_dkv_tc_kernel (K3): one block of two warpgroups per (bh,
+//     128-key tile), each owning 64 keys; the first key tiles, which see
+//     the most q tiles, first. K and V stay in shared memory; q tiles of
+//     64 rows from the diagonal on stream through a two-stage ring that
+//     also carries their 64 lse and delta values. The tiles are
+//     transposed (a row is a key, a column a query): S^T = K.Q^T and
+//     dP^T = V.dO^T from shared memory (K-major), then dV += P^T.dO and
+//     dK += dS^T.Q with P^T and dS^T rounded to bf16 in registers and dO
+//     and Q read MN-major. A query is masked where it precedes the key or
+//     lies past T (a zero-filled Q row scores 0, but its lse and delta
+//     mean nothing). dK, dV, S^T and dP^T take 192 f32 registers a thread:
+//     252 in all at D 128, no spills, one block per SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -386,6 +419,76 @@ __device__ __forceinline__ void load_tile(uint32_t tile, const __nv_bfloat16* sr
   }
 }
 
+// the cp.async writes of this thread's finished groups, and (after the
+// barrier) of every thread's, become visible to wgmma's async reads
+__device__ __forceinline__ void tiles_arrived() {
+  fedml::cp_async_wait<0>();
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+}
+
+// D (m64n64, f32) = A . B^T over kD columns, both from shared memory,
+// K-major: A is the 64 rows at `a` of a tile of AROWS rows, B a tile of kBN
+// rows. A descriptor's start address counts 16-byte units: k-step kk moves
+// 32 bytes along a 128-byte row, and every fourth one to the next 64-column
+// block, AROWS (kBN) x 128 bytes on.
+template <int kD, int AROWS>
+__device__ __forceinline__ void ss_product(float (&d)[kBN / 8][4], uint32_t a, uint32_t b) {
+  const uint64_t da = gmma_desc(a, 16, 1024), db = gmma_desc(b, 16, 1024);
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk)
+    wgmma_ss_n64(d, da + (((kk >> 2) * (AROWS * 128) + (kk & 3) * 32) >> 4),
+                 db + (((kk >> 2) * (kBN * 128) + (kk & 3) * 32) >> 4), kk > 0);
+}
+
+// D (m64 x kD, f32) += A . B: A from registers (kBN / 16 k-steps), B a tile
+// of kBN rows read MN-major (the next 64 columns kBN x 128 bytes on, 8 rows
+// 1024 bytes on; k-step kk moves 16 rows)
+template <int kD>
+__device__ __forceinline__ void rs_product(float (&d)[kD / 8][4],
+                                           const uint32_t (&a)[kBN / 16][4], uint32_t b) {
+  const uint64_t db = gmma_desc(b, kBN * 128, 1024);
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk) {
+    if constexpr (kD == 128) wgmma_rs_n128(d, a[kk], db + ((kk * 16 * 128) >> 4));
+    else wgmma_rs_n64(d, a[kk], db + ((kk * 16 * 128) >> 4));
+  }
+}
+
+// an m64n64 f32 accumulator rounded to bf16 as the A operand of a product
+// over its 64 columns (the fragment map above)
+__device__ __forceinline__ void pack_a(uint32_t (&a)[kBN / 16][4], const float (&s)[kBN / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk) {
+    a[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+    a[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+    a[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+  }
+}
+
+// rows g and g + 8 of the warp's 16 (row0 = the first) of an m64 x kD f32
+// accumulator -> bf16 rows of a [T, D] matrix; rows past T and columns
+// past D are not stored
+template <int kD>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float (&acc)[kD / 8][4],
+                                           int row0, int T_, int D) {
+  const int g = (threadIdx.x & 31) >> 2, t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + g + 8 * h;
+    if (row >= T_) continue;
+    __nv_bfloat16* out = dst + static_cast<size_t>(row) * D;
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n) {
+      const int d = 8 * n + 2 * t4;
+      if (d < D)
+        *reinterpret_cast<__nv_bfloat162*>(out + d) =
+            __floats2bfloat162_rn(acc[n][2 * h], acc[n][2 * h + 1]);
+    }
+  }
+}
+
 template <int kD>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
@@ -421,10 +524,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
 
   for (int j = 0; j < n_kt; ++j) {
-    fedml::cp_async_wait<0>();
-    // the tile's cp.async writes become visible to wgmma's async reads
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
+    tiles_arrived();
     if (j + 1 < n_kt) {
       const uint32_t nxt = kv_s + ((j + 1) & 1) * 2 * kTile;
       load_tile<kBN, kD>(nxt, k + base, (j + 1) * kBN, T_, D);
@@ -435,16 +535,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (k0 > q0 + 64 * wg + 63) continue;  // every key past every row of the warpgroup
     const uint32_t k_s = kv_s + (j & 1) * 2 * kTile, v_s = k_s + kTile;
 
-    // descriptors: one base each, stepped by compile-time offsets (the
-    // start address field counts 16-byte units)
-    const uint64_t da0 = gmma_desc(q_s + wg * 64 * 128, 16, 1024);
-    const uint64_t db0 = gmma_desc(k_s, 16, 1024);
     float s[kBN / 8][4];
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk)
-      wgmma_ss_n64(s, da0 + (((kk >> 2) * (kBM * 128) + (kk & 3) * 32) >> 4),
-                   db0 + (((kk >> 2) * (kBN * 128) + (kk & 3) * 32) >> 4), kk > 0);
+    ss_product<kD, kBM>(s, q_s + wg * 64 * 128, k_s);
     wgmma_commit();
     wgmma_wait0();
     fence_regs(s);
@@ -487,21 +580,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
     uint32_t a[kBN / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) {
-      a[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-    }
-    const uint64_t dv0 = gmma_desc(v_s, kBN * 128, 1024);
+    pack_a(a, s);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) {
-      const uint64_t db = dv0 + ((kk * 16 * 128) >> 4);
-      if constexpr (kD == 128) wgmma_rs_n128(acc, a[kk], db);
-      else wgmma_rs_n64(acc, a[kk], db);
-    }
+    rs_product<kD>(acc, a, v_s);
     wgmma_commit();
     wgmma_wait0();
     fence_regs(acc);
@@ -524,6 +605,218 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     if (t4 == 0) lse[static_cast<size_t>(bh) * T_ + row] = m[h] + logf(den);
   }
+}
+
+// ------------------------------------------------------ K2, tensor cores
+// dQ of one 128-row q tile, each warpgroup owning 64 rows. Q and dO stay in
+// shared memory; K/V tiles of 64 keys stream through K1's two-stage ring.
+// S = Q.K^T and dP = dO.V^T from shared memory (K-major), p and dS in
+// registers, dQ += dS.K with dS from registers and K read MN-major.
+template <int kD>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dq, int T_, int D, float scale) {
+  constexpr int kTile = kBN * kD * 2;  // bytes of one K or V tile
+  extern __shared__ __align__(1024) unsigned char smem_tc[];
+  const uint32_t q_s = fedml::smem_addr(smem_tc);
+  const uint32_t do_s = q_s + kBM * kD * 2;
+  const uint32_t kv_s = do_s + kBM * kD * 2;  // stage st: K, then V
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBM;  // longest tiles first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wg = warp >> 2;
+  const int r0 = warp * 16;
+  const size_t base = static_cast<size_t>(bh) * T_ * D;
+  const int n_kt = min((q0 + kBM + kBN - 1) / kBN, (T_ + kBN - 1) / kBN);
+  const float scale_log2 = scale * kLog2e;
+
+  load_tile<kBM, kD>(q_s, q + base, q0, T_, D);
+  load_tile<kBM, kD>(do_s, dout + base, q0, T_, D);
+  load_tile<kBN, kD>(kv_s, k + base, 0, T_, D);
+  load_tile<kBN, kD>(kv_s + kTile, v + base, 0, T_, D);
+  fedml::cp_async_commit();
+
+  // lse (times log2 e) and delta of the thread's rows g and g + 8
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + r0 + g + 8 * h;
+    const size_t at = static_cast<size_t>(bh) * T_ + min(row, T_ - 1);
+    lse2[h] = row < T_ ? lse[at] * kLog2e : 0.f;
+    dlt[h] = row < T_ ? delta[at] : 0.f;
+  }
+  float acc[kD / 8][4];
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int j = 0; j < n_kt; ++j) {
+    tiles_arrived();
+    if (j + 1 < n_kt) {
+      const uint32_t nxt = kv_s + ((j + 1) & 1) * 2 * kTile;
+      load_tile<kBN, kD>(nxt, k + base, (j + 1) * kBN, T_, D);
+      load_tile<kBN, kD>(nxt + kTile, v + base, (j + 1) * kBN, T_, D);
+      fedml::cp_async_commit();
+    }
+    const int k0 = j * kBN;
+    if (k0 > q0 + 64 * wg + 63) continue;  // every key past every row of the warpgroup
+    const uint32_t k_s = kv_s + (j & 1) * 2 * kTile, v_s = k_s + kTile;
+
+    float s[kBN / 8][4], dp[kBN / 8][4];
+    wgmma_fence();
+    ss_product<kD, kBM>(s, q_s + wg * 64 * 128, k_s);
+    ss_product<kD, kBM>(dp, do_s + wg * 64 * 128, v_s);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // p = exp(s * scale - lse), 0 where key > row (only on tiles that reach
+    // past the warp's first row: elsewhere lim is past every column);
+    // dS = p (dP - delta) scale with p unrounded, then rounded to bf16
+    // key > row  <=>  8n + (e & 1) - 8 (e >> 1) > row_g - (k0 + 2 t4)
+    const int lim = k0 + kBN - 1 > q0 + r0 ? q0 + r0 + g - k0 - 2 * t4 : kBN;
+#pragma unroll
+    for (int n = 0; n < kBN / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const float p = 8 * n + (e & 1) - 8 * h > lim
+                            ? 0.f : exp2f(fmaf(s[n][e], scale_log2, -lse2[h]));
+        s[n][e] = p * (dp[n][e] - dlt[h]) * scale;
+      }
+    uint32_t a[kBN / 16][4];
+    pack_a(a, s);
+    wgmma_fence();
+    rs_product<kD>(acc, a, k_s);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(acc);
+  }
+  store_rows<kD>(dq + base, acc, q0 + r0, T_, D);
+}
+
+// ------------------------------------------------------ K3, tensor cores
+// dK and dV of one 128-key tile, each warpgroup owning 64 keys, over the q
+// tiles of 64 rows from the diagonal on. K and V stay in shared memory; Q,
+// dO and the tile's 64 lse and delta values stream through a two-stage
+// ring. The tiles are transposed (a row is a key, a column a query):
+// S^T = K.Q^T and dP^T = V.dO^T from shared memory (all K-major), then
+// dV += P^T.dO and dK += dS^T.Q with P^T and dS^T from registers and dO
+// and Q read MN-major. P and dS never touch shared memory.
+template <int kD>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                        int T_, int D, float scale) {
+  constexpr int kTile = kBN * kD * 2;  // bytes of one Q or dO tile
+  extern __shared__ __align__(1024) unsigned char smem_tc[];
+  const uint32_t k_s = fedml::smem_addr(smem_tc);
+  const uint32_t v_s = k_s + kBM * kD * 2;
+  const uint32_t ring = v_s + kBM * kD * 2;  // stage st: Q, then dO
+  // after the ring, stage st: kBN lse values, then kBN delta values
+  const float* vec = reinterpret_cast<const float*>(smem_tc + 2 * kBM * kD * 2 + 4 * kTile);
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kBM;  // the first key tiles have the most q tiles
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wg = warp >> 2;                 // warpgroup: keys 64 wg .. 64 wg + 63
+  const int r0 = warp * 16;                 // the warp's first key in the tile
+  const size_t base = static_cast<size_t>(bh) * T_ * D;
+  const float* lse_bh = lse + static_cast<size_t>(bh) * T_;
+  const float* dlt_bh = delta + static_cast<size_t>(bh) * T_;
+  const int qt0 = k0 / kBN;  // q tiles before it hold only masked queries
+  const int n_qt = (T_ + kBN - 1) / kBN;
+  const float scale_log2 = scale * kLog2e;
+
+  // q tile i into ring stage st; lse and delta past T are zeros
+  auto load_step = [&](int i, int st) {
+    const int q0 = i * kBN;
+    load_tile<kBN, kD>(ring + st * 2 * kTile, q + base, q0, T_, D);
+    load_tile<kBN, kD>(ring + st * 2 * kTile + kTile, dout + base, q0, T_, D);
+    if (threadIdx.x < 2 * kBN) {
+      const int c = threadIdx.x & (kBN - 1);
+      const bool ok = q0 + c < T_;
+      fedml::cp_async4(fedml::smem_addr(vec + st * 2 * kBN + threadIdx.x),
+                       (threadIdx.x < kBN ? lse_bh : dlt_bh) + (ok ? q0 + c : 0), ok ? 4 : 0);
+    }
+    fedml::cp_async_commit();
+  };
+
+  load_tile<kBM, kD>(k_s, k + base, k0, T_, D);
+  load_tile<kBM, kD>(v_s, v + base, k0, T_, D);
+  load_step(qt0, 0);
+
+  float acc_k[kD / 8][4], acc_v[kD / 8][4];
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+
+  for (int i = qt0; i < n_qt; ++i) {
+    const int st = (i - qt0) & 1;
+    tiles_arrived();
+    if (i + 1 < n_qt) load_step(i + 1, st ^ 1);
+    const int q0 = i * kBN;
+    if (q0 + kBN - 1 < k0 + 64 * wg) continue;  // every query before every key of the warpgroup
+    const uint32_t q_s = ring + st * 2 * kTile, do_s = q_s + kTile;
+    const float* lse_s = vec + st * 2 * kBN;
+    const float* dlt_s = lse_s + kBN;
+
+    float s[kBN / 8][4], dp[kBN / 8][4];
+    wgmma_fence();
+    ss_product<kD, kBM>(s, k_s + wg * 64 * 128, q_s);
+    ss_product<kD, kBM>(dp, v_s + wg * 64 * 128, do_s);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // p = 0 where query < key or query >= T (rows past T are zero-filled,
+    // but their lse and delta mean nothing); the comparisons are exact on
+    // every tile, so none is skipped by a branch:
+    // query < key   <=>  8n + (e & 1) - 8 (e >> 1) < key_g - (q0 + 2 t4)
+    // query >= T    <=>  8n + (e & 1) >= T - (q0 + 2 t4)
+    const int lim = k0 + r0 + g - q0 - 2 * t4, lim_t = T_ - q0 - 2 * t4;
+#pragma unroll
+    for (int n = 0; n < kBN / 8; ++n) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_s + 8 * n + 2 * t4);
+      const float2 d2 = *reinterpret_cast<const float2*>(dlt_s + 8 * n + 2 * t4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * n + (e & 1);
+        const float p = (c - 8 * (e >> 1) < lim || c >= lim_t)
+                            ? 0.f
+                            : exp2f(fmaf(s[n][e], scale_log2, -(e & 1 ? l2.y : l2.x) * kLog2e));
+        s[n][e] = p;  // rounded to bf16 only for P^T.dO
+        dp[n][e] = p * (dp[n][e] - (e & 1 ? d2.y : d2.x)) * scale;
+      }
+    }
+    uint32_t a_p[kBN / 16][4], a_ds[kBN / 16][4];
+    pack_a(a_p, s);
+    pack_a(a_ds, dp);
+    wgmma_fence();
+    rs_product<kD>(acc_v, a_p, do_s);
+    rs_product<kD>(acc_k, a_ds, q_s);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(acc_v);
+    fence_regs(acc_k);
+  }
+  store_rows<kD>(dk + base, acc_k, k0 + r0, T_, D);
+  store_rows<kD>(dv + base, acc_v, k0 + r0, T_, D);
 }
 
 }  // namespace tc
@@ -724,6 +1017,56 @@ cudaError_t fwd_tc(const void* q, const void* k, const void* v, void* o, void* l
   return cudaGetLastError();
 }
 
+// K2/K3 on the tensor cores: Q and dO (K and V) tiles of 128 rows, a ring
+// of two stages of 64-row tiles; K3's ring also carries lse and delta
+template <int kD>
+cudaError_t dq_tc(const void* q, const void* k, const void* v, const void* dout,
+                  const void* lse, const void* delta, void* dq_, int BH, int T_,
+                  int D, cudaStream_t st) {
+  const size_t smem = static_cast<size_t>(2 * tc::kBM + 4 * tc::kBN) * kD * 2;
+  auto kernel = tc::flash_dq_tc_kernel<kD>;
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(BH, (T_ + tc::kBM - 1) / tc::kBM), tc::kThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dq_), T_, D, softmax_scale(D));
+  return cudaGetLastError();
+}
+
+template <int kD>
+cudaError_t dkv_tc(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, void* dk, void* dv, int BH,
+                   int T_, int D, cudaStream_t st) {
+  const size_t smem = static_cast<size_t>(2 * tc::kBM + 4 * tc::kBN) * kD * 2 +
+                      4 * tc::kBN * sizeof(float);
+  auto kernel = tc::flash_dkv_tc_kernel<kD>;
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(BH, (T_ + tc::kBM - 1) / tc::kBM), tc::kThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), T_, D,
+      softmax_scale(D));
+  return cudaGetLastError();
+}
+
+// what the tensor-core kernels refuse: anything but bf16 (kind 1) with
+// D % 16 == 0, and operands their 16-byte cp.async copies cannot read
+// (0: taken)
+cudaError_t tc_refusal(int BH, int T_, int D, int kind, const void* a, const void* b,
+                       const void* c, const void* d = nullptr) {
+  if (kind != 1 || BH < 1 || T_ < 1 || D < 16 || D > kMaxD || D % 16 ||
+      (T_ + tc::kBM - 1) / tc::kBM > 65535)
+    return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+       reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(d)) % 16)
+    return cudaErrorMisalignedAddress;
+  return cudaSuccess;
+}
+
 template <typename T, int NJ>
 cudaError_t dq(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dq_, int BH, int T_,
@@ -785,20 +1128,39 @@ extern "C" int fedml_flash_fwd(const void* q, const void* k, const void* v, void
   FEDML_FLASH_DISPATCH(fwd, q, k, v, o, lse, BH, T_, D);
 }
 
-// the tensor-core forward: bf16 (kind 1) only, D % 16 == 0, q/k/v 16-byte
-// aligned (its cp.async copies are 16 bytes)
+// the tensor-core kernels: bf16 (kind 1) only, D % 16 == 0, q/k/v (and dO)
+// 16-byte aligned (their cp.async copies are 16 bytes)
 extern "C" int fedml_flash_fwd_tc(const void* q, const void* k, const void* v,
                                   void* o, void* lse, int BH, int T_, int D,
                                   int kind, void* stream) {
-  if (kind != 1 || BH < 1 || T_ < 1 || D < 16 || D > kMaxD || D % 16 ||
-      (T_ + tc::kBM - 1) / tc::kBM > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-       reinterpret_cast<uintptr_t>(v)) % 16)
-    return static_cast<int>(cudaErrorMisalignedAddress);
+  if (cudaError_t err = tc_refusal(BH, T_, D, kind, q, k, v)) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(D <= 64 ? fwd_tc<64>(q, k, v, o, lse, BH, T_, D, st)
                                   : fwd_tc<128>(q, k, v, o, lse, BH, T_, D, st));
+}
+
+extern "C" int fedml_flash_dq_tc(const void* q, const void* k, const void* v,
+                                 const void* dout, const void* lse, const void* delta,
+                                 void* dq_, int BH, int T_, int D, int kind,
+                                 void* stream) {
+  if (cudaError_t err = tc_refusal(BH, T_, D, kind, q, k, v, dout))
+    return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      D <= 64 ? dq_tc<64>(q, k, v, dout, lse, delta, dq_, BH, T_, D, st)
+              : dq_tc<128>(q, k, v, dout, lse, delta, dq_, BH, T_, D, st));
+}
+
+extern "C" int fedml_flash_dkv_tc(const void* q, const void* k, const void* v,
+                                  const void* dout, const void* lse, const void* delta,
+                                  void* dk, void* dv, int BH, int T_, int D, int kind,
+                                  void* stream) {
+  if (cudaError_t err = tc_refusal(BH, T_, D, kind, q, k, v, dout))
+    return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      D <= 64 ? dkv_tc<64>(q, k, v, dout, lse, delta, dk, dv, BH, T_, D, st)
+              : dkv_tc<128>(q, k, v, dout, lse, delta, dk, dv, BH, T_, D, st));
 }
 
 extern "C" int fedml_flash_dq(const void* q, const void* k, const void* v,

@@ -28,12 +28,16 @@ Each of the three passes has a wrapper -- `flash_fwd` (K1), `flash_dq`
 tensor, or raises, and on a CPU tensor runs the plain PyTorch version
 (`flash_fwd_ref`, `flash_dq_ref`, `flash_dkv_ref`): the Pallas kernels'
 blocked math with their rounding points. It never falls back from a kernel
-to a plain version. K1 has two kernels, chosen by a shape rule
-(`fwd_route`): bf16 with D % 16 == 0 runs on the tensor cores
-(`flash_fwd_tc_kernel`); f32 (whose products must not go through TF32)
-and bf16 of any other D run on the CUDA-core FMA kernel. `launch_count`
-counts each kernel's launches (and nothing else): "fwd_tc" and "fwd" for
-the two forwards, "dq" and "dkv".
+to a plain version. Each pass has two kernels, chosen by one shape rule:
+bf16 with D % 16 == 0 runs on the tensor cores (`flash_fwd_tc_kernel`,
+`flash_dq_tc_kernel`, `flash_dkv_tc_kernel`, all `wgmma`); f32 (whose
+products must not go through TF32) and bf16 of any other D run on the
+CUDA-core FMA kernels. `fwd_route` names the forward's kernel and
+`bwd_route` the backward's ("tc" or "fma"). The tensor-core kernels copy
+16-byte chunks, so their operands must start 16-byte aligned (a view at
+another storage offset raises a ValueError). `launch_count` counts each
+kernel's launches (and nothing else): "fwd_tc" and "fwd" for the two
+forwards, "dq_tc" and "dq" for dQ, "dkv_tc" and "dkv" for dK/dV.
 
 `rowwise_rel_err` (from `ops/tolerance.py`) is the rule the kernels are
 held to against their plain versions on the card.
@@ -51,7 +55,8 @@ _NEG = -1e30
 MAX_D = 128
 _KIND = {torch.float32: 0, torch.bfloat16: 1}
 
-launch_count = {"fwd": 0, "fwd_tc": 0, "dq": 0, "dkv": 0}
+launch_count = {"fwd": 0, "fwd_tc": 0, "dq": 0, "dq_tc": 0, "dkv": 0,
+                "dkv_tc": 0}
 
 _lib = None
 
@@ -62,7 +67,8 @@ def _kernel_lib() -> ctypes.CDLL:
         lib = _build.load("flash_attention")
         vp, i = ctypes.c_void_p, ctypes.c_int
         for fn, n_ptr in (("fedml_flash_fwd", 5), ("fedml_flash_fwd_tc", 5),
-                          ("fedml_flash_dq", 7), ("fedml_flash_dkv", 8)):
+                          ("fedml_flash_dq", 7), ("fedml_flash_dq_tc", 7),
+                          ("fedml_flash_dkv", 8), ("fedml_flash_dkv_tc", 8)):
             getattr(lib, fn).argtypes = [vp] * n_ptr + [i] * 4 + [vp]
             getattr(lib, fn).restype = i
         lib.fedml_flash_error_string.argtypes = [i]
@@ -134,29 +140,46 @@ def _launch(name: str, *tensors, bh: int, t: int, d: int, kind: int) -> None:
 
 
 # --------------------------------------------------------------- wrappers
+def _tensor_cores(q) -> bool:
+    """The shape rule of every pass: bf16 heads with D % 16 == 0 run on
+    the tensor cores."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] % 16 == 0
+
+
 def fwd_route(q) -> str:
     """Which K1 kernel takes q (its `launch_count` key): "fwd_tc", the
     tensor-core kernel, for bf16 with D % 16 == 0; "fwd", the FMA kernel,
     for f32 and for bf16 of any other D. A shape rule, never a fallback."""
-    if q.dtype == torch.bfloat16 and q.shape[-1] % 16 == 0:
-        return "fwd_tc"
-    return "fwd"
+    return "fwd_tc" if _tensor_cores(q) else "fwd"
+
+
+def bwd_route(q) -> str:
+    """Which K2/K3 kernels take q: "tc", the tensor-core kernels
+    (`launch_count` keys "dq_tc", "dkv_tc"), by `fwd_route`'s rule; "fma",
+    the FMA kernels ("dq", "dkv"), for the rest. Never a fallback."""
+    return "tc" if _tensor_cores(q) else "fma"
+
+
+def _require_aligned(what: str, *tensors) -> None:
+    """The tensor-core kernels copy 16-byte chunks: a view that does not
+    start 16-byte aligned raises here, before any launch."""
+    if any(x.data_ptr() % 16 for x in tensors):
+        raise ValueError(f"the tensor-core flash {what} needs its operands "
+                         "16-byte aligned; got views at storage offsets "
+                         f"{[x.storage_offset() for x in tensors]}")
 
 
 def flash_fwd(q, k, v, block_q=None, block_k=None):
     """(o [BH, T, D] in q's dtype, lse [BH, T] f32): K1 on CUDA (the kernel
-    `fwd_route` names), the plain version on the CPU. The tensor-core
-    kernel copies 16-byte chunks, so there q, k and v must start 16-byte
-    aligned (a view at another storage offset raises)."""
+    `fwd_route` names), the plain version on the CPU. On the tensor-core
+    route q, k and v must start 16-byte aligned."""
     _check(q, k, v)
     bq, bk = _blocks(q.shape[1], block_q, block_k)
     if q.device.type == "cpu":
         return flash_fwd_ref(q, k, v, bq, bk)
     route = fwd_route(q)
-    if route == "fwd_tc" and any(x.data_ptr() % 16 for x in (q, k, v)):
-        raise ValueError("the tensor-core flash forward needs q, k and v "
-                         "16-byte aligned; got a view at storage offsets "
-                         f"{[x.storage_offset() for x in (q, k, v)]}")
+    if route == "fwd_tc":
+        _require_aligned("forward", q, k, v)
     bh, t, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q.device)
@@ -164,30 +187,42 @@ def flash_fwd(q, k, v, block_q=None, block_k=None):
     return o, lse
 
 
+def _bwd_kernel(name: str, q, k, v, do) -> str:
+    """The `launch_count` key of backward pass `name` ("dq" or "dkv") for
+    these operands, by `bwd_route`; on the tensor-core route q, k, v and dO
+    must start 16-byte aligned."""
+    if bwd_route(q) == "fma":
+        return name
+    _require_aligned("backward", q, k, v, do)
+    return f"{name}_tc"
+
+
 def flash_dq(q, k, v, do, lse, delta, block_q=None, block_k=None):
-    """dQ [BH, T, D] in q's dtype: K2 on CUDA, the plain version on the
-    CPU."""
+    """dQ [BH, T, D] in q's dtype: K2 on CUDA (the kernel `bwd_route`
+    names), the plain version on the CPU."""
     _check(q, k, v, do, lse, delta)
     bq, bk = _blocks(q.shape[1], block_q, block_k)
     if q.device.type == "cpu":
         return flash_dq_ref(q, k, v, do, lse, delta, bq, bk)
+    name = _bwd_kernel("dq", q, k, v, do)
     bh, t, d = q.shape
     dq = torch.empty_like(q)
-    _launch("dq", q, k, v, do, lse, delta, dq, bh=bh, t=t, d=d,
+    _launch(name, q, k, v, do, lse, delta, dq, bh=bh, t=t, d=d,
             kind=_KIND[q.dtype])
     return dq
 
 
 def flash_dkv(q, k, v, do, lse, delta, block_q=None, block_k=None):
-    """(dK, dV) [BH, T, D] in k's / v's dtype: K3 on CUDA, the plain
-    version on the CPU."""
+    """(dK, dV) [BH, T, D] in k's / v's dtype: K3 on CUDA (the kernel
+    `bwd_route` names), the plain version on the CPU."""
     _check(q, k, v, do, lse, delta)
     bq, bk = _blocks(q.shape[1], block_q, block_k)
     if q.device.type == "cpu":
         return flash_dkv_ref(q, k, v, do, lse, delta, bq, bk)
+    name = _bwd_kernel("dkv", q, k, v, do)
     bh, t, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("dkv", q, k, v, do, lse, delta, dk, dv, bh=bh, t=t, d=d,
+    _launch(name, q, k, v, do, lse, delta, dk, dv, bh=bh, t=t, d=d,
             kind=_KIND[q.dtype])
     return dk, dv
 

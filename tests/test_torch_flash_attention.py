@@ -120,9 +120,16 @@ def test_contract_errors():
 
 
 def test_cpu_tensors_launch_no_kernel():
+    """CPU tensors run the plain versions on either route: an f32 head
+    (the FMA kernels' route) and a bf16 head of D 16 (the tensor cores'
+    route) leave every counter, the tensor-core backward's too, as it
+    was."""
+    assert {"dq_tc", "dkv_tc"} <= fa.launch_count.keys()
     before = dict(fa.launch_count)
-    q, k, v = (x.requires_grad_() for x in _t(*_qkv(7, bh=1, t=32, d=8)))
-    fa.flash_attention(q, k, v).sum().backward()
+    for d, dtype in ((8, torch.float32), (16, torch.bfloat16)):
+        q, k, v = (x.requires_grad_()
+                   for x in _t(*_qkv(7, bh=1, t=32, d=d), dtype=dtype))
+        fa.flash_attention(q, k, v).sum().backward()
     assert fa.launch_count == before
 
 
@@ -173,7 +180,8 @@ def test_cuda_kernels_match_plain_versions(cuda, dtype, bh, t, d):
     dq = fa.flash_dq(q, k, v, do, lse, delta, block_q=t, block_k=t)
     dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, block_q=t, block_k=t)
     torch.cuda.synchronize()
-    launched = {fa.fwd_route(q), "dq", "dkv"}
+    tc = "_tc" if fa.bwd_route(q) == "tc" else ""
+    launched = {fa.fwd_route(q), "dq" + tc, "dkv" + tc}
     assert fa.launch_count == {n: before[n] + (n in launched) for n in before}
     want_o, want_lse = fa.flash_fwd_ref(q, k, v, t, t)
     want_dq = fa.flash_dq_ref(q, k, v, do, want_lse, delta, t, t)
@@ -185,18 +193,19 @@ def test_cuda_kernels_match_plain_versions(cuda, dtype, bh, t, d):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("t", [1, 127, 128, 129, 2048])
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 127, 128, 129, 2048])
 @pytest.mark.parametrize("d", [64, 128])
 def test_cuda_tensor_core_forward_tile_edges(cuda, t, d):
-    """The bf16 tensor-core forward at its tile edges (T of 1, one row short
-    of, at and one row past a 128-row q tile, and 2048) against its plain
-    version, O and LSE row by row within 1e-2; then K2 and K3 fed its LSE
-    within the same rule."""
+    """The bf16 tensor-core kernels at their tile edges (T of 1, one row
+    short of, at and one row past a 64-row K/V or q step and a 128-row
+    block, and 2048) against their plain versions: the forward's O and LSE
+    row by row within 1e-2, then K2 and K3 on the tensor cores, fed its
+    LSE, within the same rule."""
     rs = np.random.RandomState(9)
     bh = 2 if t == 2048 else 3
     q, k, v, do = (torch.from_numpy(rs.randn(bh, t, d).astype(np.float32))
                    .to(cuda, torch.bfloat16) for _ in range(4))
-    assert fa.fwd_route(q) == "fwd_tc"
+    assert fa.fwd_route(q) == "fwd_tc" and fa.bwd_route(q) == "tc"
     before = dict(fa.launch_count)
     o, lse = fa.flash_fwd(q, k, v, block_q=t, block_k=t)
     torch.cuda.synchronize()
@@ -207,6 +216,10 @@ def test_cuda_tensor_core_forward_tile_edges(cuda, t, d):
     delta = fa.flash_delta(o, do)
     dq = fa.flash_dq(q, k, v, do, lse, delta, block_q=t, block_k=t)
     dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, block_q=t, block_k=t)
+    torch.cuda.synchronize()
+    assert fa.launch_count == {**before, "fwd_tc": before["fwd_tc"] + 1,
+                               "dq_tc": before["dq_tc"] + 1,
+                               "dkv_tc": before["dkv_tc"] + 1}
     want_dq = fa.flash_dq_ref(q, k, v, do, lse, delta, t, t)
     want_dk, want_dv = fa.flash_dkv_ref(q, k, v, do, lse, delta, t, t)
     for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
@@ -229,6 +242,29 @@ def test_cuda_tensor_core_forward_refuses_misaligned_views(cuda):
     assert torch.isfinite(o.float()).all()
 
 
+@pytest.mark.gpu
+def test_cuda_tensor_core_backward_refuses_misaligned_views(cuda):
+    """A dO view 8 bytes into its storage: K2 and K3 on the tensor cores
+    raise before any launch, and run on an aligned copy of it."""
+    rs = np.random.RandomState(10)
+    q, k, v = (torch.from_numpy(rs.randn(2, 64, 64).astype(np.float32))
+               .to(cuda, torch.bfloat16) for _ in range(3))
+    buf = torch.zeros(2 * 64 * 64 + 4, dtype=torch.bfloat16, device=cuda)
+    do = buf[4:].view(2, 64, 64)
+    o, lse = fa.flash_fwd(q, k, v)
+    delta = fa.flash_delta(o, do)
+    before = dict(fa.launch_count)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_dq(q, k, v, do, lse, delta)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_dkv(q, k, v, do, lse, delta)
+    assert fa.launch_count == before
+    dq = fa.flash_dq(q, k, v, do.clone(), lse, delta)
+    dk, dv = fa.flash_dkv(q, k, v, do.clone(), lse, delta)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(x.float()).all() for x in (dq, dk, dv))
+
+
 def test_forward_route_rule():
     """bf16 heads with D % 16 == 0 take the tensor-core forward; f32 and
     bf16 of any other D the FMA forward."""
@@ -239,3 +275,15 @@ def test_forward_route_rule():
                         (8, torch.bfloat16, "fwd"),
                         (128, torch.float32, "fwd")):
         assert fa.fwd_route(torch.zeros((1, 4, d), dtype=dt)) == want
+
+
+@pytest.mark.parametrize("d,dtype,want", [
+    (128, torch.bfloat16, "tc"), (64, torch.bfloat16, "tc"),
+    (16, torch.bfloat16, "tc"), (40, torch.bfloat16, "fma"),
+    (8, torch.bfloat16, "fma"), (128, torch.float32, "fma")])
+def test_backward_route_rule(d, dtype, want):
+    """K2/K3 follow the forward's rule: bf16 heads with D % 16 == 0 take
+    the tensor-core kernels, f32 and bf16 of any other D the FMA ones."""
+    q = torch.zeros((1, 4, d), dtype=dtype)
+    assert fa.bwd_route(q) == want
+    assert (fa.fwd_route(q) == "fwd_tc") == (want == "tc")
