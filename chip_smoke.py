@@ -29,23 +29,26 @@ exits non-zero; nothing is caught and carried past):
              engine's greedy match rate against bf16 (printed, not gated:
              the weights are random), kernel launches.
 6. flash   - the flash-attention kernels (K1 forward, K2 dQ, K3 dK/dV: the
-             tensor-core kernels in bf16, the FMA kernels in f32) against
-             their plain versions at the shape phase train gives them
-             (BH = 2 x 32, T = 2048, D = 128) in f32 and bf16, each row's
-             error relative to that row's magnitude; CUDA-event medians of
-             each kernel, of the forward and the backward, of the plain
-             versions and of the library yardsticks (SDPA's forward, and its
+             tensor-core kernels in bf16; in f32 the three-pass TF32
+             tensor-core forward and the FMA dQ and dK/dV) against their
+             plain versions at the shape phase train gives them (BH = 2 x
+             32, T = 2048, D = 128) in f32 and bf16, each row's error
+             relative to that row's magnitude; CUDA-event medians of each
+             kernel, of the forward and the backward, of the plain versions
+             and of the library yardsticks (SDPA's forward, and its
              backward alone, which computes dQ, dK and dV together), and
-             each kernel's bound.
+             each kernel's bound. Then the FMA forward, which no D 128
+             head reaches, on heads of D 40 (BH 4, T 256) in f32 and bf16.
 7. train   - federated LoRA at full LLaMA-2-7B width and depth (bf16 base,
              rank 8 on wq/wk/wv/wo, per-block remat, flash attention, bf16
              compute): two FedAvg rounds of 2 clients x 4 sequences x 2048
              tokens; losses finite, every adapter moved, the base bitwise
              unchanged, launches K1 = 2 x layers x steps and K2 = K3 =
              layers x steps, all through the tensor-core kernels. Then an
-             f32 round at full width and 2 layers (TF32 off) with flash (the
-             FMA kernels, and only they) and with dense attention from the
-             same adapters and batch schedule: the adapters agree.
+             f32 round at full width and 2 layers (TF32 off for cuBLAS) with
+             flash (the three-pass TF32 forward, the FMA dQ and dK/dV, and
+             only they) and with dense attention from the same adapters and
+             batch schedule: the adapters agree.
 
 Then the `kernels` line, the raw `nvidia-smi` name/power-limit line, and as
 the last line {"ok": true, "device": {...}}. Imports nothing of JAX or of
@@ -94,6 +97,10 @@ TRAIN_CLIENTS, TRAIN_SEQS, TRAIN_T, TRAIN_BS, TRAIN_ROUNDS = 2, 4, 2048, 2, 2
 # defaults do at T = 2048 (_auto_block(T, 512 / 1024))
 FLASH_BH, FLASH_T, FLASH_D = TRAIN_BS * H, TRAIN_T, DH
 FLASH_BQ, FLASH_BK = 512, 1024
+# the FMA forward's check case: heads of D 40, which no tensor-core route
+# takes (bf16 needs D % 16 == 0, f32 D % 32 == 0); the plain version
+# blocks by T
+FMA_BH, FMA_T, FMA_D = 4, 256, 40
 # kernel vs plain version under `flash_attention.rowwise_rel_err` (each
 # row's error relative to that row's largest magnitude, one ulp of the
 # output forgiven). f32: the same f32 products summed in another order
@@ -125,7 +132,8 @@ def ptxas_summary(report: str) -> list:
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             spill = ""
-            k = re.search(r"\d+([a-z_]+_kernel\w*?)(?:I|E|v)", m.group(1))
+            k = re.search(r"\d+((?:flash|paged)_[a-z0-9_]*?_kernel)(?:I|E|v)",
+                          m.group(1))
             name = k.group(1) if k else m.group(1)[:60]
             tmpl = re.search(r"_kernelI(.*?)EEv", m.group(1))
             name += f"<{tmpl.group(1)}>" if tmpl else ""
@@ -171,10 +179,13 @@ def hbm_bytes_per_s(name: str) -> tuple[float, str]:
 
 
 def peak_flops(dtype) -> float:
-    """Dense peak for the operand type (f32 outside the tensor cores)."""
+    """Dense peak for the operand type. f32 products at full f32 accuracy
+    are at least three TF32 tensor-core passes each (hi/lo split, the
+    floor the three-pass kernel and SDPA's f32 route both sit on): 495 /
+    3 TFLOP/s, above the CUDA cores' 67."""
     import torch
 
-    return 67e12 if dtype == torch.float32 else 989e12
+    return 495e12 / 3 if dtype == torch.float32 else 989e12
 
 
 def time_ms(fn, n: int = 60, warmup: int = 5) -> float:
@@ -677,6 +688,56 @@ def phase_flash(bw: float) -> dict:
         del q, k, v, do, o, lse, delta, dq, dk, dv, qg, kg, vg
         gc.collect()
         torch.cuda.empty_cache()
+    out["fma"] = _flash_fma_case(bw)
+    return out
+
+
+def _flash_fma_case(bw: float) -> dict:
+    """The FMA forward (`fa.fwd_route` == "fwd") at D 40 in f32 and bf16
+    against its plain version; the f32 case also timed beside its plain
+    version, SDPA's forward and its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from fedml_tpu_torch.ops import flash_attention as fa
+
+    bh, t, d = FMA_BH, FMA_T, FMA_D
+    rng = np.random.default_rng(3)
+    out = {"shape": [bh, t, d], "launches": 0}
+    for kind, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        q, k, v = (torch.from_numpy(
+            rng.standard_normal((bh, t, d), np.float32)).to(DEV, dt)
+            for _ in range(3))
+        check(fa.fwd_route(q) == "fwd", f"D {d} {kind}: route "
+              f"{fa.fwd_route(q)}, not the FMA forward")
+        before = dict(fa.launch_count)
+        o, lse = fa.flash_fwd(q, k, v)
+        torch.cuda.synchronize()
+        check(fa.launch_count == {**before, "fwd": before["fwd"] + 1},
+              f"FMA case {kind}: launches {fa.launch_count} (before "
+              f"{before}) are not one FMA forward")
+        out["launches"] += 1
+        want_o, want_lse = fa.flash_fwd_ref(q, k, v, t, t)
+        errs = {}
+        for name, got, want in (("o", o, want_o), ("lse", lse, want_lse)):
+            check(torch.isfinite(got).all().item(), f"FMA case {kind} "
+                  f"{name}: non-finite")
+            rel = fa.rowwise_rel_err(got, want)
+            errs[name] = {"max_abs_err": (got.float() - want.float()).abs()
+                          .max().item(), "max_row_rel_err": rel}
+            check(rel <= FLASH_TOL[kind], f"FMA case {kind} {name}: "
+                  f"row-relative err {rel} > {FLASH_TOL[kind]}")
+        out[kind] = {"errors": errs}
+        if kind == "f32":
+            q4, k4, v4 = (x.view(1, bh, t, d) for x in (q, k, v))
+            out[kind].update(
+                ms=time_ms(lambda: fa.flash_fwd(q, k, v)),
+                plain_ms=time_ms(lambda: fa.flash_fwd_ref(q, k, v, t, t),
+                                 n=20, warmup=2),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True)),
+                bound=_bound(*_flash_cost("fwd", bh, t, d, 4), dt, bw))
+    emit({"phase": "flash", "fma_case": out, "tol_row_rel": FLASH_TOL})
     return out
 
 
@@ -778,8 +839,9 @@ def phase_train(dims=None, parity_layers: int = 2) -> dict:
           "a round's loss is not finite")
     check(moved > 0, "an adapter did not move")
     check(same_base, "the frozen base changed")
-    check(launches == {"fwd": 0, "fwd_tc": 2 * L * steps, "dq": 0,
-                       "dq_tc": L * steps, "dkv": 0, "dkv_tc": L * steps},
+    check(launches == {"fwd": 0, "fwd_tc": 2 * L * steps, "fwd_3xtf32": 0,
+                       "dq": 0, "dq_tc": L * steps, "dkv": 0,
+                       "dkv_tc": L * steps},
           f"flash launches {launches} != K1 2 x {L} x {steps}, K2 = K3 "
           f"{L} x {steps}, all on the tensor cores")
     del state, base_copy, alg, adapters, round_fn, st, out
@@ -816,10 +878,13 @@ def phase_train(dims=None, parity_layers: int = 2) -> dict:
     check(update > 0 and diff <= PARITY_TOL * update,
           f"f32 flash vs dense round: adapter diff {diff} > {PARITY_TOL} x "
           f"update {update}")
-    pl = parity["launches"]
-    check(min(pl["fwd"], pl["dq"], pl["dkv"]) > 0
-          and pl["fwd_tc"] == pl["dq_tc"] == pl["dkv_tc"] == 0,
-          f"f32 round launches {pl}: not the FMA kernels alone")
+    # the flash round alone launches: K1 twice a layer and step (remat),
+    # through the three-pass TF32 forward; K2 and K3 once, on FMA
+    n = parity_layers * steps_per_round
+    want = {"fwd": 0, "fwd_tc": 0, "fwd_3xtf32": 2 * n, "dq": n,
+            "dq_tc": 0, "dkv": n, "dkv_tc": 0}
+    check(parity["launches"] == want, f"f32 round launches "
+          f"{parity['launches']} != {want}")
     del state, alg, adapters, drawn, round_fn, after, o
     gc.collect()
     torch.cuda.empty_cache()
@@ -930,17 +995,21 @@ def main() -> int:
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"], "serve_shape": k["serve_shape"]})
     # the flash kernels at the main path's dtype (bf16: the tensor-core
-    # kernels) and the FMA kernels at f32. `launches` is each kernel's count
-    # from phase train's main path; `parity_launches` its count from the f32
-    # flash-vs-dense round after it, the only path that reaches the FMA
-    # kernels (`fa.fwd_route` / `fa.bwd_route` send the main path's bf16
-    # D 128 heads to the tensor cores). K2's and K3's library yardstick is
-    # SDPA's backward, which computes dQ, dK and dV in one call
+    # kernels) and at f32 (the three-pass TF32 forward, FMA dQ and dK/dV).
+    # `launches` is each kernel's count from phase train's main path;
+    # `parity_launches` its count from the f32 flash-vs-dense round after
+    # it, the only path that reaches the f32 kernels (`fa.fwd_route` /
+    # `fa.bwd_route` send the main path's bf16 D 128 heads to the tensor
+    # cores). The FMA forward takes no D 128 head at all: its row is phase
+    # flash's D 40 case, `check_launches` the launches that case checked.
+    # K2's and K3's library yardstick is SDPA's backward, which computes
+    # dQ, dK and dV in one call
     outputs = {"fwd": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
     parity = train.get("f32_flash_vs_dense", {}).get("launches", {})
     tc = "wgmma+cp.async"
     rows = (("flash_fwd_tc", "bf16", "fwd", "fwd_tc", 58, tc),
-            ("flash_fwd", "f32", "fwd", "fwd", 58, "fma"),
+            ("flash_fwd_3xtf32", "f32", "fwd", "fwd_3xtf32", 58,
+             "wgmma tf32x3 + cp.async"),
             ("flash_dq_tc", "bf16", "dq", "dq_tc", 204, tc),
             ("flash_dq", "f32", "dq", "dq", 204, "fma"),
             ("flash_dkv_tc", "bf16", "dkv", "dkv_tc", 232, tc),
@@ -966,15 +1035,42 @@ def main() -> int:
             "bound_ms": f["bounds"][fk]["bound_ms"],
             "bound_by": f["bounds"][fk]["bound_by"],
             "library_ms": f["library_ms"][lib_key], "library_call": lib_call})
+    if "fma" in flash:
+        fma = flash["fma"]
+        f = fma["f32"]
+        kernels.append({
+            "name": "flash_fwd", "route": "cuda", "design": "fma",
+            "dtype": "f32", "shape": fma["shape"],
+            "source": "fedml_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "fedml_tpu/ops/flash_attention.py:58",
+            "launches": train["launches"].get("fwd", 0),
+            "check_launches": fma["launches"],
+            "max_abs_err": max(e["max_abs_err"]
+                               for e in f["errors"].values()),
+            "max_row_rel_err": max(e["max_row_rel_err"]
+                                   for e in f["errors"].values()),
+            "bf16_max_row_rel_err": max(e["max_row_rel_err"] for e in
+                                        fma["bf16"]["errors"].values()),
+            "ms": f["ms"], "plain_ms": f["plain_ms"],
+            "bound_ms": f["bound"]["bound_ms"],
+            "bound_by": f["bound"]["bound_by"],
+            "library_ms": f["library_ms"], "library_call": "SDPA forward"})
+    # no kernel can beat the least time the card needs for its work
+    check(all(k["ms"] >= k["bound_ms"] for k in kernels),
+          "a kernel's time is below its bound: the bound is wrong")
     if set(PHASES) <= set(args.only):
-        # the FMA flash kernels are off the main path (phase train checked
-        # their counts are 0 there) and must have run in the parity round
+        # the f32 flash kernels are off the main path (phase train checked
+        # their counts are 0 there); the f32 round must have run those it
+        # reaches, and phase flash the FMA forward
         check(all(k["launches"] > 0 for k in kernels
-                  if k["name"] not in off_main_path),
+                  if k["name"] not in off_main_path | {"flash_fwd"}),
               "a kernel of the main path was never launched")
         check(all(k["parity_launches"] > 0 for k in kernels
                   if k["name"] in off_main_path),
-              "an FMA flash kernel was never launched by the f32 round")
+              "an f32 flash kernel was never launched by the f32 round")
+        check(all(k["check_launches"] > 0 for k in kernels
+                  if k["name"] == "flash_fwd"),
+              "the FMA forward was never launched by phase flash")
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

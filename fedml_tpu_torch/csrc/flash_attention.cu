@@ -1,10 +1,13 @@
 // Causal flash attention for NVIDIA Hopper (sm_90a): forward (K1), dQ (K2)
 // and dK/dV (K3).
 //
-// Replaces the Pallas TPU kernels of fedml_tpu/ops/flash_attention.py, each
-// by two kernels: bf16 with D % 16 == 0 on the tensor cores, f32 and bf16
-// heads of other D on CUDA-core FMAs (ops/flash_attention.py's shape rule):
+// Replaces the Pallas TPU kernels of fedml_tpu/ops/flash_attention.py by
+// kernels chosen with one shape rule (ops/flash_attention.py): bf16 with
+// D % 16 == 0 on the tensor cores; the f32 forward with D % 32 == 0 on the
+// tensor cores in three TF32 passes; the rest (the f32 backward, and heads
+// of other D) on CUDA-core FMAs:
 //   K1 _fwd_kernel  (launched by _flash_fwd)   -> flash_fwd_tc_kernel,
+//                                                 flash_fwd_3xtf32_kernel,
 //                                                 flash_fwd_kernel
 //   K2 _dq_kernel   (launched by _pallas_bwd)  -> flash_dq_tc_kernel,
 //                                                 flash_dq_kernel
@@ -26,8 +29,10 @@
 // dP = dO . V^T; K2 rounds dS to K's dtype before dS . K, K3 rounds p to
 // dO's dtype before P^T . dO and dS to Q's dtype before dS^T . Q -- the
 // rounding points of the TPU kernels (flash_attention.py:91, :225, :254,
-// :257). f32 inputs are multiplied in full f32 on the CUDA cores (the TPU
-// kernels use Precision.HIGHEST for f32), never in TF32.
+// :257). f32 products keep f32 accuracy (the TPU kernels use
+// Precision.HIGHEST for f32, a multi-pass bf16 product): full f32 FMAs on
+// the CUDA cores, or three TF32 passes over a hi/lo split of each operand
+// (~21 bits a product, f32 sums), never one TF32 pass (~10 bits).
 //
 // Design (first, simple version). The TPU kernels carry their accumulators
 // in VMEM across a sequential grid axis; Hopper blocks run in no order, so
@@ -48,11 +53,12 @@
 //
 // What bounds it on the H100: at T = 2048, D = 128 attention does ~1000
 // flops per byte of q/k/v/o, far above the ridge, so the floor is the
-// products' flops over the tensor-core peak (bf16) or the CUDA-core f32
-// peak. The FMA kernels do every product with scalar FMAs from shared
-// memory (two shared loads per four FMAs), a fraction of the f32
-// CUDA-core rate; they stay for f32, whose products must not go through
-// TF32.
+// products' flops over the tensor-core peak: 989 TFLOP/s in bf16; in f32
+// at full accuracy three TF32 passes at 495 TFLOP/s, 165 a product (the
+// CUDA cores' f32 peak is 67). The
+// FMA kernels do every product with scalar FMAs from shared memory (two
+// shared loads per four FMAs), a fraction of the f32 CUDA-core rate; they
+// stay for the f32 backward and for heads no tensor-core kernel takes.
 //
 // The bf16 forward (flash_fwd_tc_kernel) runs both products on the tensor
 // cores with wgmma (bf16 in, f32 accumulate in registers): one block of two
@@ -819,6 +825,404 @@ __global__ void __launch_bounds__(kThreads, 1)
   store_rows<kD>(dv + base, acc_v, k0 + r0, T_, D);
 }
 
+// ------------------------------------------ K1 in f32, three-pass TF32
+// f32 with D % 32 == 0 (kD = 64 or 128, D rounded up: columns past D are
+// zero in shared memory and never stored). Same structure as the bf16
+// forward: one block of two warpgroups per (bh, 128-row q tile), each
+// owning 64 rows; S = Q.K^T from shared memory, the online softmax in
+// registers, O += P.V with P from registers. What differs is how a product
+// is made: every f32 operand x is split as hi = cvt.rna.tf32(x), lo = x - hi
+// (exact in f32), and a product is A_lo.B_hi + A_hi.B_lo + A_hi.B_hi, three
+// m64nNk8 TF32 wgmma passes into one f32 accumulator, small terms first.
+// The tensor cores read the low 13 bits of lo as zero, an error near 2^-22
+// of x; the products keep ~21 bits (ops/flash_attention.py:matmul_3xtf32 is
+// the plain emulation).
+//
+// TF32 wgmma takes both operands K-major (no transpose for 32-bit types),
+// so P.V needs V^T: the kernel writes it when it stages V. A TF32 A operand
+// from registers holds columns t and t + 4 of each 8-column k-step, while
+// S's accumulator holds columns 2t and 2t + 1: V^T takes each group of 8
+// keys in the order kPerm = [0, 2, 4, 6, 1, 3, 5, 7], so that S's
+// accumulator is P's A operand without moving a value between lanes.
+//
+// Shared memory, kD = 128 (a 128-byte row is 32 f32, one TF32 k-step 32
+// bytes, so the bf16 kernels' swizzle and descriptors carry over on
+// 32-column blocks): Q hi + lo resident, 128 KB; K hi + lo and V^T hi + lo
+// of the current tile of kBN3 = 32 keys, 64 KB; a landing buffer for the
+// next raw K and V tile, filled by cp.async behind the current tile's
+// products, 32 KB: 224 KB of the 227 a block may hold. Each tile is split
+// once, by all 256 threads, between two barriers.
+//
+// Bound at BH 64, T 2048, D 128: 68.7 GFLOP of products, three TF32 passes
+// each, over 495 TFLOP/s = 0.416 ms.
+constexpr int kBN3 = 32;  // keys per K/V tile
+
+// x rounded to TF32 (nearest, ties away from zero): the low 13 bits are 0
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+__device__ __forceinline__ void split4(const float4 x, float4& hi, float4& lo) {
+  hi = make_float4(tf32_rna(x.x), tf32_rna(x.y), tf32_rna(x.z), tf32_rna(x.w));
+  lo = make_float4(x.x - hi.x, x.y - hi.y, x.z - hi.z, x.w - hi.w);
+}
+
+// S (m64n32, f32) = A . B, TF32, both from shared memory (K-major
+// descriptors); `accumulate` 0 overwrites S
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[4][4], uint64_t da, uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// O (m64n64, f32) (+)= A . B, TF32: A from registers (per warp, the A
+// layout of mma.m16n8k8.tf32: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3
+// (g + 8, t + 4)), B from shared memory (K-major descriptor); `accumulate`
+// 0 overwrites O
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[8][4], const uint32_t (&a)[4],
+                                                  uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// O (m64n128, f32) (+)= A . B, TF32: as wgmma_tf32_rs_n64
+__device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[16][4], const uint32_t (&a)[4],
+                                                   uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// S (m64n32, f32) = A . B^T in three TF32 passes over kD columns, both
+// from shared memory, K-major: A the 64 rows at a_hi / a_lo of hi/lo tiles
+// of kBM rows, B hi/lo tiles of kBN3 rows. k-step kk (8 f32) moves 32 bytes
+// along a 128-byte row, every fourth one to the next 32-column block.
+template <int kD>
+__device__ __forceinline__ void ss_product_3xtf32(float (&d)[kBN3 / 8][4], uint32_t a_hi,
+                                                  uint32_t a_lo, uint32_t b_hi, uint32_t b_lo) {
+  const uint32_t as[3] = {a_lo, a_hi, a_hi}, bs[3] = {b_hi, b_lo, b_hi};
+#pragma unroll
+  for (int pass = 0; pass < 3; ++pass) {
+    const uint64_t da = gmma_desc(as[pass], 16, 1024), db = gmma_desc(bs[pass], 16, 1024);
+#pragma unroll
+    for (int kk = 0; kk < kD / 8; ++kk)
+      wgmma_tf32_ss_n32(d, da + (((kk >> 2) * (kBM * 128) + (kk & 3) * 32) >> 4),
+                        db + (((kk >> 2) * (kBN3 * 128) + (kk & 3) * 32) >> 4),
+                        pass + kk > 0);
+  }
+}
+
+// D (m64 x kD, f32) = A . B in three TF32 passes: A (hi, lo) from
+// registers, kBN3 / 8 k-steps; B the V^T hi/lo tiles, kD rows of one
+// 128-byte column block (k-step kk: 32 bytes along the row). D starts from
+// zero: the tensor cores' f32 sums drop the bits past an ulp of the running
+// sum, so a sum carried over every tile of the row would lose up to an
+// ulp a step, 768 steps at T 2048; the caller adds each tile's D to O in
+// f32 instead
+template <int kD>
+__device__ __forceinline__ void rs_product_3xtf32(float (&d)[kD / 8][4],
+                                                  const uint32_t (&a_hi)[kBN3 / 8][4],
+                                                  const uint32_t (&a_lo)[kBN3 / 8][4],
+                                                  uint32_t b_hi, uint32_t b_lo) {
+  const uint64_t dh = gmma_desc(b_hi, 16, 1024), dl = gmma_desc(b_lo, 16, 1024);
+#pragma unroll
+  for (int pass = 0; pass < 3; ++pass) {
+    const uint64_t db = pass == 1 ? dl : dh;
+#pragma unroll
+    for (int kk = 0; kk < kBN3 / 8; ++kk) {
+      const uint32_t(&a)[4] = pass == 0 ? a_lo[kk] : a_hi[kk];
+      if constexpr (kD == 128) wgmma_tf32_rs_n128(d, a, db + ((kk * 32) >> 4), pass + kk > 0);
+      else wgmma_tf32_rs_n64(d, a, db + ((kk * 32) >> 4), pass + kk > 0);
+    }
+  }
+}
+
+// S's accumulator (m64n32, f32) split into the hi and lo TF32 A operands of
+// a product over its 32 columns: k-step kk's a0..a3 are (g, key 8kk + 2t),
+// (g + 8, 2t), (g, 2t + 1), (g + 8, 2t + 1), A's columns t and t + 4 under
+// kPerm
+__device__ __forceinline__ void split_a(uint32_t (&hi)[kBN3 / 8][4], uint32_t (&lo)[kBN3 / 8][4],
+                                        const float (&s)[kBN3 / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBN3 / 8; ++kk) {
+    const float x[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float h = tf32_rna(x[e]);
+      hi[kk][e] = __float_as_uint(h);
+      lo[kk][e] = __float_as_uint(x[e] - h);
+    }
+  }
+}
+
+// byte offset of 16-byte chunk c of row r in the landing buffer, a raw
+// [kBN3][kD] f32 tile: within each group of 8 chunks, c ^ ((r & 1) | ((r >>
+// 2) & 6)), so that the V^T staging's 8 lanes reading rows 8m + h + 2i
+// (m < 4, h < 2) at one chunk hit 8 different bank quads
+template <int kD>
+__device__ __forceinline__ uint32_t land_off(int r, int c) {
+  return static_cast<uint32_t>((r * (kD / 4) + (c ^ ((r & 1) | ((r >> 2) & 6)))) * 16);
+}
+
+// rows [row0, row0 + kBN3) of a [T, D] f32 matrix -> the landing buffer,
+// by cp.async; rows past T and columns past D are zero-filled
+template <int kD>
+__device__ __forceinline__ void land_tile(uint32_t land, const float* src, int row0, int T_,
+                                          int D) {
+  constexpr int kChunks = kD / 4;
+#pragma unroll
+  for (int it = 0; it < kBN3 * kChunks / kThreads; ++it) {
+    const int i = it * kThreads + threadIdx.x;
+    const int r = i / kChunks, c = i % kChunks;
+    const bool ok = row0 + r < T_ && c * 4 < D;
+    const float* p = ok ? src + static_cast<size_t>(row0 + r) * D + c * 4 : src;
+    fedml::cp_async16(land + land_off<kD>(r, c), p, ok ? 16 : 0);
+  }
+}
+
+// rows [row0, row0 + kBM) of a [T, D] f32 matrix -> hi and lo tiles in the
+// 128-byte swizzle (32-column blocks), read straight from global memory;
+// rows past T and columns past D are zeros
+template <int kD>
+__device__ __forceinline__ void stage_q(unsigned char* hi, unsigned char* lo,
+                                        const float* __restrict__ src, int row0, int T_, int D) {
+  constexpr int kChunks = kD / 4;
+#pragma unroll 4
+  for (int it = 0; it < kBM * kChunks / kThreads; ++it) {
+    const int i = it * kThreads + threadIdx.x;
+    const int r = i / kChunks, c = i % kChunks;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < T_ && c * 4 < D)
+      x = __ldg(reinterpret_cast<const float4*>(src + static_cast<size_t>(row0 + r) * D + c * 4));
+    float4 h, l;
+    split4(x, h, l);
+    *reinterpret_cast<float4*>(hi + swz<kBM>(r, c)) = h;
+    *reinterpret_cast<float4*>(lo + swz<kBM>(r, c)) = l;
+  }
+}
+
+// the landing buffer's raw K tile -> K hi and lo tiles ([kBN3][kD], swizzled)
+template <int kD>
+__device__ __forceinline__ void stage_k(unsigned char* hi, unsigned char* lo,
+                                        const unsigned char* land) {
+  constexpr int kChunks = kD / 4;
+#pragma unroll
+  for (int it = 0; it < kBN3 * kChunks / kThreads; ++it) {
+    const int i = it * kThreads + threadIdx.x;
+    const int r = i / kChunks, c = i % kChunks;
+    float4 h, l;
+    split4(*reinterpret_cast<const float4*>(land + land_off<kD>(r, c)), h, l);
+    *reinterpret_cast<float4*>(hi + swz<kBN3>(r, c)) = h;
+    *reinterpret_cast<float4*>(lo + swz<kBN3>(r, c)) = l;
+  }
+}
+
+// the landing buffer's raw V tile -> V^T hi and lo tiles: kD rows (one per
+// column of V) of kBN3 keys, one swizzled 128-byte column block. Chunk
+// 2m + h of row d holds keys 8m + h + 2i, i < 4 (kPerm); a thread reads a
+// 4 x 4 block of V (4 keys x 4 columns) and writes its 4 transposed chunks
+template <int kD>
+__device__ __forceinline__ void stage_vt(unsigned char* hi, unsigned char* lo,
+                                         const unsigned char* land) {
+#pragma unroll
+  for (int it = 0; it < (8 * kD / 4 + kThreads - 1) / kThreads; ++it) {
+    const int i = it * kThreads + threadIdx.x;
+    if (i >= 8 * kD / 4) break;
+    const int cc = i & 7, d4 = i >> 3;
+    const int key0 = 8 * (cc >> 1) + (cc & 1);
+    float4 x[4];
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii)
+      x[ii] = *reinterpret_cast<const float4*>(land + land_off<kD>(key0 + 2 * ii, d4));
+    const float4 cols[4] = {make_float4(x[0].x, x[1].x, x[2].x, x[3].x),
+                            make_float4(x[0].y, x[1].y, x[2].y, x[3].y),
+                            make_float4(x[0].z, x[1].z, x[2].z, x[3].z),
+                            make_float4(x[0].w, x[1].w, x[2].w, x[3].w)};
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      float4 h, l;
+      split4(cols[jj], h, l);
+      *reinterpret_cast<float4*>(hi + swz<kD>(4 * d4 + jj, cc)) = h;
+      *reinterpret_cast<float4*>(lo + swz<kD>(4 * d4 + jj, cc)) = l;
+    }
+  }
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, float* __restrict__ o,
+                            float* __restrict__ lse, int T_, int D, float scale) {
+  constexpr int kQ = kBM * kD * 4;    // bytes of Q hi (or lo)
+  constexpr int kKV = kBN3 * kD * 4;  // bytes of one K, V^T or raw tile
+  constexpr int kQHi = 0, kQLo = kQ, kKHi = 2 * kQ, kKLo = kKHi + kKV, kVHi = kKLo + kKV,
+                kVLo = kVHi + kKV, kLandK = kVLo + kKV, kLandV = kLandK + kKV;
+  extern __shared__ __align__(1024) unsigned char smem_tc[];
+  const uint32_t sa = fedml::smem_addr(smem_tc);
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBM;  // longest tiles first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wg = warp >> 2;                 // warpgroup: rows 64 wg .. 64 wg + 63
+  const int r0 = warp * 16;                 // the warp's first row in the tile
+  const size_t base = static_cast<size_t>(bh) * T_ * D;
+  const int n_kt = min((q0 + kBM + kBN3 - 1) / kBN3, (T_ + kBN3 - 1) / kBN3);
+  const float scale_log2 = scale * kLog2e;
+
+  land_tile<kD>(sa + kLandK, k + base, 0, T_, D);
+  land_tile<kD>(sa + kLandV, v + base, 0, T_, D);
+  fedml::cp_async_commit();
+  stage_q<kD>(smem_tc + kQHi, smem_tc + kQLo, q + base, q0, T_, D);
+
+  float acc[kD / 8][4];
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n_kt; ++j) {
+    // tile j: raw in the landing buffer once every thread's copies are in
+    // and every warpgroup is done with tile j - 1; split, then make the
+    // hi/lo tiles visible to wgmma and start tile j + 1's copy
+    fedml::cp_async_wait<0>();
+    __syncthreads();
+    stage_k<kD>(smem_tc + kKHi, smem_tc + kKLo, smem_tc + kLandK);
+    stage_vt<kD>(smem_tc + kVHi, smem_tc + kVLo, smem_tc + kLandV);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (j + 1 < n_kt) {
+      land_tile<kD>(sa + kLandK, k + base, (j + 1) * kBN3, T_, D);
+      land_tile<kD>(sa + kLandV, v + base, (j + 1) * kBN3, T_, D);
+      fedml::cp_async_commit();
+    }
+    const int k0 = j * kBN3;
+    if (k0 > q0 + 64 * wg + 63) continue;  // every key past every row of the warpgroup
+
+    float s[kBN3 / 8][4];
+    wgmma_fence();
+    ss_product_3xtf32<kD>(s, sa + kQHi + wg * 64 * 128, sa + kQLo + wg * 64 * 128, sa + kKHi,
+                          sa + kKLo);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(s);
+
+    if (k0 + kBN3 - 1 > q0 + r0) {
+      // key > row  <=>  8n + (e & 1) - 8 (e >> 1) > row_g - (k0 + 2 t4)
+      const int lim = q0 + r0 + g - k0 - 2 * t4;
+#pragma unroll
+      for (int n = 0; n < kBN3 / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (8 * n + (e & 1) - 8 * (e >> 1) > lim) s[n][e] = kNeg;
+    }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = kNeg;
+#pragma unroll
+      for (int n = 0; n < kBN3 / 8; ++n)
+        mx = fmaxf(mx, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx * scale);
+      corr[h] = exp2f((m[h] - m_new) * kLog2e);
+      const float m_log2 = m_new * kLog2e;
+      m[h] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < kBN3 / 8; ++n)
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          const float p = exp2f(fmaf(s[n][e], scale_log2, -m_log2));
+          s[n][e] = p;
+          sum += p;  // l sums the unsplit p
+        }
+      l[h] = l[h] * corr[h] + sum;
+    }
+    uint32_t a_hi[kBN3 / 8][4], a_lo[kBN3 / 8][4];
+    split_a(a_hi, a_lo, s);
+    float pv[kD / 8][4];
+    wgmma_fence();
+    rs_product_3xtf32<kD>(pv, a_hi, a_lo, sa + kVHi, sa + kVLo);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(pv);
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = fmaf(acc[n][e], corr[e >> 1], pv[n][e]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int row = q0 + r0 + g + 8 * h;
+    if (row >= T_) continue;
+    const float den = fmaxf(l[h], 1e-30f);
+    float* orow = o + base + static_cast<size_t>(row) * D;
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n) {
+      const int d = 8 * n + 2 * t4;
+      if (d < D)
+        *reinterpret_cast<float2*>(orow + d) =
+            make_float2(acc[n][2 * h] / den, acc[n][2 * h + 1] / den);
+    }
+    if (t4 == 0) lse[static_cast<size_t>(bh) * T_ + row] = m[h] + logf(den);
+  }
+}
+
 }  // namespace tc
 
 // ------------------------------------------------------------------ K2
@@ -1017,6 +1421,22 @@ cudaError_t fwd_tc(const void* q, const void* k, const void* v, void* o, void* l
   return cudaGetLastError();
 }
 
+// K1 in f32 on the tensor cores: Q hi/lo, K, V^T hi/lo and the landing
+// buffer (224 KB at kD 128)
+template <int kD>
+cudaError_t fwd_3xtf32(const void* q, const void* k, const void* v, void* o, void* lse,
+                       int BH, int T_, int D, cudaStream_t st) {
+  const size_t smem = static_cast<size_t>(2 * tc::kBM + 6 * tc::kBN3) * kD * 4;
+  auto kernel = tc::flash_fwd_3xtf32_kernel<kD>;
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(BH, (T_ + tc::kBM - 1) / tc::kBM), tc::kThreads, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), T_, D,
+      softmax_scale(D));
+  return cudaGetLastError();
+}
+
 // K2/K3 on the tensor cores: Q and dO (K and V) tiles of 128 rows, a ring
 // of two stages of 64-row tiles; K3's ring also carries lse and delta
 template <int kD>
@@ -1053,12 +1473,12 @@ cudaError_t dkv_tc(const void* q, const void* k, const void* v, const void* dout
   return cudaGetLastError();
 }
 
-// what the tensor-core kernels refuse: anything but bf16 (kind 1) with
-// D % 16 == 0, and operands their 16-byte cp.async copies cannot read
-// (0: taken)
-cudaError_t tc_refusal(int BH, int T_, int D, int kind, const void* a, const void* b,
-                       const void* c, const void* d = nullptr) {
-  if (kind != 1 || BH < 1 || T_ < 1 || D < 16 || D > kMaxD || D % 16 ||
+// what the tensor-core kernels refuse: a dtype other than `want` (1: bf16,
+// 0: f32) or a D that is not a multiple of `step` (bf16: 16, f32: 32), and
+// operands their 16-byte cp.async copies cannot read (0: taken)
+cudaError_t tc_refusal(int BH, int T_, int D, int kind, int want, int step, const void* a,
+                       const void* b, const void* c, const void* d = nullptr) {
+  if (kind != want || BH < 1 || T_ < 1 || D < step || D > kMaxD || D % step ||
       (T_ + tc::kBM - 1) / tc::kBM > 65535)
     return cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
@@ -1133,17 +1553,29 @@ extern "C" int fedml_flash_fwd(const void* q, const void* k, const void* v, void
 extern "C" int fedml_flash_fwd_tc(const void* q, const void* k, const void* v,
                                   void* o, void* lse, int BH, int T_, int D,
                                   int kind, void* stream) {
-  if (cudaError_t err = tc_refusal(BH, T_, D, kind, q, k, v)) return static_cast<int>(err);
+  if (cudaError_t err = tc_refusal(BH, T_, D, kind, 1, 16, q, k, v)) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(D <= 64 ? fwd_tc<64>(q, k, v, o, lse, BH, T_, D, st)
                                   : fwd_tc<128>(q, k, v, o, lse, BH, T_, D, st));
+}
+
+// K1 in f32 on the tensor cores, three TF32 passes: f32 (kind 0) only,
+// D % 32 == 0, q/k/v 16-byte aligned
+extern "C" int fedml_flash_fwd_3xtf32(const void* q, const void* k, const void* v,
+                                      void* o, void* lse, int BH, int T_, int D,
+                                      int kind, void* stream) {
+  if (cudaError_t err = tc_refusal(BH, T_, D, kind, 0, 32, q, k, v))
+    return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(D <= 64 ? fwd_3xtf32<64>(q, k, v, o, lse, BH, T_, D, st)
+                                  : fwd_3xtf32<128>(q, k, v, o, lse, BH, T_, D, st));
 }
 
 extern "C" int fedml_flash_dq_tc(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse, const void* delta,
                                  void* dq_, int BH, int T_, int D, int kind,
                                  void* stream) {
-  if (cudaError_t err = tc_refusal(BH, T_, D, kind, q, k, v, dout))
+  if (cudaError_t err = tc_refusal(BH, T_, D, kind, 1, 16, q, k, v, dout))
     return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
@@ -1155,7 +1587,7 @@ extern "C" int fedml_flash_dkv_tc(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse, const void* delta,
                                   void* dk, void* dv, int BH, int T_, int D, int kind,
                                   void* stream) {
-  if (cudaError_t err = tc_refusal(BH, T_, D, kind, q, k, v, dout))
+  if (cudaError_t err = tc_refusal(BH, T_, D, kind, 1, 16, q, k, v, dout))
     return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(

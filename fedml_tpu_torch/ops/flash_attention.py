@@ -28,16 +28,21 @@ Each of the three passes has a wrapper -- `flash_fwd` (K1), `flash_dq`
 tensor, or raises, and on a CPU tensor runs the plain PyTorch version
 (`flash_fwd_ref`, `flash_dq_ref`, `flash_dkv_ref`): the Pallas kernels'
 blocked math with their rounding points. It never falls back from a kernel
-to a plain version. Each pass has two kernels, chosen by one shape rule:
-bf16 with D % 16 == 0 runs on the tensor cores (`flash_fwd_tc_kernel`,
-`flash_dq_tc_kernel`, `flash_dkv_tc_kernel`, all `wgmma`); f32 (whose
-products must not go through TF32) and bf16 of any other D run on the
-CUDA-core FMA kernels. `fwd_route` names the forward's kernel and
-`bwd_route` the backward's ("tc" or "fma"). The tensor-core kernels copy
-16-byte chunks, so their operands must start 16-byte aligned (a view at
-another storage offset raises a ValueError). `launch_count` counts each
-kernel's launches (and nothing else): "fwd_tc" and "fwd" for the two
-forwards, "dq_tc" and "dq" for dQ, "dkv_tc" and "dkv" for dK/dV.
+to a plain version. The kernels are chosen by one shape rule. bf16 with
+D % 16 == 0 runs on the tensor cores in every pass (`flash_fwd_tc_kernel`,
+`flash_dq_tc_kernel`, `flash_dkv_tc_kernel`, all `wgmma`). The f32
+forward with D % 32 == 0 runs on the tensor cores too
+(`flash_fwd_3xtf32_kernel`): each f32 product is made of three TF32
+`wgmma` passes over a hi/lo split of both operands (`tf32_split`,
+`matmul_3xtf32` is its plain emulation), which keeps about 21 bits, where
+one TF32 pass would keep 10. Everything else -- the f32 backward, and
+bf16 or f32 heads of any other D -- runs on the CUDA-core FMA kernels.
+`fwd_route` names the forward's kernel and `bwd_route` the backward's
+("tc" or "fma"). The tensor-core kernels copy 16-byte chunks, so their
+operands must start 16-byte aligned (a view at another storage offset
+raises a ValueError). `launch_count` counts each kernel's launches (and
+nothing else): "fwd_tc", "fwd_3xtf32" and "fwd" for the three forwards,
+"dq_tc" and "dq" for dQ, "dkv_tc" and "dkv" for dK/dV.
 
 `rowwise_rel_err` (from `ops/tolerance.py`) is the rule the kernels are
 held to against their plain versions on the card.
@@ -55,8 +60,8 @@ _NEG = -1e30
 MAX_D = 128
 _KIND = {torch.float32: 0, torch.bfloat16: 1}
 
-launch_count = {"fwd": 0, "fwd_tc": 0, "dq": 0, "dq_tc": 0, "dkv": 0,
-                "dkv_tc": 0}
+launch_count = {"fwd": 0, "fwd_tc": 0, "fwd_3xtf32": 0, "dq": 0, "dq_tc": 0,
+                "dkv": 0, "dkv_tc": 0}
 
 _lib = None
 
@@ -67,6 +72,7 @@ def _kernel_lib() -> ctypes.CDLL:
         lib = _build.load("flash_attention")
         vp, i = ctypes.c_void_p, ctypes.c_int
         for fn, n_ptr in (("fedml_flash_fwd", 5), ("fedml_flash_fwd_tc", 5),
+                          ("fedml_flash_fwd_3xtf32", 5),
                           ("fedml_flash_dq", 7), ("fedml_flash_dq_tc", 7),
                           ("fedml_flash_dkv", 8), ("fedml_flash_dkv_tc", 8)):
             getattr(lib, fn).argtypes = [vp] * n_ptr + [i] * 4 + [vp]
@@ -148,9 +154,15 @@ def _tensor_cores(q) -> bool:
 
 def fwd_route(q) -> str:
     """Which K1 kernel takes q (its `launch_count` key): "fwd_tc", the
-    tensor-core kernel, for bf16 with D % 16 == 0; "fwd", the FMA kernel,
-    for f32 and for bf16 of any other D. A shape rule, never a fallback."""
-    return "fwd_tc" if _tensor_cores(q) else "fwd"
+    tensor-core kernel, for bf16 with D % 16 == 0; "fwd_3xtf32", the
+    three-pass TF32 tensor-core kernel, for f32 with D % 32 == 0; "fwd",
+    the FMA kernel, for every other head. A shape rule, never a
+    fallback."""
+    if _tensor_cores(q):
+        return "fwd_tc"
+    if q.dtype == torch.float32 and q.shape[-1] % 32 == 0:
+        return "fwd_3xtf32"
+    return "fwd"
 
 
 def bwd_route(q) -> str:
@@ -172,13 +184,13 @@ def _require_aligned(what: str, *tensors) -> None:
 def flash_fwd(q, k, v, block_q=None, block_k=None):
     """(o [BH, T, D] in q's dtype, lse [BH, T] f32): K1 on CUDA (the kernel
     `fwd_route` names), the plain version on the CPU. On the tensor-core
-    route q, k and v must start 16-byte aligned."""
+    routes q, k and v must start 16-byte aligned."""
     _check(q, k, v)
     bq, bk = _blocks(q.shape[1], block_q, block_k)
     if q.device.type == "cpu":
         return flash_fwd_ref(q, k, v, bq, bk)
     route = fwd_route(q)
-    if route == "fwd_tc":
+    if route != "fwd":
         _require_aligned("forward", q, k, v)
     bh, t, d = q.shape
     o = torch.empty_like(q)
@@ -286,20 +298,49 @@ def _k_blocks(t: int, bq: int, bk: int, q_block: int):
     return [j for j in range(t // bk) if j * bk < (q_block + 1) * bq]
 
 
-def _scores_and_mask(qb, kb, i, j, bq, bk, scale):
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of an f32 tensor, as `flash_fwd_3xtf32_kernel` splits its
+    operands: hi is x rounded to TF32's 10 mantissa bits, to nearest with
+    ties away from zero (`cvt.rna.tf32.f32`: the low 13 bits are 0), and
+    lo = x - hi, which is exact in f32."""
+    bits = x.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return hi, x - hi
+
+
+def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+    """x as a TF32 tensor-core operand reads it: the low 13 bits of each
+    f32 dropped (a hi of `tf32_split` is unchanged, a lo loses ~2^-11 of
+    itself)."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of f32 operands as three TF32 passes make it: a_lo.b_hi +
+    a_hi.b_lo + a_hi.b_hi with each lo read truncated; the products of two
+    TF32 values are exact in f32, and the sums are f32 (the plain
+    emulation of the kernel's arithmetic)."""
+    a_hi, a_lo = tf32_split(a)
+    b_hi, b_lo = tf32_split(b)
+    return (tf32_truncate(a_lo) @ b_hi + a_hi @ tf32_truncate(b_lo)) \
+        + a_hi @ b_hi
+
+
+def _scores_and_mask(qb, kb, i, j, bq, bk, scale, mm=torch.matmul):
     """f32 scaled scores of one (q block, K block) pair and its causal
     mask."""
-    s = (qb @ kb.transpose(-1, -2)) * scale
+    s = mm(qb, kb.transpose(-1, -2)) * scale
     qpos = i * bq + torch.arange(bq, device=qb.device)
     kpos = j * bk + torch.arange(bk, device=qb.device)
     return s, qpos[:, None] >= kpos[None, :]
 
 
-def flash_fwd_ref(q, k, v, block_q: int, block_k: int):
+def flash_fwd_ref(q, k, v, block_q: int, block_k: int, mm=torch.matmul):
     """The plain version of K1: the Pallas forward's blocked online
     softmax, vectorised over BH, with its rounding points (p rounded to V's
     dtype before P.V; o = acc / max(l, 1e-30) cast to q's dtype;
-    lse = m + log(max(l, 1e-30)))."""
+    lse = m + log(max(l, 1e-30))). `mm` makes its two f32 products
+    (`matmul_3xtf32` repeats the three-pass kernel's arithmetic)."""
     bh, t, d = q.shape
     bq, bk = block_q, block_k
     scale = d ** -0.5
@@ -314,13 +355,13 @@ def flash_fwd_ref(q, k, v, block_q: int, block_k: int):
         for j in _k_blocks(t, bq, bk, i):
             kb = k[:, j * bk:(j + 1) * bk].float()
             vb = v[:, j * bk:(j + 1) * bk]
-            s, mask = _scores_and_mask(qb, kb, i, j, bq, bk, scale)
+            s, mask = _scores_and_mask(qb, kb, i, j, bq, bk, scale, mm)
             s = torch.where(mask, s, _NEG)
             m_new = torch.maximum(m, s.amax(-1, keepdim=True))
             p = torch.exp(s - m_new)
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(-1, keepdim=True)
-            acc = acc * corr + p.to(vb.dtype).float() @ vb.float()
+            acc = acc * corr + mm(p.to(vb.dtype).float(), vb.float())
             m = m_new
         den = torch.clamp(l, min=1e-30)
         o[:, i * bq:(i + 1) * bq] = (acc / den).to(q.dtype)

@@ -120,17 +120,68 @@ def test_contract_errors():
 
 
 def test_cpu_tensors_launch_no_kernel():
-    """CPU tensors run the plain versions on either route: an f32 head
-    (the FMA kernels' route) and a bf16 head of D 16 (the tensor cores'
-    route) leave every counter, the tensor-core backward's too, as it
-    was."""
-    assert {"dq_tc", "dkv_tc"} <= fa.launch_count.keys()
+    """CPU tensors run the plain versions on every route: an f32 head of
+    D 8 (the FMA kernels' route), a bf16 head of D 16 (the tensor cores'
+    route) and an f32 head of D 32 (the three-pass TF32 forward's route)
+    leave every counter, the tensor-core backward's and the three-pass
+    forward's too, as it was."""
+    assert {"dq_tc", "dkv_tc", "fwd_3xtf32"} <= fa.launch_count.keys()
     before = dict(fa.launch_count)
-    for d, dtype in ((8, torch.float32), (16, torch.bfloat16)):
+    for d, dtype in ((8, torch.float32), (16, torch.bfloat16),
+                     (32, torch.float32)):
         q, k, v = (x.requires_grad_()
                    for x in _t(*_qkv(7, bh=1, t=32, d=d), dtype=dtype))
         fa.flash_attention(q, k, v).sum().backward()
     assert fa.launch_count == before
+    assert fa.launch_count["fwd_3xtf32"] == before["fwd_3xtf32"] == 0
+
+
+@pytest.mark.parametrize("seed,spread", [(0, 1.0), (1, 8.0)])
+def test_tf32_split_is_exact(seed, spread):
+    """On values from ~1e-14 to ~1e14: hi + lo == x bitwise, hi's low 13
+    bits are 0 (a TF32 value), |lo| is at most half a TF32 ulp of x; ties round away from zero (cvt.rna); the
+    tensor cores' truncation zeroes lo's low 13 bits and leaves hi."""
+    rs = np.random.RandomState(seed)
+    x = torch.from_numpy((rs.randn(4096) * np.exp(rs.randn(4096) * spread))
+                         .astype(np.float32))
+    hi, lo = fa.tf32_split(x)
+    assert torch.equal(hi + lo, x)
+    assert ((hi.view(torch.int32) & 0x1FFF) == 0).all()
+    assert (lo.abs() <= hi.abs() * 2.0 ** -11).all()
+    assert torch.equal(fa.tf32_truncate(hi), hi)
+    assert ((fa.tf32_truncate(lo).view(torch.int32) & 0x1FFF) == 0).all()
+    ties = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 3 * 2 ** -11])
+    assert fa.tf32_split(ties)[0].tolist() == [1 + 2 ** -10, -(1 + 2 ** -10),
+                                               1 + 2 ** -9]
+
+
+@pytest.mark.parametrize("t,bq,bk,seed", [(128, 32, 32, 0), (96, 32, 48, 1)])
+def test_3xtf32_products_match_jax(t, bq, bk, seed):
+    """The plain version with every f32 product made as the three-pass
+    TF32 kernel makes it (`matmul_3xtf32`) against the JAX K1 in interpret
+    mode (f32, HIGHEST): O and LSE within 1e-5 row-relative, a tenth of
+    the 1e-4 the kernel is held to on the card."""
+    q, k, v = _qkv(seed, t=t)
+    want = np.array(jax_flash(*(jnp.array(x) for x in (q, k, v)),
+                                block_q=bq, block_k=bk))
+    want_lse = np.array(_blocked_lse(jnp.array(q), jnp.array(k), bk))
+    o, lse = fa.flash_fwd_ref(*_t(q, k, v), bq, bk, mm=fa.matmul_3xtf32)
+    assert fa.rowwise_rel_err(o, torch.from_numpy(want)) <= 1e-5
+    assert fa.rowwise_rel_err(lse, torch.from_numpy(want_lse)) <= 1e-5
+
+
+def test_one_tf32_pass_misses_the_f32_limit():
+    """Why three passes: with one TF32 pass (hi . hi) the same forward is
+    off the JAX K1 by more than the 1e-4 the f32 kernels are held to."""
+    q, k, v = _qkv(0, t=128)
+    want = np.array(jax_flash(*(jnp.array(x) for x in (q, k, v)),
+                                block_q=32, block_k=32))
+
+    def one_pass(a, b):
+        return fa.tf32_split(a)[0] @ fa.tf32_split(b)[0]
+
+    o, _lse = fa.flash_fwd_ref(*_t(q, k, v), 32, 32, mm=one_pass)
+    assert fa.rowwise_rel_err(o, torch.from_numpy(want)) > 1e-4
 
 
 def test_rowwise_rel_err_rule():
@@ -162,11 +213,13 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bh,t,d", [(3, 96, 16), (2, 200, 128), (1, 1, 8),
-                                    (2, 130, 40)])
+                                    (2, 130, 40), (2, 65, 32), (2, 129, 96)])
 def test_cuda_kernels_match_plain_versions(cuda, dtype, bh, t, d):
     """K1, K2 and K3 against their plain versions on the card, at ragged
     tiles (T not a multiple of 64), D below one 16-lane column stripe and
-    at the limit, under the rule chip_smoke.py holds them to
+    at the limit, and D 32 / 96 (which the tensor-core kernels take on
+    their 64- and 128-column instances, the columns past D zero), under
+    the rule chip_smoke.py holds them to
     (`rowwise_rel_err`: each row's error relative to that row's largest
     magnitude, one ulp of the output forgiven): f32 within 1e-4 (sums in
     another order), bf16 within 1e-2 (the order can also flip a bf16
@@ -227,12 +280,17 @@ def test_cuda_tensor_core_forward_tile_edges(cuda, t, d):
 
 
 @pytest.mark.gpu
-def test_cuda_tensor_core_forward_refuses_misaligned_views(cuda):
-    """A contiguous bf16 view 4 elements (8 bytes) into its storage is not
-    16-byte aligned: the tensor-core forward raises before any launch, and
-    the card still runs the next, aligned call."""
-    buf = torch.zeros(2 * 64 * 64 + 4, dtype=torch.bfloat16, device=cuda)
-    off = buf[4:].view(2, 64, 64)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_tensor_core_forward_refuses_misaligned_views(cuda, dtype):
+    """A contiguous view 8 bytes into its storage (4 bf16 or 2 f32
+    elements) is not 16-byte aligned: the tensor-core forward of either
+    dtype raises before any launch, and the card still runs the next,
+    aligned call through the same kernel."""
+    n = 8 // dtype.itemsize
+    buf = torch.zeros(2 * 64 * 64 + n, dtype=dtype, device=cuda)
+    off = buf[n:].view(2, 64, 64)
+    route = fa.fwd_route(off)
+    assert route == ("fwd_tc" if dtype == torch.bfloat16 else "fwd_3xtf32")
     before = dict(fa.launch_count)
     with pytest.raises(ValueError, match="16-byte aligned"):
         fa.flash_fwd(off, off, off)
@@ -240,6 +298,44 @@ def test_cuda_tensor_core_forward_refuses_misaligned_views(cuda):
     o, _lse = fa.flash_fwd(off.clone(), off.clone(), off.clone())
     torch.cuda.synchronize()
     assert torch.isfinite(o.float()).all()
+    assert fa.launch_count == {**before, route: before[route] + 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [1, 31, 32, 33, 63, 64, 65, 127, 128, 129,
+                               2048])
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_3xtf32_forward_tile_edges(cuda, t, d):
+    """The f32 three-pass TF32 forward at its tile edges (T of 1, one row
+    short of, at and one row past a 32-key tile, a 64-row warpgroup and a
+    128-row block, and 2048) against the plain version: O and LSE row by
+    row within 1e-4, one launch through "fwd_3xtf32"; then K2 and K3 on
+    the FMA kernels, fed its LSE, within the same rule."""
+    rs = np.random.RandomState(11)
+    bh = 2 if t == 2048 else 3
+    q, k, v, do = (torch.from_numpy(rs.randn(bh, t, d).astype(np.float32))
+                   .to(cuda) for _ in range(4))
+    assert fa.fwd_route(q) == "fwd_3xtf32" and fa.bwd_route(q) == "fma"
+    before = dict(fa.launch_count)
+    o, lse = fa.flash_fwd(q, k, v, block_q=t, block_k=t)
+    torch.cuda.synchronize()
+    assert fa.launch_count == {**before,
+                               "fwd_3xtf32": before["fwd_3xtf32"] + 1}
+    want_o, want_lse = fa.flash_fwd_ref(q, k, v, t, t)
+    assert fa.rowwise_rel_err(o, want_o) <= 1e-4
+    assert fa.rowwise_rel_err(lse, want_lse) <= 1e-4
+    delta = fa.flash_delta(o, do)
+    dq = fa.flash_dq(q, k, v, do, lse, delta, block_q=t, block_k=t)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, block_q=t, block_k=t)
+    torch.cuda.synchronize()
+    assert fa.launch_count == {**before,
+                               "fwd_3xtf32": before["fwd_3xtf32"] + 1,
+                               "dq": before["dq"] + 1,
+                               "dkv": before["dkv"] + 1}
+    want_dq = fa.flash_dq_ref(q, k, v, do, lse, delta, t, t)
+    want_dk, want_dv = fa.flash_dkv_ref(q, k, v, do, lse, delta, t, t)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert fa.rowwise_rel_err(got, want) <= 1e-4
 
 
 @pytest.mark.gpu
@@ -266,14 +362,19 @@ def test_cuda_tensor_core_backward_refuses_misaligned_views(cuda):
 
 
 def test_forward_route_rule():
-    """bf16 heads with D % 16 == 0 take the tensor-core forward; f32 and
-    bf16 of any other D the FMA forward."""
+    """bf16 heads with D % 16 == 0 take the tensor-core forward, f32 heads
+    with D % 32 == 0 the three-pass TF32 forward; bf16 and f32 of any
+    other D the FMA forward."""
     for d, dt, want in ((128, torch.bfloat16, "fwd_tc"),
                         (64, torch.bfloat16, "fwd_tc"),
                         (16, torch.bfloat16, "fwd_tc"),
                         (40, torch.bfloat16, "fwd"),
                         (8, torch.bfloat16, "fwd"),
-                        (128, torch.float32, "fwd")):
+                        (128, torch.float32, "fwd_3xtf32"),
+                        (64, torch.float32, "fwd_3xtf32"),
+                        (40, torch.float32, "fwd"),
+                        (16, torch.float32, "fwd"),
+                        (8, torch.float32, "fwd")):
         assert fa.fwd_route(torch.zeros((1, 4, d), dtype=dt)) == want
 
 
