@@ -30,15 +30,17 @@ exits non-zero; nothing is caught and carried past):
              the weights are random), kernel launches.
 6. flash   - the flash-attention kernels (K1 forward, K2 dQ, K3 dK/dV: the
              tensor-core kernels in bf16; in f32 the three-pass TF32
-             tensor-core forward and the FMA dQ and dK/dV) against their
+             tensor-core forward and dK/dV and the FMA dQ) against their
              plain versions at the shape phase train gives them (BH = 2 x
              32, T = 2048, D = 128) in f32 and bf16, each row's error
              relative to that row's magnitude; CUDA-event medians of each
              kernel, of the forward and the backward, of the plain versions
              and of the library yardsticks (SDPA's forward, and its
              backward alone, which computes dQ, dK and dV together), and
-             each kernel's bound. Then the FMA forward, which no D 128
-             head reaches, on heads of D 40 (BH 4, T 256) in f32 and bf16.
+             each kernel's bound. Then the FMA kernels of all three
+             passes, which take the heads no tensor-core route takes, on
+             heads of D 40 (BH 4, T 256) in f32 and bf16, timed the same
+             way in f32.
 7. train   - federated LoRA at full LLaMA-2-7B width and depth (bf16 base,
              rank 8 on wq/wk/wv/wo, per-block remat, flash attention, bf16
              compute): two FedAvg rounds of 2 clients x 4 sequences x 2048
@@ -46,7 +48,7 @@ exits non-zero; nothing is caught and carried past):
              unchanged, launches K1 = 2 x layers x steps and K2 = K3 =
              layers x steps, all through the tensor-core kernels. Then an
              f32 round at full width and 2 layers (TF32 off for cuBLAS) with
-             flash (the three-pass TF32 forward, the FMA dQ and dK/dV, and
+             flash (the three-pass TF32 forward and dK/dV, the FMA dQ, and
              only they) and with dense attention from the same adapters and
              batch schedule: the adapters agree.
 
@@ -97,9 +99,9 @@ TRAIN_CLIENTS, TRAIN_SEQS, TRAIN_T, TRAIN_BS, TRAIN_ROUNDS = 2, 4, 2048, 2, 2
 # defaults do at T = 2048 (_auto_block(T, 512 / 1024))
 FLASH_BH, FLASH_T, FLASH_D = TRAIN_BS * H, TRAIN_T, DH
 FLASH_BQ, FLASH_BK = 512, 1024
-# the FMA forward's check case: heads of D 40, which no tensor-core route
-# takes (bf16 needs D % 16 == 0, f32 D % 32 == 0); the plain version
-# blocks by T
+# the FMA kernels' check case: heads of D 40, which no tensor-core route
+# takes (bf16 needs D % 16 == 0, f32 D % 32 == 0); the plain versions
+# block by T
 FMA_BH, FMA_T, FMA_D = 4, 256, 40
 # kernel vs plain version under `flash_attention.rowwise_rel_err` (each
 # row's error relative to that row's largest magnitude, one ulp of the
@@ -610,20 +612,19 @@ def phase_flash(bw: float) -> dict:
         q, k, v, do = (torch.from_numpy(
             rng.standard_normal((bh, t, d), np.float32)).to(DEV, dt)
             for _ in range(4))
-        # bf16 D 128: the tensor-core kernels; f32: the FMA kernels
-        route, bwd = fa.fwd_route(q), fa.bwd_route(q)
-        tc = "_tc" if bwd == "tc" else ""
+        # bf16 D 128: the tensor-core kernels; f32: the three-pass TF32
+        # forward and dK/dV, the FMA dQ
+        routes = (fa.fwd_route(q), fa.dq_route(q), fa.dkv_route(q))
         before = dict(fa.launch_count)
         o, lse = fa.flash_fwd(q, k, v)
         delta = fa.flash_delta(o, do)
         dq = fa.flash_dq(q, k, v, do, lse, delta)
         dk, dv = fa.flash_dkv(q, k, v, do, lse, delta)
         torch.cuda.synchronize()
-        launched = {route, "dq" + tc, "dkv" + tc}
-        check(fa.launch_count == {n: before[n] + (n in launched)
+        check(fa.launch_count == {n: before[n] + (n in routes)
                                   for n in before},
               f"flash {kind}: launches {fa.launch_count} (before {before}) "
-              f"are not one each of {sorted(launched)}")
+              f"are not one each of {routes}")
         # each kernel against its plain version on the same inputs
         want_o, want_lse = fa.flash_fwd_ref(q, k, v, FLASH_BQ, FLASH_BK)
         want_dq = fa.flash_dq_ref(q, k, v, do, lse, delta, FLASH_BQ,
@@ -680,11 +681,9 @@ def phase_flash(bw: float) -> dict:
                                             q.element_size()), dt, bw)
                   for name in ms}
         out[kind] = {"ms": ms, "plain_ms": plain, "library_ms": library,
-                     "bounds": bounds, "errors": errs, "fwd_route": route,
-                     "bwd_route": bwd}
-        emit({"phase": "flash", "dtype": kind, "fwd_route": route,
-              "bwd_route": bwd, "ms": ms, "plain_ms": plain,
-              "library_ms": library, "bounds": bounds})
+                     "bounds": bounds, "errors": errs, "routes": routes}
+        emit({"phase": "flash", "dtype": kind, "routes": routes, "ms": ms,
+              "plain_ms": plain, "library_ms": library, "bounds": bounds})
         del q, k, v, do, o, lse, delta, dq, dk, dv, qg, kg, vg
         gc.collect()
         torch.cuda.empty_cache()
@@ -693,9 +692,10 @@ def phase_flash(bw: float) -> dict:
 
 
 def _flash_fma_case(bw: float) -> dict:
-    """The FMA forward (`fa.fwd_route` == "fwd") at D 40 in f32 and bf16
-    against its plain version; the f32 case also timed beside its plain
-    version, SDPA's forward and its bound."""
+    """The FMA kernels of all three passes (the routes "fwd", "dq" and
+    "dkv", which every head of D 40 takes) in f32 and bf16 against their
+    plain versions; the f32 case also timed beside its plain versions,
+    SDPA's forward and backward and its bounds."""
     import torch
     import torch.nn.functional as F
 
@@ -703,23 +703,33 @@ def _flash_fma_case(bw: float) -> dict:
 
     bh, t, d = FMA_BH, FMA_T, FMA_D
     rng = np.random.default_rng(3)
-    out = {"shape": [bh, t, d], "launches": 0}
+    fma = ("fwd", "dq", "dkv")
+    out = {"shape": [bh, t, d], "launches": dict.fromkeys(fma, 0)}
     for kind, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        q, k, v = (torch.from_numpy(
+        q, k, v, do = (torch.from_numpy(
             rng.standard_normal((bh, t, d), np.float32)).to(DEV, dt)
-            for _ in range(3))
-        check(fa.fwd_route(q) == "fwd", f"D {d} {kind}: route "
-              f"{fa.fwd_route(q)}, not the FMA forward")
+            for _ in range(4))
+        routes = (fa.fwd_route(q), fa.dq_route(q), fa.dkv_route(q))
+        check(routes == fma, f"D {d} {kind}: routes {routes}, not the FMA "
+              "kernels")
         before = dict(fa.launch_count)
         o, lse = fa.flash_fwd(q, k, v)
+        delta = fa.flash_delta(o, do)
+        dq = fa.flash_dq(q, k, v, do, lse, delta)
+        dk, dv = fa.flash_dkv(q, k, v, do, lse, delta)
         torch.cuda.synchronize()
-        check(fa.launch_count == {**before, "fwd": before["fwd"] + 1},
+        check(fa.launch_count == {n: before[n] + (n in fma) for n in before},
               f"FMA case {kind}: launches {fa.launch_count} (before "
-              f"{before}) are not one FMA forward")
-        out["launches"] += 1
+              f"{before}) are not one each of {fma}")
+        for n in fma:
+            out["launches"][n] += 1
         want_o, want_lse = fa.flash_fwd_ref(q, k, v, t, t)
+        want_dq = fa.flash_dq_ref(q, k, v, do, lse, delta, t, t)
+        want_dk, want_dv = fa.flash_dkv_ref(q, k, v, do, lse, delta, t, t)
         errs = {}
-        for name, got, want in (("o", o, want_o), ("lse", lse, want_lse)):
+        for name, got, want in (("o", o, want_o), ("lse", lse, want_lse),
+                                ("dq", dq, want_dq), ("dk", dk, want_dk),
+                                ("dv", dv, want_dv)):
             check(torch.isfinite(got).all().item(), f"FMA case {kind} "
                   f"{name}: non-finite")
             rel = fa.rowwise_rel_err(got, want)
@@ -729,14 +739,30 @@ def _flash_fma_case(bw: float) -> dict:
                   f"row-relative err {rel} > {FLASH_TOL[kind]}")
         out[kind] = {"errors": errs}
         if kind == "f32":
-            q4, k4, v4 = (x.view(1, bh, t, d) for x in (q, k, v))
+            q4, k4, v4, do4 = (x.view(1, bh, t, d) for x in (q, k, v, do))
+            qg, kg, vg = (x.detach().requires_grad_() for x in (q4, k4, v4))
+            y = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
             out[kind].update(
-                ms=time_ms(lambda: fa.flash_fwd(q, k, v)),
-                plain_ms=time_ms(lambda: fa.flash_fwd_ref(q, k, v, t, t),
-                                 n=20, warmup=2),
-                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                    q4, k4, v4, is_causal=True)),
-                bound=_bound(*_flash_cost("fwd", bh, t, d, 4), dt, bw))
+                ms={"fwd": time_ms(lambda: fa.flash_fwd(q, k, v)),
+                    "dq": time_ms(lambda: fa.flash_dq(q, k, v, do, lse,
+                                                      delta)),
+                    "dkv": time_ms(lambda: fa.flash_dkv(q, k, v, do, lse,
+                                                        delta))},
+                plain_ms={
+                    "fwd": time_ms(lambda: fa.flash_fwd_ref(q, k, v, t, t),
+                                   n=20, warmup=2),
+                    "dq": time_ms(lambda: fa.flash_dq_ref(
+                        q, k, v, do, lse, delta, t, t), n=20, warmup=2),
+                    "dkv": time_ms(lambda: fa.flash_dkv_ref(
+                        q, k, v, do, lse, delta, t, t), n=20, warmup=2)},
+                library_ms={
+                    "fwd": time_ms(lambda: F.scaled_dot_product_attention(
+                        q4, k4, v4, is_causal=True)),
+                    "bwd": time_ms(lambda: torch.autograd.grad(
+                        y, (qg, kg, vg), do4, retain_graph=True))},
+                bounds={n: _bound(*_flash_cost(n, bh, t, d, 4), dt, bw)
+                        for n in fma})
+            del y, qg, kg, vg
     emit({"phase": "flash", "fma_case": out, "tol_row_rel": FLASH_TOL})
     return out
 
@@ -841,7 +867,7 @@ def phase_train(dims=None, parity_layers: int = 2) -> dict:
     check(same_base, "the frozen base changed")
     check(launches == {"fwd": 0, "fwd_tc": 2 * L * steps, "fwd_3xtf32": 0,
                        "dq": 0, "dq_tc": L * steps, "dkv": 0,
-                       "dkv_tc": L * steps},
+                       "dkv_tc": L * steps, "dkv_3xtf32": 0},
           f"flash launches {launches} != K1 2 x {L} x {steps}, K2 = K3 "
           f"{L} x {steps}, all on the tensor cores")
     del state, base_copy, alg, adapters, round_fn, st, out
@@ -879,10 +905,11 @@ def phase_train(dims=None, parity_layers: int = 2) -> dict:
           f"f32 flash vs dense round: adapter diff {diff} > {PARITY_TOL} x "
           f"update {update}")
     # the flash round alone launches: K1 twice a layer and step (remat),
-    # through the three-pass TF32 forward; K2 and K3 once, on FMA
+    # through the three-pass TF32 forward; K2 once on FMA, K3 once through
+    # the three-pass TF32 kernel
     n = parity_layers * steps_per_round
     want = {"fwd": 0, "fwd_tc": 0, "fwd_3xtf32": 2 * n, "dq": n,
-            "dq_tc": 0, "dkv": n, "dkv_tc": 0}
+            "dq_tc": 0, "dkv": 0, "dkv_tc": 0, "dkv_3xtf32": n}
     check(parity["launches"] == want, f"f32 round launches "
           f"{parity['launches']} != {want}")
     del state, alg, adapters, drawn, round_fn, after, o
@@ -929,6 +956,98 @@ def phase_train_profile(top: int = 25) -> None:
     del state, alg, adapters, round_fn, st
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def kernel_rows(kern: dict, runs: dict, flash: dict, train: dict,
+                every_phase: bool) -> list:
+    """The `kernels` line's rows from the phases' results; with
+    `every_phase`, also checks that each kernel was launched where it
+    should have been."""
+    kernels = []
+    for kind, k in kern.items():
+        run = runs.get(kind, {"launches": 0, "decode_steps": 0})
+        kernels.append({
+            "name": f"paged_attention_{kind}", "route": "cuda",
+            "design": "split-page",
+            "source": "fedml_tpu_torch/csrc/paged_attention.cu",
+            "replaces": "fedml_tpu/ops/paged_attention.py:84",
+            "launches": run["launches"],
+            "launches_per_decode_step":
+                run["launches"] / max(run["decode_steps"], 1),
+            "max_abs_err": k["max_abs_err"],
+            "max_row_rel_err": k["max_row_rel_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": k["library_ms"], "serve_shape": k["serve_shape"]})
+    # the flash kernels at the main path's dtype (bf16: the tensor-core
+    # kernels) and at f32 (the three-pass TF32 forward and dK/dV, FMA dQ).
+    # `launches` is each kernel's count from phase train's main path;
+    # `parity_launches` its count from the f32 flash-vs-dense round after
+    # it, the only path that reaches the f32 kernels (`fa.fwd_route` /
+    # `dq_route` / `dkv_route` send the main path's bf16 D 128 heads to the
+    # tensor cores). The FMA forward and dK/dV take no D 128 head at all:
+    # their rows are phase flash's D 40 case, `check_launches` the launches
+    # that case checked. K2's and K3's library yardstick is SDPA's
+    # backward, which computes dQ, dK and dV in one call
+    outputs = {"fwd": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
+    parity = train.get("f32_flash_vs_dense", {}).get("launches", {})
+    tc, tf32 = "wgmma+cp.async", "wgmma tf32x3 + cp.async"
+    rows = (("flash_fwd_tc", "bf16", "fwd", "fwd_tc", 58, tc),
+            ("flash_fwd_3xtf32", "f32", "fwd", "fwd_3xtf32", 58, tf32),
+            ("flash_fwd", "fma", "fwd", "fwd", 58, "fma"),
+            ("flash_dq_tc", "bf16", "dq", "dq_tc", 204, tc),
+            ("flash_dq", "f32", "dq", "dq", 204, "fma"),
+            ("flash_dkv_tc", "bf16", "dkv", "dkv_tc", 232, tc),
+            ("flash_dkv_3xtf32", "f32", "dkv", "dkv_3xtf32", 232, tf32),
+            ("flash_dkv", "fma", "dkv", "dkv", 232, "fma"))
+    off_main_path = {kname for kname, case, *_ in rows if case == "f32"}
+    fma_rows = {kname for kname, case, *_ in rows if case == "fma"}
+    for kname, case, fk, counter, line, design in rows:
+        if case not in flash:
+            continue
+        f = flash["fma"]["f32"] if case == "fma" else flash[case]
+        lib_key, lib_call = (("fwd", "SDPA forward") if fk == "fwd" else
+                             ("bwd", "SDPA backward: dQ+dK+dV together"))
+        errs = [f["errors"][e] for e in outputs[fk]]
+        row = {
+            "name": kname, "route": "cuda", "design": design,
+            "dtype": "bf16" if case == "bf16" else "f32",
+            "source": "fedml_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"fedml_tpu/ops/flash_attention.py:{line}",
+            "launches": train["launches"].get(counter, 0),
+            "max_abs_err": max(e["max_abs_err"] for e in errs),
+            "max_row_rel_err": max(e["max_row_rel_err"] for e in errs),
+            "ms": f["ms"][fk], "plain_ms": f["plain_ms"][fk],
+            "bound_ms": f["bounds"][fk]["bound_ms"],
+            "bound_by": f["bounds"][fk]["bound_by"],
+            "library_ms": f["library_ms"][lib_key], "library_call": lib_call}
+        if case == "fma":
+            fma = flash["fma"]
+            row.update(shape=fma["shape"],
+                       check_launches=fma["launches"][counter],
+                       bf16_max_row_rel_err=max(
+                           fma["bf16"]["errors"][e]["max_row_rel_err"]
+                           for e in outputs[fk]))
+        else:
+            row["parity_launches"] = parity.get(counter, 0)
+        kernels.append(row)
+    # no kernel can beat the least time the card needs for its work
+    check(all(k["ms"] >= k["bound_ms"] for k in kernels),
+          "a kernel's time is below its bound: the bound is wrong")
+    if every_phase:
+        # the f32 flash kernels are off the main path (phase train checked
+        # their counts are 0 there); the f32 round must have run those it
+        # reaches, and phase flash the FMA forward and dK/dV
+        check(all(k["launches"] > 0 for k in kernels
+                  if k["name"] not in off_main_path | fma_rows),
+              "a kernel of the main path was never launched")
+        check(all(k["parity_launches"] > 0 for k in kernels
+                  if k["name"] in off_main_path),
+              "an f32 flash kernel was never launched by the f32 round")
+        check(all(k["check_launches"] > 0 for k in kernels
+                  if k["name"] in fma_rows),
+              "an FMA flash kernel was never launched by phase flash")
+    return kernels
 
 
 def main() -> int:
@@ -978,99 +1097,8 @@ def main() -> int:
     if "train_profile" in args.only:
         phase_train_profile()
 
-    kernels = []
-    for kind, k in kern.items():
-        run = runs.get(kind, {"launches": 0, "decode_steps": 0})
-        kernels.append({
-            "name": f"paged_attention_{kind}", "route": "cuda",
-            "design": "split-page",
-            "source": "fedml_tpu_torch/csrc/paged_attention.cu",
-            "replaces": "fedml_tpu/ops/paged_attention.py:84",
-            "launches": run["launches"],
-            "launches_per_decode_step":
-                run["launches"] / max(run["decode_steps"], 1),
-            "max_abs_err": k["max_abs_err"],
-            "max_row_rel_err": k["max_row_rel_err"], "ms": k["ms"],
-            "plain_ms": k["plain_ms"],
-            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": k["library_ms"], "serve_shape": k["serve_shape"]})
-    # the flash kernels at the main path's dtype (bf16: the tensor-core
-    # kernels) and at f32 (the three-pass TF32 forward, FMA dQ and dK/dV).
-    # `launches` is each kernel's count from phase train's main path;
-    # `parity_launches` its count from the f32 flash-vs-dense round after
-    # it, the only path that reaches the f32 kernels (`fa.fwd_route` /
-    # `fa.bwd_route` send the main path's bf16 D 128 heads to the tensor
-    # cores). The FMA forward takes no D 128 head at all: its row is phase
-    # flash's D 40 case, `check_launches` the launches that case checked.
-    # K2's and K3's library yardstick is SDPA's backward, which computes
-    # dQ, dK and dV in one call
-    outputs = {"fwd": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
-    parity = train.get("f32_flash_vs_dense", {}).get("launches", {})
-    tc = "wgmma+cp.async"
-    rows = (("flash_fwd_tc", "bf16", "fwd", "fwd_tc", 58, tc),
-            ("flash_fwd_3xtf32", "f32", "fwd", "fwd_3xtf32", 58,
-             "wgmma tf32x3 + cp.async"),
-            ("flash_dq_tc", "bf16", "dq", "dq_tc", 204, tc),
-            ("flash_dq", "f32", "dq", "dq", 204, "fma"),
-            ("flash_dkv_tc", "bf16", "dkv", "dkv_tc", 232, tc),
-            ("flash_dkv", "f32", "dkv", "dkv", 232, "fma"))
-    off_main_path = {kname for kname, kind, *_ in rows if kind == "f32"}
-    for kname, kind, fk, counter, line, design in rows:
-        f = flash.get(kind)
-        if f is None:
-            continue
-        lib_key, lib_call = (("fwd", "SDPA forward") if fk == "fwd" else
-                             ("bwd", "SDPA backward: dQ+dK+dV together"))
-        kernels.append({
-            "name": kname, "route": "cuda", "design": design, "dtype": kind,
-            "source": "fedml_tpu_torch/csrc/flash_attention.cu",
-            "replaces": f"fedml_tpu/ops/flash_attention.py:{line}",
-            "launches": train["launches"].get(counter, 0),
-            "parity_launches": parity.get(counter, 0),
-            "max_abs_err": max(f["errors"][e]["max_abs_err"]
-                               for e in outputs[fk]),
-            "max_row_rel_err": max(f["errors"][e]["max_row_rel_err"]
-                                   for e in outputs[fk]),
-            "ms": f["ms"][fk], "plain_ms": f["plain_ms"][fk],
-            "bound_ms": f["bounds"][fk]["bound_ms"],
-            "bound_by": f["bounds"][fk]["bound_by"],
-            "library_ms": f["library_ms"][lib_key], "library_call": lib_call})
-    if "fma" in flash:
-        fma = flash["fma"]
-        f = fma["f32"]
-        kernels.append({
-            "name": "flash_fwd", "route": "cuda", "design": "fma",
-            "dtype": "f32", "shape": fma["shape"],
-            "source": "fedml_tpu_torch/csrc/flash_attention.cu",
-            "replaces": "fedml_tpu/ops/flash_attention.py:58",
-            "launches": train["launches"].get("fwd", 0),
-            "check_launches": fma["launches"],
-            "max_abs_err": max(e["max_abs_err"]
-                               for e in f["errors"].values()),
-            "max_row_rel_err": max(e["max_row_rel_err"]
-                                   for e in f["errors"].values()),
-            "bf16_max_row_rel_err": max(e["max_row_rel_err"] for e in
-                                        fma["bf16"]["errors"].values()),
-            "ms": f["ms"], "plain_ms": f["plain_ms"],
-            "bound_ms": f["bound"]["bound_ms"],
-            "bound_by": f["bound"]["bound_by"],
-            "library_ms": f["library_ms"], "library_call": "SDPA forward"})
-    # no kernel can beat the least time the card needs for its work
-    check(all(k["ms"] >= k["bound_ms"] for k in kernels),
-          "a kernel's time is below its bound: the bound is wrong")
-    if set(PHASES) <= set(args.only):
-        # the f32 flash kernels are off the main path (phase train checked
-        # their counts are 0 there); the f32 round must have run those it
-        # reaches, and phase flash the FMA forward
-        check(all(k["launches"] > 0 for k in kernels
-                  if k["name"] not in off_main_path | {"flash_fwd"}),
-              "a kernel of the main path was never launched")
-        check(all(k["parity_launches"] > 0 for k in kernels
-                  if k["name"] in off_main_path),
-              "an f32 flash kernel was never launched by the f32 round")
-        check(all(k["check_launches"] > 0 for k in kernels
-                  if k["name"] == "flash_fwd"),
-              "the FMA forward was never launched by phase flash")
+    kernels = kernel_rows(kern, runs, flash, train,
+                          every_phase=set(PHASES) <= set(args.only))
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -3,15 +3,16 @@
 //
 // Replaces the Pallas TPU kernels of fedml_tpu/ops/flash_attention.py by
 // kernels chosen with one shape rule (ops/flash_attention.py): bf16 with
-// D % 16 == 0 on the tensor cores; the f32 forward with D % 32 == 0 on the
-// tensor cores in three TF32 passes; the rest (the f32 backward, and heads
-// of other D) on CUDA-core FMAs:
+// D % 16 == 0 on the tensor cores; the f32 forward and dK/dV with
+// D % 32 == 0 on the tensor cores in three TF32 passes; the rest (f32 dQ,
+// and heads of other D) on CUDA-core FMAs:
 //   K1 _fwd_kernel  (launched by _flash_fwd)   -> flash_fwd_tc_kernel,
 //                                                 flash_fwd_3xtf32_kernel,
 //                                                 flash_fwd_kernel
 //   K2 _dq_kernel   (launched by _pallas_bwd)  -> flash_dq_tc_kernel,
 //                                                 flash_dq_kernel
 //   K3 _dkv_kernel  (launched by _pallas_bwd)  -> flash_dkv_tc_kernel,
+//                                                 flash_dkv_3xtf32_kernel,
 //                                                 flash_dkv_kernel
 // Contract, shared with the plain PyTorch versions in
 // ops/flash_attention.py (flash_fwd_ref / flash_dq_ref / flash_dkv_ref):
@@ -58,7 +59,7 @@
 // CUDA cores' f32 peak is 67). The
 // FMA kernels do every product with scalar FMAs from shared memory (two
 // shared loads per four FMAs), a fraction of the f32 CUDA-core rate; they
-// stay for the f32 backward and for heads no tensor-core kernel takes.
+// stay for f32 dQ and for heads no tensor-core kernel takes.
 //
 // The bf16 forward (flash_fwd_tc_kernel) runs both products on the tensor
 // cores with wgmma (bf16 in, f32 accumulate in registers): one block of two
@@ -296,12 +297,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // ---------------------------------------------------- wgmma (sm_90a only)
-// shared-memory matrix descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets (all in 16-byte units)
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// the descriptors' layout types (bits 62-63): 128-byte and 64-byte swizzle
+constexpr uint64_t kSwizzle128 = 1, kSwizzle64 = 2;
+
+// shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (all in 16-byte units), layout type
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout = kSwizzle128) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -885,6 +890,19 @@ __device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[4][4], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// S (m64n16, f32) = A . B, TF32: as wgmma_tf32_ss_n32
+__device__ __forceinline__ void wgmma_tf32_ss_n16(float (&d)[2][4], uint64_t da, uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // O (m64n64, f32) (+)= A . B, TF32: A from registers (per warp, the A
 // layout of mma.m16n8k8.tf32: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3
 // (g + 8, t + 4)), B from shared memory (K-major descriptor); `accumulate`
@@ -961,24 +979,34 @@ __device__ __forceinline__ void ss_product_3xtf32(float (&d)[kBN3 / 8][4], uint3
   }
 }
 
-// D (m64 x kD, f32) = A . B in three TF32 passes: A (hi, lo) from
-// registers, kBN3 / 8 k-steps; B the V^T hi/lo tiles, kD rows of one
-// 128-byte column block (k-step kk: 32 bytes along the row). D starts from
-// zero: the tensor cores' f32 sums drop the bits past an ulp of the running
-// sum, so a sum carried over every tile of the row would lose up to an
-// ulp a step, 768 steps at T 2048; the caller adds each tile's D to O in
-// f32 instead
-template <int kD>
+// descriptor of a K-major B tile whose rows hold KROWS f32: 32 (128-byte
+// rows in the 128-byte swizzle, 8-row groups 1024 bytes apart) or 16
+// (64-byte rows in the 64-byte swizzle, 512 bytes apart)
+template <int KROWS>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  static_assert(KROWS == 32 || KROWS == 16, "a TF32 B tile row is 128 or 64 bytes");
+  return KROWS == 32 ? gmma_desc(addr, 16, 1024, kSwizzle128)
+                     : gmma_desc(addr, 16, 512, kSwizzle64);
+}
+
+// D (m64 x kD, f32) = A . B in three TF32 passes over KROWS: A (hi, lo)
+// from registers, KROWS / 8 k-steps; B hi/lo tiles of kD rows of KROWS f32
+// (V^T in K1: 32 keys; Q^T or dO^T in K3: 16 queries), k-step kk 32 bytes
+// along the row. D starts from zero: the tensor cores' f32 sums drop the
+// bits past an ulp of the running sum, so a sum carried over every tile
+// would lose up to an ulp a step, 768 steps at T 2048; the caller adds each
+// tile's D to its sum in f32 instead
+template <int kD, int KROWS>
 __device__ __forceinline__ void rs_product_3xtf32(float (&d)[kD / 8][4],
-                                                  const uint32_t (&a_hi)[kBN3 / 8][4],
-                                                  const uint32_t (&a_lo)[kBN3 / 8][4],
+                                                  const uint32_t (&a_hi)[KROWS / 8][4],
+                                                  const uint32_t (&a_lo)[KROWS / 8][4],
                                                   uint32_t b_hi, uint32_t b_lo) {
-  const uint64_t dh = gmma_desc(b_hi, 16, 1024), dl = gmma_desc(b_lo, 16, 1024);
+  const uint64_t dh = kmajor_desc<KROWS>(b_hi), dl = kmajor_desc<KROWS>(b_lo);
 #pragma unroll
   for (int pass = 0; pass < 3; ++pass) {
     const uint64_t db = pass == 1 ? dl : dh;
 #pragma unroll
-    for (int kk = 0; kk < kBN3 / 8; ++kk) {
+    for (int kk = 0; kk < KROWS / 8; ++kk) {
       const uint32_t(&a)[4] = pass == 0 ? a_lo[kk] : a_hi[kk];
       if constexpr (kD == 128) wgmma_tf32_rs_n128(d, a, db + ((kk * 32) >> 4), pass + kk > 0);
       else wgmma_tf32_rs_n64(d, a, db + ((kk * 32) >> 4), pass + kk > 0);
@@ -986,14 +1014,15 @@ __device__ __forceinline__ void rs_product_3xtf32(float (&d)[kD / 8][4],
   }
 }
 
-// S's accumulator (m64n32, f32) split into the hi and lo TF32 A operands of
-// a product over its 32 columns: k-step kk's a0..a3 are (g, key 8kk + 2t),
-// (g + 8, 2t), (g, 2t + 1), (g + 8, 2t + 1), A's columns t and t + 4 under
-// kPerm
-__device__ __forceinline__ void split_a(uint32_t (&hi)[kBN3 / 8][4], uint32_t (&lo)[kBN3 / 8][4],
-                                        const float (&s)[kBN3 / 8][4]) {
+// an accumulator (m64 x 8 NB, f32) split into the hi and lo TF32 A
+// operands of a product over its 8 NB columns: k-step kk's a0..a3 are (g,
+// column 8kk + 2t), (g + 8, 2t), (g, 2t + 1), (g + 8, 2t + 1), A's columns t
+// and t + 4 under kPerm
+template <int NB>
+__device__ __forceinline__ void split_a(uint32_t (&hi)[NB][4], uint32_t (&lo)[NB][4],
+                                        const float (&s)[NB][4]) {
 #pragma unroll
-  for (int kk = 0; kk < kBN3 / 8; ++kk) {
+  for (int kk = 0; kk < NB; ++kk) {
     const float x[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -1029,15 +1058,16 @@ __device__ __forceinline__ void land_tile(uint32_t land, const float* src, int r
   }
 }
 
-// rows [row0, row0 + kBM) of a [T, D] f32 matrix -> hi and lo tiles in the
-// 128-byte swizzle (32-column blocks), read straight from global memory;
-// rows past T and columns past D are zeros
-template <int kD>
-__device__ __forceinline__ void stage_q(unsigned char* hi, unsigned char* lo,
-                                        const float* __restrict__ src, int row0, int T_, int D) {
+// rows [row0, row0 + ROWS) of a [T, D] f32 matrix -> hi and lo tiles in
+// the 128-byte swizzle (32-column blocks), read straight from global
+// memory; rows past T and columns past D are zeros
+template <int ROWS, int kD>
+__device__ __forceinline__ void stage_rows(unsigned char* hi, unsigned char* lo,
+                                           const float* __restrict__ src, int row0, int T_,
+                                           int D) {
   constexpr int kChunks = kD / 4;
 #pragma unroll 4
-  for (int it = 0; it < kBM * kChunks / kThreads; ++it) {
+  for (int it = 0; it < ROWS * kChunks / kThreads; ++it) {
     const int i = it * kThreads + threadIdx.x;
     const int r = i / kChunks, c = i % kChunks;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -1045,8 +1075,8 @@ __device__ __forceinline__ void stage_q(unsigned char* hi, unsigned char* lo,
       x = __ldg(reinterpret_cast<const float4*>(src + static_cast<size_t>(row0 + r) * D + c * 4));
     float4 h, l;
     split4(x, h, l);
-    *reinterpret_cast<float4*>(hi + swz<kBM>(r, c)) = h;
-    *reinterpret_cast<float4*>(lo + swz<kBM>(r, c)) = l;
+    *reinterpret_cast<float4*>(hi + swz<ROWS>(r, c)) = h;
+    *reinterpret_cast<float4*>(lo + swz<ROWS>(r, c)) = l;
   }
 }
 
@@ -1122,7 +1152,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   land_tile<kD>(sa + kLandK, k + base, 0, T_, D);
   land_tile<kD>(sa + kLandV, v + base, 0, T_, D);
   fedml::cp_async_commit();
-  stage_q<kD>(smem_tc + kQHi, smem_tc + kQLo, q + base, q0, T_, D);
+  stage_rows<kBM, kD>(smem_tc + kQHi, smem_tc + kQLo, q + base, q0, T_, D);
 
   float acc[kD / 8][4];
 #pragma unroll
@@ -1194,7 +1224,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     split_a(a_hi, a_lo, s);
     float pv[kD / 8][4];
     wgmma_fence();
-    rs_product_3xtf32<kD>(pv, a_hi, a_lo, sa + kVHi, sa + kVLo);
+    rs_product_3xtf32<kD, kBN3>(pv, a_hi, a_lo, sa + kVHi, sa + kVLo);
     wgmma_commit();
     wgmma_wait0();
     fence_regs(pv);
@@ -1220,6 +1250,323 @@ __global__ void __launch_bounds__(kThreads, 1)
             make_float2(acc[n][2 * h] / den, acc[n][2 * h + 1] / den);
     }
     if (t4 == 0) lse[static_cast<size_t>(bh) * T_ + row] = m[h] + logf(den);
+  }
+}
+
+
+// ------------------------------------------ K3 in f32, three-pass TF32
+// dK and dV in f32 with D % 32 == 0 (kD = 64 or 128, as K1's f32 kernel),
+// replacing _dkv_kernel (fedml_tpu/ops/flash_attention.py:232) on that route:
+// per key, dV = sum_q P^T.dO and dK = sum_q dS^T.Q over the queries from the
+// diagonal on, with p = exp(s scale - lse) (0 where the query precedes the
+// key or lies past T) and dS = p (dP - delta) scale, every product in three
+// TF32 passes over a hi/lo split (as K1's f32 kernel makes them).
+//
+// One block of two warpgroups per (bh, 64-key tile), the first key tiles
+// (which see the most q tiles) first, looping over q tiles of kBQ3 = 16
+// queries from the diagonal on. The two warpgroups split the products, not
+// the keys; each covers all 64 keys:
+//   wg0: S^T = K.Q^T (A = K, B = Q, both hi/lo in shared memory),
+//        p from lse, P written raw to a 4 KB slot, then dV += P^T.dO with
+//        P^T from registers and B = dO^T (m64nDk8);
+//   wg1: dP^T = V.dO^T (A = V, B = dO), then at a named barrier reads P
+//        (thread i of wg1 holds the same (key, query) entries as thread i
+//        of wg0), forms dS from delta and does dK += dS^T.Q with B = Q^T.
+// Each thread carries one sum (dV or dK) and a fresh per-tile accumulator
+// that is added to it in f32 (the tensor cores' f32 sums truncate: carried
+// over 128 q tiles the first key tile's sums would read ~4e-5 row-relative).
+// A single warpgroup doing all four products would need dK, dV and the
+// fresh accumulator, over 240 registers.
+//
+// TF32 wgmma takes B K-major only, so the products over queries need Q^T and
+// dO^T (kD rows of 16 queries, in K1's kPerm order within each 8, so that
+// the S^T / dP^T accumulators are the A operands as they stand). Their rows
+// are 64 bytes: they sit in the 64-byte swizzle (descriptor layout type 2,
+// 8-row atoms 512 bytes apart; chunk c of row r at c ^ ((r >> 1) & 3),
+// CUTLASS's Swizzle<2,4,3> of GMMA::Layout_K_SW64_Atom). lse and delta are
+// read in natural order: the accumulators' columns are natural queries.
+//
+// Shared memory at kD 128: K and V hi + lo resident, 128 KB; the q tile's Q,
+// dO, Q^T and dO^T hi + lo, 64 KB; a cp.async landing buffer for the next
+// raw Q and dO tile with its 16 lse and 16 delta values, 16 KB; the P slot,
+// 4 KB: 212 KB of the 227 a block may hold (32-query tiles or 128-key
+// blocks would need 256 KB or more). kD 64 halves it. ptxas: 221
+// registers at kD 128 and 173 at kD 64, no spills; one block per SM.
+//
+// Bound at BH 64, T 2048, D 128: the two products K3 must do, 68.7 GFLOP,
+// three TF32 passes each, over 495 TFLOP/s = 0.4167 ms. Recomputing S^T and
+// dP^T doubles the kernel's own floor (0.833 ms), so it reads at most 50% of
+// the bound. Per (64-key, 16-query) pair the block reads ~224 KB of shared
+// memory in its products (A once for A_lo.B_hi and once for A_hi.[B_lo;
+// B_hi], in each warpgroup) and stages ~112 KB: it is bound by
+// shared-memory bandwidth, not by the tensor cores.
+constexpr int kBK3 = 64;  // keys per block
+constexpr int kBQ3 = 16;  // queries per q tile
+
+// S^T (m64n16, f32) = A . B^T in three TF32 passes over kD columns, for
+// K3: A the hi/lo tiles of kBK3 rows; B one tile of 2 kBQ3 rows, lo in rows
+// 0-15 and hi in rows 16-31 (128-byte swizzle, 32-column blocks 4 KB
+// apart). A_lo.B_hi is one m64n16 product; A_hi.[B_lo; B_hi] is one m64n32
+// product, which reads A_hi once for both terms (three m64n16 passes
+// would read A three times). Its k-steps go round four accumulators: the
+// tensor cores' f32 sums truncate, and the hi.hi sum over D 128 on one
+// accumulator put dK at T 1 (0 up to rounding) 1.3e-4 off its plain
+// version. The caller waits for the products, then adds them in f32
+// (`add_scores`)
+template <int kD>
+__device__ __forceinline__ void ss_product_k3(float (&lo_hi)[2][4], float (&hi)[4][4][4],
+                                              uint32_t a_hi, uint32_t a_lo, uint32_t b) {
+  const uint64_t dah = gmma_desc(a_hi, 16, 1024), dal = gmma_desc(a_lo, 16, 1024),
+                 db = gmma_desc(b, 16, 1024);
+#pragma unroll
+  for (int kk = 0; kk < kD / 8; ++kk) {
+    const int a_off = ((kk >> 2) * (kBK3 * 128) + (kk & 3) * 32) >> 4;
+    const int b_off = ((kk >> 2) * (2 * kBQ3 * 128) + (kk & 3) * 32) >> 4;
+    wgmma_tf32_ss_n16(lo_hi, dal + a_off, db + b_off + ((kBQ3 * 128) >> 4), kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < kD / 8; ++kk) {
+    const int a_off = ((kk >> 2) * (kBK3 * 128) + (kk & 3) * 32) >> 4;
+    const int b_off = ((kk >> 2) * (2 * kBQ3 * 128) + (kk & 3) * 32) >> 4;
+    wgmma_tf32_ss_n32(hi[kk & 3], dah + a_off, db + b_off, kk >= 4);
+  }
+}
+
+// S^T from ss_product_k3's accumulators, in f32, small terms first: A_lo.
+// B_hi, the four A_hi.B_lo sums (columns 0-15), the four A_hi.B_hi sums
+// (columns 16-31)
+__device__ __forceinline__ void add_scores(float (&s)[2][4], const float (&lo_hi)[2][4],
+                                           const float (&hi)[4][4][4]) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[j][e] = ((lo_hi[j][e] + hi[0][j][e]) + (hi[1][j][e] + hi[2][j][e]) + hi[3][j][e]) +
+                ((hi[0][j + 2][e] + hi[1][j + 2][e]) + (hi[2][j + 2][e] + hi[3][j + 2][e]));
+}
+
+// byte offset of 16-byte chunk c (< 4) of row r in a tile of 64-byte rows
+// in the 64-byte swizzle
+__device__ __forceinline__ uint32_t swz64(int r, int c) {
+  return static_cast<uint32_t>(r * 64 + ((c ^ ((r >> 1) & 3)) << 4));
+}
+
+// byte offset of chunk c of row r in K3's landing buffer, a raw [kBQ3][kD]
+// f32 tile: within each group of 8 chunks, c ^ (2 (r & 1) + 4 ((r >> 3) & 1)),
+// so that the transposing reads of a quarter-warp (rows h + 2i and
+// 8 + h + 2i, h < 2, at two neighbouring chunks) hit 8 different bank quads
+template <int kD>
+__device__ __forceinline__ uint32_t land16_off(int r, int c) {
+  return static_cast<uint32_t>((r * (kD / 4) + (c ^ (((r & 1) << 1) | ((r >> 1) & 4)))) * 16);
+}
+
+// queries [q0, q0 + kBQ3) of Q and dO (the bh's [T, D] f32 matrices) and
+// of lse and delta -> the landing buffer (raw Q, raw dO, 16 lse, 16 delta),
+// by cp.async; past T and past D: zeros
+template <int kD>
+__device__ __forceinline__ void land_q_tile(uint32_t land, const float* q, const float* dout,
+                                            const float* lse, const float* delta, int q0,
+                                            int T_, int D) {
+  constexpr int kChunks = kD / 4, kTile = kBQ3 * kChunks, kQ = kBQ3 * kD * 4;
+#pragma unroll
+  for (int it = 0; it < 2 * kTile / kThreads; ++it) {
+    const int i = it * kThreads + threadIdx.x;
+    const int op = i / kTile, r = (i % kTile) / kChunks, c = i % kChunks;
+    const float* src = op ? dout : q;
+    const bool ok = q0 + r < T_ && c * 4 < D;
+    fedml::cp_async16(land + op * kQ + land16_off<kD>(r, c),
+                      ok ? src + static_cast<size_t>(q0 + r) * D + c * 4 : src, ok ? 16 : 0);
+  }
+  if (threadIdx.x < 2 * kBQ3) {
+    const int c = threadIdx.x % kBQ3;
+    const bool ok = q0 + c < T_;
+    fedml::cp_async4(land + 2 * kQ + threadIdx.x * 4,
+                     (threadIdx.x < kBQ3 ? lse : delta) + (ok ? q0 + c : 0), ok ? 4 : 0);
+  }
+}
+
+// the landing buffer's raw Q and dO -> hi/lo tiles at st: Q and dO as
+// [2 kBQ3][kD] tiles of 2 kQ bytes, lo in rows 0-15 and hi in rows 16-31
+// (128-byte swizzle: the B operands of S^T and dP^T), then Q^T hi, lo and
+// dO^T hi, lo of kQ bytes (kD rows of kBQ3 queries, 64-byte swizzle: the B
+// operands of dK and dV). Chunk 2m + h of a
+// transposed row holds queries 8m + h + 2i, i < 4 (kPerm); a thread reads a
+// 4 x 4 block (4 queries x 4 columns) and writes its 4 transposed chunks,
+// an odd column group's in the order 1 0 3 2, so that a quarter-warp's
+// stores cover rows of both parities (all 8 bank quads)
+template <int kD>
+__device__ __forceinline__ void stage_q_tile(unsigned char* st, const unsigned char* land) {
+  constexpr int kChunks = kD / 4, kTile = kBQ3 * kChunks, kQ = kBQ3 * kD * 4;
+#pragma unroll
+  for (int it = 0; it < 2 * kTile / kThreads; ++it) {
+    const int i = it * kThreads + threadIdx.x;
+    const int op = i / kTile, r = (i % kTile) / kChunks, c = i % kChunks;
+    float4 h, l;
+    split4(*reinterpret_cast<const float4*>(land + op * kQ + land16_off<kD>(r, c)), h, l);
+    *reinterpret_cast<float4*>(st + 2 * op * kQ + swz<2 * kBQ3>(r + kBQ3, c)) = h;
+    *reinterpret_cast<float4*>(st + 2 * op * kQ + swz<2 * kBQ3>(r, c)) = l;
+  }
+#pragma unroll
+  for (int it = 0; it < (2 * kD + kThreads - 1) / kThreads; ++it) {
+    const int i = it * kThreads + threadIdx.x;
+    if (i >= 2 * kD) break;
+    const int op = i / kD, cc = i & 3, d4 = (i % kD) >> 2;
+    const int qa = 8 * (cc >> 1) + (cc & 1);
+    const unsigned char* src = land + op * kQ;
+    float4 x[4];
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii)
+      x[ii] = *reinterpret_cast<const float4*>(src + land16_off<kD>(qa + 2 * ii, d4));
+    const float4 cols[4] = {make_float4(x[0].x, x[1].x, x[2].x, x[3].x),
+                            make_float4(x[0].y, x[1].y, x[2].y, x[3].y),
+                            make_float4(x[0].z, x[1].z, x[2].z, x[3].z),
+                            make_float4(x[0].w, x[1].w, x[2].w, x[3].w)};
+    unsigned char* hi = st + (4 + 2 * op) * kQ;
+    const int odd = d4 & 1;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      float4 h, l;
+      split4(odd ? cols[s ^ 1] : cols[s], h, l);
+      const uint32_t at = swz64(4 * d4 + (s ^ odd), cc);
+      *reinterpret_cast<float4*>(hi + at) = h;
+      *reinterpret_cast<float4*>(hi + kQ + at) = l;
+    }
+  }
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_dkv_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ dout,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            float* __restrict__ dk, float* __restrict__ dv, int T_, int D,
+                            float scale) {
+  constexpr int kKV = kBK3 * kD * 4;  // bytes of K or V hi (or lo)
+  constexpr int kQ = kBQ3 * kD * 4;   // bytes of one staged or raw q-tile operand
+  constexpr int kKHi = 0, kKLo = kKV, kVHi = 2 * kKV, kVLo = 3 * kKV, kStage = 4 * kKV,
+                kLand = kStage + 8 * kQ, kVec = kLand + 2 * kQ, kSlot = kVec + 2 * kBQ3 * 4;
+  extern __shared__ __align__(1024) unsigned char smem_tc[];
+  const uint32_t sa = fedml::smem_addr(smem_tc);
+  const uint32_t qs = sa + kStage;  // Q and dO (lo and hi), Q^T, dO^T (hi, lo)
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kBK3;  // the first key tiles have the most q tiles
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wg = warp >> 2;                     // 0: S^T, P, dV; 1: dP^T, dS, dK
+  const int key_g = k0 + 16 * (warp & 3) + g;   // the thread's keys: key_g, key_g + 8
+  const size_t base = static_cast<size_t>(bh) * T_ * D;
+  const float* lse_bh = lse + static_cast<size_t>(bh) * T_;
+  const float* dlt_bh = delta + static_cast<size_t>(bh) * T_;
+  const int qt0 = k0 / kBQ3;  // q tiles before it hold only masked queries
+  const int n_qt = (T_ + kBQ3 - 1) / kBQ3;
+  const float scale_log2 = scale * kLog2e;
+  // thread i of either warpgroup: its 8 S^T / dP^T entries, two float4s
+  float4* slot = reinterpret_cast<float4*>(smem_tc + kSlot) + (threadIdx.x & 127);
+
+  land_q_tile<kD>(sa + kLand, q + base, dout + base, lse_bh, dlt_bh, qt0 * kBQ3, T_, D);
+  fedml::cp_async_commit();
+  stage_rows<kBK3, kD>(smem_tc + kKHi, smem_tc + kKLo, k + base, k0, T_, D);
+  stage_rows<kBK3, kD>(smem_tc + kVHi, smem_tc + kVLo, v + base, k0, T_, D);
+
+  float acc[kD / 8][4];  // wg0: dV, wg1: dK
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int i = qt0; i < n_qt; ++i) {
+    // tile i: raw in the landing buffer once every thread's copies are in
+    // and both warpgroups are done with tile i - 1 (its staged tiles and
+    // the P slot); split and transpose, make the tiles visible to wgmma,
+    // then start tile i + 1's copy
+    const int q0 = i * kBQ3;
+    fedml::cp_async_wait<0>();
+    __syncthreads();
+    stage_q_tile<kD>(smem_tc + kStage, smem_tc + kLand);
+    // lse (wg0) or delta (wg1) of the thread's queries 8j + 2 t4 + {0, 1}
+    const float* vec = reinterpret_cast<const float*>(smem_tc + kVec) + wg * kBQ3;
+    const float2 lv[2] = {*reinterpret_cast<const float2*>(vec + 2 * t4),
+                          *reinterpret_cast<const float2*>(vec + 8 + 2 * t4)};
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (i + 1 < n_qt) {
+      land_q_tile<kD>(sa + kLand, q + base, dout + base, lse_bh, dlt_bh, q0 + kBQ3, T_, D);
+      fedml::cp_async_commit();
+    }
+
+    // wg0: S^T = K.Q^T; wg1: dP^T = V.dO^T (B: the Q or dO tile, K-major)
+    float lo_hi[2][4], hi[4][4][4], s[kBQ3 / 8][4];
+    wgmma_fence();
+    ss_product_k3<kD>(lo_hi, hi, sa + (wg ? kVHi : kKHi), sa + (wg ? kVLo : kKLo),
+                      qs + (wg ? 2 : 0) * kQ);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(lo_hi);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) fence_regs(hi[a]);
+    add_scores(s, lo_hi, hi);
+
+    if (wg == 0) {
+      // p = 0 where query < key or query >= T (rows past T are zero-filled,
+      // but their lse means nothing), exactly, on every tile:
+      // query < key   <=>  8j + (e & 1) - 8 (e >> 1) < key_g - (q0 + 2 t4)
+      // query >= T    <=>  8j + (e & 1) >= T - (q0 + 2 t4)
+      const int lim = key_g - q0 - 2 * t4, lim_t = T_ - q0 - 2 * t4;
+#pragma unroll
+      for (int j = 0; j < kBQ3 / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + (e & 1);
+          s[j][e] = (c - 8 * (e >> 1) < lim || c >= lim_t)
+                        ? 0.f
+                        : exp2f(fmaf(s[j][e], scale_log2,
+                                     -(e & 1 ? lv[j].y : lv[j].x) * kLog2e));
+        }
+      slot[0] = make_float4(s[0][0], s[0][1], s[0][2], s[0][3]);
+      slot[128] = make_float4(s[1][0], s[1][1], s[1][2], s[1][3]);
+      asm volatile("bar.arrive 1, 256;\n" ::: "memory");  // P is in the slot
+    } else {
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      const float4 p[2] = {slot[0], slot[128]};
+#pragma unroll
+      for (int j = 0; j < kBQ3 / 8; ++j) {
+        const float pj[4] = {p[j].x, p[j].y, p[j].z, p[j].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = pj[e] * (s[j][e] - (e & 1 ? lv[j].y : lv[j].x)) * scale;
+      }
+    }
+
+    // wg0: dV_i = P^T.dO (B = dO^T); wg1: dK_i = dS^T.Q (B = Q^T); each from
+    // a fresh accumulator, added to the sum in f32
+    uint32_t a_hi[kBQ3 / 8][4], a_lo[kBQ3 / 8][4];
+    split_a(a_hi, a_lo, s);
+    float part[kD / 8][4];
+    wgmma_fence();
+    rs_product_3xtf32<kD, kBQ3>(part, a_hi, a_lo, qs + (wg ? 4 : 6) * kQ,
+                                qs + (wg ? 5 : 7) * kQ);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(part);
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+  }
+
+  float* out = (wg ? dk : dv) + base;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = key_g + 8 * h;
+    if (row >= T_) continue;
+    float* orow = out + static_cast<size_t>(row) * D;
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n) {
+      const int d = 8 * n + 2 * t4;
+      if (d < D)
+        *reinterpret_cast<float2*>(orow + d) = make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+    }
   }
 }
 
@@ -1473,6 +1820,26 @@ cudaError_t dkv_tc(const void* q, const void* k, const void* v, const void* dout
   return cudaGetLastError();
 }
 
+// K3 in f32 on the tensor cores: K and V hi/lo, a q tile in four layouts,
+// its landing buffer and the P slot (212 KB at kD 128)
+template <int kD>
+cudaError_t dkv_3xtf32(const void* q, const void* k, const void* v, const void* dout,
+                       const void* lse, const void* delta, void* dk, void* dv, int BH,
+                       int T_, int D, cudaStream_t st) {
+  if ((T_ + tc::kBK3 - 1) / tc::kBK3 > 65535) return cudaErrorInvalidValue;
+  const size_t smem = static_cast<size_t>(4 * tc::kBK3 + 10 * tc::kBQ3) * kD * 4 +
+                      (2 * tc::kBQ3 + tc::kBK3 * tc::kBQ3) * sizeof(float);
+  auto kernel = tc::flash_dkv_3xtf32_kernel<kD>;
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(BH, (T_ + tc::kBK3 - 1) / tc::kBK3), tc::kThreads, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), T_, D, softmax_scale(D));
+  return cudaGetLastError();
+}
+
 // what the tensor-core kernels refuse: a dtype other than `want` (1: bf16,
 // 0: f32) or a D that is not a multiple of `step` (bf16: 16, f32: 32), and
 // operands their 16-byte cp.async copies cannot read (0: taken)
@@ -1593,6 +1960,20 @@ extern "C" int fedml_flash_dkv_tc(const void* q, const void* k, const void* v,
   return static_cast<int>(
       D <= 64 ? dkv_tc<64>(q, k, v, dout, lse, delta, dk, dv, BH, T_, D, st)
               : dkv_tc<128>(q, k, v, dout, lse, delta, dk, dv, BH, T_, D, st));
+}
+
+// K3 in f32 on the tensor cores, three TF32 passes: f32 (kind 0) only,
+// D % 32 == 0, q/k/v/dO 16-byte aligned
+extern "C" int fedml_flash_dkv_3xtf32(const void* q, const void* k, const void* v,
+                                      const void* dout, const void* lse, const void* delta,
+                                      void* dk, void* dv, int BH, int T_, int D, int kind,
+                                      void* stream) {
+  if (cudaError_t err = tc_refusal(BH, T_, D, kind, 0, 32, q, k, v, dout))
+    return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      D <= 64 ? dkv_3xtf32<64>(q, k, v, dout, lse, delta, dk, dv, BH, T_, D, st)
+              : dkv_3xtf32<128>(q, k, v, dout, lse, delta, dk, dv, BH, T_, D, st));
 }
 
 extern "C" int fedml_flash_dq(const void* q, const void* k, const void* v,

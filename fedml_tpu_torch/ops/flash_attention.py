@@ -31,18 +31,19 @@ blocked math with their rounding points. It never falls back from a kernel
 to a plain version. The kernels are chosen by one shape rule. bf16 with
 D % 16 == 0 runs on the tensor cores in every pass (`flash_fwd_tc_kernel`,
 `flash_dq_tc_kernel`, `flash_dkv_tc_kernel`, all `wgmma`). The f32
-forward with D % 32 == 0 runs on the tensor cores too
-(`flash_fwd_3xtf32_kernel`): each f32 product is made of three TF32
-`wgmma` passes over a hi/lo split of both operands (`tf32_split`,
-`matmul_3xtf32` is its plain emulation), which keeps about 21 bits, where
-one TF32 pass would keep 10. Everything else -- the f32 backward, and
-bf16 or f32 heads of any other D -- runs on the CUDA-core FMA kernels.
-`fwd_route` names the forward's kernel and `bwd_route` the backward's
-("tc" or "fma"). The tensor-core kernels copy 16-byte chunks, so their
-operands must start 16-byte aligned (a view at another storage offset
-raises a ValueError). `launch_count` counts each kernel's launches (and
-nothing else): "fwd_tc", "fwd_3xtf32" and "fwd" for the three forwards,
-"dq_tc" and "dq" for dQ, "dkv_tc" and "dkv" for dK/dV.
+forward and dK/dV with D % 32 == 0 run on the tensor cores too
+(`flash_fwd_3xtf32_kernel`, `flash_dkv_3xtf32_kernel`): each f32 product
+is made of three TF32 `wgmma` passes over a hi/lo split of both operands
+(`tf32_split`, `matmul_3xtf32` is its plain emulation), which keeps about
+21 bits, where one TF32 pass would keep 10. Everything else -- f32 dQ,
+and bf16 or f32 heads of any other D -- runs on the CUDA-core FMA
+kernels. `fwd_route`, `dq_route` and `dkv_route` name each pass's kernel
+by its `launch_count` key. The tensor-core kernels copy 16-byte chunks,
+so their operands must start 16-byte aligned (a view at another storage
+offset raises a ValueError). `launch_count` counts each kernel's
+launches (and nothing else): "fwd_tc", "fwd_3xtf32" and "fwd" for the
+three forwards, "dq_tc" and "dq" for dQ, "dkv_tc", "dkv_3xtf32" and
+"dkv" for dK/dV.
 
 `rowwise_rel_err` (from `ops/tolerance.py`) is the rule the kernels are
 held to against their plain versions on the card.
@@ -61,7 +62,7 @@ MAX_D = 128
 _KIND = {torch.float32: 0, torch.bfloat16: 1}
 
 launch_count = {"fwd": 0, "fwd_tc": 0, "fwd_3xtf32": 0, "dq": 0, "dq_tc": 0,
-                "dkv": 0, "dkv_tc": 0}
+                "dkv": 0, "dkv_tc": 0, "dkv_3xtf32": 0}
 
 _lib = None
 
@@ -74,7 +75,8 @@ def _kernel_lib() -> ctypes.CDLL:
         for fn, n_ptr in (("fedml_flash_fwd", 5), ("fedml_flash_fwd_tc", 5),
                           ("fedml_flash_fwd_3xtf32", 5),
                           ("fedml_flash_dq", 7), ("fedml_flash_dq_tc", 7),
-                          ("fedml_flash_dkv", 8), ("fedml_flash_dkv_tc", 8)):
+                          ("fedml_flash_dkv", 8), ("fedml_flash_dkv_tc", 8),
+                          ("fedml_flash_dkv_3xtf32", 8)):
             getattr(lib, fn).argtypes = [vp] * n_ptr + [i] * 4 + [vp]
             getattr(lib, fn).restype = i
         lib.fedml_flash_error_string.argtypes = [i]
@@ -152,6 +154,12 @@ def _tensor_cores(q) -> bool:
     return q.dtype == torch.bfloat16 and q.shape[-1] % 16 == 0
 
 
+def _f32_tensor_cores(q) -> bool:
+    """The three-pass TF32 kernels' shape rule: f32 heads with
+    D % 32 == 0."""
+    return q.dtype == torch.float32 and q.shape[-1] % 32 == 0
+
+
 def fwd_route(q) -> str:
     """Which K1 kernel takes q (its `launch_count` key): "fwd_tc", the
     tensor-core kernel, for bf16 with D % 16 == 0; "fwd_3xtf32", the
@@ -160,16 +168,23 @@ def fwd_route(q) -> str:
     fallback."""
     if _tensor_cores(q):
         return "fwd_tc"
-    if q.dtype == torch.float32 and q.shape[-1] % 32 == 0:
-        return "fwd_3xtf32"
-    return "fwd"
+    return "fwd_3xtf32" if _f32_tensor_cores(q) else "fwd"
 
 
-def bwd_route(q) -> str:
-    """Which K2/K3 kernels take q: "tc", the tensor-core kernels
-    (`launch_count` keys "dq_tc", "dkv_tc"), by `fwd_route`'s rule; "fma",
-    the FMA kernels ("dq", "dkv"), for the rest. Never a fallback."""
-    return "tc" if _tensor_cores(q) else "fma"
+def dq_route(q) -> str:
+    """Which K2 kernel takes q (its `launch_count` key): "dq_tc" for bf16
+    with D % 16 == 0, "dq" (FMA) for the rest, f32 included. Never a
+    fallback."""
+    return "dq_tc" if _tensor_cores(q) else "dq"
+
+
+def dkv_route(q) -> str:
+    """Which K3 kernel takes q (its `launch_count` key): "dkv_tc" for bf16
+    with D % 16 == 0, "dkv_3xtf32" (three TF32 passes) for f32 with
+    D % 32 == 0, "dkv" (FMA) for every other head. Never a fallback."""
+    if _tensor_cores(q):
+        return "dkv_tc"
+    return "dkv_3xtf32" if _f32_tensor_cores(q) else "dkv"
 
 
 def _require_aligned(what: str, *tensors) -> None:
@@ -199,24 +214,17 @@ def flash_fwd(q, k, v, block_q=None, block_k=None):
     return o, lse
 
 
-def _bwd_kernel(name: str, q, k, v, do) -> str:
-    """The `launch_count` key of backward pass `name` ("dq" or "dkv") for
-    these operands, by `bwd_route`; on the tensor-core route q, k, v and dO
-    must start 16-byte aligned."""
-    if bwd_route(q) == "fma":
-        return name
-    _require_aligned("backward", q, k, v, do)
-    return f"{name}_tc"
-
-
 def flash_dq(q, k, v, do, lse, delta, block_q=None, block_k=None):
-    """dQ [BH, T, D] in q's dtype: K2 on CUDA (the kernel `bwd_route`
-    names), the plain version on the CPU."""
+    """dQ [BH, T, D] in q's dtype: K2 on CUDA (the kernel `dq_route`
+    names), the plain version on the CPU. On the tensor-core route q, k, v
+    and dO must start 16-byte aligned."""
     _check(q, k, v, do, lse, delta)
     bq, bk = _blocks(q.shape[1], block_q, block_k)
     if q.device.type == "cpu":
         return flash_dq_ref(q, k, v, do, lse, delta, bq, bk)
-    name = _bwd_kernel("dq", q, k, v, do)
+    name = dq_route(q)
+    if name != "dq":
+        _require_aligned("backward", q, k, v, do)
     bh, t, d = q.shape
     dq = torch.empty_like(q)
     _launch(name, q, k, v, do, lse, delta, dq, bh=bh, t=t, d=d,
@@ -226,12 +234,15 @@ def flash_dq(q, k, v, do, lse, delta, block_q=None, block_k=None):
 
 def flash_dkv(q, k, v, do, lse, delta, block_q=None, block_k=None):
     """(dK, dV) [BH, T, D] in k's / v's dtype: K3 on CUDA (the kernel
-    `bwd_route` names), the plain version on the CPU."""
+    `dkv_route` names), the plain version on the CPU. On the tensor-core
+    routes q, k, v and dO must start 16-byte aligned."""
     _check(q, k, v, do, lse, delta)
     bq, bk = _blocks(q.shape[1], block_q, block_k)
     if q.device.type == "cpu":
         return flash_dkv_ref(q, k, v, do, lse, delta, bq, bk)
-    name = _bwd_kernel("dkv", q, k, v, do)
+    name = dkv_route(q)
+    if name != "dkv":
+        _require_aligned("backward", q, k, v, do)
     bh, t, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch(name, q, k, v, do, lse, delta, dk, dv, bh=bh, t=t, d=d,
@@ -394,10 +405,13 @@ def flash_dq_ref(q, k, v, do, lse, delta, block_q: int, block_k: int):
     return dq
 
 
-def flash_dkv_ref(q, k, v, do, lse, delta, block_q: int, block_k: int):
+def flash_dkv_ref(q, k, v, do, lse, delta, block_q: int, block_k: int,
+                  mm=torch.matmul):
     """The plain version of K3: dV = sum P^T.dO with p rounded to dO's
     dtype, dK = sum dS^T.Q with dS rounded to Q's dtype, over the q blocks
-    from the diagonal on; f32 sums cast to k's / v's dtypes."""
+    from the diagonal on; f32 sums cast to k's / v's dtypes. `mm` makes its
+    four f32 products (`matmul_3xtf32` repeats the three-pass kernel's
+    arithmetic)."""
     bh, t, d = q.shape
     bq, bk = block_q, block_k
     scale = d ** -0.5
@@ -411,14 +425,15 @@ def flash_dkv_ref(q, k, v, do, lse, delta, block_q: int, block_k: int):
         for i in _q_blocks(t, bq, bk, j):
             rows = slice(i * bq, (i + 1) * bq)
             qb, dob = q[:, rows], do[:, rows]
-            s, mask = _scores_and_mask(qb.float(), kb, i, j, bq, bk, scale)
+            s, mask = _scores_and_mask(qb.float(), kb, i, j, bq, bk, scale,
+                                       mm)
             p = torch.where(mask, torch.exp(s - lse[:, rows, None]), 0.0)
-            dv_acc = dv_acc + (p.to(dob.dtype).float().transpose(-1, -2)
-                               @ dob.float())
-            dp = dob.float() @ vb.transpose(-1, -2)
+            dv_acc = dv_acc + mm(p.to(dob.dtype).float().transpose(-1, -2),
+                                 dob.float())
+            dp = mm(dob.float(), vb.transpose(-1, -2))
             ds = p * (dp - delta[:, rows, None]) * scale
-            dk_acc = dk_acc + (ds.to(qb.dtype).float().transpose(-1, -2)
-                               @ qb.float())
+            dk_acc = dk_acc + mm(ds.to(qb.dtype).float().transpose(-1, -2),
+                                 qb.float())
         dk[:, cols] = dk_acc.to(k.dtype)
         dv[:, cols] = dv_acc.to(v.dtype)
     return dk, dv

@@ -122,10 +122,11 @@ def test_contract_errors():
 def test_cpu_tensors_launch_no_kernel():
     """CPU tensors run the plain versions on every route: an f32 head of
     D 8 (the FMA kernels' route), a bf16 head of D 16 (the tensor cores'
-    route) and an f32 head of D 32 (the three-pass TF32 forward's route)
-    leave every counter, the tensor-core backward's and the three-pass
-    forward's too, as it was."""
-    assert {"dq_tc", "dkv_tc", "fwd_3xtf32"} <= fa.launch_count.keys()
+    route) and an f32 head of D 32 (the three-pass TF32 forward's and
+    dK/dV's route) leave every counter, the tensor-core backward's and the
+    three-pass kernels' too, as it was."""
+    assert {"dq_tc", "dkv_tc", "fwd_3xtf32", "dkv_3xtf32"} \
+        <= fa.launch_count.keys()
     before = dict(fa.launch_count)
     for d, dtype in ((8, torch.float32), (16, torch.bfloat16),
                      (32, torch.float32)):
@@ -134,6 +135,7 @@ def test_cpu_tensors_launch_no_kernel():
         fa.flash_attention(q, k, v).sum().backward()
     assert fa.launch_count == before
     assert fa.launch_count["fwd_3xtf32"] == before["fwd_3xtf32"] == 0
+    assert fa.launch_count["dkv_3xtf32"] == before["dkv_3xtf32"] == 0
 
 
 @pytest.mark.parametrize("seed,spread", [(0, 1.0), (1, 8.0)])
@@ -182,6 +184,54 @@ def test_one_tf32_pass_misses_the_f32_limit():
 
     o, _lse = fa.flash_fwd_ref(*_t(q, k, v), 32, 32, mm=one_pass)
     assert fa.rowwise_rel_err(o, torch.from_numpy(want)) > 1e-4
+
+
+def _jax_dkv(q, k, v, do, bq, bk):
+    """dK, dV of the JAX flash attention (f32, interpret mode on the CPU)
+    through `jax.vjp`."""
+    _o, vjp = jax.vjp(lambda q, k, v: jax_flash(q, k, v, block_q=bq,
+                                                block_k=bk),
+                      *(jnp.array(x) for x in (q, k, v)))
+    _dq, dk, dv = vjp(jnp.array(do))
+    return torch.from_numpy(np.array(dk)), torch.from_numpy(np.array(dv))
+
+
+def _port_dkv(q, k, v, do, bq, bk, mm):
+    """dK, dV of the port's plain K3 with its products made by `mm`, fed
+    the LSE of the plain forward made the same way."""
+    q, k, v, do = _t(q, k, v, do)
+    o, lse = fa.flash_fwd_ref(q, k, v, bq, bk, mm=mm)
+    delta = fa.flash_delta(o, do)
+    return fa.flash_dkv_ref(q, k, v, do, lse, delta, bq, bk, mm=mm)
+
+
+@pytest.mark.parametrize("t,bq,bk,seed", [(128, 32, 32, 0), (96, 32, 48, 1)])
+def test_3xtf32_dkv_products_match_jax(t, bq, bk, seed):
+    """The plain K3 with every f32 product made as the three-pass TF32
+    kernel makes it (`matmul_3xtf32`) against the JAX K3 (f32, interpret
+    mode, `jax.vjp`): dK and dV within 1e-5 row-relative, a tenth of the
+    1e-4 the kernel is held to on the card."""
+    q, k, v = _qkv(seed, t=t)
+    do = np.random.RandomState(seed + 20).randn(*q.shape).astype(np.float32)
+    want_dk, want_dv = _jax_dkv(q, k, v, do, bq, bk)
+    dk, dv = _port_dkv(q, k, v, do, bq, bk, fa.matmul_3xtf32)
+    assert fa.rowwise_rel_err(dk, want_dk) <= 1e-5
+    assert fa.rowwise_rel_err(dv, want_dv) <= 1e-5
+
+
+def test_one_tf32_pass_misses_the_f32_limit_in_dkv():
+    """Why K3 takes three passes too: with one TF32 pass (hi . hi) the
+    same dK and dV are off the JAX K3 by more than 1e-4."""
+    q, k, v = _qkv(0, t=128)
+    do = np.random.RandomState(20).randn(*q.shape).astype(np.float32)
+    want_dk, want_dv = _jax_dkv(q, k, v, do, 32, 32)
+
+    def one_pass(a, b):
+        return fa.tf32_split(a)[0] @ fa.tf32_split(b)[0]
+
+    dk, dv = _port_dkv(q, k, v, do, 32, 32, one_pass)
+    assert fa.rowwise_rel_err(dk, want_dk) > 1e-4
+    assert fa.rowwise_rel_err(dv, want_dv) > 1e-4
 
 
 def test_rowwise_rel_err_rule():
@@ -233,8 +283,7 @@ def test_cuda_kernels_match_plain_versions(cuda, dtype, bh, t, d):
     dq = fa.flash_dq(q, k, v, do, lse, delta, block_q=t, block_k=t)
     dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, block_q=t, block_k=t)
     torch.cuda.synchronize()
-    tc = "_tc" if fa.bwd_route(q) == "tc" else ""
-    launched = {fa.fwd_route(q), "dq" + tc, "dkv" + tc}
+    launched = {fa.fwd_route(q), fa.dq_route(q), fa.dkv_route(q)}
     assert fa.launch_count == {n: before[n] + (n in launched) for n in before}
     want_o, want_lse = fa.flash_fwd_ref(q, k, v, t, t)
     want_dq = fa.flash_dq_ref(q, k, v, do, want_lse, delta, t, t)
@@ -258,7 +307,8 @@ def test_cuda_tensor_core_forward_tile_edges(cuda, t, d):
     bh = 2 if t == 2048 else 3
     q, k, v, do = (torch.from_numpy(rs.randn(bh, t, d).astype(np.float32))
                    .to(cuda, torch.bfloat16) for _ in range(4))
-    assert fa.fwd_route(q) == "fwd_tc" and fa.bwd_route(q) == "tc"
+    assert (fa.fwd_route(q), fa.dq_route(q), fa.dkv_route(q)) == \
+        ("fwd_tc", "dq_tc", "dkv_tc")
     before = dict(fa.launch_count)
     o, lse = fa.flash_fwd(q, k, v, block_q=t, block_k=t)
     torch.cuda.synchronize()
@@ -309,13 +359,15 @@ def test_cuda_3xtf32_forward_tile_edges(cuda, t, d):
     """The f32 three-pass TF32 forward at its tile edges (T of 1, one row
     short of, at and one row past a 32-key tile, a 64-row warpgroup and a
     128-row block, and 2048) against the plain version: O and LSE row by
-    row within 1e-4, one launch through "fwd_3xtf32"; then K2 and K3 on
-    the FMA kernels, fed its LSE, within the same rule."""
+    row within 1e-4, one launch through "fwd_3xtf32"; then K2 on the FMA
+    kernel and K3 on the three-pass kernel, fed its LSE, within the same
+    rule."""
     rs = np.random.RandomState(11)
     bh = 2 if t == 2048 else 3
     q, k, v, do = (torch.from_numpy(rs.randn(bh, t, d).astype(np.float32))
                    .to(cuda) for _ in range(4))
-    assert fa.fwd_route(q) == "fwd_3xtf32" and fa.bwd_route(q) == "fma"
+    assert (fa.fwd_route(q), fa.dq_route(q), fa.dkv_route(q)) == \
+        ("fwd_3xtf32", "dq", "dkv_3xtf32")
     before = dict(fa.launch_count)
     o, lse = fa.flash_fwd(q, k, v, block_q=t, block_k=t)
     torch.cuda.synchronize()
@@ -331,7 +383,7 @@ def test_cuda_3xtf32_forward_tile_edges(cuda, t, d):
     assert fa.launch_count == {**before,
                                "fwd_3xtf32": before["fwd_3xtf32"] + 1,
                                "dq": before["dq"] + 1,
-                               "dkv": before["dkv"] + 1}
+                               "dkv_3xtf32": before["dkv_3xtf32"] + 1}
     want_dq = fa.flash_dq_ref(q, k, v, do, lse, delta, t, t)
     want_dk, want_dv = fa.flash_dkv_ref(q, k, v, do, lse, delta, t, t)
     for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
@@ -361,6 +413,57 @@ def test_cuda_tensor_core_backward_refuses_misaligned_views(cuda):
     assert all(torch.isfinite(x.float()).all() for x in (dq, dk, dv))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [1, 15, 16, 17, 63, 64, 65, 127, 128, 129,
+                               2048])
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_3xtf32_dkv_tile_edges(cuda, t, d):
+    """K3 in f32 on the three-pass TF32 kernel at its tile edges (T of 1,
+    one row short of, at and one row past a 16-query tile and a 64-key
+    block, and 2048), fed the three-pass forward's LSE: dK and dV row by
+    row within 1e-4 of the plain version, one launch through
+    "dkv_3xtf32"."""
+    rs = np.random.RandomState(12)
+    bh = 2 if t == 2048 else 3
+    q, k, v, do = (torch.from_numpy(rs.randn(bh, t, d).astype(np.float32))
+                   .to(cuda) for _ in range(4))
+    assert fa.dkv_route(q) == "dkv_3xtf32"
+    o, lse = fa.flash_fwd(q, k, v, block_q=t, block_k=t)
+    delta = fa.flash_delta(o, do)
+    before = dict(fa.launch_count)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, block_q=t, block_k=t)
+    torch.cuda.synchronize()
+    assert fa.launch_count == {**before,
+                               "dkv_3xtf32": before["dkv_3xtf32"] + 1}
+    want_dk, want_dv = fa.flash_dkv_ref(q, k, v, do, lse, delta, t, t)
+    assert fa.rowwise_rel_err(dk, want_dk) <= 1e-4
+    assert fa.rowwise_rel_err(dv, want_dv) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_cuda_3xtf32_dkv_refuses_misaligned_views(cuda):
+    """An f32 dO view 8 bytes into its storage: K3 on the three-pass
+    route raises before any launch (K2, on the FMA route, takes it), and
+    runs on an aligned copy of it."""
+    rs = np.random.RandomState(13)
+    q, k, v = (torch.from_numpy(rs.randn(2, 64, 64).astype(np.float32))
+               .to(cuda) for _ in range(3))
+    buf = torch.zeros(2 * 64 * 64 + 2, device=cuda)
+    do = buf[2:].view(2, 64, 64)
+    o, lse = fa.flash_fwd(q, k, v)
+    delta = fa.flash_delta(o, do)
+    before = dict(fa.launch_count)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_dkv(q, k, v, do, lse, delta)
+    assert fa.launch_count == before
+    dq = fa.flash_dq(q, k, v, do, lse, delta)
+    dk, dv = fa.flash_dkv(q, k, v, do.clone(), lse, delta)
+    torch.cuda.synchronize()
+    assert fa.launch_count == {**before, "dq": before["dq"] + 1,
+                               "dkv_3xtf32": before["dkv_3xtf32"] + 1}
+    assert all(torch.isfinite(x).all() for x in (dq, dk, dv))
+
+
 def test_forward_route_rule():
     """bf16 heads with D % 16 == 0 take the tensor-core forward, f32 heads
     with D % 32 == 0 the three-pass TF32 forward; bf16 and f32 of any
@@ -378,13 +481,21 @@ def test_forward_route_rule():
         assert fa.fwd_route(torch.zeros((1, 4, d), dtype=dt)) == want
 
 
-@pytest.mark.parametrize("d,dtype,want", [
-    (128, torch.bfloat16, "tc"), (64, torch.bfloat16, "tc"),
-    (16, torch.bfloat16, "tc"), (40, torch.bfloat16, "fma"),
-    (8, torch.bfloat16, "fma"), (128, torch.float32, "fma")])
-def test_backward_route_rule(d, dtype, want):
-    """K2/K3 follow the forward's rule: bf16 heads with D % 16 == 0 take
-    the tensor-core kernels, f32 and bf16 of any other D the FMA ones."""
+@pytest.mark.parametrize("d,dtype,want_dq,want_dkv", [
+    (128, torch.bfloat16, "dq_tc", "dkv_tc"),
+    (64, torch.bfloat16, "dq_tc", "dkv_tc"),
+    (16, torch.bfloat16, "dq_tc", "dkv_tc"),
+    (40, torch.bfloat16, "dq", "dkv"), (8, torch.bfloat16, "dq", "dkv"),
+    (128, torch.float32, "dq", "dkv_3xtf32"),
+    (64, torch.float32, "dq", "dkv_3xtf32"),
+    (32, torch.float32, "dq", "dkv_3xtf32"),
+    (40, torch.float32, "dq", "dkv"), (16, torch.float32, "dq", "dkv")])
+def test_backward_route_rule(d, dtype, want_dq, want_dkv):
+    """bf16 heads with D % 16 == 0 take the tensor-core K2 and K3; f32
+    heads with D % 32 == 0 take the three-pass TF32 K3 (the forward's f32
+    rule) and the FMA K2; f32 and bf16 of any other D the FMA ones."""
     q = torch.zeros((1, 4, d), dtype=dtype)
-    assert fa.bwd_route(q) == want
-    assert (fa.fwd_route(q) == "fwd_tc") == (want == "tc")
+    assert fa.dq_route(q) == want_dq
+    assert fa.dkv_route(q) == want_dkv
+    assert (fa.fwd_route(q) == "fwd_tc") == (want_dq == "dq_tc")
+    assert (fa.fwd_route(q) == "fwd_3xtf32") == (want_dkv == "dkv_3xtf32")
