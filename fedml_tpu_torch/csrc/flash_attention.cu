@@ -2,14 +2,16 @@
 // and dK/dV (K3).
 //
 // Replaces the Pallas TPU kernels of fedml_tpu/ops/flash_attention.py by
-// kernels chosen with one shape rule (ops/flash_attention.py): bf16 with
-// D % 16 == 0 on the tensor cores; the f32 forward and dK/dV with
-// D % 32 == 0 on the tensor cores in three TF32 passes; the rest (f32 dQ,
-// and heads of other D) on CUDA-core FMAs:
+// kernels chosen with one shape rule (ops/flash_attention.py): every head
+// of the contract (D % 8 == 0, D <= 128) runs K1 on the tensor cores, bf16
+// in one pass and f32 in three TF32 passes, and K2 in f32 the same way;
+// bf16 K2 and K3 with D % 16 == 0 and f32 K3 with D % 32 == 0 run on the
+// tensor cores too; the rest (bf16 K2 and K3 of other D, f32 K3 of other
+// D) on CUDA-core FMAs:
 //   K1 _fwd_kernel  (launched by _flash_fwd)   -> flash_fwd_tc_kernel,
-//                                                 flash_fwd_3xtf32_kernel,
-//                                                 flash_fwd_kernel
+//                                                 flash_fwd_3xtf32_kernel
 //   K2 _dq_kernel   (launched by _pallas_bwd)  -> flash_dq_tc_kernel,
+//                                                 flash_dq_3xtf32_kernel,
 //                                                 flash_dq_kernel
 //   K3 _dkv_kernel  (launched by _pallas_bwd)  -> flash_dkv_tc_kernel,
 //                                                 flash_dkv_3xtf32_kernel,
@@ -35,13 +37,13 @@
 // the CUDA cores, or three TF32 passes over a hi/lo split of each operand
 // (~21 bits a product, f32 sums), never one TF32 pass (~10 bits).
 //
-// Design (first, simple version). The TPU kernels carry their accumulators
-// in VMEM across a sequential grid axis; Hopper blocks run in no order, so
-// that axis becomes a loop inside one block:
-//   K1, K2: one block per (bh, 64-row q tile), looping over the K tiles up
-//           to the diagonal (the causal skip of :70 / :213);
-//   K3:     one block per (bh, 64-row k tile), looping over the q tiles
-//           from the diagonal on (the skip of :244).
+// Design of the FMA kernels (the first, simple version). The TPU kernels
+// carry their accumulators in VMEM across a sequential grid axis; Hopper
+// blocks run in no order, so that axis becomes a loop inside one block:
+//   K2: one block per (bh, 64-row q tile), looping over the K tiles up to
+//       the diagonal (the causal skip of :213);
+//   K3: one block per (bh, 64-row k tile), looping over the q tiles from
+//       the diagonal on (the skip of :244).
 // The backward stays two kernels, so every sum has one owner and a fixed
 // order: no atomics. Tiles are 64 x D, staged in shared memory as f32 with
 // a row pitch of D + 1 words (odd, so a column walk across rows hits 32
@@ -59,7 +61,12 @@
 // CUDA cores' f32 peak is 67). The
 // FMA kernels do every product with scalar FMAs from shared memory (two
 // shared loads per four FMAs), a fraction of the f32 CUDA-core rate; they
-// stay for f32 dQ and for heads no tensor-core kernel takes.
+// stay for the backward heads no tensor-core kernel takes.
+//
+// The tensor-core kernels take any D % 8 == 0 on an instance of kD = 64 or
+// 128 columns (D rounded up): their loads zero-fill every 16-byte chunk
+// past D, so the columns past D add nothing to Q.K^T, and their stores
+// write only d < D; the softmax scale is the real D's.
 //
 // The bf16 forward (flash_fwd_tc_kernel) runs both products on the tensor
 // cores with wgmma (bf16 in, f32 accumulate in registers): one block of two
@@ -192,88 +199,10 @@ __device__ __forceinline__ void tile_pm(float (&acc)[4][NJ], const float* p,
   }
 }
 
-// ------------------------------------------------------------------ K1
-template <typename T, int NJ>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int T_, int D, float scale) {
-  extern __shared__ float smem[];
-  const int pitch = D + 1;
-  float* q_s = smem;
-  float* k_s = q_s + kB * pitch;
-  float* v_s = k_s + kB * pitch;
-  float* p_s = v_s + kB * pitch;  // [64][kPitchP]
-
-  const int bh = blockIdx.x;
-  const int qt = gridDim.y - 1 - blockIdx.y;  // longest tiles first
-  const int q0 = qt * kB;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const size_t base = static_cast<size_t>(bh) * T_ * D;
-
-  load_tile(q_s, q + base + static_cast<size_t>(q0) * D, min(kB, T_ - q0), D);
-  float m[4], l[4], acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNeg;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int kt = 0; kt <= qt; ++kt) {  // tiles past the diagonal: all masked
-    const int k0 = kt * kB;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile(k_s, k + base + static_cast<size_t>(k0) * D, min(kB, T_ - k0), D);
-    load_tile(v_s, v + base + static_cast<size_t>(k0) * D, min(kB, T_ - k0), D);
-    __syncthreads();
-    float s[4][4] = {};
-    tile_abt(s, q_s, k_s, D, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + 4 * ty + i;
-      float mx = kNeg;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        s[i][j] = qpos >= kpos ? s[i][j] * scale : kNeg;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], fedml::group_max<16>(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float e = expf(s[i][j] - m_new);
-        sum += e;  // l sums p in f32; P.V takes p rounded to V's dtype
-        p_s[(4 * ty + i) * kPitchP + tx + 16 * j] = round_to<T>(e);
-      }
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + fedml::group_sum<16>(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= corr;
-    }
-    __syncthreads();
-    tile_pm<NJ>(acc, p_s, v_s, D, ty, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + 4 * ty + i;
-    if (qpos >= T_) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) o[base + static_cast<size_t>(qpos) * D + d] = from_float<T>(acc[i][j] / den);
-    }
-    if (tx == 0) lse[static_cast<size_t>(bh) * T_ + qpos] = m[i] + logf(den);
-  }
-}
-
 // ------------------------------------------------------ K1, tensor cores
-// bf16, D % 16 == 0. kD (64 or 128) is D rounded up: columns past D are
-// zero in shared memory (they add nothing to Q.K^T) and are never stored.
+// bf16, every D % 8 == 0 (the backward kernels: D % 16 == 0). kD (64 or
+// 128) is D rounded up: columns past D are zero in shared memory (they add
+// nothing to Q.K^T) and are never stored.
 //
 // Register fragments (g = lane / 4, t = lane % 4; warp w of a warpgroup
 // owns its rows 16w .. 16w+15): an f32 accumulator of wgmma.m64nNk16 holds,
@@ -831,7 +760,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ------------------------------------------ K1 in f32, three-pass TF32
-// f32 with D % 32 == 0 (kD = 64 or 128, D rounded up: columns past D are
+// f32, every D % 8 == 0 (kD = 64 or 128, D rounded up: columns past D are
 // zero in shared memory and never stored). Same structure as the bf16
 // forward: one block of two warpgroups per (bh, 128-row q tile), each
 // owning 64 rows; S = Q.K^T from shared memory, the online softmax in
@@ -928,6 +857,21 @@ __device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[8][4], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
+// O (m64n32, f32) (+)= A . B, TF32: as wgmma_tf32_rs_n64
+__device__ __forceinline__ void wgmma_tf32_rs_n32(float (&d)[4][4], const uint32_t (&a)[4],
+                                                  uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 // O (m64n128, f32) (+)= A . B, TF32: as wgmma_tf32_rs_n64
 __device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[16][4], const uint32_t (&a)[4],
                                                    uint64_t db, int accumulate) {
@@ -989,18 +933,19 @@ __device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
                      : gmma_desc(addr, 16, 512, kSwizzle64);
 }
 
-// D (m64 x kD, f32) = A . B in three TF32 passes over KROWS: A (hi, lo)
-// from registers, KROWS / 8 k-steps; B hi/lo tiles of kD rows of KROWS f32
-// (V^T in K1: 32 keys; Q^T or dO^T in K3: 16 queries), k-step kk 32 bytes
-// along the row. D starts from zero: the tensor cores' f32 sums drop the
-// bits past an ulp of the running sum, so a sum carried over every tile
-// would lose up to an ulp a step, 768 steps at T 2048; the caller adds each
-// tile's D to its sum in f32 instead
-template <int kD, int KROWS>
-__device__ __forceinline__ void rs_product_3xtf32(float (&d)[kD / 8][4],
+// D (m64 x N, f32) = A . B in three TF32 passes over KROWS: A (hi, lo)
+// from registers, KROWS / 8 k-steps; B hi/lo tiles of N rows of KROWS f32
+// (V^T in K1: 32 keys; Q^T or dO^T in K3: 16 queries; half of K^T's kD
+// rows in K2: 16 keys), k-step kk 32 bytes along the row. D starts from
+// zero: the tensor cores' f32 sums drop the bits past an ulp of the running
+// sum, so a sum carried over every tile would lose up to an ulp a step, 768
+// steps at T 2048; the caller adds each tile's D to its sum in f32 instead
+template <int N, int KROWS>
+__device__ __forceinline__ void rs_product_3xtf32(float (&d)[N / 8][4],
                                                   const uint32_t (&a_hi)[KROWS / 8][4],
                                                   const uint32_t (&a_lo)[KROWS / 8][4],
                                                   uint32_t b_hi, uint32_t b_lo) {
+  static_assert(N == 128 || N == 64 || N == 32, "an m64nNk8 product with N 32, 64 or 128");
   const uint64_t dh = kmajor_desc<KROWS>(b_hi), dl = kmajor_desc<KROWS>(b_lo);
 #pragma unroll
   for (int pass = 0; pass < 3; ++pass) {
@@ -1008,8 +953,9 @@ __device__ __forceinline__ void rs_product_3xtf32(float (&d)[kD / 8][4],
 #pragma unroll
     for (int kk = 0; kk < KROWS / 8; ++kk) {
       const uint32_t(&a)[4] = pass == 0 ? a_lo[kk] : a_hi[kk];
-      if constexpr (kD == 128) wgmma_tf32_rs_n128(d, a, db + ((kk * 32) >> 4), pass + kk > 0);
-      else wgmma_tf32_rs_n64(d, a, db + ((kk * 32) >> 4), pass + kk > 0);
+      if constexpr (N == 128) wgmma_tf32_rs_n128(d, a, db + ((kk * 32) >> 4), pass + kk > 0);
+      else if constexpr (N == 64) wgmma_tf32_rs_n64(d, a, db + ((kk * 32) >> 4), pass + kk > 0);
+      else wgmma_tf32_rs_n32(d, a, db + ((kk * 32) >> 4), pass + kk > 0);
     }
   }
 }
@@ -1255,7 +1201,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 
 // ------------------------------------------ K3 in f32, three-pass TF32
-// dK and dV in f32 with D % 32 == 0 (kD = 64 or 128, as K1's f32 kernel),
+// dK and dV in f32 with D % 32 == 0 (kD = 64 or 128, D rounded up),
 // replacing _dkv_kernel (fedml_tpu/ops/flash_attention.py:232) on that route:
 // per key, dV = sum_q P^T.dO and dK = sum_q dS^T.Q over the queries from the
 // diagonal on, with p = exp(s scale - lse) (0 where the query precedes the
@@ -1263,7 +1209,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 // TF32 passes over a hi/lo split (as K1's f32 kernel makes them).
 //
 // One block of two warpgroups per (bh, 64-key tile), the first key tiles
-// (which see the most q tiles) first, looping over q tiles of kBQ3 = 16
+// (which see the most q tiles) first, looping over q tiles of kBS = 16
 // queries from the diagonal on. The two warpgroups split the products, not
 // the keys; each covers all 64 keys:
 //   wg0: S^T = K.Q^T (A = K, B = Q, both hi/lo in shared memory),
@@ -1298,13 +1244,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 // dP^T doubles the kernel's own floor (0.833 ms), so it reads at most 50% of
 // the bound. Per (64-key, 16-query) pair the block reads ~224 KB of shared
 // memory in its products (A once for A_lo.B_hi and once for A_hi.[B_lo;
-// B_hi], in each warpgroup) and stages ~112 KB: it is bound by
-// shared-memory bandwidth, not by the tensor cores.
-constexpr int kBK3 = 64;  // keys per block
-constexpr int kBQ3 = 16;  // queries per q tile
+// B_hi], in each warpgroup) and stages ~112 KB. Reading A_hi once instead of
+// twice did not move its time: what holds it is what is serial in each
+// tile (staging between two barriers while the tensor cores idle, the P
+// hand-off, each product chain's wait).
+constexpr int kBR = 64;  // resident rows a block owns: K3's keys, K2's queries
+constexpr int kBS = 16;  // rows of a streamed tile: K3's queries, K2's keys
 
 // S^T (m64n16, f32) = A . B^T in three TF32 passes over kD columns, for
-// K3: A the hi/lo tiles of kBK3 rows; B one tile of 2 kBQ3 rows, lo in rows
+// K3 (and S, dP in K2): A the hi/lo tiles of kBR rows; B one tile of 2 kBS
+// rows, lo in rows
 // 0-15 and hi in rows 16-31 (128-byte swizzle, 32-column blocks 4 KB
 // apart). A_lo.B_hi is one m64n16 product; A_hi.[B_lo; B_hi] is one m64n32
 // product, which reads A_hi once for both terms (three m64n16 passes
@@ -1320,14 +1269,14 @@ __device__ __forceinline__ void ss_product_k3(float (&lo_hi)[2][4], float (&hi)[
                  db = gmma_desc(b, 16, 1024);
 #pragma unroll
   for (int kk = 0; kk < kD / 8; ++kk) {
-    const int a_off = ((kk >> 2) * (kBK3 * 128) + (kk & 3) * 32) >> 4;
-    const int b_off = ((kk >> 2) * (2 * kBQ3 * 128) + (kk & 3) * 32) >> 4;
-    wgmma_tf32_ss_n16(lo_hi, dal + a_off, db + b_off + ((kBQ3 * 128) >> 4), kk > 0);
+    const int a_off = ((kk >> 2) * (kBR * 128) + (kk & 3) * 32) >> 4;
+    const int b_off = ((kk >> 2) * (2 * kBS * 128) + (kk & 3) * 32) >> 4;
+    wgmma_tf32_ss_n16(lo_hi, dal + a_off, db + b_off + ((kBS * 128) >> 4), kk > 0);
   }
 #pragma unroll
   for (int kk = 0; kk < kD / 8; ++kk) {
-    const int a_off = ((kk >> 2) * (kBK3 * 128) + (kk & 3) * 32) >> 4;
-    const int b_off = ((kk >> 2) * (2 * kBQ3 * 128) + (kk & 3) * 32) >> 4;
+    const int a_off = ((kk >> 2) * (kBR * 128) + (kk & 3) * 32) >> 4;
+    const int b_off = ((kk >> 2) * (2 * kBS * 128) + (kk & 3) * 32) >> 4;
     wgmma_tf32_ss_n32(hi[kk & 3], dah + a_off, db + b_off, kk >= 4);
   }
 }
@@ -1351,65 +1300,77 @@ __device__ __forceinline__ uint32_t swz64(int r, int c) {
   return static_cast<uint32_t>(r * 64 + ((c ^ ((r >> 1) & 3)) << 4));
 }
 
-// byte offset of chunk c of row r in K3's landing buffer, a raw [kBQ3][kD]
-// f32 tile: within each group of 8 chunks, c ^ (2 (r & 1) + 4 ((r >> 3) & 1)),
-// so that the transposing reads of a quarter-warp (rows h + 2i and
-// 8 + h + 2i, h < 2, at two neighbouring chunks) hit 8 different bank quads
+// byte offset of chunk c of row r in a 16-row landing buffer (K3's q
+// tile, K2's key tile), a raw [kBS][kD] f32 tile: within each group of 8
+// chunks, c ^ (2 (r & 1) + 4 ((r >> 3) & 1)), so that the transposing reads
+// of a quarter-warp (rows h + 2i and 8 + h + 2i, h < 2, at two neighbouring
+// chunks) hit 8 different bank quads
 template <int kD>
 __device__ __forceinline__ uint32_t land16_off(int r, int c) {
   return static_cast<uint32_t>((r * (kD / 4) + (c ^ (((r & 1) << 1) | ((r >> 1) & 4)))) * 16);
 }
 
-// queries [q0, q0 + kBQ3) of Q and dO (the bh's [T, D] f32 matrices) and
-// of lse and delta -> the landing buffer (raw Q, raw dO, 16 lse, 16 delta),
-// by cp.async; past T and past D: zeros
+// rows [row0, row0 + kBS) of two of the bh's [T, D] f32 matrices (K3: Q and
+// dO; K2: K and V) -> the landing buffer (raw a, then raw b), by cp.async;
+// past T and past D: zeros
+template <int kD>
+__device__ __forceinline__ void land_pair(uint32_t land, const float* a, const float* b,
+                                          int row0, int T_, int D) {
+  constexpr int kChunks = kD / 4, kTile = kBS * kChunks, kQ = kBS * kD * 4;
+#pragma unroll
+  for (int it = 0; it < 2 * kTile / kThreads; ++it) {
+    const int i = it * kThreads + threadIdx.x;
+    const int op = i / kTile, r = (i % kTile) / kChunks, c = i % kChunks;
+    const float* src = op ? b : a;
+    const bool ok = row0 + r < T_ && c * 4 < D;
+    fedml::cp_async16(land + op * kQ + land16_off<kD>(r, c),
+                      ok ? src + static_cast<size_t>(row0 + r) * D + c * 4 : src, ok ? 16 : 0);
+  }
+}
+
+// queries [q0, q0 + kBS) of Q and dO and of lse and delta -> K3's landing
+// buffer (raw Q, raw dO, 16 lse, 16 delta), by cp.async; past T and past
+// D: zeros
 template <int kD>
 __device__ __forceinline__ void land_q_tile(uint32_t land, const float* q, const float* dout,
                                             const float* lse, const float* delta, int q0,
                                             int T_, int D) {
-  constexpr int kChunks = kD / 4, kTile = kBQ3 * kChunks, kQ = kBQ3 * kD * 4;
-#pragma unroll
-  for (int it = 0; it < 2 * kTile / kThreads; ++it) {
-    const int i = it * kThreads + threadIdx.x;
-    const int op = i / kTile, r = (i % kTile) / kChunks, c = i % kChunks;
-    const float* src = op ? dout : q;
-    const bool ok = q0 + r < T_ && c * 4 < D;
-    fedml::cp_async16(land + op * kQ + land16_off<kD>(r, c),
-                      ok ? src + static_cast<size_t>(q0 + r) * D + c * 4 : src, ok ? 16 : 0);
-  }
-  if (threadIdx.x < 2 * kBQ3) {
-    const int c = threadIdx.x % kBQ3;
+  land_pair<kD>(land, q, dout, q0, T_, D);
+  if (threadIdx.x < 2 * kBS) {
+    const int c = threadIdx.x % kBS;
     const bool ok = q0 + c < T_;
-    fedml::cp_async4(land + 2 * kQ + threadIdx.x * 4,
-                     (threadIdx.x < kBQ3 ? lse : delta) + (ok ? q0 + c : 0), ok ? 4 : 0);
+    fedml::cp_async4(land + 2 * kBS * kD * 4 + threadIdx.x * 4,
+                     (threadIdx.x < kBS ? lse : delta) + (ok ? q0 + c : 0), ok ? 4 : 0);
   }
 }
 
-// the landing buffer's raw Q and dO -> hi/lo tiles at st: Q and dO as
-// [2 kBQ3][kD] tiles of 2 kQ bytes, lo in rows 0-15 and hi in rows 16-31
-// (128-byte swizzle: the B operands of S^T and dP^T), then Q^T hi, lo and
-// dO^T hi, lo of kQ bytes (kD rows of kBQ3 queries, 64-byte swizzle: the B
-// operands of dK and dV). Chunk 2m + h of a
-// transposed row holds queries 8m + h + 2i, i < 4 (kPerm); a thread reads a
-// 4 x 4 block (4 queries x 4 columns) and writes its 4 transposed chunks,
-// an odd column group's in the order 1 0 3 2, so that a quarter-warp's
-// stores cover rows of both parities (all 8 bank quads)
-template <int kD>
-__device__ __forceinline__ void stage_q_tile(unsigned char* st, const unsigned char* land) {
-  constexpr int kChunks = kD / 4, kTile = kBQ3 * kChunks, kQ = kBQ3 * kD * 4;
+// the first N of the landing buffer's raw pair (K3: Q and dO, N = 2; K2:
+// K, N = 1) -> hi/lo tiles at st: each as a [2 kBS][kD] tile of 2 kQ bytes,
+// lo in rows 0-15 and hi in rows 16-31 (128-byte swizzle: K3's B operands
+// of S^T and dP^T, K2's of S), then, from st + 2 N kQ on, each transposed,
+// hi and lo of kQ bytes (kD rows of kBS rows' values, 64-byte swizzle:
+// K3's Q^T and dO^T, the B operands of dK and dV; K2's K^T, the B operand
+// of dQ). Chunk 2m + h
+// of a transposed row holds rows 8m + h + 2i, i < 4 (kPerm); a thread reads
+// a 4 x 4 block (4 rows x 4 columns) and writes its 4 transposed chunks, an
+// odd column group's in the order 1 0 3 2, so that a quarter-warp's stores
+// cover rows of both parities (all 8 bank quads)
+template <int kD, int N>
+__device__ __forceinline__ void stage_tile16(unsigned char* st, const unsigned char* land) {
+  constexpr int kChunks = kD / 4, kTile = kBS * kChunks, kQ = kBS * kD * 4;
 #pragma unroll
-  for (int it = 0; it < 2 * kTile / kThreads; ++it) {
+  for (int it = 0; it < N * kTile / kThreads; ++it) {
     const int i = it * kThreads + threadIdx.x;
     const int op = i / kTile, r = (i % kTile) / kChunks, c = i % kChunks;
     float4 h, l;
     split4(*reinterpret_cast<const float4*>(land + op * kQ + land16_off<kD>(r, c)), h, l);
-    *reinterpret_cast<float4*>(st + 2 * op * kQ + swz<2 * kBQ3>(r + kBQ3, c)) = h;
-    *reinterpret_cast<float4*>(st + 2 * op * kQ + swz<2 * kBQ3>(r, c)) = l;
+    *reinterpret_cast<float4*>(st + 2 * op * kQ + swz<2 * kBS>(r + kBS, c)) = h;
+    *reinterpret_cast<float4*>(st + 2 * op * kQ + swz<2 * kBS>(r, c)) = l;
   }
 #pragma unroll
-  for (int it = 0; it < (2 * kD + kThreads - 1) / kThreads; ++it) {
+  for (int it = 0; it < (N * kD + kThreads - 1) / kThreads; ++it) {
     const int i = it * kThreads + threadIdx.x;
-    if (i >= 2 * kD) break;
+    if (i >= N * kD) break;
     const int op = i / kD, cc = i & 3, d4 = (i % kD) >> 2;
     const int qa = 8 * (cc >> 1) + (cc & 1);
     const unsigned char* src = land + op * kQ;
@@ -1421,7 +1382,7 @@ __device__ __forceinline__ void stage_q_tile(unsigned char* st, const unsigned c
                             make_float4(x[0].y, x[1].y, x[2].y, x[3].y),
                             make_float4(x[0].z, x[1].z, x[2].z, x[3].z),
                             make_float4(x[0].w, x[1].w, x[2].w, x[3].w)};
-    unsigned char* hi = st + (4 + 2 * op) * kQ;
+    unsigned char* hi = st + (2 * N + 2 * op) * kQ;
     const int odd = d4 & 1;
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
@@ -1441,16 +1402,16 @@ __global__ void __launch_bounds__(kThreads, 1)
                             const float* __restrict__ lse, const float* __restrict__ delta,
                             float* __restrict__ dk, float* __restrict__ dv, int T_, int D,
                             float scale) {
-  constexpr int kKV = kBK3 * kD * 4;  // bytes of K or V hi (or lo)
-  constexpr int kQ = kBQ3 * kD * 4;   // bytes of one staged or raw q-tile operand
+  constexpr int kKV = kBR * kD * 4;  // bytes of K or V hi (or lo)
+  constexpr int kQ = kBS * kD * 4;   // bytes of one staged or raw q-tile operand
   constexpr int kKHi = 0, kKLo = kKV, kVHi = 2 * kKV, kVLo = 3 * kKV, kStage = 4 * kKV,
-                kLand = kStage + 8 * kQ, kVec = kLand + 2 * kQ, kSlot = kVec + 2 * kBQ3 * 4;
+                kLand = kStage + 8 * kQ, kVec = kLand + 2 * kQ, kSlot = kVec + 2 * kBS * 4;
   extern __shared__ __align__(1024) unsigned char smem_tc[];
   const uint32_t sa = fedml::smem_addr(smem_tc);
   const uint32_t qs = sa + kStage;  // Q and dO (lo and hi), Q^T, dO^T (hi, lo)
 
   const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kBK3;  // the first key tiles have the most q tiles
+  const int k0 = blockIdx.y * kBR;  // the first key tiles have the most q tiles
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int wg = warp >> 2;                     // 0: S^T, P, dV; 1: dP^T, dS, dK
@@ -1458,16 +1419,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   const size_t base = static_cast<size_t>(bh) * T_ * D;
   const float* lse_bh = lse + static_cast<size_t>(bh) * T_;
   const float* dlt_bh = delta + static_cast<size_t>(bh) * T_;
-  const int qt0 = k0 / kBQ3;  // q tiles before it hold only masked queries
-  const int n_qt = (T_ + kBQ3 - 1) / kBQ3;
+  const int qt0 = k0 / kBS;  // q tiles before it hold only masked queries
+  const int n_qt = (T_ + kBS - 1) / kBS;
   const float scale_log2 = scale * kLog2e;
   // thread i of either warpgroup: its 8 S^T / dP^T entries, two float4s
   float4* slot = reinterpret_cast<float4*>(smem_tc + kSlot) + (threadIdx.x & 127);
 
-  land_q_tile<kD>(sa + kLand, q + base, dout + base, lse_bh, dlt_bh, qt0 * kBQ3, T_, D);
+  land_q_tile<kD>(sa + kLand, q + base, dout + base, lse_bh, dlt_bh, qt0 * kBS, T_, D);
   fedml::cp_async_commit();
-  stage_rows<kBK3, kD>(smem_tc + kKHi, smem_tc + kKLo, k + base, k0, T_, D);
-  stage_rows<kBK3, kD>(smem_tc + kVHi, smem_tc + kVLo, v + base, k0, T_, D);
+  stage_rows<kBR, kD>(smem_tc + kKHi, smem_tc + kKLo, k + base, k0, T_, D);
+  stage_rows<kBR, kD>(smem_tc + kVHi, smem_tc + kVLo, v + base, k0, T_, D);
 
   float acc[kD / 8][4];  // wg0: dV, wg1: dK
 #pragma unroll
@@ -1480,23 +1441,23 @@ __global__ void __launch_bounds__(kThreads, 1)
     // and both warpgroups are done with tile i - 1 (its staged tiles and
     // the P slot); split and transpose, make the tiles visible to wgmma,
     // then start tile i + 1's copy
-    const int q0 = i * kBQ3;
+    const int q0 = i * kBS;
     fedml::cp_async_wait<0>();
     __syncthreads();
-    stage_q_tile<kD>(smem_tc + kStage, smem_tc + kLand);
+    stage_tile16<kD, 2>(smem_tc + kStage, smem_tc + kLand);
     // lse (wg0) or delta (wg1) of the thread's queries 8j + 2 t4 + {0, 1}
-    const float* vec = reinterpret_cast<const float*>(smem_tc + kVec) + wg * kBQ3;
+    const float* vec = reinterpret_cast<const float*>(smem_tc + kVec) + wg * kBS;
     const float2 lv[2] = {*reinterpret_cast<const float2*>(vec + 2 * t4),
                           *reinterpret_cast<const float2*>(vec + 8 + 2 * t4)};
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
     if (i + 1 < n_qt) {
-      land_q_tile<kD>(sa + kLand, q + base, dout + base, lse_bh, dlt_bh, q0 + kBQ3, T_, D);
+      land_q_tile<kD>(sa + kLand, q + base, dout + base, lse_bh, dlt_bh, q0 + kBS, T_, D);
       fedml::cp_async_commit();
     }
 
     // wg0: S^T = K.Q^T; wg1: dP^T = V.dO^T (B: the Q or dO tile, K-major)
-    float lo_hi[2][4], hi[4][4][4], s[kBQ3 / 8][4];
+    float lo_hi[2][4], hi[4][4][4], s[kBS / 8][4];
     wgmma_fence();
     ss_product_k3<kD>(lo_hi, hi, sa + (wg ? kVHi : kKHi), sa + (wg ? kVLo : kKLo),
                       qs + (wg ? 2 : 0) * kQ);
@@ -1514,7 +1475,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       // query >= T    <=>  8j + (e & 1) >= T - (q0 + 2 t4)
       const int lim = key_g - q0 - 2 * t4, lim_t = T_ - q0 - 2 * t4;
 #pragma unroll
-      for (int j = 0; j < kBQ3 / 8; ++j)
+      for (int j = 0; j < kBS / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int c = 8 * j + (e & 1);
@@ -1530,7 +1491,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       asm volatile("bar.sync 1, 256;\n" ::: "memory");
       const float4 p[2] = {slot[0], slot[128]};
 #pragma unroll
-      for (int j = 0; j < kBQ3 / 8; ++j) {
+      for (int j = 0; j < kBS / 8; ++j) {
         const float pj[4] = {p[j].x, p[j].y, p[j].z, p[j].w};
 #pragma unroll
         for (int e = 0; e < 4; ++e)
@@ -1540,11 +1501,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // wg0: dV_i = P^T.dO (B = dO^T); wg1: dK_i = dS^T.Q (B = Q^T); each from
     // a fresh accumulator, added to the sum in f32
-    uint32_t a_hi[kBQ3 / 8][4], a_lo[kBQ3 / 8][4];
+    uint32_t a_hi[kBS / 8][4], a_lo[kBS / 8][4];
     split_a(a_hi, a_lo, s);
     float part[kD / 8][4];
     wgmma_fence();
-    rs_product_3xtf32<kD, kBQ3>(part, a_hi, a_lo, qs + (wg ? 4 : 6) * kQ,
+    rs_product_3xtf32<kD, kBS>(part, a_hi, a_lo, qs + (wg ? 4 : 6) * kQ,
                                 qs + (wg ? 5 : 7) * kQ);
     wgmma_commit();
     wgmma_wait0();
@@ -1564,6 +1525,271 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int n = 0; n < kD / 8; ++n) {
       const int d = 8 * n + 2 * t4;
+      if (d < D)
+        *reinterpret_cast<float2*>(orow + d) = make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+    }
+  }
+}
+
+// ------------------------------------------ K2 in f32, three-pass TF32
+// dQ in f32 (every D % 8 == 0: kD = 64 or 128, columns past D zero in
+// shared memory and never stored), replacing _dq_kernel
+// (fedml_tpu/ops/flash_attention.py:204) on that route: per query row,
+// dQ = sum_k dS.K over the keys up to the diagonal, with p = exp(s scale -
+// lse) (0 where the key follows the row) and dS = p (dP - delta) scale. S
+// and dS.K are made on the tensor cores in three TF32 passes over a hi/lo
+// split (as K1's and K3's f32 kernels make them); dP = dO.V^T is made
+// exactly and rounded once to f32: on the f64 tensor cores (DMMA, the f32
+// products are exact in f64, the sum keeps ~1e-16), as the plain version
+// makes it (`ops/flash_attention.py:matmul_f64`). The reason
+// is dQ's first row (and any row whose p sits on one key): there p = 1 and
+// dP = delta, so dQ is dP's rounding times scale times K, ~1e-7, which the
+// row-relative rule holds to 1e-2 x 1e-4. Two f32 sums of the same
+// products in different orders differ by more (magnitude ~11 at D 128):
+// three TF32 passes against the plain f32 product read 2-4e-4 at BH 64
+// (tests/test_torch_flash_attention.py::
+// test_dq_row0_reads_the_rounding_of_dp), and an f32 FMA chain in d order
+// matched cuBLAS only where cuBLAS sums in that order (not for a 1 x 1
+// product at T 1). A dP rounded once from an exact sum is the same value
+// whatever the order.
+//
+// K3 mirrored: one block of two warpgroups per (bh, 64-row q tile), the
+// longest tiles first, looping over key tiles of kBS = 16 keys up to the
+// diagonal. Q hi + lo and dO (in f64) stay in shared memory; each key tile
+// lands raw by cp.async behind the current tile's products and is staged
+// as K K-major ([lo; hi], the B operand of S), as K^T (kD rows of 16 keys
+// in kPerm order, 64-byte swizzle: the B operand of dQ += dS.K, since TF32
+// wgmma has no transpose) and as V in f64. The warpgroups split the work,
+// not the rows; each covers all 64 rows:
+//   wg0: S = Q.K^T (TF32 wgmma), then p;
+//   wg1: dP = dO.V^T, each warp its 16 rows x 16 keys as four m8n8k4 f64
+//        mma.sync per 4 columns of D, whose accumulators (row g, columns
+//        2t and 2t + 1 of each 8 x 8) are the m64n16 layout as it stands,
+//        so that thread i of either warpgroup holds the same (row, key)
+//        entries; it overlaps wg0's product;
+// both write theirs to a slot, meet at one barrier and read the other's,
+// form the same dS, and each makes half of dQ: wg0 its first kD / 2
+// columns, wg1 the rest (m64n(kD/2)k8, A = dS from registers, B = half of
+// K^T's rows). A thread carries one half-sum (32 f32 at kD 128) and a fresh
+// per-tile accumulator that is added to it in f32 (the tensor cores' f32
+// sums truncate); S's hi.hi k-steps go round four accumulators
+// (`ss_product_k3`).
+//
+// Shared memory at kD 128: Q hi + lo resident, 64 KB; the key tile's K
+// ([lo; hi]) and K^T hi + lo, 32 KB; the landing buffer for the next raw K
+// and V tile, 16 KB; the p / dP slot, 8 KB; dO (66 KB) and V (16.5 KB) in
+// f64 at a row pitch of kD + 4 doubles (a warp's reads of 4 doubles from
+// each of 8 rows take two wavefronts, the fewest): 203 KB of the 227 a
+// block may hold. kD 64 halves the tiles.
+//
+// Bound at BH 64, T 2048, D 128: the two products K2 must do (dP, dS.K),
+// 68.7 GFLOP, three TF32 passes each, over 495 TFLOP/s = 0.4167 ms. The
+// kernel recomputes S on the tensor cores and makes dP in f64, 34.4 GFLOP
+// at the f64 tensor cores' 67 TFLOP/s: 0.51 ms, alongside S; like K3 it is
+// serial within each 16-key tile (staging between two barriers, the slot
+// exchange, each product chain's wait).
+constexpr int kF64Pad = 4;  // doubles past kD in an f64 row
+
+// D (8 x 8, f64) += A (8 x 4) . B (4 x 8), per warp: a = A[g][t], b =
+// B[t][g], d[i] = D[g][2t + i]
+__device__ __forceinline__ void dmma_m8n8k4(double (&d)[2], double a, double b) {
+  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
+               : "+d"(d[0]), "+d"(d[1])
+               : "d"(a), "d"(b));
+}
+
+// rows [row0, row0 + ROWS) of a [T, D] f32 matrix -> f64 rows of kD +
+// kF64Pad doubles, read straight from global memory; rows past T and
+// columns past D are zeros
+template <int ROWS, int kD>
+__device__ __forceinline__ void stage_rows_f64(double* dst, const float* __restrict__ src,
+                                               int row0, int T_, int D) {
+  constexpr int kChunks = kD / 4;
+#pragma unroll 4
+  for (int it = 0; it < ROWS * kChunks / kThreads; ++it) {
+    const int i = it * kThreads + threadIdx.x;
+    const int r = i / kChunks, c = i % kChunks;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < T_ && c * 4 < D)
+      x = __ldg(reinterpret_cast<const float4*>(src + static_cast<size_t>(row0 + r) * D + c * 4));
+    double2* out = reinterpret_cast<double2*>(dst + r * (kD + kF64Pad) + 4 * c);
+    out[0] = make_double2(x.x, x.y);
+    out[1] = make_double2(x.z, x.w);
+  }
+}
+
+// the landing buffer's raw V tile (16 rows, land16_off layout) -> f64 rows
+// of kD + kF64Pad doubles
+template <int kD>
+__device__ __forceinline__ void copy_tile_f64(double* dst, const unsigned char* land) {
+  constexpr int kChunks = kD / 4;
+#pragma unroll
+  for (int it = 0; it < kBS * kChunks / kThreads; ++it) {
+    const int i = it * kThreads + threadIdx.x;
+    const int r = i / kChunks, c = i % kChunks;
+    const float4 x = *reinterpret_cast<const float4*>(land + land16_off<kD>(r, c));
+    double2* out = reinterpret_cast<double2*>(dst + r * (kD + kF64Pad) + 4 * c);
+    out[0] = make_double2(x.x, x.y);
+    out[1] = make_double2(x.z, x.w);
+  }
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_dq_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           float* __restrict__ dq, int T_, int D, float scale) {
+  constexpr int kA = kBR * kD * 4;   // bytes of Q hi (or lo)
+  constexpr int kK = kBS * kD * 4;   // bytes of one staged or raw key-tile operand
+  constexpr int kP = kD + kF64Pad;   // f64 row pitch, doubles
+  constexpr int kQHi = 0, kQLo = kA, kKs = 2 * kA, kKtHi = kKs + 2 * kK, kKtLo = kKtHi + kK,
+                kLand = kKtLo + kK, kSlot = kLand + 2 * kK, kDo = kSlot + 2 * kThreads * 16,
+                kV = kDo + kBR * kP * 8;
+  constexpr int kHalf = kD / 2;  // dQ columns a warpgroup makes
+  extern __shared__ __align__(1024) unsigned char smem_tc[];
+  const uint32_t sa = fedml::smem_addr(smem_tc);
+  const double* do_f64 = reinterpret_cast<const double*>(smem_tc + kDo);
+  double* v_f64 = reinterpret_cast<double*>(smem_tc + kV);
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBR;  // longest tiles first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wg = warp >> 2;                     // 0: S, p; 1: dP
+  const int r_g = 16 * (warp & 3) + g;          // the thread's rows in the tile: r_g, r_g + 8
+  const int row_g = q0 + r_g;
+  const size_t base = static_cast<size_t>(bh) * T_ * D;
+  const int n_kt = min((q0 + kBR + kBS - 1) / kBS, (T_ + kBS - 1) / kBS);
+  const float scale_log2 = scale * kLog2e;
+  // the slot: the thread's 8 S / dP entries as two float4s at `mine` and
+  // kThreads + `mine`; its partner in the other warpgroup at `theirs`
+  float4* slot = reinterpret_cast<float4*>(smem_tc + kSlot);
+  const int mine = threadIdx.x, theirs = threadIdx.x ^ 128;
+
+  land_pair<kD>(sa + kLand, k + base, v + base, 0, T_, D);
+  fedml::cp_async_commit();
+  stage_rows<kBR, kD>(smem_tc + kQHi, smem_tc + kQLo, q + base, q0, T_, D);
+  stage_rows_f64<kBR, kD>(reinterpret_cast<double*>(smem_tc + kDo), dout + base, q0, T_, D);
+
+  // lse (times log2 e) and delta of the thread's rows; past T: zeros
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_g + 8 * h;
+    const size_t at = static_cast<size_t>(bh) * T_ + min(row, T_ - 1);
+    lse2[h] = row < T_ ? lse[at] * kLog2e : 0.f;
+    dlt[h] = row < T_ ? delta[at] : 0.f;
+  }
+  float acc[kHalf / 8][4];
+#pragma unroll
+  for (int n = 0; n < kHalf / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int j = 0; j < n_kt; ++j) {
+    // tile j: raw in the landing buffer once every thread's copies are in
+    // and both warpgroups are done with tile j - 1 (its staged tiles, V
+    // and the slot); split, transpose and widen, make the tiles visible to
+    // wgmma, then start tile j + 1's copy
+    const int k0 = j * kBS;
+    fedml::cp_async_wait<0>();
+    __syncthreads();
+    stage_tile16<kD, 1>(smem_tc + kKs, smem_tc + kLand);
+    copy_tile_f64<kD>(v_f64, smem_tc + kLand + kK);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (j + 1 < n_kt) {
+      land_pair<kD>(sa + kLand, k + base, v + base, k0 + kBS, T_, D);
+      fedml::cp_async_commit();
+    }
+
+    float s[kBS / 8][4];
+    if (wg == 0) {
+      // S = Q.K^T (B: the K tile, K-major), then p = exp(s scale - lse), 0
+      // where the key follows the row (keys past T are zero-filled and
+      // follow every row that is stored):
+      // key > row  <=>  8j + (e & 1) - 8 (e >> 1) > row_g - (k0 + 2 t4)
+      float lo_hi[2][4], hi[4][4][4];
+      wgmma_fence();
+      ss_product_k3<kD>(lo_hi, hi, sa + kQHi, sa + kQLo, sa + kKs);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(lo_hi);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) fence_regs(hi[a]);
+      add_scores(s, lo_hi, hi);
+      const int lim = row_g - k0 - 2 * t4;
+#pragma unroll
+      for (int jj = 0; jj < kBS / 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[jj][e] = 8 * jj + (e & 1) - 8 * (e >> 1) > lim
+                         ? 0.f
+                         : exp2f(fmaf(s[jj][e], scale_log2, -lse2[e >> 1]));
+    } else {
+      // dP = dO.V^T in f64, rounded once to f32: acc[h][jj] is the 8 x 8
+      // block of rows r_g - g + 8 h .. + 7 and keys 8 jj .. 8 jj + 7, the
+      // thread's entries (row r_g + 8 h, keys 8 jj + 2 t4 + {0, 1}), i.e.
+      // s[jj][2 h + {0, 1}]; per 4 columns of D, A[g][t] = dO[row][d + t]
+      // and B[t][g] = V[key 8 jj + g][d + t]
+      const double* x = do_f64 + r_g * kP + t4;
+      const double* y = v_f64 + g * kP + t4;
+      double acc2[2][kBS / 8][2] = {};
+#pragma unroll 4
+      for (int d = 0; d < D; d += 4) {
+        const double a[2] = {x[d], x[8 * kP + d]};
+        const double b[kBS / 8] = {y[d], y[8 * kP + d]};
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int jj = 0; jj < kBS / 8; ++jj) dmma_m8n8k4(acc2[h][jj], a[h], b[jj]);
+      }
+#pragma unroll
+      for (int jj = 0; jj < kBS / 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[jj][e] = __double2float_rn(acc2[e >> 1][jj][e & 1]);
+    }
+    slot[mine] = make_float4(s[0][0], s[0][1], s[0][2], s[0][3]);
+    slot[kThreads + mine] = make_float4(s[1][0], s[1][1], s[1][2], s[1][3]);
+    __syncthreads();  // p and dP are in the slot
+    const float4 o[2] = {slot[theirs], slot[kThreads + theirs]};
+    // dS = p (dP - delta) scale: the same values in both warpgroups
+#pragma unroll
+    for (int jj = 0; jj < kBS / 8; ++jj) {
+      const float oj[4] = {o[jj].x, o[jj].y, o[jj].z, o[jj].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = wg ? oj[e] : s[jj][e], dp = wg ? s[jj][e] : oj[e];
+        s[jj][e] = p * (dp - dlt[e >> 1]) * scale;
+      }
+    }
+
+    // dQ_j = dS.K over the warpgroup's half of the columns (B: its half of
+    // K^T's rows), from a fresh accumulator, added to the sum in f32
+    uint32_t a_hi[kBS / 8][4], a_lo[kBS / 8][4];
+    split_a(a_hi, a_lo, s);
+    float part[kHalf / 8][4];
+    wgmma_fence();
+    rs_product_3xtf32<kHalf, kBS>(part, a_hi, a_lo, sa + kKtHi + wg * kHalf * 64,
+                                  sa + kKtLo + wg * kHalf * 64);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(part);
+#pragma unroll
+    for (int n = 0; n < kHalf / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_g + 8 * h;
+    if (row >= T_) continue;
+    float* orow = dq + base + static_cast<size_t>(row) * D;
+#pragma unroll
+    for (int n = 0; n < kHalf / 8; ++n) {
+      const int d = wg * kHalf + 8 * n + 2 * t4;
       if (d < D)
         *reinterpret_cast<float2*>(orow + d) = make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
     }
@@ -1741,19 +1967,6 @@ float softmax_scale(int D) {
   return static_cast<float>(pow(static_cast<double>(D), -0.5));
 }
 
-template <typename T, int NJ>
-cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                int BH, int T_, int D, cudaStream_t st) {
-  const size_t smem = sizeof(float) * (3 * tile_floats(D) + kB * kPitchP);
-  auto kernel = flash_fwd_kernel<T, NJ>;
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(BH, (T_ + kB - 1) / kB), kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), T_, D, softmax_scale(D));
-  return cudaGetLastError();
-}
-
 template <int kD>
 cudaError_t fwd_tc(const void* q, const void* k, const void* v, void* o, void* lse,
                    int BH, int T_, int D, cudaStream_t st) {
@@ -1826,13 +2039,13 @@ template <int kD>
 cudaError_t dkv_3xtf32(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int BH,
                        int T_, int D, cudaStream_t st) {
-  if ((T_ + tc::kBK3 - 1) / tc::kBK3 > 65535) return cudaErrorInvalidValue;
-  const size_t smem = static_cast<size_t>(4 * tc::kBK3 + 10 * tc::kBQ3) * kD * 4 +
-                      (2 * tc::kBQ3 + tc::kBK3 * tc::kBQ3) * sizeof(float);
+  if ((T_ + tc::kBR - 1) / tc::kBR > 65535) return cudaErrorInvalidValue;
+  const size_t smem = static_cast<size_t>(4 * tc::kBR + 10 * tc::kBS) * kD * 4 +
+                      (2 * tc::kBS + tc::kBR * tc::kBS) * sizeof(float);
   auto kernel = tc::flash_dkv_3xtf32_kernel<kD>;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(BH, (T_ + tc::kBK3 - 1) / tc::kBK3), tc::kThreads, smem, st>>>(
+  kernel<<<dim3(BH, (T_ + tc::kBR - 1) / tc::kBR), tc::kThreads, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1840,9 +2053,31 @@ cudaError_t dkv_3xtf32(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+// K2 in f32: Q hi/lo, the key tile as K, K^T hi/lo, its landing buffer,
+// the p / dP slot, dO and V in f64 (203 KB at kD 128)
+template <int kD>
+cudaError_t dq_3xtf32(const void* q, const void* k, const void* v, const void* dout,
+                      const void* lse, const void* delta, void* dq_, int BH, int T_, int D,
+                      cudaStream_t st) {
+  if ((T_ + tc::kBR - 1) / tc::kBR > 65535) return cudaErrorInvalidValue;
+  const size_t smem = static_cast<size_t>(2 * tc::kBR + 6 * tc::kBS) * kD * 4 +
+                      2 * tc::kThreads * sizeof(float4) +
+                      static_cast<size_t>(tc::kBR + tc::kBS) * (kD + tc::kF64Pad) * 8;
+  auto kernel = tc::flash_dq_3xtf32_kernel<kD>;
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(BH, (T_ + tc::kBR - 1) / tc::kBR), tc::kThreads, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq_), T_, D, softmax_scale(D));
+  return cudaGetLastError();
+}
+
 // what the tensor-core kernels refuse: a dtype other than `want` (1: bf16,
-// 0: f32) or a D that is not a multiple of `step` (bf16: 16, f32: 32), and
-// operands their 16-byte cp.async copies cannot read (0: taken)
+// 0: f32) or a D that is not a multiple of `step` (8; the tensor-core K2
+// and K3 in bf16 and K3 in f32 keep their own: 16, 32), and operands their
+// 16-byte cp.async copies cannot read (0: taken)
 cudaError_t tc_refusal(int BH, int T_, int D, int kind, int want, int step, const void* a,
                        const void* b, const void* c, const void* d = nullptr) {
   if (kind != want || BH < 1 || T_ < 1 || D < step || D > kMaxD || D % step ||
@@ -1885,23 +2120,16 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout,
   return cudaGetLastError();
 }
 
-// one instantiation per (dtype, accumulator width): D <= 32, 64, 128
-#define FEDML_FLASH_DISPATCH(FN, ...)                                          \
+// the FMA kernels' shape check, then one instantiation of FN<T, NJ> per
+// accumulator width: D <= 32, 64, 128
+#define FEDML_FLASH_DISPATCH(FN, T, ...)                                       \
   do {                                                                         \
     if (BH < 1 || T_ < 1 || D < 1 || D > kMaxD || D % 8 || (T_ + kB - 1) / kB > 65535) \
       return static_cast<int>(cudaErrorInvalidValue);                          \
     cudaStream_t st = static_cast<cudaStream_t>(stream);                       \
-    cudaError_t err = cudaErrorInvalidValue;                                   \
-    if (kind == 0) {                                                           \
-      err = D <= 32 ? FN<float, 2>(__VA_ARGS__, st)                            \
-          : D <= 64 ? FN<float, 4>(__VA_ARGS__, st)                            \
-                    : FN<float, 8>(__VA_ARGS__, st);                           \
-    } else if (kind == 1) {                                                    \
-      err = D <= 32 ? FN<__nv_bfloat16, 2>(__VA_ARGS__, st)                    \
-          : D <= 64 ? FN<__nv_bfloat16, 4>(__VA_ARGS__, st)                    \
-                    : FN<__nv_bfloat16, 8>(__VA_ARGS__, st);                   \
-    }                                                                          \
-    return static_cast<int>(err);                                              \
+    return static_cast<int>(D <= 32   ? FN<T, 2>(__VA_ARGS__, st)              \
+                            : D <= 64 ? FN<T, 4>(__VA_ARGS__, st)              \
+                                      : FN<T, 8>(__VA_ARGS__, st));            \
   } while (0)
 
 }  // namespace
@@ -1909,29 +2137,24 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout,
 // dtype codes: 0 = float32, 1 = bfloat16. The wrapper has already checked
 // shapes, contiguity and D <= 128, D % 8 == 0. Each returns
 // cudaGetLastError() after its launch (0 = launched).
-extern "C" int fedml_flash_fwd(const void* q, const void* k, const void* v, void* o,
-                               void* lse, int BH, int T_, int D, int kind,
-                               void* stream) {
-  FEDML_FLASH_DISPATCH(fwd, q, k, v, o, lse, BH, T_, D);
-}
-
-// the tensor-core kernels: bf16 (kind 1) only, D % 16 == 0, q/k/v (and dO)
+//
+// The tensor-core kernels: one dtype each (bf16: kind 1, f32: kind 0),
+// D % 8 == 0 (kD 64 or 128, the columns past D zero), q/k/v (and dO)
 // 16-byte aligned (their cp.async copies are 16 bytes)
 extern "C" int fedml_flash_fwd_tc(const void* q, const void* k, const void* v,
                                   void* o, void* lse, int BH, int T_, int D,
                                   int kind, void* stream) {
-  if (cudaError_t err = tc_refusal(BH, T_, D, kind, 1, 16, q, k, v)) return static_cast<int>(err);
+  if (cudaError_t err = tc_refusal(BH, T_, D, kind, 1, 8, q, k, v)) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(D <= 64 ? fwd_tc<64>(q, k, v, o, lse, BH, T_, D, st)
                                   : fwd_tc<128>(q, k, v, o, lse, BH, T_, D, st));
 }
 
-// K1 in f32 on the tensor cores, three TF32 passes: f32 (kind 0) only,
-// D % 32 == 0, q/k/v 16-byte aligned
+// K1 in f32 on the tensor cores, three TF32 passes
 extern "C" int fedml_flash_fwd_3xtf32(const void* q, const void* k, const void* v,
                                       void* o, void* lse, int BH, int T_, int D,
                                       int kind, void* stream) {
-  if (cudaError_t err = tc_refusal(BH, T_, D, kind, 0, 32, q, k, v))
+  if (cudaError_t err = tc_refusal(BH, T_, D, kind, 0, 8, q, k, v))
     return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(D <= 64 ? fwd_3xtf32<64>(q, k, v, o, lse, BH, T_, D, st)
@@ -1950,6 +2173,19 @@ extern "C" int fedml_flash_dq_tc(const void* q, const void* k, const void* v,
               : dq_tc<128>(q, k, v, dout, lse, delta, dq_, BH, T_, D, st));
 }
 
+// K2 in f32 on the tensor cores, three TF32 passes
+extern "C" int fedml_flash_dq_3xtf32(const void* q, const void* k, const void* v,
+                                     const void* dout, const void* lse, const void* delta,
+                                     void* dq_, int BH, int T_, int D, int kind,
+                                     void* stream) {
+  if (cudaError_t err = tc_refusal(BH, T_, D, kind, 0, 8, q, k, v, dout))
+    return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      D <= 64 ? dq_3xtf32<64>(q, k, v, dout, lse, delta, dq_, BH, T_, D, st)
+              : dq_3xtf32<128>(q, k, v, dout, lse, delta, dq_, BH, T_, D, st));
+}
+
 extern "C" int fedml_flash_dkv_tc(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse, const void* delta,
                                   void* dk, void* dv, int BH, int T_, int D, int kind,
@@ -1962,8 +2198,8 @@ extern "C" int fedml_flash_dkv_tc(const void* q, const void* k, const void* v,
               : dkv_tc<128>(q, k, v, dout, lse, delta, dk, dv, BH, T_, D, st));
 }
 
-// K3 in f32 on the tensor cores, three TF32 passes: f32 (kind 0) only,
-// D % 32 == 0, q/k/v/dO 16-byte aligned
+// K3 in f32 on the tensor cores, three TF32 passes: D % 32 == 0 (the
+// other f32 heads take the FMA kernel)
 extern "C" int fedml_flash_dkv_3xtf32(const void* q, const void* k, const void* v,
                                       const void* dout, const void* lse, const void* delta,
                                       void* dk, void* dv, int BH, int T_, int D, int kind,
@@ -1976,18 +2212,25 @@ extern "C" int fedml_flash_dkv_3xtf32(const void* q, const void* k, const void* 
               : dkv_3xtf32<128>(q, k, v, dout, lse, delta, dk, dv, BH, T_, D, st));
 }
 
+// The FMA kernels. K2: bf16 (kind 1) only, the heads of D % 16 != 0 (f32
+// dQ runs on flash_dq_3xtf32_kernel). K3: f32 or bf16, the heads no
+// tensor-core K3 takes
 extern "C" int fedml_flash_dq(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse, const void* delta,
                               void* dq_, int BH, int T_, int D, int kind,
                               void* stream) {
-  FEDML_FLASH_DISPATCH(dq, q, k, v, dout, lse, delta, dq_, BH, T_, D);
+  if (kind != 1) return static_cast<int>(cudaErrorInvalidValue);
+  FEDML_FLASH_DISPATCH(dq, __nv_bfloat16, q, k, v, dout, lse, delta, dq_, BH, T_, D);
 }
 
 extern "C" int fedml_flash_dkv(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse, const void* delta,
                                void* dk, void* dv, int BH, int T_, int D, int kind,
                                void* stream) {
-  FEDML_FLASH_DISPATCH(dkv, q, k, v, dout, lse, delta, dk, dv, BH, T_, D);
+  if (kind == 0) FEDML_FLASH_DISPATCH(dkv, float, q, k, v, dout, lse, delta, dk, dv, BH, T_, D);
+  if (kind == 1)
+    FEDML_FLASH_DISPATCH(dkv, __nv_bfloat16, q, k, v, dout, lse, delta, dk, dv, BH, T_, D);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* fedml_flash_error_string(int err) {

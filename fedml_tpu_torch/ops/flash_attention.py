@@ -28,22 +28,29 @@ Each of the three passes has a wrapper -- `flash_fwd` (K1), `flash_dq`
 tensor, or raises, and on a CPU tensor runs the plain PyTorch version
 (`flash_fwd_ref`, `flash_dq_ref`, `flash_dkv_ref`): the Pallas kernels'
 blocked math with their rounding points. It never falls back from a kernel
-to a plain version. The kernels are chosen by one shape rule. bf16 with
-D % 16 == 0 runs on the tensor cores in every pass (`flash_fwd_tc_kernel`,
-`flash_dq_tc_kernel`, `flash_dkv_tc_kernel`, all `wgmma`). The f32
-forward and dK/dV with D % 32 == 0 run on the tensor cores too
-(`flash_fwd_3xtf32_kernel`, `flash_dkv_3xtf32_kernel`): each f32 product
-is made of three TF32 `wgmma` passes over a hi/lo split of both operands
-(`tf32_split`, `matmul_3xtf32` is its plain emulation), which keeps about
-21 bits, where one TF32 pass would keep 10. Everything else -- f32 dQ,
-and bf16 or f32 heads of any other D -- runs on the CUDA-core FMA
-kernels. `fwd_route`, `dq_route` and `dkv_route` name each pass's kernel
-by its `launch_count` key. The tensor-core kernels copy 16-byte chunks,
+to a plain version. The kernels are chosen by one shape rule. Every head
+the contract takes runs the forward on the tensor cores: bf16 on
+`flash_fwd_tc_kernel` (`wgmma`), f32 on `flash_fwd_3xtf32_kernel`, where
+each f32 product is made of three TF32 `wgmma` passes over a hi/lo split
+of both operands (`tf32_split`; `matmul_3xtf32` is its plain emulation),
+which keeps about 21 bits, where one TF32 pass would keep 10; both take
+any D % 8 == 0 on a 64- or 128-column instance. dQ in f32 runs on
+`flash_dq_3xtf32_kernel` for every head: S and dS.K in three TF32
+passes, dP made exactly on the f64 tensor cores and rounded once to f32
+(`matmul_f64` in the plain version): dQ's first row is 0 up to dP's
+rounding, and an f32 sum of dP in another order than the plain
+version's puts it past the rule the kernels are held to. bf16 dQ and
+dK/dV with D % 16 == 0 run on `flash_dq_tc_kernel` and
+`flash_dkv_tc_kernel`, f32 dK/dV with D % 32 == 0 on
+`flash_dkv_3xtf32_kernel`; the backward heads left (bf16 dQ of
+D % 16 != 0, dK/dV of other D) run on the CUDA-core FMA kernels.
+`fwd_route`, `dq_route` and `dkv_route` name each pass's kernel by its
+`launch_count` key. The tensor-core kernels copy 16-byte chunks,
 so their operands must start 16-byte aligned (a view at another storage
 offset raises a ValueError). `launch_count` counts each kernel's
-launches (and nothing else): "fwd_tc", "fwd_3xtf32" and "fwd" for the
-three forwards, "dq_tc" and "dq" for dQ, "dkv_tc", "dkv_3xtf32" and
-"dkv" for dK/dV.
+launches (and nothing else): "fwd_tc" and "fwd_3xtf32" for the two
+forwards, "dq_tc", "dq_3xtf32" and "dq" for dQ, "dkv_tc", "dkv_3xtf32"
+and "dkv" for dK/dV.
 
 `rowwise_rel_err` (from `ops/tolerance.py`) is the rule the kernels are
 held to against their plain versions on the card.
@@ -61,8 +68,8 @@ _NEG = -1e30
 MAX_D = 128
 _KIND = {torch.float32: 0, torch.bfloat16: 1}
 
-launch_count = {"fwd": 0, "fwd_tc": 0, "fwd_3xtf32": 0, "dq": 0, "dq_tc": 0,
-                "dkv": 0, "dkv_tc": 0, "dkv_3xtf32": 0}
+launch_count = {"fwd_tc": 0, "fwd_3xtf32": 0, "dq": 0, "dq_tc": 0,
+                "dq_3xtf32": 0, "dkv": 0, "dkv_tc": 0, "dkv_3xtf32": 0}
 
 _lib = None
 
@@ -72,9 +79,10 @@ def _kernel_lib() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load("flash_attention")
         vp, i = ctypes.c_void_p, ctypes.c_int
-        for fn, n_ptr in (("fedml_flash_fwd", 5), ("fedml_flash_fwd_tc", 5),
+        for fn, n_ptr in (("fedml_flash_fwd_tc", 5),
                           ("fedml_flash_fwd_3xtf32", 5),
                           ("fedml_flash_dq", 7), ("fedml_flash_dq_tc", 7),
+                          ("fedml_flash_dq_3xtf32", 7),
                           ("fedml_flash_dkv", 8), ("fedml_flash_dkv_tc", 8),
                           ("fedml_flash_dkv_3xtf32", 8)):
             getattr(lib, fn).argtypes = [vp] * n_ptr + [i] * 4 + [vp]
@@ -149,33 +157,26 @@ def _launch(name: str, *tensors, bh: int, t: int, d: int, kind: int) -> None:
 
 # --------------------------------------------------------------- wrappers
 def _tensor_cores(q) -> bool:
-    """The shape rule of every pass: bf16 heads with D % 16 == 0 run on
-    the tensor cores."""
+    """The bf16 backward's shape rule: bf16 heads with D % 16 == 0 run dQ
+    and dK/dV on the tensor cores."""
     return q.dtype == torch.bfloat16 and q.shape[-1] % 16 == 0
-
-
-def _f32_tensor_cores(q) -> bool:
-    """The three-pass TF32 kernels' shape rule: f32 heads with
-    D % 32 == 0."""
-    return q.dtype == torch.float32 and q.shape[-1] % 32 == 0
 
 
 def fwd_route(q) -> str:
     """Which K1 kernel takes q (its `launch_count` key): "fwd_tc", the
-    tensor-core kernel, for bf16 with D % 16 == 0; "fwd_3xtf32", the
-    three-pass TF32 tensor-core kernel, for f32 with D % 32 == 0; "fwd",
-    the FMA kernel, for every other head. A shape rule, never a
-    fallback."""
-    if _tensor_cores(q):
-        return "fwd_tc"
-    return "fwd_3xtf32" if _f32_tensor_cores(q) else "fwd"
+    tensor-core kernel, for bf16; "fwd_3xtf32", the three-pass TF32
+    tensor-core kernel, for f32. Every head of the contract (D <= 128,
+    D % 8 == 0) has one: a shape rule, never a fallback."""
+    return "fwd_tc" if q.dtype == torch.bfloat16 else "fwd_3xtf32"
 
 
 def dq_route(q) -> str:
     """Which K2 kernel takes q (its `launch_count` key): "dq_tc" for bf16
-    with D % 16 == 0, "dq" (FMA) for the rest, f32 included. Never a
-    fallback."""
-    return "dq_tc" if _tensor_cores(q) else "dq"
+    with D % 16 == 0, "dq_3xtf32" (three TF32 passes) for every f32 head,
+    "dq" (FMA) for bf16 of any other D. Never a fallback."""
+    if _tensor_cores(q):
+        return "dq_tc"
+    return "dq_3xtf32" if q.dtype == torch.float32 else "dq"
 
 
 def dkv_route(q) -> str:
@@ -184,7 +185,9 @@ def dkv_route(q) -> str:
     D % 32 == 0, "dkv" (FMA) for every other head. Never a fallback."""
     if _tensor_cores(q):
         return "dkv_tc"
-    return "dkv_3xtf32" if _f32_tensor_cores(q) else "dkv"
+    if q.dtype == torch.float32 and q.shape[-1] % 32 == 0:
+        return "dkv_3xtf32"
+    return "dkv"
 
 
 def _require_aligned(what: str, *tensors) -> None:
@@ -198,15 +201,14 @@ def _require_aligned(what: str, *tensors) -> None:
 
 def flash_fwd(q, k, v, block_q=None, block_k=None):
     """(o [BH, T, D] in q's dtype, lse [BH, T] f32): K1 on CUDA (the kernel
-    `fwd_route` names), the plain version on the CPU. On the tensor-core
-    routes q, k and v must start 16-byte aligned."""
+    `fwd_route` names, on the tensor cores: q, k and v must start 16-byte
+    aligned), the plain version on the CPU."""
     _check(q, k, v)
     bq, bk = _blocks(q.shape[1], block_q, block_k)
     if q.device.type == "cpu":
         return flash_fwd_ref(q, k, v, bq, bk)
     route = fwd_route(q)
-    if route != "fwd":
-        _require_aligned("forward", q, k, v)
+    _require_aligned("forward", q, k, v)
     bh, t, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q.device)
@@ -216,8 +218,8 @@ def flash_fwd(q, k, v, block_q=None, block_k=None):
 
 def flash_dq(q, k, v, do, lse, delta, block_q=None, block_k=None):
     """dQ [BH, T, D] in q's dtype: K2 on CUDA (the kernel `dq_route`
-    names), the plain version on the CPU. On the tensor-core route q, k, v
-    and dO must start 16-byte aligned."""
+    names), the plain version on the CPU. On the tensor-core routes q, k,
+    v and dO must start 16-byte aligned."""
     _check(q, k, v, do, lse, delta)
     bq, bk = _blocks(q.shape[1], block_q, block_k)
     if q.device.type == "cpu":
@@ -310,7 +312,7 @@ def _k_blocks(t: int, bq: int, bk: int, q_block: int):
 
 
 def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(hi, lo) of an f32 tensor, as `flash_fwd_3xtf32_kernel` splits its
+    """(hi, lo) of an f32 tensor, as the three-pass kernels split their
     operands: hi is x rounded to TF32's 10 mantissa bits, to nearest with
     ties away from zero (`cvt.rna.tf32.f32`: the low 13 bits are 0), and
     lo = x - hi, which is exact in f32."""
@@ -335,6 +337,13 @@ def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     b_hi, b_lo = tf32_split(b)
     return (tf32_truncate(a_lo) @ b_hi + a_hi @ tf32_truncate(b_lo)) \
         + a_hi @ b_hi
+
+
+def matmul_f64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of f32 operands with each entry summed in float64 (the f32
+    products are exact there) and rounded once to f32: the same value
+    whatever order the sum takes, which is how the f32 K2 makes dP."""
+    return (a.double() @ b.double()).float()
 
 
 def _scores_and_mask(qb, kb, i, j, bq, bk, scale, mm=torch.matmul):
@@ -380,10 +389,16 @@ def flash_fwd_ref(q, k, v, block_q: int, block_k: int, mm=torch.matmul):
     return o, lse
 
 
-def flash_dq_ref(q, k, v, do, lse, delta, block_q: int, block_k: int):
+def flash_dq_ref(q, k, v, do, lse, delta, block_q: int, block_k: int,
+                 mm=torch.matmul, mm_dp=matmul_f64):
     """The plain version of K2: p = exp(s - lse) (0 where masked),
     dS = p * (dO.V^T - delta) * scale rounded to K's dtype, dQ = sum dS.K
-    in f32, cast to q's dtype."""
+    in f32, cast to q's dtype. `mm` makes S and dS.K, `mm_dp` makes dP,
+    by default exactly and rounded once to f32 (`matmul_f64`): where a row
+    attends one key (p = 1, dP = delta, always the first) dQ is 0 up to
+    dP's rounding, which an f32 sum in another order changes by more than
+    the rule the kernels are held to forgives there. `mm=matmul_3xtf32`
+    repeats the f32 kernel's arithmetic."""
     bh, t, d = q.shape
     bq, bk = block_q, block_k
     scale = d ** -0.5
@@ -396,11 +411,12 @@ def flash_dq_ref(q, k, v, do, lse, delta, block_q: int, block_k: int):
         for j in _k_blocks(t, bq, bk, i):
             kb = k[:, j * bk:(j + 1) * bk]
             vb = v[:, j * bk:(j + 1) * bk].float()
-            s, mask = _scores_and_mask(qb, kb.float(), i, j, bq, bk, scale)
+            s, mask = _scores_and_mask(qb, kb.float(), i, j, bq, bk, scale,
+                                       mm)
             p = torch.where(mask, torch.exp(s - lse_b), 0.0)
-            dp = dob @ vb.transpose(-1, -2)
+            dp = mm_dp(dob, vb.transpose(-1, -2))
             ds = p * (dp - dlt_b) * scale
-            acc = acc + ds.to(kb.dtype).float() @ kb.float()
+            acc = acc + mm(ds.to(kb.dtype).float(), kb.float())
         dq[:, rows] = acc.to(q.dtype)
     return dq
 

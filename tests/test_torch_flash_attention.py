@@ -121,20 +121,23 @@ def test_contract_errors():
 
 def test_cpu_tensors_launch_no_kernel():
     """CPU tensors run the plain versions on every route: an f32 head of
-    D 8 (the FMA kernels' route), a bf16 head of D 16 (the tensor cores'
-    route) and an f32 head of D 32 (the three-pass TF32 forward's and
-    dK/dV's route) leave every counter, the tensor-core backward's and the
-    three-pass kernels' too, as it was."""
-    assert {"dq_tc", "dkv_tc", "fwd_3xtf32", "dkv_3xtf32"} \
+    D 8 (the three-pass TF32 forward's and dQ's route, the FMA dK/dV's), a
+    bf16 head of D 16 (the tensor cores' route in every pass), a bf16 head
+    of D 8 (the tensor-core forward's, the FMA backward's) and an f32 head
+    of D 32 (the three-pass TF32 route in every pass) leave every counter
+    as it was. There is no FMA forward and no key for one."""
+    assert "fwd" not in fa.launch_count
+    assert {"dq_tc", "dkv_tc", "fwd_3xtf32", "dq_3xtf32", "dkv_3xtf32"} \
         <= fa.launch_count.keys()
     before = dict(fa.launch_count)
     for d, dtype in ((8, torch.float32), (16, torch.bfloat16),
-                     (32, torch.float32)):
+                     (8, torch.bfloat16), (32, torch.float32)):
         q, k, v = (x.requires_grad_()
                    for x in _t(*_qkv(7, bh=1, t=32, d=d), dtype=dtype))
         fa.flash_attention(q, k, v).sum().backward()
     assert fa.launch_count == before
     assert fa.launch_count["fwd_3xtf32"] == before["fwd_3xtf32"] == 0
+    assert fa.launch_count["dq_3xtf32"] == before["dq_3xtf32"] == 0
     assert fa.launch_count["dkv_3xtf32"] == before["dkv_3xtf32"] == 0
 
 
@@ -234,6 +237,124 @@ def test_one_tf32_pass_misses_the_f32_limit_in_dkv():
     assert fa.rowwise_rel_err(dv, want_dv) > 1e-4
 
 
+def _jax_dq(q, k, v, do, bq, bk):
+    """dQ of the JAX flash attention (f32, interpret mode on the CPU)
+    through `jax.vjp`."""
+    _o, vjp = jax.vjp(lambda q, k, v: jax_flash(q, k, v, block_q=bq,
+                                                block_k=bk),
+                      *(jnp.array(x) for x in (q, k, v)))
+    return torch.from_numpy(np.array(vjp(jnp.array(do))[0]))
+
+
+def _port_dq(q, k, v, do, bq, bk, mm):
+    """dQ of the port's plain K2 with its products made by `mm`, fed the
+    LSE of the plain forward made the same way."""
+    q, k, v, do = _t(q, k, v, do)
+    o, lse = fa.flash_fwd_ref(q, k, v, bq, bk, mm=mm)
+    delta = fa.flash_delta(o, do)
+    return fa.flash_dq_ref(q, k, v, do, lse, delta, bq, bk, mm=mm)
+
+
+def _row0_and_rest(got, want):
+    """`rowwise_rel_err` on dQ's first row and on the rest apart. The
+    first row attends one key (p = 1, dP = delta): dQ there is 0 up to the
+    rounding of dP (magnitude ~sqrt(D)), which two f32 dot products in
+    different orders put ~1e-7 apart, read against the rule's 1e-2 floor."""
+    return (fa.rowwise_rel_err(got[:, :1], want[:, :1]),
+            fa.rowwise_rel_err(got[:, 1:], want[:, 1:]))
+
+
+@pytest.mark.parametrize("t,bq,bk,seed", [(128, 32, 32, 0), (96, 32, 48, 1)])
+def test_3xtf32_dq_products_match_jax(t, bq, bk, seed):
+    """The plain K2 made as the f32 kernel makes it (S and dS.K with
+    `matmul_3xtf32`, dP exactly) against the JAX K2 (f32, interpret mode,
+    `jax.vjp`): dQ within 1e-5 row-relative on every row but the first, a
+    tenth of the 1e-4 the kernel is held to on the card. The first row is
+    a cancellation (`_row0_and_rest`): the JAX K2 rounds its dP as an f32
+    sum, which reads up to ~5e-5 there against any other rounding; it is
+    held to the card's 1e-4."""
+    q, k, v = _qkv(seed, t=t)
+    do = np.random.RandomState(seed + 30).randn(*q.shape).astype(np.float32)
+    want = _jax_dq(q, k, v, do, bq, bk)
+    dq = _port_dq(q, k, v, do, bq, bk, fa.matmul_3xtf32)
+    row0, rest = _row0_and_rest(dq, want)
+    assert rest <= 1e-5
+    assert row0 <= 1e-4
+
+
+def test_one_tf32_pass_misses_the_f32_limit_in_dq():
+    """Why K2 takes three passes for S and dS.K: with one TF32 pass
+    (hi . hi) there, the same dQ is off the JAX K2 by more than 1e-4 on
+    the rows past the first."""
+    q, k, v = _qkv(0, t=128)
+    do = np.random.RandomState(30).randn(*q.shape).astype(np.float32)
+    want = _jax_dq(q, k, v, do, 32, 32)
+
+    def one_pass(a, b):
+        return fa.tf32_split(a)[0] @ fa.tf32_split(b)[0]
+
+    dq = _port_dq(q, k, v, do, 32, 32, one_pass)
+    assert _row0_and_rest(dq, want)[1] > 1e-4
+
+
+def _fma_chain(a, b):
+    """a @ b of f32 operands as one f32 FMA chain per entry in the order of
+    the inner index (how a GPU's f32 product sums it): each step rounds
+    a_d * b_d + acc once to f32 (exact in f64 before that rounding)."""
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    for d in range(a.shape[-1]):
+        acc = (a[..., d, None].double() * b[..., d, None, :].double()
+               + acc.double()).float()
+    return acc
+
+
+def test_dq_row0_reads_the_rounding_of_dp():
+    """Why the f32 K2 makes dP exactly (f64 FMAs, rounded once) and not in
+    three TF32 passes or as an f32 FMA chain: the rows that attend one key
+    or a few (p = 1, dP = delta on the first) are 0 up to dP's rounding,
+    and three passes, or one f32 FMA chain over d, round dP (magnitude ~11
+    at D 128) far enough from the exact sum that the rule reads more than
+    1e-4 there at BH 64, the check shape's head count. With dP made
+    exactly (the kernel's arithmetic) the same dQ is within 1e-5 of the
+    plain version on every row."""
+    rs = np.random.RandomState(40)
+    q, k, v, do = (torch.from_numpy(rs.randn(64, 4, 128).astype(np.float32))
+                   for _ in range(4))
+    o, lse = fa.flash_fwd_ref(q, k, v, 4, 4, mm=fa.matmul_3xtf32)
+    delta = fa.flash_delta(o, do)
+    want = fa.flash_dq_ref(q, k, v, do, lse, delta, 4, 4)
+    three = fa.flash_dq_ref(q, k, v, do, lse, delta, 4, 4,
+                            mm=fa.matmul_3xtf32, mm_dp=fa.matmul_3xtf32)
+    f32_sum = fa.flash_dq_ref(q, k, v, do, lse, delta, 4, 4,
+                              mm_dp=_fma_chain)
+    kernel = fa.flash_dq_ref(q, k, v, do, lse, delta, 4, 4,
+                             mm=fa.matmul_3xtf32)
+    assert fa.rowwise_rel_err(three, want) > 1e-4
+    assert fa.rowwise_rel_err(f32_sum, want) > 1e-4
+    assert fa.rowwise_rel_err(kernel, want) <= 1e-5
+
+
+def test_3xtf32_products_match_jax_at_a_head_of_40():
+    """The widened f32 routes: a head of D 40 (which the three-pass
+    forward and K2 now take on their 64-column instance) through the
+    plain forward and K2 made as those kernels make them against the JAX
+    module: O and LSE within 1e-5 row-relative, dQ within 1e-5 past its
+    first row and 1e-4 on it (`_row0_and_rest`)."""
+    q, k, v = _qkv(4, bh=2, t=64, d=40)
+    do = np.random.RandomState(34).randn(*q.shape).astype(np.float32)
+    want_o = torch.from_numpy(np.array(jax_flash(
+        *(jnp.array(x) for x in (q, k, v)), block_q=32, block_k=32)))
+    want_lse = torch.from_numpy(np.array(_blocked_lse(jnp.array(q),
+                                                      jnp.array(k), 32)))
+    o, lse = fa.flash_fwd_ref(*_t(q, k, v), 32, 32, mm=fa.matmul_3xtf32)
+    assert fa.rowwise_rel_err(o, want_o) <= 1e-5
+    assert fa.rowwise_rel_err(lse, want_lse) <= 1e-5
+    dq = _port_dq(q, k, v, do, 32, 32, fa.matmul_3xtf32)
+    row0, rest = _row0_and_rest(dq, _jax_dq(q, k, v, do, 32, 32))
+    assert rest <= 1e-5
+    assert row0 <= 1e-4
+
+
 def test_rowwise_rel_err_rule():
     """The rule the kernels are held to on the card: one ulp of the output
     forgiven, the rest relative to the row's own magnitude (a late row
@@ -263,11 +384,12 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bh,t,d", [(3, 96, 16), (2, 200, 128), (1, 1, 8),
-                                    (2, 130, 40), (2, 65, 32), (2, 129, 96)])
+                                    (2, 130, 40), (2, 65, 32), (2, 129, 96),
+                                    (2, 70, 24), (2, 100, 72), (1, 33, 120)])
 def test_cuda_kernels_match_plain_versions(cuda, dtype, bh, t, d):
     """K1, K2 and K3 against their plain versions on the card, at ragged
     tiles (T not a multiple of 64), D below one 16-lane column stripe and
-    at the limit, and D 32 / 96 (which the tensor-core kernels take on
+    at the limit, and D 24 to 120 (which the tensor-core kernels take on
     their 64- and 128-column instances, the columns past D zero), under
     the rule chip_smoke.py holds them to
     (`rowwise_rel_err`: each row's error relative to that row's largest
@@ -359,15 +481,14 @@ def test_cuda_3xtf32_forward_tile_edges(cuda, t, d):
     """The f32 three-pass TF32 forward at its tile edges (T of 1, one row
     short of, at and one row past a 32-key tile, a 64-row warpgroup and a
     128-row block, and 2048) against the plain version: O and LSE row by
-    row within 1e-4, one launch through "fwd_3xtf32"; then K2 on the FMA
-    kernel and K3 on the three-pass kernel, fed its LSE, within the same
-    rule."""
+    row within 1e-4, one launch through "fwd_3xtf32"; then K2 and K3 on
+    the three-pass kernels, fed its LSE, within the same rule."""
     rs = np.random.RandomState(11)
     bh = 2 if t == 2048 else 3
     q, k, v, do = (torch.from_numpy(rs.randn(bh, t, d).astype(np.float32))
                    .to(cuda) for _ in range(4))
     assert (fa.fwd_route(q), fa.dq_route(q), fa.dkv_route(q)) == \
-        ("fwd_3xtf32", "dq", "dkv_3xtf32")
+        ("fwd_3xtf32", "dq_3xtf32", "dkv_3xtf32")
     before = dict(fa.launch_count)
     o, lse = fa.flash_fwd(q, k, v, block_q=t, block_k=t)
     torch.cuda.synchronize()
@@ -382,7 +503,7 @@ def test_cuda_3xtf32_forward_tile_edges(cuda, t, d):
     torch.cuda.synchronize()
     assert fa.launch_count == {**before,
                                "fwd_3xtf32": before["fwd_3xtf32"] + 1,
-                               "dq": before["dq"] + 1,
+                               "dq_3xtf32": before["dq_3xtf32"] + 1,
                                "dkv_3xtf32": before["dkv_3xtf32"] + 1}
     want_dq = fa.flash_dq_ref(q, k, v, do, lse, delta, t, t)
     want_dk, want_dv = fa.flash_dkv_ref(q, k, v, do, lse, delta, t, t)
@@ -443,8 +564,8 @@ def test_cuda_3xtf32_dkv_tile_edges(cuda, t, d):
 @pytest.mark.gpu
 def test_cuda_3xtf32_dkv_refuses_misaligned_views(cuda):
     """An f32 dO view 8 bytes into its storage: K3 on the three-pass
-    route raises before any launch (K2, on the FMA route, takes it), and
-    runs on an aligned copy of it."""
+    route raises before any launch (and so does K2, on its three-pass
+    route), and runs on an aligned copy of it."""
     rs = np.random.RandomState(13)
     q, k, v = (torch.from_numpy(rs.randn(2, 64, 64).astype(np.float32))
                .to(cuda) for _ in range(3))
@@ -455,29 +576,120 @@ def test_cuda_3xtf32_dkv_refuses_misaligned_views(cuda):
     before = dict(fa.launch_count)
     with pytest.raises(ValueError, match="16-byte aligned"):
         fa.flash_dkv(q, k, v, do, lse, delta)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_dq(q, k, v, do, lse, delta)
     assert fa.launch_count == before
-    dq = fa.flash_dq(q, k, v, do, lse, delta)
+    dq = fa.flash_dq(q, k, v, do.clone(), lse, delta)
     dk, dv = fa.flash_dkv(q, k, v, do.clone(), lse, delta)
     torch.cuda.synchronize()
-    assert fa.launch_count == {**before, "dq": before["dq"] + 1,
+    assert fa.launch_count == {**before, "dq_3xtf32": before["dq_3xtf32"] + 1,
                                "dkv_3xtf32": before["dkv_3xtf32"] + 1}
     assert all(torch.isfinite(x).all() for x in (dq, dk, dv))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 127,
+                               128, 129, 2048])
+@pytest.mark.parametrize("d", [40, 64, 128])
+def test_cuda_3xtf32_dq_tile_edges(cuda, t, d):
+    """K2 in f32 on its three-pass kernel at its tile edges (T of 1, one
+    row short of, at and one row past a 16-key tile, a 32-key tile and a
+    64-row q tile, and 2048; D 40 on the 64-column instance), fed the
+    three-pass forward's LSE: dQ row by row within 1e-4 of the plain
+    version, one launch through "dq_3xtf32". At T 1, and on every first
+    row, dQ is 0 up to the rounding of dP (p = 1, dP = delta)."""
+    rs = np.random.RandomState(14)
+    bh = 2 if t == 2048 else 3
+    q, k, v, do = (torch.from_numpy(rs.randn(bh, t, d).astype(np.float32))
+                   .to(cuda) for _ in range(4))
+    assert fa.dq_route(q) == "dq_3xtf32"
+    o, lse = fa.flash_fwd(q, k, v, block_q=t, block_k=t)
+    delta = fa.flash_delta(o, do)
+    before = dict(fa.launch_count)
+    dq = fa.flash_dq(q, k, v, do, lse, delta, block_q=t, block_k=t)
+    torch.cuda.synchronize()
+    assert fa.launch_count == {**before,
+                               "dq_3xtf32": before["dq_3xtf32"] + 1}
+    want = fa.flash_dq_ref(q, k, v, do, lse, delta, t, t)
+    assert fa.rowwise_rel_err(dq, want) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_cuda_3xtf32_dq_refuses_misaligned_views(cuda):
+    """An f32 K view 8 bytes into its storage: K2 on the three-pass route
+    raises before any launch, and runs on an aligned copy of it within
+    1e-4 of the plain version."""
+    rs = np.random.RandomState(15)
+    q, v, do = (torch.from_numpy(rs.randn(2, 64, 40).astype(np.float32))
+                .to(cuda) for _ in range(3))
+    buf = torch.zeros(2 * 64 * 40 + 2, device=cuda)
+    k = buf[2:].view(2, 64, 40)
+    k.copy_(torch.from_numpy(rs.randn(2, 64, 40).astype(np.float32)))
+    o, lse = fa.flash_fwd(q, k.clone(), v)
+    delta = fa.flash_delta(o, do)
+    before = dict(fa.launch_count)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_dq(q, k, v, do, lse, delta)
+    assert fa.launch_count == before
+    dq = fa.flash_dq(q, k.clone(), v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert fa.launch_count == {**before,
+                               "dq_3xtf32": before["dq_3xtf32"] + 1}
+    want = fa.flash_dq_ref(q, k, v, do, lse, delta, 64, 64)
+    assert fa.rowwise_rel_err(dq, want) <= 1e-4
+
+
+_NEW_WIDTHS = [(torch.bfloat16, d) for d in (8, 24, 40, 56, 72, 104, 120)] \
+    + [(torch.float32, d) for d in (8, 16, 24, 40, 48, 56, 72, 80, 104, 112,
+                                    120)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d", _NEW_WIDTHS,
+                         ids=[f"{str(dt)[6:]}-{d}" for dt, d in _NEW_WIDTHS])
+def test_cuda_forward_takes_every_head(cuda, dtype, d):
+    """The tensor-core forwards at the head sizes the old shape rule sent
+    to the FMA forward (bf16 D % 16 != 0, f32 D % 32 != 0), each on its
+    64- or 128-column instance with the columns past D zero-filled, at T
+    of 1, one row short of, at and one row past a 32-key tile, a 64-key
+    tile and a 128-row block: O and LSE row by row within 1e-4 (f32) or
+    1e-2 (bf16) of the plain version, one launch each; in f32 K2 on its
+    three-pass kernel too, fed the forward's LSE, within 1e-4."""
+    rs = np.random.RandomState(16)
+    route = "fwd_tc" if dtype == torch.bfloat16 else "fwd_3xtf32"
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for t in (1, 31, 32, 33, 63, 64, 65, 127, 128, 129):
+        q, k, v, do = (torch.from_numpy(rs.randn(3, t, d).astype(np.float32))
+                       .to(cuda, dtype) for _ in range(4))
+        assert fa.fwd_route(q) == route
+        before = dict(fa.launch_count)
+        o, lse = fa.flash_fwd(q, k, v, block_q=t, block_k=t)
+        torch.cuda.synchronize()
+        assert fa.launch_count == {**before, route: before[route] + 1}
+        want_o, want_lse = fa.flash_fwd_ref(q, k, v, t, t)
+        assert fa.rowwise_rel_err(o, want_o) <= tol, t
+        assert fa.rowwise_rel_err(lse, want_lse) <= tol, t
+        if dtype == torch.float32:
+            delta = fa.flash_delta(o, do)
+            dq = fa.flash_dq(q, k, v, do, lse, delta, block_q=t, block_k=t)
+            want_dq = fa.flash_dq_ref(q, k, v, do, lse, delta, t, t)
+            assert fa.rowwise_rel_err(dq, want_dq) <= tol, t
+
+
 def test_forward_route_rule():
-    """bf16 heads with D % 16 == 0 take the tensor-core forward, f32 heads
-    with D % 32 == 0 the three-pass TF32 forward; bf16 and f32 of any
-    other D the FMA forward."""
+    """Every head of the contract takes a tensor-core forward: bf16 the
+    one-pass kernel, f32 the three-pass TF32 kernel, at any D % 8 == 0
+    (the heads of D 40, 8 and 16 on the 64-column instance)."""
     for d, dt, want in ((128, torch.bfloat16, "fwd_tc"),
                         (64, torch.bfloat16, "fwd_tc"),
                         (16, torch.bfloat16, "fwd_tc"),
-                        (40, torch.bfloat16, "fwd"),
-                        (8, torch.bfloat16, "fwd"),
+                        (40, torch.bfloat16, "fwd_tc"),
+                        (8, torch.bfloat16, "fwd_tc"),
                         (128, torch.float32, "fwd_3xtf32"),
                         (64, torch.float32, "fwd_3xtf32"),
-                        (40, torch.float32, "fwd"),
-                        (16, torch.float32, "fwd"),
-                        (8, torch.float32, "fwd")):
+                        (40, torch.float32, "fwd_3xtf32"),
+                        (16, torch.float32, "fwd_3xtf32"),
+                        (8, torch.float32, "fwd_3xtf32")):
         assert fa.fwd_route(torch.zeros((1, 4, d), dtype=dt)) == want
 
 
@@ -486,16 +698,22 @@ def test_forward_route_rule():
     (64, torch.bfloat16, "dq_tc", "dkv_tc"),
     (16, torch.bfloat16, "dq_tc", "dkv_tc"),
     (40, torch.bfloat16, "dq", "dkv"), (8, torch.bfloat16, "dq", "dkv"),
-    (128, torch.float32, "dq", "dkv_3xtf32"),
-    (64, torch.float32, "dq", "dkv_3xtf32"),
-    (32, torch.float32, "dq", "dkv_3xtf32"),
-    (40, torch.float32, "dq", "dkv"), (16, torch.float32, "dq", "dkv")])
+    (120, torch.bfloat16, "dq", "dkv"),
+    (128, torch.float32, "dq_3xtf32", "dkv_3xtf32"),
+    (64, torch.float32, "dq_3xtf32", "dkv_3xtf32"),
+    (32, torch.float32, "dq_3xtf32", "dkv_3xtf32"),
+    (40, torch.float32, "dq_3xtf32", "dkv"),
+    (24, torch.float32, "dq_3xtf32", "dkv"),
+    (16, torch.float32, "dq_3xtf32", "dkv"),
+    (8, torch.float32, "dq_3xtf32", "dkv")])
 def test_backward_route_rule(d, dtype, want_dq, want_dkv):
-    """bf16 heads with D % 16 == 0 take the tensor-core K2 and K3; f32
-    heads with D % 32 == 0 take the three-pass TF32 K3 (the forward's f32
-    rule) and the FMA K2; f32 and bf16 of any other D the FMA ones."""
+    """bf16 heads with D % 16 == 0 take the tensor-core K2 and K3; every
+    f32 head takes the three-pass TF32 K2, and f32 heads with D % 32 == 0
+    the three-pass TF32 K3; the other heads' K2 (bf16) and K3 (both
+    dtypes) the FMA kernels. The forward takes the tensor cores either
+    way."""
     q = torch.zeros((1, 4, d), dtype=dtype)
     assert fa.dq_route(q) == want_dq
     assert fa.dkv_route(q) == want_dkv
-    assert (fa.fwd_route(q) == "fwd_tc") == (want_dq == "dq_tc")
-    assert (fa.fwd_route(q) == "fwd_3xtf32") == (want_dkv == "dkv_3xtf32")
+    assert fa.fwd_route(q) == ("fwd_tc" if dtype == torch.bfloat16
+                               else "fwd_3xtf32")
