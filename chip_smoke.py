@@ -37,12 +37,10 @@ exits non-zero; nothing is caught and carried past):
              backward, of the plain versions and of the library yardsticks
              (SDPA's forward, and its backward alone, which computes dQ, dK
              and dV together), and each kernel's bound. Then heads of D 40
-             (BH 4, T 256) in f32 and bf16: the tensor-core forwards on
-             their 64-column instance, the three-pass dQ in f32, and the
-             FMA kernels that still take such heads (dQ in bf16, dK/dV in
-             both), checked and timed the same way; and the forwards at
-             D 40 at the flagship BH 64, T 2048, checked and timed beside
-             SDPA's forward and their bound.
+             in f32 and bf16, which every pass takes on the 64-column
+             instance of the same tensor-core kernels, checked and timed
+             the same way at BH 4, T 256 and at the flagship BH 64,
+             T 2048.
 7. train   - federated LoRA at full LLaMA-2-7B width and depth (bf16 base,
              rank 8 on wq/wk/wv/wo, per-block remat, flash attention, bf16
              compute): two FedAvg rounds of 2 clients x 4 sequences x 2048
@@ -101,11 +99,9 @@ TRAIN_CLIENTS, TRAIN_SEQS, TRAIN_T, TRAIN_BS, TRAIN_ROUNDS = 2, 4, 2048, 2, 2
 # defaults do at T = 2048 (_auto_block(T, 512 / 1024))
 FLASH_BH, FLASH_T, FLASH_D = TRAIN_BS * H, TRAIN_T, DH
 FLASH_BQ, FLASH_BK = 512, 1024
-# the D 40 case: heads the tensor-core forwards take on their 64-column
-# instance (and the f32 dQ), and the FMA kernels still take in the
-# backward (dQ in bf16, which needs D % 16 == 0 on the tensor cores; dK/dV
-# in bf16 and f32, which needs D % 32 == 0); the plain versions block by
-# T. The forwards are timed at the flagship BH and T too
+# the D 40 case: heads every pass takes on the 64-column instance of its
+# tensor-core kernel (columns past D zero-filled), at a small shape (the
+# plain versions block by T) and at the flagship BH and T
 D40_BH, D40_T, D40_D = 4, 256, 40
 D40_BIG_BH, D40_BIG_T = FLASH_BH, FLASH_T
 # kernel vs plain version under `flash_attention.rowwise_rel_err` (each
@@ -706,103 +702,97 @@ def phase_flash(bw: float) -> dict:
     return out
 
 
-def _flash_d40_case(bw: float) -> dict:
-    """Heads of D 40 in f32 and bf16 through every pass against the plain
-    versions: the routes the shape rule gives them (f32: the three-pass
-    forward and dQ, the FMA dK/dV; bf16: the tensor-core forward, the FMA
-    dQ and dK/dV), each timed beside its plain version, SDPA's forward or
-    backward and its bound; then the forwards at BH 64, T 2048, checked
-    and timed beside SDPA's forward and the bound."""
+def _flash_passes(kind: str, dt, bh: int, t: int, blocks, rng, bw: float,
+                  launches: dict, n_plain: int) -> dict:
+    """One shape of the D 40 case: random q, k, v, dO of [bh, t, D40_D]
+    through K1, K2 and K3 (one launch each of the routes the shape rule
+    names, added to `launches`), each against its plain version blocked by
+    `blocks`, then timed beside it, SDPA's forward or backward alone, and
+    its bound."""
     import torch
     import torch.nn.functional as F
 
     from fedml_tpu_torch.ops import flash_attention as fa
 
-    bh, t, d = D40_BH, D40_T, D40_D
-    rng = np.random.default_rng(3)
-    want_routes = {"f32": ("fwd_3xtf32", "dq_3xtf32", "dkv"),
-                   "bf16": ("fwd_tc", "dq", "dkv")}
-    out = {"shape": [bh, t, d], "launches": dict.fromkeys(fa.launch_count, 0)}
-    for kind, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        q, k, v, do = (torch.from_numpy(
-            rng.standard_normal((bh, t, d), np.float32)).to(DEV, dt)
-            for _ in range(4))
-        routes = (fa.fwd_route(q), fa.dq_route(q), fa.dkv_route(q))
-        check(routes == want_routes[kind], f"D {d} {kind}: routes {routes}, "
-              f"not {want_routes[kind]}")
-        before = dict(fa.launch_count)
-        o, lse = fa.flash_fwd(q, k, v)
-        delta = fa.flash_delta(o, do)
-        dq = fa.flash_dq(q, k, v, do, lse, delta)
-        dk, dv = fa.flash_dkv(q, k, v, do, lse, delta)
-        torch.cuda.synchronize()
-        check(fa.launch_count == {n: before[n] + (n in routes)
-                                  for n in before},
-              f"D 40 case {kind}: launches {fa.launch_count} (before "
-              f"{before}) are not one each of {routes}")
-        for n in routes:
-            out["launches"][n] += 1
-        want_o, want_lse = fa.flash_fwd_ref(q, k, v, t, t)
-        want_dq = fa.flash_dq_ref(q, k, v, do, lse, delta, t, t)
-        want_dk, want_dv = fa.flash_dkv_ref(q, k, v, do, lse, delta, t, t)
-        errs = _errors((("o", o, want_o), ("lse", lse, want_lse),
-                        ("dq", dq, want_dq), ("dk", dk, want_dk),
-                        ("dv", dv, want_dv)), f"D 40 case {kind}",
-                       FLASH_TOL[kind])
-        q4, k4, v4, do4 = (x.view(1, bh, t, d) for x in (q, k, v, do))
-        qg, kg, vg = (x.detach().requires_grad_() for x in (q4, k4, v4))
-        y = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-        out[kind] = {
-            "routes": routes, "errors": errs,
-            "ms": {"fwd": time_ms(lambda: fa.flash_fwd(q, k, v)),
-                   "dq": time_ms(lambda: fa.flash_dq(q, k, v, do, lse,
-                                                     delta)),
-                   "dkv": time_ms(lambda: fa.flash_dkv(q, k, v, do, lse,
-                                                       delta))},
-            "plain_ms": {
-                "fwd": time_ms(lambda: fa.flash_fwd_ref(q, k, v, t, t),
-                               n=20, warmup=2),
-                "dq": time_ms(lambda: fa.flash_dq_ref(
-                    q, k, v, do, lse, delta, t, t), n=20, warmup=2),
-                "dkv": time_ms(lambda: fa.flash_dkv_ref(
-                    q, k, v, do, lse, delta, t, t), n=20, warmup=2)},
-            "library_ms": {
-                "fwd": time_ms(lambda: F.scaled_dot_product_attention(
-                    q4, k4, v4, is_causal=True)),
-                "bwd": time_ms(lambda: torch.autograd.grad(
-                    y, (qg, kg, vg), do4, retain_graph=True))},
-            "bounds": {n: _bound(*_flash_cost(n, bh, t, d, q.element_size()),
-                                 dt, bw) for n in ("fwd", "dq", "dkv")}}
-        del y, qg, kg, vg, q, k, v, do, o, lse, delta, dq, dk, dv
-
-        # the forward at the flagship BH and T: where the work shows
-        bbh, bt = D40_BIG_BH, D40_BIG_T
-        q, k, v = (torch.from_numpy(
-            rng.standard_normal((bbh, bt, d), np.float32)).to(DEV, dt)
-            for _ in range(3))
-        before = dict(fa.launch_count)
-        o, lse = fa.flash_fwd(q, k, v)
-        torch.cuda.synchronize()
-        check(fa.launch_count == {n: before[n] + (n == routes[0])
-                                  for n in before},
-              f"D 40 {kind} at BH {bbh}, T {bt}: not one launch of "
-              f"{routes[0]}")
-        out["launches"][routes[0]] += 1
-        want_o, want_lse = fa.flash_fwd_ref(q, k, v, FLASH_BQ, FLASH_BK)
-        big_errs = _errors((("o", o, want_o), ("lse", lse, want_lse)),
-                           f"D 40 {kind} at BH {bbh}, T {bt}",
-                           FLASH_TOL[kind])
-        q4, k4, v4 = (x.view(TRAIN_BS, H, bt, d) for x in (q, k, v))
-        out[kind]["fwd_at_flagship"] = {
-            "shape": [bbh, bt, d], "errors": big_errs,
-            "ms": time_ms(lambda: fa.flash_fwd(q, k, v)),
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+    d = D40_D
+    q, k, v, do = (torch.from_numpy(
+        rng.standard_normal((bh, t, d), np.float32)).to(DEV, dt)
+        for _ in range(4))
+    routes = (fa.fwd_route(q), fa.dq_route(q), fa.dkv_route(q))
+    before = dict(fa.launch_count)
+    o, lse = fa.flash_fwd(q, k, v)
+    delta = fa.flash_delta(o, do)
+    dq = fa.flash_dq(q, k, v, do, lse, delta)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    where = f"D {d} {kind} at BH {bh}, T {t}"
+    check(fa.launch_count == {n: before[n] + (n in routes) for n in before},
+          f"{where}: launches {fa.launch_count} (before {before}) are not "
+          f"one each of {routes}")
+    for n in routes:
+        launches[n] += 1
+    bq, bk = blocks
+    want_o, want_lse = fa.flash_fwd_ref(q, k, v, bq, bk)
+    want_dq = fa.flash_dq_ref(q, k, v, do, lse, delta, bq, bk)
+    want_dk, want_dv = fa.flash_dkv_ref(q, k, v, do, lse, delta, bq, bk)
+    errs = _errors((("o", o, want_o), ("lse", lse, want_lse),
+                    ("dq", dq, want_dq), ("dk", dk, want_dk),
+                    ("dv", dv, want_dv)), where, FLASH_TOL[kind])
+    del want_o, want_lse, want_dq, want_dk, want_dv
+    q4, k4, v4, do4 = (x.view(1, bh, t, d) for x in (q, k, v, do))
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q4, k4, v4))
+    y = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    res = {
+        "shape": [bh, t, d], "routes": routes, "errors": errs,
+        "ms": {"fwd": time_ms(lambda: fa.flash_fwd(q, k, v)),
+               "dq": time_ms(lambda: fa.flash_dq(q, k, v, do, lse, delta)),
+               "dkv": time_ms(lambda: fa.flash_dkv(q, k, v, do, lse,
+                                                   delta))},
+        "plain_ms": {
+            "fwd": time_ms(lambda: fa.flash_fwd_ref(q, k, v, bq, bk),
+                           n=n_plain, warmup=2),
+            "dq": time_ms(lambda: fa.flash_dq_ref(
+                q, k, v, do, lse, delta, bq, bk), n=n_plain, warmup=2),
+            "dkv": time_ms(lambda: fa.flash_dkv_ref(
+                q, k, v, do, lse, delta, bq, bk), n=n_plain, warmup=2)},
+        "library_ms": {
+            "fwd": time_ms(lambda: F.scaled_dot_product_attention(
                 q4, k4, v4, is_causal=True)),
-            **_bound(*_flash_cost("fwd", bbh, bt, d, q.element_size()), dt,
-                     bw)}
-        del q, k, v, o, lse, want_o, want_lse, q4, k4, v4
-        gc.collect()
-        torch.cuda.empty_cache()
+            "bwd": time_ms(lambda: torch.autograd.grad(
+                y, (qg, kg, vg), do4, retain_graph=True))},
+        "bounds": {n: _bound(*_flash_cost(n, bh, t, d, q.element_size()),
+                             dt, bw) for n in ("fwd", "dq", "dkv")}}
+    del y, qg, kg, vg, q, k, v, do, o, lse, delta, dq, dk, dv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _flash_d40_case(bw: float) -> dict:
+    """Heads of D 40 in f32 and bf16 through every pass, on the 64-column
+    instance of the tensor-core kernels (f32: the three-pass forward, dQ
+    and dK/dV; bf16: the one-pass ones), against the plain versions and
+    timed beside them, SDPA and the bound: at BH 4, T 256 and at the
+    flagship BH 64, T 2048 (under `at_flagship`)."""
+    import torch
+
+    from fedml_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(3)
+    want_routes = {"f32": ("fwd_3xtf32", "dq_3xtf32", "dkv_3xtf32"),
+                   "bf16": ("fwd_tc", "dq_tc", "dkv_tc")}
+    out = {"shape": [D40_BH, D40_T, D40_D],
+           "launches": dict.fromkeys(fa.launch_count, 0)}
+    for kind, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        small = _flash_passes(kind, dt, D40_BH, D40_T, (D40_T, D40_T), rng,
+                              bw, out["launches"], n_plain=20)
+        check(small["routes"] == want_routes[kind],
+              f"D {D40_D} {kind}: routes {small['routes']}, not "
+              f"{want_routes[kind]}")
+        small["at_flagship"] = _flash_passes(
+            kind, dt, D40_BIG_BH, D40_BIG_T, (FLASH_BQ, FLASH_BK), rng, bw,
+            out["launches"], n_plain=10)
+        out[kind] = small
     emit({"phase": "flash", "d40_case": out, "tol_row_rel": FLASH_TOL})
     return out
 
@@ -906,8 +896,8 @@ def phase_train(dims=None, parity_layers: int = 2) -> dict:
     check(moved > 0, "an adapter did not move")
     check(same_base, "the frozen base changed")
     check(launches == {"fwd_tc": 2 * L * steps, "fwd_3xtf32": 0,
-                       "dq": 0, "dq_tc": L * steps, "dq_3xtf32": 0,
-                       "dkv": 0, "dkv_tc": L * steps, "dkv_3xtf32": 0},
+                       "dq_tc": L * steps, "dq_3xtf32": 0,
+                       "dkv_tc": L * steps, "dkv_3xtf32": 0},
           f"flash launches {launches} != K1 2 x {L} x {steps}, K2 = K3 "
           f"{L} x {steps}, all on the tensor cores")
     del state, base_copy, alg, adapters, round_fn, st, out
@@ -947,8 +937,8 @@ def phase_train(dims=None, parity_layers: int = 2) -> dict:
     # the flash round alone launches: K1 twice a layer and step (remat),
     # K2 and K3 once, all through the three-pass TF32 kernels
     n = parity_layers * steps_per_round
-    want = {"fwd_tc": 0, "fwd_3xtf32": 2 * n, "dq": 0, "dq_tc": 0,
-            "dq_3xtf32": n, "dkv": 0, "dkv_tc": 0, "dkv_3xtf32": n}
+    want = {"fwd_tc": 0, "fwd_3xtf32": 2 * n, "dq_tc": 0, "dq_3xtf32": n,
+            "dkv_tc": 0, "dkv_3xtf32": n}
     check(parity["launches"] == want, f"f32 round launches "
           f"{parity['launches']} != {want}")
     del state, alg, adapters, drawn, round_fn, after, o
@@ -1019,104 +1009,77 @@ def kernel_rows(kern: dict, runs: dict, flash: dict, train: dict,
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"], "serve_shape": k["serve_shape"]})
     # the flash kernels at the main path's dtype (bf16: the tensor-core
-    # kernels) and at f32 (the three-pass TF32 kernels), then the FMA
-    # kernels left in the backward. `launches` is each kernel's count from
-    # phase train's main path; `parity_launches` its count from the f32
-    # flash-vs-dense round after it, the only path that reaches the f32
-    # kernels (`fa.fwd_route` / `dq_route` / `dkv_route` send the main
-    # path's bf16 D 128 heads to the tensor cores). The FMA dQ (bf16) and
-    # dK/dV take no D 128 head at all: their rows are phase flash's D 40
-    # case in the dtype named, `check_launches` the launches that case
-    # made; the forwards' rows carry that case's times at D 40 too, at its
-    # shape and at the flagship BH and T. K2's and K3's library yardstick
-    # is SDPA's backward, which computes dQ, dK and dV in one call
+    # kernels) and at f32 (the three-pass TF32 kernels). `launches` is each
+    # kernel's count from phase train's main path; `parity_launches` its
+    # count from the f32 flash-vs-dense round after it, the only path that
+    # reaches the f32 kernels (`fa.fwd_route` / `dq_route` / `dkv_route`
+    # send the main path's bf16 D 128 heads to the bf16 kernels). Each row
+    # also carries phase flash's D 40 case for its kernel under `d40` (BH 4,
+    # T 256; BH 64, T 2048 under `d40.at_flagship`), `check_launches` the
+    # launches that case made. K2's and K3's library yardstick is SDPA's
+    # backward, which computes dQ, dK and dV in one call
     outputs = {"fwd": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
     parity = train.get("f32_flash_vs_dense", {}).get("launches", {})
     tc, tf32 = "wgmma+cp.async", "wgmma tf32x3 + cp.async"
-    # (name, dtype, an FMA kernel timed in the D 40 case, pass, counter,
-    # line of the TPU kernel, design)
-    rows = (("flash_fwd_tc", "bf16", False, "fwd", "fwd_tc", 58, tc),
-            ("flash_fwd_3xtf32", "f32", False, "fwd", "fwd_3xtf32", 58, tf32),
-            ("flash_dq_tc", "bf16", False, "dq", "dq_tc", 204, tc),
-            ("flash_dq_3xtf32", "f32", False, "dq", "dq_3xtf32", 204,
+    # (name, dtype, pass, counter, line of the TPU kernel, design)
+    rows = (("flash_fwd_tc", "bf16", "fwd", "fwd_tc", 58, tc),
+            ("flash_fwd_3xtf32", "f32", "fwd", "fwd_3xtf32", 58, tf32),
+            ("flash_dq_tc", "bf16", "dq", "dq_tc", 204, tc),
+            ("flash_dq_3xtf32", "f32", "dq", "dq_3xtf32", 204,
              "wgmma tf32x3 (S, dS.K) + f64 mma.sync dP + cp.async"),
-            ("flash_dq", "bf16", True, "dq", "dq", 204, "fma"),
-            ("flash_dkv_tc", "bf16", False, "dkv", "dkv_tc", 232, tc),
-            ("flash_dkv_3xtf32", "f32", False, "dkv", "dkv_3xtf32", 232, tf32),
-            ("flash_dkv", "f32", True, "dkv", "dkv", 232, "fma"))
-    off_main_path = {r[0] for r in rows if r[1] == "f32" and not r[2]}
-    fma_rows = {r[0] for r in rows if r[2]}
+            ("flash_dkv_tc", "bf16", "dkv", "dkv_tc", 232, tc),
+            ("flash_dkv_3xtf32", "f32", "dkv", "dkv_3xtf32", 232, tf32))
+    off_main_path = {r[0] for r in rows if r[1] == "f32"}
+
+    def timed(f, fk, lib_key) -> dict:
+        return {"shape": f["shape"], "ms": f["ms"][fk],
+                "plain_ms": f["plain_ms"][fk],
+                "library_ms": f["library_ms"][lib_key],
+                "bound_ms": f["bounds"][fk]["bound_ms"],
+                "bound_by": f["bounds"][fk]["bound_by"],
+                "max_row_rel_err": max(f["errors"][e]["max_row_rel_err"]
+                                       for e in outputs[fk])}
+
     d40 = flash.get("d40")
-    for kname, dt, fma, fk, counter, line, design in rows if d40 else ():
-        f = d40[dt] if fma else flash[dt]
+    for kname, dt, fk, counter, line, design in rows if d40 else ():
+        f = flash[dt]
         lib_key, lib_call = (("fwd", "SDPA forward") if fk == "fwd" else
                              ("bwd", "SDPA backward: dQ+dK+dV together"))
         errs = [f["errors"][e] for e in outputs[fk]]
-        row = {
+        g = d40[dt]
+        kernels.append({
             "name": kname, "route": "cuda", "design": design, "dtype": dt,
             "source": "fedml_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"fedml_tpu/ops/flash_attention.py:{line}",
             "launches": train["launches"].get(counter, 0),
+            "parity_launches": parity.get(counter, 0),
             "max_abs_err": max(e["max_abs_err"] for e in errs),
             "max_row_rel_err": max(e["max_row_rel_err"] for e in errs),
             "ms": f["ms"][fk], "plain_ms": f["plain_ms"][fk],
             "bound_ms": f["bounds"][fk]["bound_ms"],
             "bound_by": f["bounds"][fk]["bound_by"],
-            "library_ms": f["library_ms"][lib_key], "library_call": lib_call}
-        if fma:
-            row.update(shape=d40["shape"],
-                       check_launches=d40["launches"][counter])
-            other = "bf16" if dt == "f32" else "f32"
-            if counter in d40[other]["routes"]:
-                row[f"{other}_max_row_rel_err"] = max(
-                    d40[other]["errors"][e]["max_row_rel_err"]
-                    for e in outputs[fk])
-        else:
-            row["parity_launches"] = parity.get(counter, 0)
-        g = d40[dt]
-        if not fma and counter in g["routes"]:
-            # the tensor-core kernel that D 40 heads of this dtype take
-            at = {"shape": d40["shape"], "ms": g["ms"][fk],
-                  "plain_ms": g["plain_ms"][fk],
-                  "library_ms": g["library_ms"][lib_key],
-                  "bound_ms": g["bounds"][fk]["bound_ms"],
-                  "bound_by": g["bounds"][fk]["bound_by"],
-                  "max_row_rel_err": max(g["errors"][e]["max_row_rel_err"]
-                                         for e in outputs[fk]),
-                  "check_launches": d40["launches"][counter]}
-            if fk == "fwd":
-                big = g["fwd_at_flagship"]
-                at["at_flagship"] = {
-                    **{k: big[k] for k in ("shape", "ms", "library_ms",
-                                           "bound_ms", "bound_by")},
-                    "max_row_rel_err": max(e["max_row_rel_err"]
-                                           for e in big["errors"].values())}
-            row["d40"] = at
-        kernels.append(row)
+            "library_ms": f["library_ms"][lib_key], "library_call": lib_call,
+            "d40": {**timed(g, fk, lib_key),
+                    "check_launches": d40["launches"][counter],
+                    "at_flagship": timed(g["at_flagship"], fk, lib_key)}})
     # no kernel can beat the least time the card needs for its work
-    timed = kernels + [k["d40"] for k in kernels if "d40" in k] + [
-        k["d40"]["at_flagship"] for k in kernels
-        if "at_flagship" in k.get("d40", {})]
-    check(all(k["ms"] >= k["bound_ms"] for k in timed),
+    flash_rows = [k for k in kernels if "d40" in k]
+    every_time = kernels + [k["d40"] for k in flash_rows] + [
+        k["d40"]["at_flagship"] for k in flash_rows]
+    check(all(k["ms"] >= k["bound_ms"] for k in every_time),
           "a kernel's time is below its bound: the bound is wrong")
     if every_phase:
         # the f32 flash kernels are off the main path (phase train checked
         # their counts are 0 there); the f32 round must have run them, and
-        # phase flash's D 40 case the FMA dQ and dK/dV and the kernels D 40
-        # heads take on the tensor cores
+        # phase flash's D 40 case every flash kernel
         check(all(k["launches"] > 0 for k in kernels
-                  if k["name"] not in off_main_path | fma_rows),
+                  if k["name"] not in off_main_path),
               "a kernel of the main path was never launched")
         check(all(k["parity_launches"] > 0 for k in kernels
                   if k["name"] in off_main_path),
               "an f32 flash kernel was never launched by the f32 round")
-        check(all(k["check_launches"] > 0 for k in kernels
-                  if k["name"] in fma_rows),
-              "an FMA flash kernel was never launched by phase flash")
-        check(all(k["d40"]["check_launches"] > 0 for k in kernels
-                  if "d40" in k),
-              "a tensor-core flash kernel was never launched by the D 40 "
-              "case")
+        check(all(k["d40"]["check_launches"] > 0 for k in flash_rows),
+              "a flash kernel was never launched by the D 40 case")
     return kernels
 
 

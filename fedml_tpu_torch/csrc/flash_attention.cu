@@ -2,20 +2,15 @@
 // and dK/dV (K3).
 //
 // Replaces the Pallas TPU kernels of fedml_tpu/ops/flash_attention.py by
-// kernels chosen with one shape rule (ops/flash_attention.py): every head
-// of the contract (D % 8 == 0, D <= 128) runs K1 on the tensor cores, bf16
-// in one pass and f32 in three TF32 passes, and K2 in f32 the same way;
-// bf16 K2 and K3 with D % 16 == 0 and f32 K3 with D % 32 == 0 run on the
-// tensor cores too; the rest (bf16 K2 and K3 of other D, f32 K3 of other
-// D) on CUDA-core FMAs:
+// tensor-core kernels chosen with one shape rule (ops/flash_attention.py):
+// every head of the contract (D % 8 == 0, D <= 128) runs each pass on the
+// tensor cores, bf16 in one pass and f32 in three TF32 passes:
 //   K1 _fwd_kernel  (launched by _flash_fwd)   -> flash_fwd_tc_kernel,
 //                                                 flash_fwd_3xtf32_kernel
 //   K2 _dq_kernel   (launched by _pallas_bwd)  -> flash_dq_tc_kernel,
-//                                                 flash_dq_3xtf32_kernel,
-//                                                 flash_dq_kernel
+//                                                 flash_dq_3xtf32_kernel
 //   K3 _dkv_kernel  (launched by _pallas_bwd)  -> flash_dkv_tc_kernel,
-//                                                 flash_dkv_3xtf32_kernel,
-//                                                 flash_dkv_kernel
+//                                                 flash_dkv_3xtf32_kernel
 // Contract, shared with the plain PyTorch versions in
 // ops/flash_attention.py (flash_fwd_ref / flash_dq_ref / flash_dkv_ref):
 //
@@ -33,37 +28,26 @@
 // dO's dtype before P^T . dO and dS to Q's dtype before dS^T . Q -- the
 // rounding points of the TPU kernels (flash_attention.py:91, :225, :254,
 // :257). f32 products keep f32 accuracy (the TPU kernels use
-// Precision.HIGHEST for f32, a multi-pass bf16 product): full f32 FMAs on
-// the CUDA cores, or three TF32 passes over a hi/lo split of each operand
-// (~21 bits a product, f32 sums), never one TF32 pass (~10 bits).
+// Precision.HIGHEST for f32, a multi-pass bf16 product): three TF32 passes
+// over a hi/lo split of each operand (~21 bits a product, f32 sums), never
+// one TF32 pass (~10 bits).
 //
-// Design of the FMA kernels (the first, simple version). The TPU kernels
-// carry their accumulators in VMEM across a sequential grid axis; Hopper
-// blocks run in no order, so that axis becomes a loop inside one block:
-//   K2: one block per (bh, 64-row q tile), looping over the K tiles up to
-//       the diagonal (the causal skip of :213);
-//   K3: one block per (bh, 64-row k tile), looping over the q tiles from
-//       the diagonal on (the skip of :244).
-// The backward stays two kernels, so every sum has one owner and a fixed
-// order: no atomics. Tiles are 64 x D, staged in shared memory as f32 with
-// a row pitch of D + 1 words (odd, so a column walk across rows hits 32
-// different banks); 256 threads as 16 x 16, thread (ty, tx) owning rows
-// 4*ty .. 4*ty+3 and columns tx, tx+16, ... of every 64 x 64 score tile
-// and of the 64 x D accumulators. Row softmax statistics reduce over the 16
-// lanes that share a row with shuffles. The q-tile grid axis runs the
-// longest (last) tiles first. The ragged tile at T's end is masked inside
-// the kernel, so any T >= 1 is taken.
+// The TPU kernels carry their accumulators in VMEM across a sequential grid
+// axis; Hopper blocks run in no order, so that axis becomes a loop inside
+// one block: K2 one block per q tile, looping over the K tiles up to the
+// diagonal (the causal skip of :213); K3 one block per key tile, looping
+// over the q tiles from the diagonal on (the skip of :244). The backward
+// stays two kernels, so every sum has one owner and a fixed order: no
+// atomics. The ragged tile at T's end is masked inside the kernels, so any
+// T >= 1 is taken.
 //
-// What bounds it on the H100: at T = 2048, D = 128 attention does ~1000
+// What bounds them on the H100: at T = 2048, D = 128 attention does ~1000
 // flops per byte of q/k/v/o, far above the ridge, so the floor is the
 // products' flops over the tensor-core peak: 989 TFLOP/s in bf16; in f32
 // at full accuracy three TF32 passes at 495 TFLOP/s, 165 a product (the
-// CUDA cores' f32 peak is 67). The
-// FMA kernels do every product with scalar FMAs from shared memory (two
-// shared loads per four FMAs), a fraction of the f32 CUDA-core rate; they
-// stay for the backward heads no tensor-core kernel takes.
+// CUDA cores' f32 peak is 67).
 //
-// The tensor-core kernels take any D % 8 == 0 on an instance of kD = 64 or
+// Every kernel takes any D % 8 == 0 on an instance of kD = 64 or
 // 128 columns (D rounded up): their loads zero-fill every 16-byte chunk
 // past D, so the columns past D add nothing to Q.K^T, and their stores
 // write only d < D; the softmax scale is the real D's.
@@ -126,82 +110,12 @@
 
 namespace {
 
-using fedml::from_float;
-using fedml::round_to;
-using fedml::to_float;
-
 constexpr float kNeg = -1e30f;
-constexpr int kB = 64;          // tile rows, q and k alike
-constexpr int kThreads = 256;   // 16 x 16
-constexpr int kPitchP = kB + 1; // row pitch of the 64 x 64 p / dS tiles
 constexpr int kMaxD = 128;
 
-// rows [0, 64) of a tile of `rows_valid` live rows -> shared f32, pitch D+1;
-// rows past the end are zeros
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          int rows_valid, int D) {
-  const int pitch = D + 1;
-  for (int i = threadIdx.x; i < kB * D; i += kThreads) {
-    const int r = i / D, d = i - r * D;
-    dst[r * pitch + d] =
-        r < rows_valid ? to_float(src[static_cast<size_t>(r) * D + d]) : 0.f;
-  }
-}
-
-// 64 floats of a [BH, T] row vector starting at row0; past T: zeros
-__device__ __forceinline__ void load_rowvec(float* dst, const float* __restrict__ src,
-                                            int rows_valid) {
-  const int t = threadIdx.x;
-  if (t < kB) dst[t] = t < rows_valid ? src[t] : 0.f;
-}
-
-// acc[i][j] += sum_d a[(4 ty + i) * pitch + d] * b[(tx + 16 j) * pitch + d]:
-// the thread's 4 x 4 part of a 64 x 64 tile of A . B^T
-__device__ __forceinline__ void tile_abt(float (&acc)[4][4], const float* a,
-                                         const float* b, int D, int ty, int tx) {
-  const int pitch = D + 1;
-  const float* ar = a + 4 * ty * pitch;
-  const float* br = b + tx * pitch;
-  for (int d = 0; d < D; ++d) {
-    float x[4], y[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = ar[i * pitch + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) y[j] = br[16 * j * pitch + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
-  }
-}
-
-// acc[i][j] += sum_c p[(4 ty + i) * kPitchP + c] * m[c * pitch + tx + 16 j]:
-// the thread's rows of a [64, 64] x [64, D] product, columns tx + 16 j < D
-template <int NJ>
-__device__ __forceinline__ void tile_pm(float (&acc)[4][NJ], const float* p,
-                                        const float* m, int D, int ty, int tx) {
-  const int pitch = D + 1;
-  const float* pr = p + 4 * ty * kPitchP;
-  for (int c = 0; c < kB; ++c) {
-    float x[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = pr[i * kPitchP + c];
-    const float* mr = m + c * pitch + tx;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      if (tx + 16 * j < D) {
-        const float y = mr[16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(x[i], y, acc[i][j]);
-      }
-    }
-  }
-}
-
 // ------------------------------------------------------ K1, tensor cores
-// bf16, every D % 8 == 0 (the backward kernels: D % 16 == 0). kD (64 or
-// 128) is D rounded up: columns past D are zero in shared memory (they add
+// bf16, every D % 8 == 0 (the backward kernels too). kD (64 or 128) is D
+// rounded up: columns past D are zero in shared memory (they add
 // nothing to Q.K^T) and are never stored.
 //
 // Register fragments (g = lane / 4, t = lane % 4; warp w of a warpgroup
@@ -1201,8 +1115,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 
 // ------------------------------------------ K3 in f32, three-pass TF32
-// dK and dV in f32 with D % 32 == 0 (kD = 64 or 128, D rounded up),
-// replacing _dkv_kernel (fedml_tpu/ops/flash_attention.py:232) on that route:
+// dK and dV in f32, every D % 8 == 0 (kD = 64 or 128, D rounded up: rows
+// and columns past D zero in shared memory, never stored), replacing
+// _dkv_kernel (fedml_tpu/ops/flash_attention.py:232) on that route:
 // per key, dV = sum_q P^T.dO and dK = sum_q dS^T.Q over the queries from the
 // diagonal on, with p = exp(s scale - lse) (0 where the query precedes the
 // key or lies past T) and dS = p (dP - delta) scale, every product in three
@@ -1798,164 +1713,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 }  // namespace tc
 
-// ------------------------------------------------------------------ K2
-template <typename T, int NJ>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    T* __restrict__ dq, int T_, int D, float scale) {
-  extern __shared__ float smem[];
-  const int pitch = D + 1;
-  float* q_s = smem;
-  float* do_s = q_s + kB * pitch;
-  float* k_s = do_s + kB * pitch;
-  float* v_s = k_s + kB * pitch;
-  float* ds_s = v_s + kB * pitch;  // [64][kPitchP]
-  float* lse_s = ds_s + kB * kPitchP;
-  float* dlt_s = lse_s + kB;
-
-  const int bh = blockIdx.x;
-  const int qt = gridDim.y - 1 - blockIdx.y;
-  const int q0 = qt * kB;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const size_t base = static_cast<size_t>(bh) * T_ * D;
-  const size_t row0 = static_cast<size_t>(bh) * T_ + q0;
-  const int q_valid = min(kB, T_ - q0);
-
-  load_tile(q_s, q + base + static_cast<size_t>(q0) * D, q_valid, D);
-  load_tile(do_s, dout + base + static_cast<size_t>(q0) * D, q_valid, D);
-  load_rowvec(lse_s, lse + row0, q_valid);
-  load_rowvec(dlt_s, delta + row0, q_valid);
-  float acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * kB;
-    __syncthreads();
-    load_tile(k_s, k + base + static_cast<size_t>(k0) * D, min(kB, T_ - k0), D);
-    load_tile(v_s, v + base + static_cast<size_t>(k0) * D, min(kB, T_ - k0), D);
-    __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    tile_abt(s, q_s, k_s, D, ty, tx);
-    tile_abt(dp, do_s, v_s, D, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * ty + i;
-      const int qpos = q0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        const float p = qpos >= kpos ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
-        const float ds = p * (dp[i][j] - dlt_s[r]) * scale;
-        ds_s[r * kPitchP + tx + 16 * j] = round_to<T>(ds);
-      }
-    }
-    __syncthreads();
-    tile_pm<NJ>(acc, ds_s, k_s, D, ty, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + 4 * ty + i;
-    if (qpos >= T_) continue;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) dq[base + static_cast<size_t>(qpos) * D + d] = from_float<T>(acc[i][j]);
-    }
-  }
-}
-
-// ------------------------------------------------------------------ K3
-template <typename T, int NJ>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     T* __restrict__ dk, T* __restrict__ dv, int T_, int D,
-                     float scale) {
-  extern __shared__ float smem[];
-  const int pitch = D + 1;
-  float* k_s = smem;
-  float* v_s = k_s + kB * pitch;
-  float* q_s = v_s + kB * pitch;
-  float* do_s = q_s + kB * pitch;
-  float* pt_s = do_s + kB * pitch;   // P^T  [64 k][kPitchP]
-  float* dst_s = pt_s + kB * kPitchP; // dS^T [64 k][kPitchP]
-  float* lse_s = dst_s + kB * kPitchP;
-  float* dlt_s = lse_s + kB;
-
-  const int bh = blockIdx.x;
-  const int kt = blockIdx.y;  // the first tiles have the most q tiles
-  const int k0 = kt * kB;
-  const int n_qt = gridDim.y;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const size_t base = static_cast<size_t>(bh) * T_ * D;
-
-  load_tile(k_s, k + base + static_cast<size_t>(k0) * D, min(kB, T_ - k0), D);
-  load_tile(v_s, v + base + static_cast<size_t>(k0) * D, min(kB, T_ - k0), D);
-  float acc_k[4][NJ], acc_v[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
-
-  for (int qt = kt; qt < n_qt; ++qt) {  // q tiles before the diagonal: masked
-    const int q0 = qt * kB;
-    const int q_valid = min(kB, T_ - q0);
-    __syncthreads();
-    load_tile(q_s, q + base + static_cast<size_t>(q0) * D, q_valid, D);
-    load_tile(do_s, dout + base + static_cast<size_t>(q0) * D, q_valid, D);
-    load_rowvec(lse_s, lse + static_cast<size_t>(bh) * T_ + q0, q_valid);
-    load_rowvec(dlt_s, delta + static_cast<size_t>(bh) * T_ + q0, q_valid);
-    __syncthreads();
-    // transposed tiles: thread rows are keys, columns are queries
-    float st[4][4] = {}, dpt[4][4] = {};
-    tile_abt(st, k_s, q_s, D, ty, tx);
-    tile_abt(dpt, v_s, do_s, D, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * ty + i;
-      const int kpos = k0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const int qpos = q0 + c;
-        const float p = (qpos >= kpos && qpos < T_)
-                            ? expf(st[i][j] * scale - lse_s[c]) : 0.f;
-        const float ds = p * (dpt[i][j] - dlt_s[c]) * scale;
-        pt_s[r * kPitchP + c] = round_to<T>(p);
-        dst_s[r * kPitchP + c] = round_to<T>(ds);
-      }
-    }
-    __syncthreads();
-    tile_pm<NJ>(acc_v, pt_s, do_s, D, ty, tx);
-    tile_pm<NJ>(acc_k, dst_s, q_s, D, ty, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kpos = k0 + 4 * ty + i;
-    if (kpos >= T_) continue;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) {
-        const size_t at = base + static_cast<size_t>(kpos) * D + d;
-        dk[at] = from_float<T>(acc_k[i][j]);
-        dv[at] = from_float<T>(acc_v[i][j]);
-      }
-    }
-  }
-}
-
 // ------------------------------------------------------------ launches
-size_t tile_floats(int D) { return static_cast<size_t>(kB) * (D + 1); }
-
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -2074,13 +1832,12 @@ cudaError_t dq_3xtf32(const void* q, const void* k, const void* v, const void* d
   return cudaGetLastError();
 }
 
-// what the tensor-core kernels refuse: a dtype other than `want` (1: bf16,
-// 0: f32) or a D that is not a multiple of `step` (8; the tensor-core K2
-// and K3 in bf16 and K3 in f32 keep their own: 16, 32), and operands their
-// 16-byte cp.async copies cannot read (0: taken)
-cudaError_t tc_refusal(int BH, int T_, int D, int kind, int want, int step, const void* a,
-                       const void* b, const void* c, const void* d = nullptr) {
-  if (kind != want || BH < 1 || T_ < 1 || D < step || D > kMaxD || D % step ||
+// what the kernels refuse: a dtype other than `want` (1: bf16, 0: f32), a
+// D that is not a multiple of 8 or past kMaxD, and operands their 16-byte
+// cp.async copies cannot read (0: taken)
+cudaError_t tc_refusal(int BH, int T_, int D, int kind, int want, const void* a, const void* b,
+                       const void* c, const void* d = nullptr) {
+  if (kind != want || BH < 1 || T_ < 1 || D < 8 || D > kMaxD || D % 8 ||
       (T_ + tc::kBM - 1) / tc::kBM > 65535)
     return cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
@@ -2088,49 +1845,6 @@ cudaError_t tc_refusal(int BH, int T_, int D, int kind, int want, int step, cons
     return cudaErrorMisalignedAddress;
   return cudaSuccess;
 }
-
-template <typename T, int NJ>
-cudaError_t dq(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dq_, int BH, int T_,
-               int D, cudaStream_t st) {
-  const size_t smem = sizeof(float) * (4 * tile_floats(D) + kB * kPitchP + 2 * kB);
-  auto kernel = flash_dq_kernel<T, NJ>;
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(BH, (T_ + kB - 1) / kB), kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq_), T_, D, softmax_scale(D));
-  return cudaGetLastError();
-}
-
-template <typename T, int NJ>
-cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout,
-                const void* lse, const void* delta, void* dk, void* dv, int BH,
-                int T_, int D, cudaStream_t st) {
-  const size_t smem = sizeof(float) * (4 * tile_floats(D) + 2 * kB * kPitchP + 2 * kB);
-  auto kernel = flash_dkv_kernel<T, NJ>;
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(BH, (T_ + kB - 1) / kB), kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), T_,
-      D, softmax_scale(D));
-  return cudaGetLastError();
-}
-
-// the FMA kernels' shape check, then one instantiation of FN<T, NJ> per
-// accumulator width: D <= 32, 64, 128
-#define FEDML_FLASH_DISPATCH(FN, T, ...)                                       \
-  do {                                                                         \
-    if (BH < 1 || T_ < 1 || D < 1 || D > kMaxD || D % 8 || (T_ + kB - 1) / kB > 65535) \
-      return static_cast<int>(cudaErrorInvalidValue);                          \
-    cudaStream_t st = static_cast<cudaStream_t>(stream);                       \
-    return static_cast<int>(D <= 32   ? FN<T, 2>(__VA_ARGS__, st)              \
-                            : D <= 64 ? FN<T, 4>(__VA_ARGS__, st)              \
-                                      : FN<T, 8>(__VA_ARGS__, st));            \
-  } while (0)
 
 }  // namespace
 
@@ -2144,7 +1858,7 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout,
 extern "C" int fedml_flash_fwd_tc(const void* q, const void* k, const void* v,
                                   void* o, void* lse, int BH, int T_, int D,
                                   int kind, void* stream) {
-  if (cudaError_t err = tc_refusal(BH, T_, D, kind, 1, 8, q, k, v)) return static_cast<int>(err);
+  if (cudaError_t err = tc_refusal(BH, T_, D, kind, 1, q, k, v)) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(D <= 64 ? fwd_tc<64>(q, k, v, o, lse, BH, T_, D, st)
                                   : fwd_tc<128>(q, k, v, o, lse, BH, T_, D, st));
@@ -2154,7 +1868,7 @@ extern "C" int fedml_flash_fwd_tc(const void* q, const void* k, const void* v,
 extern "C" int fedml_flash_fwd_3xtf32(const void* q, const void* k, const void* v,
                                       void* o, void* lse, int BH, int T_, int D,
                                       int kind, void* stream) {
-  if (cudaError_t err = tc_refusal(BH, T_, D, kind, 0, 8, q, k, v))
+  if (cudaError_t err = tc_refusal(BH, T_, D, kind, 0, q, k, v))
     return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(D <= 64 ? fwd_3xtf32<64>(q, k, v, o, lse, BH, T_, D, st)
@@ -2165,7 +1879,7 @@ extern "C" int fedml_flash_dq_tc(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse, const void* delta,
                                  void* dq_, int BH, int T_, int D, int kind,
                                  void* stream) {
-  if (cudaError_t err = tc_refusal(BH, T_, D, kind, 1, 16, q, k, v, dout))
+  if (cudaError_t err = tc_refusal(BH, T_, D, kind, 1, q, k, v, dout))
     return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
@@ -2178,7 +1892,7 @@ extern "C" int fedml_flash_dq_3xtf32(const void* q, const void* k, const void* v
                                      const void* dout, const void* lse, const void* delta,
                                      void* dq_, int BH, int T_, int D, int kind,
                                      void* stream) {
-  if (cudaError_t err = tc_refusal(BH, T_, D, kind, 0, 8, q, k, v, dout))
+  if (cudaError_t err = tc_refusal(BH, T_, D, kind, 0, q, k, v, dout))
     return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
@@ -2190,7 +1904,7 @@ extern "C" int fedml_flash_dkv_tc(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse, const void* delta,
                                   void* dk, void* dv, int BH, int T_, int D, int kind,
                                   void* stream) {
-  if (cudaError_t err = tc_refusal(BH, T_, D, kind, 1, 16, q, k, v, dout))
+  if (cudaError_t err = tc_refusal(BH, T_, D, kind, 1, q, k, v, dout))
     return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
@@ -2198,39 +1912,17 @@ extern "C" int fedml_flash_dkv_tc(const void* q, const void* k, const void* v,
               : dkv_tc<128>(q, k, v, dout, lse, delta, dk, dv, BH, T_, D, st));
 }
 
-// K3 in f32 on the tensor cores, three TF32 passes: D % 32 == 0 (the
-// other f32 heads take the FMA kernel)
+// K3 in f32 on the tensor cores, three TF32 passes
 extern "C" int fedml_flash_dkv_3xtf32(const void* q, const void* k, const void* v,
                                       const void* dout, const void* lse, const void* delta,
                                       void* dk, void* dv, int BH, int T_, int D, int kind,
                                       void* stream) {
-  if (cudaError_t err = tc_refusal(BH, T_, D, kind, 0, 32, q, k, v, dout))
+  if (cudaError_t err = tc_refusal(BH, T_, D, kind, 0, q, k, v, dout))
     return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
       D <= 64 ? dkv_3xtf32<64>(q, k, v, dout, lse, delta, dk, dv, BH, T_, D, st)
               : dkv_3xtf32<128>(q, k, v, dout, lse, delta, dk, dv, BH, T_, D, st));
-}
-
-// The FMA kernels. K2: bf16 (kind 1) only, the heads of D % 16 != 0 (f32
-// dQ runs on flash_dq_3xtf32_kernel). K3: f32 or bf16, the heads no
-// tensor-core K3 takes
-extern "C" int fedml_flash_dq(const void* q, const void* k, const void* v,
-                              const void* dout, const void* lse, const void* delta,
-                              void* dq_, int BH, int T_, int D, int kind,
-                              void* stream) {
-  if (kind != 1) return static_cast<int>(cudaErrorInvalidValue);
-  FEDML_FLASH_DISPATCH(dq, __nv_bfloat16, q, k, v, dout, lse, delta, dq_, BH, T_, D);
-}
-
-extern "C" int fedml_flash_dkv(const void* q, const void* k, const void* v,
-                               const void* dout, const void* lse, const void* delta,
-                               void* dk, void* dv, int BH, int T_, int D, int kind,
-                               void* stream) {
-  if (kind == 0) FEDML_FLASH_DISPATCH(dkv, float, q, k, v, dout, lse, delta, dk, dv, BH, T_, D);
-  if (kind == 1)
-    FEDML_FLASH_DISPATCH(dkv, __nv_bfloat16, q, k, v, dout, lse, delta, dk, dv, BH, T_, D);
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* fedml_flash_error_string(int err) {

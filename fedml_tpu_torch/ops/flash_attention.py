@@ -33,24 +33,22 @@ the contract takes runs the forward on the tensor cores: bf16 on
 `flash_fwd_tc_kernel` (`wgmma`), f32 on `flash_fwd_3xtf32_kernel`, where
 each f32 product is made of three TF32 `wgmma` passes over a hi/lo split
 of both operands (`tf32_split`; `matmul_3xtf32` is its plain emulation),
-which keeps about 21 bits, where one TF32 pass would keep 10; both take
-any D % 8 == 0 on a 64- or 128-column instance. dQ in f32 runs on
-`flash_dq_3xtf32_kernel` for every head: S and dS.K in three TF32
-passes, dP made exactly on the f64 tensor cores and rounded once to f32
-(`matmul_f64` in the plain version): dQ's first row is 0 up to dP's
-rounding, and an f32 sum of dP in another order than the plain
-version's puts it past the rule the kernels are held to. bf16 dQ and
-dK/dV with D % 16 == 0 run on `flash_dq_tc_kernel` and
-`flash_dkv_tc_kernel`, f32 dK/dV with D % 32 == 0 on
-`flash_dkv_3xtf32_kernel`; the backward heads left (bf16 dQ of
-D % 16 != 0, dK/dV of other D) run on the CUDA-core FMA kernels.
-`fwd_route`, `dq_route` and `dkv_route` name each pass's kernel by its
-`launch_count` key. The tensor-core kernels copy 16-byte chunks,
+which keeps about 21 bits, where one TF32 pass would keep 10. The backward
+runs on the tensor cores for every head too: bf16 dQ and dK/dV on
+`flash_dq_tc_kernel` and `flash_dkv_tc_kernel`, f32 dK/dV on
+`flash_dkv_3xtf32_kernel`, and f32 dQ on `flash_dq_3xtf32_kernel`: S and
+dS.K in three TF32 passes, dP made exactly on the f64 tensor cores and
+rounded once to f32 (`matmul_f64` in the plain version): dQ's first row
+is 0 up to dP's rounding, and an f32 sum of dP in another order than the
+plain version's puts it past the rule the kernels are held to. Every
+kernel takes any D % 8 == 0 on a 64- or 128-column instance (the columns
+past D zero-filled). `fwd_route`, `dq_route` and `dkv_route` name each
+pass's kernel by its `launch_count` key. The kernels copy 16-byte chunks,
 so their operands must start 16-byte aligned (a view at another storage
 offset raises a ValueError). `launch_count` counts each kernel's
 launches (and nothing else): "fwd_tc" and "fwd_3xtf32" for the two
-forwards, "dq_tc", "dq_3xtf32" and "dq" for dQ, "dkv_tc", "dkv_3xtf32"
-and "dkv" for dK/dV.
+forwards, "dq_tc" and "dq_3xtf32" for dQ, "dkv_tc" and "dkv_3xtf32" for
+dK/dV.
 
 `rowwise_rel_err` (from `ops/tolerance.py`) is the rule the kernels are
 held to against their plain versions on the card.
@@ -68,8 +66,8 @@ _NEG = -1e30
 MAX_D = 128
 _KIND = {torch.float32: 0, torch.bfloat16: 1}
 
-launch_count = {"fwd_tc": 0, "fwd_3xtf32": 0, "dq": 0, "dq_tc": 0,
-                "dq_3xtf32": 0, "dkv": 0, "dkv_tc": 0, "dkv_3xtf32": 0}
+launch_count = {"fwd_tc": 0, "fwd_3xtf32": 0, "dq_tc": 0, "dq_3xtf32": 0,
+                "dkv_tc": 0, "dkv_3xtf32": 0}
 
 _lib = None
 
@@ -81,9 +79,9 @@ def _kernel_lib() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         for fn, n_ptr in (("fedml_flash_fwd_tc", 5),
                           ("fedml_flash_fwd_3xtf32", 5),
-                          ("fedml_flash_dq", 7), ("fedml_flash_dq_tc", 7),
+                          ("fedml_flash_dq_tc", 7),
                           ("fedml_flash_dq_3xtf32", 7),
-                          ("fedml_flash_dkv", 8), ("fedml_flash_dkv_tc", 8),
+                          ("fedml_flash_dkv_tc", 8),
                           ("fedml_flash_dkv_3xtf32", 8)):
             getattr(lib, fn).argtypes = [vp] * n_ptr + [i] * 4 + [vp]
             getattr(lib, fn).restype = i
@@ -156,12 +154,6 @@ def _launch(name: str, *tensors, bh: int, t: int, d: int, kind: int) -> None:
 
 
 # --------------------------------------------------------------- wrappers
-def _tensor_cores(q) -> bool:
-    """The bf16 backward's shape rule: bf16 heads with D % 16 == 0 run dQ
-    and dK/dV on the tensor cores."""
-    return q.dtype == torch.bfloat16 and q.shape[-1] % 16 == 0
-
-
 def fwd_route(q) -> str:
     """Which K1 kernel takes q (its `launch_count` key): "fwd_tc", the
     tensor-core kernel, for bf16; "fwd_3xtf32", the three-pass TF32
@@ -171,28 +163,22 @@ def fwd_route(q) -> str:
 
 
 def dq_route(q) -> str:
-    """Which K2 kernel takes q (its `launch_count` key): "dq_tc" for bf16
-    with D % 16 == 0, "dq_3xtf32" (three TF32 passes) for every f32 head,
-    "dq" (FMA) for bf16 of any other D. Never a fallback."""
-    if _tensor_cores(q):
-        return "dq_tc"
-    return "dq_3xtf32" if q.dtype == torch.float32 else "dq"
+    """Which K2 kernel takes q (its `launch_count` key): "dq_tc" for bf16,
+    "dq_3xtf32" (three TF32 passes) for f32, at every head of the
+    contract. Never a fallback."""
+    return "dq_tc" if q.dtype == torch.bfloat16 else "dq_3xtf32"
 
 
 def dkv_route(q) -> str:
-    """Which K3 kernel takes q (its `launch_count` key): "dkv_tc" for bf16
-    with D % 16 == 0, "dkv_3xtf32" (three TF32 passes) for f32 with
-    D % 32 == 0, "dkv" (FMA) for every other head. Never a fallback."""
-    if _tensor_cores(q):
-        return "dkv_tc"
-    if q.dtype == torch.float32 and q.shape[-1] % 32 == 0:
-        return "dkv_3xtf32"
-    return "dkv"
+    """Which K3 kernel takes q (its `launch_count` key): "dkv_tc" for
+    bf16, "dkv_3xtf32" (three TF32 passes) for f32, at every head of the
+    contract. Never a fallback."""
+    return "dkv_tc" if q.dtype == torch.bfloat16 else "dkv_3xtf32"
 
 
 def _require_aligned(what: str, *tensors) -> None:
-    """The tensor-core kernels copy 16-byte chunks: a view that does not
-    start 16-byte aligned raises here, before any launch."""
+    """The kernels copy 16-byte chunks: a view that does not start
+    16-byte aligned raises here, before any launch."""
     if any(x.data_ptr() % 16 for x in tensors):
         raise ValueError(f"the tensor-core flash {what} needs its operands "
                          "16-byte aligned; got views at storage offsets "
@@ -218,15 +204,14 @@ def flash_fwd(q, k, v, block_q=None, block_k=None):
 
 def flash_dq(q, k, v, do, lse, delta, block_q=None, block_k=None):
     """dQ [BH, T, D] in q's dtype: K2 on CUDA (the kernel `dq_route`
-    names), the plain version on the CPU. On the tensor-core routes q, k,
-    v and dO must start 16-byte aligned."""
+    names, on the tensor cores: q, k, v and dO must start 16-byte
+    aligned), the plain version on the CPU."""
     _check(q, k, v, do, lse, delta)
     bq, bk = _blocks(q.shape[1], block_q, block_k)
     if q.device.type == "cpu":
         return flash_dq_ref(q, k, v, do, lse, delta, bq, bk)
     name = dq_route(q)
-    if name != "dq":
-        _require_aligned("backward", q, k, v, do)
+    _require_aligned("backward", q, k, v, do)
     bh, t, d = q.shape
     dq = torch.empty_like(q)
     _launch(name, q, k, v, do, lse, delta, dq, bh=bh, t=t, d=d,
@@ -236,15 +221,14 @@ def flash_dq(q, k, v, do, lse, delta, block_q=None, block_k=None):
 
 def flash_dkv(q, k, v, do, lse, delta, block_q=None, block_k=None):
     """(dK, dV) [BH, T, D] in k's / v's dtype: K3 on CUDA (the kernel
-    `dkv_route` names), the plain version on the CPU. On the tensor-core
-    routes q, k, v and dO must start 16-byte aligned."""
+    `dkv_route` names, on the tensor cores: q, k, v and dO must start
+    16-byte aligned), the plain version on the CPU."""
     _check(q, k, v, do, lse, delta)
     bq, bk = _blocks(q.shape[1], block_q, block_k)
     if q.device.type == "cpu":
         return flash_dkv_ref(q, k, v, do, lse, delta, bq, bk)
     name = dkv_route(q)
-    if name != "dkv":
-        _require_aligned("backward", q, k, v, do)
+    _require_aligned("backward", q, k, v, do)
     bh, t, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch(name, q, k, v, do, lse, delta, dk, dv, bh=bh, t=t, d=d,

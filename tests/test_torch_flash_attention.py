@@ -120,15 +120,13 @@ def test_contract_errors():
 
 
 def test_cpu_tensors_launch_no_kernel():
-    """CPU tensors run the plain versions on every route: an f32 head of
-    D 8 (the three-pass TF32 forward's and dQ's route, the FMA dK/dV's), a
-    bf16 head of D 16 (the tensor cores' route in every pass), a bf16 head
-    of D 8 (the tensor-core forward's, the FMA backward's) and an f32 head
-    of D 32 (the three-pass TF32 route in every pass) leave every counter
-    as it was. There is no FMA forward and no key for one."""
-    assert "fwd" not in fa.launch_count
-    assert {"dq_tc", "dkv_tc", "fwd_3xtf32", "dq_3xtf32", "dkv_3xtf32"} \
-        <= fa.launch_count.keys()
+    """CPU tensors run the plain versions on every route: f32 heads of D 8
+    and 32 (the three-pass TF32 kernels' route in every pass) and bf16
+    heads of D 16 and 8 (the one-pass tensor-core kernels' route in every
+    pass) leave every counter as it was. The counters are the six
+    tensor-core kernels': there is no FMA kernel and no key for one."""
+    assert fa.launch_count.keys() == {"fwd_tc", "fwd_3xtf32", "dq_tc",
+                                      "dq_3xtf32", "dkv_tc", "dkv_3xtf32"}
     before = dict(fa.launch_count)
     for d, dtype in ((8, torch.float32), (16, torch.bfloat16),
                      (8, torch.bfloat16), (32, torch.float32)):
@@ -218,6 +216,24 @@ def test_3xtf32_dkv_products_match_jax(t, bq, bk, seed):
     do = np.random.RandomState(seed + 20).randn(*q.shape).astype(np.float32)
     want_dk, want_dv = _jax_dkv(q, k, v, do, bq, bk)
     dk, dv = _port_dkv(q, k, v, do, bq, bk, fa.matmul_3xtf32)
+    assert fa.rowwise_rel_err(dk, want_dk) <= 1e-5
+    assert fa.rowwise_rel_err(dv, want_dv) <= 1e-5
+
+
+@pytest.mark.parametrize("d,seed", [(40, 5), (8, 6)])
+def test_3xtf32_dkv_products_match_jax_at_small_heads(d, seed):
+    """The widened f32 K3 route: heads of D 40 and 8 (which the three-pass
+    K3 now takes on its 64-column instance, the Q^T and dO^T rows past D
+    zero) through the plain K3 made as that kernel makes it
+    (`matmul_3xtf32`) against the JAX K3 (f32, interpret mode, `jax.vjp`):
+    dK and dV within 1e-5 row-relative, a tenth of the 1e-4 the kernel is
+    held to on the card. dK is 0 up to rounding only at T 1 (the first
+    key's one query, p = 1, dP = delta), so no row here is a cancellation
+    and every row is held to the same 1e-5 (read: ~1e-6)."""
+    q, k, v = _qkv(seed, bh=2, t=64, d=d)
+    do = np.random.RandomState(seed + 20).randn(*q.shape).astype(np.float32)
+    want_dk, want_dv = _jax_dkv(q, k, v, do, 32, 32)
+    dk, dv = _port_dkv(q, k, v, do, 32, 32, fa.matmul_3xtf32)
     assert fa.rowwise_rel_err(dk, want_dk) <= 1e-5
     assert fa.rowwise_rel_err(dv, want_dv) <= 1e-5
 
@@ -388,10 +404,10 @@ def cuda():
                                     (2, 70, 24), (2, 100, 72), (1, 33, 120)])
 def test_cuda_kernels_match_plain_versions(cuda, dtype, bh, t, d):
     """K1, K2 and K3 against their plain versions on the card, at ragged
-    tiles (T not a multiple of 64), D below one 16-lane column stripe and
-    at the limit, and D 24 to 120 (which the tensor-core kernels take on
-    their 64- and 128-column instances, the columns past D zero), under
-    the rule chip_smoke.py holds them to
+    tiles (T not a multiple of 64) and at D 8 to 128: every pass on the
+    tensor-core kernels (bf16 one pass, f32 three TF32 passes), D below 64
+    on the 64-column instances and the rest on the 128-column ones, the
+    columns past D zero; under the rule chip_smoke.py holds them to
     (`rowwise_rel_err`: each row's error relative to that row's largest
     magnitude, one ulp of the output forgiven): f32 within 1e-4 (sums in
     another order), bf16 within 1e-2 (the order can also flip a bf16
@@ -676,6 +692,82 @@ def test_cuda_forward_takes_every_head(cuda, dtype, d):
             assert fa.rowwise_rel_err(dq, want_dq) <= tol, t
 
 
+_BWD_HEADS = [(torch.bfloat16, d) for d in (8, 24, 40, 56, 72, 88, 104,
+                                              120)] \
+    + [(torch.float32, d) for d in (8, 16, 24, 40, 48, 56, 72, 80, 88, 104,
+                                    112, 120)]
+_BWD_T = [1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128, 129]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", _BWD_T)
+@pytest.mark.parametrize("dtype,d", _BWD_HEADS,
+                         ids=[f"{str(dt)[6:]}-{d}" for dt, d in _BWD_HEADS])
+def test_cuda_backward_takes_every_head(cuda, dtype, d, t):
+    """K2 and K3 at the head sizes the old shape rule sent to the deleted
+    FMA kernels (bf16 D % 16 != 0: the last k16 step of S and dP reads 8
+    real columns and 8 zero-filled ones; f32 D % 32 != 0: Q^T and dO^T
+    rows past D zero), each on the 64- or 128-column instance of its
+    tensor-core kernel, at T of 1, one row short of, at and one row past a
+    16-row tile, a 32-key tile, a 64-row tile and a 128-row block: one
+    launch of the named key per pass, and dQ, dK and dV row by row within
+    1e-4 (f32) or 1e-2 (bf16) of the plain versions fed the same LSE and
+    delta. At T 1 dQ and dK are 0 up to the rounding of dP."""
+    rs = np.random.RandomState(17)
+    q, k, v, do = (torch.from_numpy(rs.randn(3, t, d).astype(np.float32))
+                   .to(cuda, dtype) for _ in range(4))
+    bf16 = dtype == torch.bfloat16
+    assert (fa.dq_route(q), fa.dkv_route(q)) == \
+        (("dq_tc", "dkv_tc") if bf16 else ("dq_3xtf32", "dkv_3xtf32"))
+    o, lse = fa.flash_fwd(q, k, v, block_q=t, block_k=t)
+    delta = fa.flash_delta(o, do)
+    before = dict(fa.launch_count)
+    dq = fa.flash_dq(q, k, v, do, lse, delta, block_q=t, block_k=t)
+    torch.cuda.synchronize()
+    assert fa.launch_count == {**before, fa.dq_route(q):
+                               before[fa.dq_route(q)] + 1}
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, block_q=t, block_k=t)
+    torch.cuda.synchronize()
+    assert fa.launch_count == {**before,
+                               fa.dq_route(q): before[fa.dq_route(q)] + 1,
+                               fa.dkv_route(q): before[fa.dkv_route(q)] + 1}
+    want_dq = fa.flash_dq_ref(q, k, v, do, lse, delta, t, t)
+    want_dk, want_dv = fa.flash_dkv_ref(q, k, v, do, lse, delta, t, t)
+    tol = 1e-2 if bf16 else 1e-4
+    for name, got, want in (("dq", dq, want_dq), ("dk", dk, want_dk),
+                            ("dv", dv, want_dv)):
+        assert fa.rowwise_rel_err(got, want) <= tol, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [1, 2, 2048])
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_tensor_core_backward_tile_edges(cuda, t, d):
+    """The bf16 tensor-core K2 and K3 alone at the edges of T (one row,
+    two rows, and 2048) on both instances, fed the plain forward's LSE: one
+    launch of "dq_tc" and one of "dkv_tc", and dQ, dK and dV row by row
+    within 1e-2 of the plain versions. At T 1 dQ and dK are 0 up to the
+    rounding of dP."""
+    rs = np.random.RandomState(18)
+    bh = 2 if t == 2048 else 3
+    q, k, v, do = (torch.from_numpy(rs.randn(bh, t, d).astype(np.float32))
+                   .to(cuda, torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_fwd_ref(q, k, v, min(t, 512), min(t, 1024))
+    delta = fa.flash_delta(o, do)
+    before = dict(fa.launch_count)
+    dq = fa.flash_dq(q, k, v, do, lse, delta)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert fa.launch_count == {**before, "dq_tc": before["dq_tc"] + 1,
+                               "dkv_tc": before["dkv_tc"] + 1}
+    bq, bk = min(t, 512), min(t, 1024)
+    want_dq = fa.flash_dq_ref(q, k, v, do, lse, delta, bq, bk)
+    want_dk, want_dv = fa.flash_dkv_ref(q, k, v, do, lse, delta, bq, bk)
+    for name, got, want in (("dq", dq, want_dq), ("dk", dk, want_dk),
+                            ("dv", dv, want_dv)):
+        assert fa.rowwise_rel_err(got, want) <= 1e-2, name
+
+
 def test_forward_route_rule():
     """Every head of the contract takes a tensor-core forward: bf16 the
     one-pass kernel, f32 the three-pass TF32 kernel, at any D % 8 == 0
@@ -697,21 +789,22 @@ def test_forward_route_rule():
     (128, torch.bfloat16, "dq_tc", "dkv_tc"),
     (64, torch.bfloat16, "dq_tc", "dkv_tc"),
     (16, torch.bfloat16, "dq_tc", "dkv_tc"),
-    (40, torch.bfloat16, "dq", "dkv"), (8, torch.bfloat16, "dq", "dkv"),
-    (120, torch.bfloat16, "dq", "dkv"),
+    (40, torch.bfloat16, "dq_tc", "dkv_tc"),
+    (8, torch.bfloat16, "dq_tc", "dkv_tc"),
+    (120, torch.bfloat16, "dq_tc", "dkv_tc"),
     (128, torch.float32, "dq_3xtf32", "dkv_3xtf32"),
     (64, torch.float32, "dq_3xtf32", "dkv_3xtf32"),
     (32, torch.float32, "dq_3xtf32", "dkv_3xtf32"),
-    (40, torch.float32, "dq_3xtf32", "dkv"),
-    (24, torch.float32, "dq_3xtf32", "dkv"),
-    (16, torch.float32, "dq_3xtf32", "dkv"),
-    (8, torch.float32, "dq_3xtf32", "dkv")])
+    (40, torch.float32, "dq_3xtf32", "dkv_3xtf32"),
+    (24, torch.float32, "dq_3xtf32", "dkv_3xtf32"),
+    (16, torch.float32, "dq_3xtf32", "dkv_3xtf32"),
+    (8, torch.float32, "dq_3xtf32", "dkv_3xtf32")])
 def test_backward_route_rule(d, dtype, want_dq, want_dkv):
-    """bf16 heads with D % 16 == 0 take the tensor-core K2 and K3; every
-    f32 head takes the three-pass TF32 K2, and f32 heads with D % 32 == 0
-    the three-pass TF32 K3; the other heads' K2 (bf16) and K3 (both
-    dtypes) the FMA kernels. The forward takes the tensor cores either
-    way."""
+    """Every head of the contract (D <= 128, D % 8 == 0) takes the
+    tensor-core K2 and K3: bf16 the one-pass kernels, f32 the three-pass
+    TF32 ones, on the 64- or 128-column instance (heads of D 40, 24, 16
+    and 8 on the 64-column one, D 120 on the 128-column one). The forward
+    takes the tensor cores too."""
     q = torch.zeros((1, 4, d), dtype=dtype)
     assert fa.dq_route(q) == want_dq
     assert fa.dkv_route(q) == want_dkv
