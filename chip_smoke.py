@@ -51,6 +51,20 @@ exits non-zero; nothing is caught and carried past):
              flash (the three-pass TF32 forward, dQ and dK/dV, and only
              they) and with dense attention from the same adapters and
              batch schedule: the adapters agree.
+8. fedavg  - the FedAvg simulation path at bench.py's flagship shape
+             (`_flagship_config`: 100 clients of synthetic CIFAR-10, 96
+             samples each, Dirichlet alpha 0.5, all 100 per round, batch
+             32, 1 epoch, lr 0.05, resnet18_gn, bf16 compute, health stats
+             on): first one f32 round of 4 clients on the card and on the
+             CPU from the same parameters and batch schedule (TF32 off),
+             within 1e-3 of the CPU round's largest update or, where f32
+             itself departs further from the f64 round, as close to the
+             f64 round as the CPU's f32 round (`_fedavg_parity`); then,
+             through
+             `fedml_tpu_torch.init` and the Simulator, a warm round and 5
+             timed rounds (rounds/s, ms per round and per local step, peak
+             memory, losses, conv + matmul FLOPs and their share of the
+             bf16 peak), the loss falling, then one eval. No K1-K4 launch.
 
 Then the `kernels` line, the raw `nvidia-smi` name/power-limit line, and as
 the last line {"ok": true, "device": {...}}. Imports nothing of JAX or of
@@ -70,8 +84,10 @@ import time
 
 import numpy as np
 
-PHASES = ("device", "build", "kernel", "engine", "serve", "flash", "train")
-OPTIONAL = ("profile", "train_profile")   # run only when named in --only
+PHASES = ("device", "build", "kernel", "engine", "serve", "flash", "train",
+          "fedavg")
+# run only when named in --only
+OPTIONAL = ("profile", "train_profile", "fedavg_profile")
 DEV = "cuda"
 
 # the kernel check's shapes: LLaMA-2-7B attention at the engine's page size
@@ -116,6 +132,20 @@ FLASH_TOL = {"f32": 1e-4, "bf16": 1e-2}
 # update|. Both compute the same f32 attention up to summation order
 # (~1e-6 relative); two local steps carry it into the adapters.
 PARITY_TOL = 1e-3
+# phase fedavg: bench.py's `_flagship_config` (FedAvg, 100 clients x 96
+# synthetic CIFAR-10 samples, ResNet-18-GN, bf16) and its MEASURE_ROUNDS;
+# the f32 card-vs-CPU round takes the first FEDAVG_PARITY_CLIENTS clients
+FEDAVG_CONFIG = {
+    "data_args": {"dataset": "cifar10"},
+    "model_args": {"model": "resnet18_gn"},
+    "train_args": {"federated_optimizer": "FedAvg",
+                   "client_num_in_total": 100, "client_num_per_round": 100,
+                   "comm_round": 5, "epochs": 1, "batch_size": 32,
+                   "learning_rate": 0.05, "compute_dtype": "bfloat16"},
+    "validation_args": {"frequency_of_the_test": 0},
+    "comm_args": {"backend": "sp"},
+}
+FEDAVG_SAMPLES, FEDAVG_ROUNDS, FEDAVG_PARITY_CLIENTS = 96, 5, 4
 
 
 def emit(obj) -> None:
@@ -987,6 +1017,241 @@ def phase_train_profile(top: int = 25) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ phase 8
+def _fedavg_cfg(device: str):
+    """The flagship config through `fedml_tpu_torch.init`, its data cache
+    a directory of the checkout that holds no data, so the loader takes
+    the synthetic CIFAR-10 path."""
+    import copy
+    import os
+
+    import fedml_tpu_torch
+
+    d = copy.deepcopy(FEDAVG_CONFIG)
+    d["data_args"]["data_cache_dir"] = os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "chiprun_out", "no_data")
+    d["data_args"]["synthetic_samples_per_client"] = FEDAVG_SAMPLES
+    return fedml_tpu_torch.init(config=d, device=device)
+
+
+def _conv_matmul_flops(model, params, input_shape) -> int:
+    """Forward conv + matmul FLOPs of one sample (2 x the MACs of every
+    conv and dense layer, from the shapes one forward sees), the rule of
+    `fedml_tpu/utils/flops.py`."""
+    import torch
+
+    from fedml_tpu_torch.models import hub
+
+    total = [0]
+
+    def conv(mod, _inp, out):
+        total[0] += 2 * out.numel() * mod.kernel.shape[1] * mod.k * mod.k
+
+    def dense(mod, _inp, out):
+        total[0] += 2 * out.numel() * mod.kernel.shape[0]
+
+    hooks = [m.register_forward_hook(conv if isinstance(m, hub.Conv)
+                                     else dense)
+             for m in model.modules() if isinstance(m, (hub.Conv, hub.Dense))]
+    with torch.no_grad():
+        hub.apply_fn(model)(params, torch.zeros(
+            (1, *input_shape), device=next(iter(params.values())).device))
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def _fedavg_parity(ds) -> dict:
+    """One f32 FedAvg round of the first clients at full ResNet-18-GN
+    width on the card and on the CPU, from one init_params draw and one
+    batch schedule, with cuDNN's and cuBLAS's TF32 off; and the same round
+    in f64 on the CPU, which measures how far f32 arithmetic itself
+    carries this round. On this data it carries it far: the images keep
+    their class means (1.5 x N(0, 1) a pixel), so GroupNorm's backward
+    subtracts nearly equal sums, and one local step of two f32 rounds
+    differs from the f64 one by ~7e-4 of the largest update, seven steps
+    by ~1e-2 (two CPU f32 runs at 3 and 8 threads: 4e-3). The card's f32
+    round is therefore held to the repo's rule for rounds against the
+    CPU's (1e-3 of the update) or, where f32 itself departs from exact
+    arithmetic by more, to be as close to the f64 round as the CPU's f32
+    round is, within 2x: a wrong convolution, padding or norm on the card
+    departs by the size of the update."""
+    import torch
+
+    from fedml_tpu_torch.algorithms.builtin import build_algorithm
+    from fedml_tpu_torch.config import TrainArgs
+    from fedml_tpu_torch.core.algorithm import make_batch_indices
+    from fedml_tpu_torch.models import hub
+    from fedml_tpu_torch.parallel.round import (
+        build_round_fn, client_generator,
+    )
+
+    n = FEDAVG_PARITY_CLIENTS
+    cfg_t = FEDAVG_CONFIG["train_args"]
+    t = TrainArgs(epochs=1, batch_size=cfg_t["batch_size"],
+                  learning_rate=cfg_t["learning_rate"])
+    model = hub.create("resnet18_gn", ds.num_classes, ds.x_train.shape[2:],
+                       device="meta")
+    params0 = hub.init_params(model, torch.Generator().manual_seed(0))
+    sched = torch.stack([make_batch_indices(
+        client_generator(0, c), ds.shard_size, t.batch_size, 1)
+        for c in range(n)])
+    ids, weights = np.arange(n), ds.counts[:n].astype(np.float32)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for name, dev, dt in (("cpu_f64", "cpu", torch.float64),
+                              ("cpu", "cpu", torch.float32),
+                              ("card", DEV, torch.float32)):
+            t0 = time.perf_counter()
+            alg = build_algorithm("FedAvg", hub.apply_fn(model), t)
+            data = {"x": torch.from_numpy(ds.x_train[:n]).to(dev, dt),
+                    "y": torch.from_numpy(ds.y_train[:n]).to(dev),
+                    "mask": torch.from_numpy(ds.mask_train[:n]).to(dev, dt)}
+            o = build_round_fn(alg, health_stats=True)(
+                alg.server_init({k: v.to(dev, dt)
+                                 for k, v in params0.items()}),
+                None, data, ids, weights, seed=0, batch_idx=sched)
+            out[name] = ({k: v.cpu().double()
+                          for k, v in o.server_state.params.items()},
+                         o.metrics["train_loss"].item(),
+                         time.perf_counter() - t0)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+
+    def dist(a, b):
+        return max((out[a][0][k] - out[b][0][k]).abs().max().item()
+                   for k in params0)
+
+    update = max((out["cpu"][0][k] - params0[k]).abs().max().item()
+                 for k in params0)
+    diff, e_cpu, e_card = dist("card", "cpu"), dist("cpu", "cpu_f64"), \
+        dist("card", "cpu_f64")
+    res = {"clients": n, "local_steps": n * (ds.shard_size // t.batch_size),
+           "max_abs_update": update, "max_abs_param_diff": diff,
+           "ratio": diff / update, "tol": PARITY_TOL,
+           "cpu_f32_vs_f64_ratio": e_cpu / update,
+           "card_f32_vs_f64_ratio": e_card / update,
+           "losses": {k: v[1] for k, v in out.items()},
+           "seconds": {k: v[2] for k, v in out.items()}}
+    emit({"phase": "fedavg", "f32_card_vs_cpu": res})
+    check(update > 0 and (diff <= PARITY_TOL * update
+                          or e_card <= 2 * e_cpu),
+          f"f32 FedAvg round on the card vs the CPU: param diff {diff} > "
+          f"{PARITY_TOL} x update {update}, and the card's distance to the "
+          f"f64 round {e_card} > 2 x the CPU f32 round's {e_cpu}")
+    return res
+
+
+def phase_fedavg() -> dict:
+    """Phase 8 (module docstring)."""
+    import torch
+
+    from fedml_tpu_torch.data import loader
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.ops import paged_attention as pa
+    from fedml_tpu_torch.simulation.simulator import Simulator
+
+    t0 = time.perf_counter()
+    cfg = _fedavg_cfg(DEV)
+    ds = loader.load(cfg)
+    check(ds.synthetic, "the flagship data is not the synthetic CIFAR-10")
+    data_s = time.perf_counter() - t0
+    parity = _fedavg_parity(ds)
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    sim = Simulator(cfg, ds)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    bs = cfg.train_args.batch_size
+    steps = ds.num_clients * (ds.shard_size // bs)
+    flops = 3 * _conv_matmul_flops(sim.model, sim.params,
+                                   ds.x_train.shape[2:]) * bs * steps
+    fa.launch_count.update(dict.fromkeys(fa.launch_count, 0))
+    pa.launch_count = 0
+    rows = []
+    for r in range(1 + FEDAVG_ROUNDS):     # round 0 is the warm round
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = sim.run_round(r)
+        torch.cuda.synchronize()
+        rows.append({"round": r, "ms": (time.perf_counter() - t0) * 1e3,
+                     "train_loss": m["train_loss"],
+                     "train_acc": m["train_acc"]})
+    launches = {**fa.launch_count, "paged": pa.launch_count}
+    peak = torch.cuda.max_memory_allocated()
+    timed = [r["ms"] for r in rows[1:]]
+    med = statistics.median(timed)
+    ev = sim.evaluate()
+    res = {
+        "clients": ds.num_clients, "shard_size": ds.shard_size,
+        "local_steps_per_round": steps, "data_s": data_s, "init_s": init_s,
+        "rounds": rows, "ms_per_round_median": med,
+        "ms_per_round_min": min(timed), "ms_per_round_max": max(timed),
+        "rounds_per_s": 1e3 / med, "ms_per_local_step": med / steps,
+        "max_memory_allocated_bytes": peak,
+        "conv_matmul_flops_per_round": flops,
+        "achieved_tflops": flops / med / 1e9,
+        "bf16_peak_share": flops / (med / 1e3) / peak_flops(torch.bfloat16),
+        "test_acc": ev["test_acc"], "test_loss": ev["test_loss"],
+        "k1_k4_launches": launches,
+    }
+    emit({"phase": "fedavg", **res})
+    losses = [r["train_loss"] for r in rows]
+    check(all(np.isfinite(losses)), "a FedAvg round's loss is not finite")
+    check(losses[-1] < losses[0], f"train_loss did not fall: {losses}")
+    check(not any(launches.values()),
+          f"the FedAvg path launched a flash or paged kernel: {launches}")
+    del sim
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["f32_card_vs_cpu"] = parity
+    return res
+
+
+def phase_fedavg_profile(top: int = 25) -> None:
+    """Where one flagship round's time goes: torch.profiler over one bf16
+    round after a warm round: device busy and idle share, the top kernels
+    by device time, and kernel launches per local step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fedml_tpu_torch.data import loader
+    from fedml_tpu_torch.simulation.simulator import Simulator
+
+    cfg = _fedavg_cfg(DEV)
+    ds = loader.load(cfg)
+    sim = Simulator(cfg, ds)
+    sim.run_round(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run_round(1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = _kernel_rows(prof)
+    busy_ms = sum(r[2] for r in rows)
+    steps = ds.num_clients * (ds.shard_size // cfg.train_args.batch_size)
+    launches = sum(r[1] for r in rows)
+    emit({"phase": "fedavg_profile", "dtype": "bfloat16", "wall_ms": wall_ms,
+          "local_steps": steps, "device_busy_ms": busy_ms,
+          "device_idle_share": 1 - busy_ms / wall_ms,
+          "kernel_launches": launches,
+          "launches_per_local_step": launches / steps,
+          "top": [{"name": k[:90], "calls": n, "device_ms": ms,
+                   "share_of_busy": ms / busy_ms}
+                  for k, n, ms in rows[:top]]})
+    del sim
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def kernel_rows(kern: dict, runs: dict, flash: dict, train: dict,
                 every_phase: bool) -> list:
     """The `kernels` line's rows from the phases' results; with
@@ -1129,6 +1394,10 @@ def main() -> int:
     train = phase_train() if "train" in args.only else {"launches": {}}
     if "train_profile" in args.only:
         phase_train_profile()
+    if "fedavg" in args.only:
+        phase_fedavg()
+    if "fedavg_profile" in args.only:
+        phase_fedavg_profile()
 
     kernels = kernel_rows(kern, runs, flash, train,
                           every_phase=set(PHASES) <= set(args.only))

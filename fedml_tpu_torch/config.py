@@ -1,13 +1,77 @@
-"""Client and server training arguments: the fields of
-`fedml_tpu/config.py:TrainArgs` that the ported training path reads,
-with the same names and defaults."""
+"""Typed configuration tree (port of `fedml_tpu/config.py`).
+
+The same YAML sections as the JAX package (common_args, data_args,
+model_args, train_args, validation_args, device_args, comm_args,
+tracking_args, security_args, dp_args, serve_args), validated into
+dataclasses at load time; keys a section does not declare go to its
+`extra` dict. `validate` holds the rules of the knobs the ported
+simulation path reads. `yaml` is imported inside `load_config` only: a
+machine without it can still build a `Config` from a dict.
+"""
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Any, Optional
+
+TRAINING_TYPE_SIMULATION = "simulation"
+TRAINING_TYPE_CROSS_SILO = "cross_silo"
+TRAINING_TYPE_CROSS_DEVICE = "cross_device"
+TRAINING_TYPE_CROSS_CLOUD = "cross_cloud"
+TRAINING_TYPE_CENTRALIZED = "centralized"
+
+# simulation backends: "sp" is one device; "xla" is the JAX package's
+# mesh backend, which on one device is the same single-device path
+BACKEND_SP = "sp"
+BACKEND_XLA = "xla"
+
+SCENARIO_HORIZONTAL = "horizontal"
+SCENARIO_HIERARCHICAL = "hierarchical"
+
+
+def _apply(dc, d: dict):
+    """Fill dataclass fields from a dict; unknown keys go to .extra."""
+    names = {f.name for f in dataclasses.fields(dc)}
+    for k, v in d.items():
+        if k in names:
+            setattr(dc, k, v)
+        else:
+            dc.extra[k] = v
+    return dc
+
+
+@dataclass
+class CommonArgs:
+    training_type: str = TRAINING_TYPE_SIMULATION
+    random_seed: int = 0
+    scenario: str = SCENARIO_HORIZONTAL
+    config_version: str = "release"
+    extra: dict = field(default_factory=dict)
+
+
+@dataclass
+class DataArgs:
+    dataset: str = "synthetic"
+    data_cache_dir: str = "~/fedml_data"
+    partition_method: str = "hetero"   # hetero = Dirichlet non-IID, homo = IID
+    partition_alpha: float = 0.5
+    extra: dict = field(default_factory=dict)
+
+
+@dataclass
+class ModelArgs:
+    model: str = "lr"
+    extra: dict = field(default_factory=dict)
 
 
 @dataclass
 class TrainArgs:
+    federated_optimizer: str = "FedAvg"
+    client_id_list: Any = "[]"
+    client_num_in_total: int = 2
+    client_num_per_round: int = 2
+    comm_round: int = 10
     epochs: int = 1
     batch_size: int = 10
     client_optimizer: str = "sgd"
@@ -17,7 +81,225 @@ class TrainArgs:
     server_optimizer: str = "sgd"
     server_lr: float = 1.0
     server_momentum: float = 0.0
-    # "float32" or "bfloat16": bf16 runs the model's matmuls in bf16 while
-    # the trained parameters and the optimizer stay f32
+    # "float32" or "bfloat16": bf16 runs the model's matmuls and convolutions
+    # in bf16 while the trained parameters and the optimizer stay f32
     compute_dtype: str = "float32"
+    # FedProx / FedDyn / Mime hyper-parameters (explicit zeros are honoured)
+    fedprox_mu: float = 0.01
+    feddyn_alpha: float = 0.01
+    mime_beta: float = 0.9
     extra: dict = field(default_factory=dict)
+
+
+@dataclass
+class ValidationArgs:
+    frequency_of_the_test: int = 1
+    extra: dict = field(default_factory=dict)
+
+
+@dataclass
+class DeviceArgs:
+    using_gpu: bool = False
+    gpu_id: int = 0
+    mesh_shape: Optional[dict] = None
+    extra: dict = field(default_factory=dict)
+
+
+@dataclass
+class CommArgs:
+    backend: str = BACKEND_XLA
+    grpc_ipconfig_path: str = ""
+    extra: dict = field(default_factory=dict)
+
+
+@dataclass
+class TrackingArgs:
+    enable_tracking: bool = False
+    enable_wandb: bool = False
+    log_file_dir: str = "./log"
+    run_name: str = "fedml_tpu_run"
+    extra: dict = field(default_factory=dict)
+
+
+@dataclass
+class SecurityArgs:
+    enable_attack: bool = False
+    attack_type: str = ""
+    attack_spec: dict = field(default_factory=dict)
+    enable_defense: bool = False
+    defense_type: str = ""
+    defense_spec: dict = field(default_factory=dict)
+    extra: dict = field(default_factory=dict)
+
+
+@dataclass
+class DPArgs:
+    enable_dp: bool = False
+    mechanism_type: str = "gaussian"
+    dp_solution_type: str = "ldp"
+    epsilon: float = 1.0
+    delta: float = 1e-5
+    sensitivity: float = 1.0
+    clipping_norm: float = 1.0
+    extra: dict = field(default_factory=dict)
+
+
+@dataclass
+class ServeArgs:
+    """Model-serving knobs; all ride `extra` (the engine's own arguments
+    in the port, `serving/engine.py`)."""
+    extra: dict = field(default_factory=dict)
+
+
+@dataclass
+class Config:
+    common_args: CommonArgs = field(default_factory=CommonArgs)
+    data_args: DataArgs = field(default_factory=DataArgs)
+    model_args: ModelArgs = field(default_factory=ModelArgs)
+    train_args: TrainArgs = field(default_factory=TrainArgs)
+    validation_args: ValidationArgs = field(default_factory=ValidationArgs)
+    device_args: DeviceArgs = field(default_factory=DeviceArgs)
+    comm_args: CommArgs = field(default_factory=CommArgs)
+    tracking_args: TrackingArgs = field(default_factory=TrackingArgs)
+    security_args: SecurityArgs = field(default_factory=SecurityArgs)
+    dp_args: DPArgs = field(default_factory=DPArgs)
+    serve_args: ServeArgs = field(default_factory=ServeArgs)
+    rank: int = 0
+    role: str = "server"
+    run_id: str = "0"
+    client_specific_args: dict = field(default_factory=dict)
+
+    SECTION_TYPES = {
+        "common_args": CommonArgs,
+        "data_args": DataArgs,
+        "model_args": ModelArgs,
+        "train_args": TrainArgs,
+        "validation_args": ValidationArgs,
+        "device_args": DeviceArgs,
+        "comm_args": CommArgs,
+        "tracking_args": TrackingArgs,
+        "security_args": SecurityArgs,
+        "dp_args": DPArgs,
+        "serve_args": ServeArgs,
+    }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Config":
+        cfg = cls()
+        # "serve" is an alias for "serve_args"; both present is ambiguous
+        if "serve" in d and isinstance(d["serve"], dict):
+            if "serve_args" in d:
+                raise ValueError(
+                    "config has both 'serve' and 'serve_args' sections — "
+                    "'serve' is an alias for 'serve_args'; keep one")
+            d = {**d, "serve_args": d["serve"]}
+        for section in cls.SECTION_TYPES:
+            if section in d and isinstance(d[section], dict):
+                _apply(getattr(cfg, section), d[section])
+        for k in ("rank", "role", "run_id"):
+            if k in d:
+                setattr(cfg, k, d[k])
+        if isinstance(d.get("client_specific_args"), dict):
+            cfg.client_specific_args = dict(d["client_specific_args"])
+        cfg.validate()
+        return cfg
+
+    @classmethod
+    def from_yaml(cls, path: str | Path) -> "Config":
+        import yaml
+
+        with open(Path(path).expanduser()) as f:
+            return cls.from_dict(yaml.safe_load(f) or {})
+
+    def to_dict(self) -> dict:
+        out = {}
+        for section in self.SECTION_TYPES:
+            sec = dataclasses.asdict(getattr(self, section))
+            extra = sec.pop("extra", {})
+            sec.update(extra)
+            out[section] = sec
+        out.update(rank=self.rank, role=self.role, run_id=self.run_id)
+        return out
+
+    def merge_overrides(self, d: dict) -> None:
+        """Merge a (possibly partial) config dict over this config: section
+        dicts merge into their sections; a flat key goes to the section
+        that declares it (train_args wins a collision), an undeclared flat
+        key to train_args.extra. Re-validates after the merge."""
+        for k, v in d.items():
+            if k in self.SECTION_TYPES and isinstance(v, dict):
+                _apply(getattr(self, k), v)
+            elif k in ("rank", "role", "run_id"):
+                setattr(self, k, v)
+            else:
+                _apply(getattr(self, _FLAT_KEY_SECTION.get(k, "train_args")),
+                       {k: v})
+        self.validate()
+
+    def validate(self) -> None:
+        t = self.train_args
+        if t.client_num_per_round > t.client_num_in_total:
+            raise ValueError(
+                f"client_num_per_round ({t.client_num_per_round}) > "
+                f"client_num_in_total ({t.client_num_in_total})"
+            )
+        if t.comm_round < 1 or t.epochs < 1 or t.batch_size < 1:
+            raise ValueError("comm_round, epochs and batch_size must be >= 1")
+        # the simulator's execution knobs, validated as the JAX package
+        # validates them (the port's Simulator refuses rounds_per_block > 1
+        # and cohort_chunk)
+        for knob, lo in (("rounds_per_block", 1), ("block_pipeline_depth", 1),
+                         ("cohort_chunk", 1), ("ingest_prefetch", 0)):
+            val = t.extra.get(knob)
+            if val is None:
+                continue
+            try:
+                ok = (not isinstance(val, bool)
+                      and int(val) == float(val) and int(val) >= lo)
+            except (TypeError, ValueError):
+                ok = False
+            if not ok:
+                raise ValueError(
+                    f"train_args.{knob} must be an integer >= {lo}; "
+                    f"got {val!r}")
+        if t.extra.get("ingest_prefetch") is not None \
+                and not t.extra.get("cohort_chunk"):
+            raise ValueError(
+                "train_args.ingest_prefetch requires cohort_chunk — the "
+                "streaming ingest pipeline only exists for chunked rounds; "
+                "without it the knob would be silently ignored")
+        if t.extra.get("cohort_chunk") and t.extra.get("health_stats") is True:
+            raise ValueError(
+                "train_args.health_stats=true cannot be combined with "
+                "cohort_chunk: per-client health stats need the full "
+                "update stack the chunked engine exists to avoid "
+                "materializing")
+        if t.extra.get("resume") and not t.extra.get("checkpoint_dir"):
+            raise ValueError(
+                "train_args.resume requires checkpoint_dir — resume loads "
+                "the latest checkpoint under it; without one the knob "
+                "would be silently ignored")
+        if self.common_args.training_type not in (
+            TRAINING_TYPE_SIMULATION,
+            TRAINING_TYPE_CROSS_SILO,
+            TRAINING_TYPE_CROSS_DEVICE,
+            TRAINING_TYPE_CROSS_CLOUD,
+            TRAINING_TYPE_CENTRALIZED,
+        ):
+            raise ValueError(
+                f"unknown training_type {self.common_args.training_type!r}")
+
+
+# flat override key -> owning section; train_args last so its field names
+# win any collision (the JAX module's order)
+_FLAT_KEY_SECTION: dict = {}
+for _section in ("dp_args", "security_args", "tracking_args", "comm_args",
+                 "device_args", "validation_args", "model_args", "data_args",
+                 "common_args", "train_args"):
+    for _f in dataclasses.fields(Config.SECTION_TYPES[_section]):
+        if _f.name != "extra":
+            _FLAT_KEY_SECTION[_f.name] = _section
+
+
+def load_config(path: str | Path) -> Config:
+    return Config.from_yaml(path)

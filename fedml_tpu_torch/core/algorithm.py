@@ -1,5 +1,6 @@
-"""The federated-algorithm contract and the local-training loop (port of
-the parts of `fedml_tpu/core/algorithm.py` the FedAvg path runs).
+"""The federated-algorithm contract, the local-training loop and the eval
+function (port of the parts of `fedml_tpu/core/algorithm.py` the FedAvg
+path runs).
 
 - `client_update(bcast, shard, client_state, rng, batch_idx=None)` ->
   (update, new client state, ClientMetrics): one client's local training.
@@ -9,7 +10,12 @@ the parts of `fedml_tpu/core/algorithm.py` the FedAvg path runs).
 - `server_update(ServerState, aggregated update) -> ServerState`.
 - The JAX `lax.scan` over local steps is a Python loop; gradients come
   from autograd and the client optimizer is a `torch.optim` optimizer with
-  optax's arithmetic.
+  optax's arithmetic. `grad_correction(grads, params) -> grads` rewrites
+  each step's gradient before the optimizer sees it (FedProx's proximal
+  pull).
+- Objectives: classification only; the other task heads (nwp,
+  regression, multilabel, segmentation) are in ROADMAP's port queue
+  (item 5).
 """
 from __future__ import annotations
 
@@ -56,6 +62,22 @@ def masked_softmax_ce(logits: torch.Tensor, y: torch.Tensor,
     return loss, correct, mask.sum()
 
 
+OBJECTIVES = {"classification": masked_softmax_ce}
+_LATER_TASKS = ("nwp", "regression", "multilabel", "segmentation")
+
+
+def make_objective(task: Optional[str]) -> Callable:
+    t = (task or "classification").lower()
+    if t in _LATER_TASKS:
+        raise NotImplementedError(
+            f"task {t!r} is not ported yet (ROADMAP 'Port queue' item 5, "
+            "the remaining task heads)")
+    if t not in OBJECTIVES:
+        raise ValueError(f"unknown task {t!r}; choose from "
+                         f"{sorted([*OBJECTIVES, *_LATER_TASKS])}")
+    return OBJECTIVES[t]
+
+
 def make_batch_indices(generator: torch.Generator, shard_size: int,
                        batch_size: int, epochs: int) -> torch.Tensor:
     """Per-epoch permutations of a shard, cut to whole batches and shaped
@@ -89,11 +111,15 @@ def make_client_optimizer(name: str, lr: float, momentum: float = 0.0,
 
 def local_sgd(apply_fn: Callable, params, shard: dict,
               batch_idx: torch.Tensor, make_opt: Callable,
-              objective: Optional[Callable] = None):
+              objective: Optional[Callable] = None,
+              grad_correction: Optional[Callable] = None):
     """Local training over the [steps, B] batch schedule: the objective's
-    gradient w.r.t. `params` (a dict of tensors, left unchanged), one
-    optimizer step per batch. Returns (trained params, summed
-    ClientMetrics, number of batches with >= 1 real sample)."""
+    gradient w.r.t. `params` (a dict of tensors, left unchanged), through
+    `grad_correction(grads, params)` when given, then one optimizer step
+    per batch. Every step runs, a batch with no real sample included (its
+    gradient is 0, but weight decay and momentum still move the weights).
+    Returns (trained params, summed ClientMetrics, number of batches with
+    >= 1 real sample)."""
     obj = objective or masked_softmax_ce
     p = tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
     opt = make_opt(tree_leaves(p))
@@ -105,6 +131,12 @@ def local_sgd(apply_fn: Callable, params, shard: dict,
         loss, c, n = obj(apply_fn(p, batch["x"]), batch["y"], batch["mask"])
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        if grad_correction is not None:
+            with torch.no_grad():
+                fixed = grad_correction(tree_map(lambda t: t.grad, p),
+                                        tree_map(lambda t: t.detach(), p))
+                for t, g in zip(tree_leaves(p), tree_leaves(fixed)):
+                    t.grad = g
         opt.step()
         loss_sum += loss.detach() * n
         correct += c
@@ -131,3 +163,31 @@ class FedAlgorithm:
             object.__setattr__(
                 self, "broadcast",
                 lambda st: {"params": st.params, "extra": st.extra})
+
+
+def eval_step_fn(apply_fn: Callable, objective: Optional[Callable] = None):
+    """Eval over the batched global test set: (params, x [nb, B, ...],
+    y [nb, B], mask [nb, B]) -> {"loss", "acc", "n"} (0-d tensors), the
+    sample-weighted means over the real rows."""
+    obj = objective or masked_softmax_ce
+
+    @torch.no_grad()
+    def eval_batches(params, x, y, mask):
+        losses, corrects, counts = [], [], []
+        for xb, yb, mb in zip(x, y, mask):
+            loss, c, n = obj(apply_fn(params, xb), yb, mb)
+            losses.append(loss * n)
+            corrects.append(c)
+            counts.append(n)
+        n_tot = torch.stack(counts).sum()
+        denom = torch.clamp(n_tot, min=1.0)
+        return {"loss": torch.stack(losses).sum() / denom,
+                "acc": torch.stack(corrects).sum() / denom, "n": n_tot}
+
+    return eval_batches
+
+
+def make_eval_fn(apply_fn: Callable, task: Optional[str] = None):
+    """The eval function for `task` (classification; segmentation's
+    confusion-matrix eval is in ROADMAP's port queue, item 5)."""
+    return eval_step_fn(apply_fn, make_objective(task))

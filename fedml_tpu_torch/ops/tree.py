@@ -1,5 +1,6 @@
 """Arithmetic over nested dicts of tensors: what the round engine needs of
-`fedml_tpu/ops/tree.py` (map, add, sub, scale, leaves)."""
+`fedml_tpu/ops/tree.py` (map, add, sub, scale, leaves, zeros-like, the
+f32 dot product)."""
 from __future__ import annotations
 
 from typing import Any, Callable, Mapping
@@ -31,3 +32,14 @@ def tree_sub(a: Tree, b: Tree) -> Tree:
 
 def tree_scale(t: Tree, s) -> Tree:
     return tree_map(lambda x: x * s, t)
+
+
+def tree_zeros_like(t: Tree) -> Tree:
+    return tree_map(torch.zeros_like, t)
+
+
+def tree_vdot(a: Tree, b: Tree) -> torch.Tensor:
+    """The f32 dot product of two matching trees (bf16 leaves upcast, so
+    norms do not saturate)."""
+    return sum(torch.dot(x.reshape(-1).float(), y.reshape(-1).float())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))

@@ -2,7 +2,9 @@
 
 `recorder.span(name, **meta)` is a context manager that records the
 span's name, metadata and duration into a bounded ring (`recorder.spans`),
-which is what the decode engine's admit and fetch spans need.
+which is what the decode engine's admit and fetch spans need;
+`recorder.log(row)` appends a metrics row (a simulation round, a health
+flag) to a second bounded ring (`recorder.metrics`).
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ class Span:
 class EventRecorder:
     def __init__(self, max_rows: int = 10000):
         self.spans: deque = deque(maxlen=max_rows)   # appends are atomic
+        self.metrics: deque = deque(maxlen=max_rows)
 
     @contextlib.contextmanager
     def span(self, name: str, **meta):
@@ -36,6 +39,9 @@ class EventRecorder:
         finally:
             s.end = time.perf_counter()
             self.spans.append(s)
+
+    def log(self, row: dict) -> None:
+        self.metrics.append(row)
 
 
 recorder = EventRecorder()

@@ -1,7 +1,8 @@
 """Process-local counters, gauges and fixed-bucket histograms.
 
 A trimmed copy of `fedml_tpu/utils/metrics.py`: the instruments the
-decode engine calls (`inc`, `set_gauge`, `observe`) and `snapshot()`, under
+decode engine and the health tracker call (`inc`, `set_gauge`, `observe`)
+and `snapshot()`, under
 the same metric names, so a later slice can expose them on `/metrics`
 unchanged. Instruments are guarded by one lock each: the engine thread
 and request threads both write them.

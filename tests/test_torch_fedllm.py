@@ -263,8 +263,8 @@ def test_unported_options_raise(base):
         build_round_fn(alg, mesh=object())
     with pytest.raises(NotImplementedError, match="group_size"):
         build_round_fn(alg, group_size=2)
-    with pytest.raises(NotImplementedError, match="health_stats"):
-        build_round_fn(alg, health_stats=True)
+    with pytest.raises(NotImplementedError, match="client_dropout"):
+        build_round_fn(alg, client_dropout=0.1)
     with pytest.raises(ValueError, match="model's own state"):
         federated_lora(_port_model(state), dict(params_from_flax(
             base[0], device="cpu")), TrainArgs(), _gen())
