@@ -61,10 +61,30 @@ exits non-zero; nothing is caught and carried past):
              itself departs further from the f64 round, as close to the
              f64 round as the CPU's f32 round (`_fedavg_parity`); then,
              through
-             `fedml_tpu_torch.init` and the Simulator, a warm round and 5
+             `fedml_tpu_torch.init` and the Simulator, a warm round and 3
              timed rounds (rounds/s, ms per round and per local step, peak
              memory, losses, conv + matmul FLOPs and their share of the
              bf16 peak), the loss falling, then one eval. No K1-K4 launch.
+9. fedsim  - the rest of the round engine (vmapped client groups,
+             SCAFFOLD / FedDyn / Mime, round blocks, cohort chunks,
+             checkpoint and resume), vmap's per-example fallback an
+             error: the f32 4-client round through the Simulator twice in
+             this process and once in a child process, bitwise the same
+             (sha256 of parameters and metrics; G = 4 twice too; and,
+             reported, whether it repeats with cuDNN's deterministic flag
+             undone); one local step of that round on the card within
+             1e-3 of the CPU's largest update, and at G = 4 within 1e-3
+             of G = 1; the flagship at G = 1 (the determinism setting on
+             and off in turns), 4 and 10: a warm round and timed rounds,
+             ms a round and a group step, rounds/s, peak memory, the
+             loss falling, and a profiled round of two groups (launches
+             and device ms a step); SCAFFOLD, FedDyn and Mime one round
+             each at the flagship with G = 10, and SCAFFOLD over 12
+             clients, 5 a round, leaving unsampled states bitwise alone;
+             at the flagship model over 8 clients, a block of 4 rounds,
+             cohort chunks of 4 and a SCAFFOLD run resumed from its
+             checkpoint, each bitwise its one-at-a-time, single-shot or
+             uninterrupted run. No K1-K4 launch.
 
 Then the `kernels` line, the raw `nvidia-smi` name/power-limit line, and as
 the last line {"ok": true, "device": {...}}. Imports nothing of JAX or of
@@ -74,6 +94,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import re
@@ -85,7 +106,7 @@ import time
 import numpy as np
 
 PHASES = ("device", "build", "kernel", "engine", "serve", "flash", "train",
-          "fedavg")
+          "fedavg", "fedsim")
 # run only when named in --only
 OPTIONAL = ("profile", "train_profile", "fedavg_profile")
 DEV = "cuda"
@@ -133,8 +154,10 @@ FLASH_TOL = {"f32": 1e-4, "bf16": 1e-2}
 # (~1e-6 relative); two local steps carry it into the adapters.
 PARITY_TOL = 1e-3
 # phase fedavg: bench.py's `_flagship_config` (FedAvg, 100 clients x 96
-# synthetic CIFAR-10 samples, ResNet-18-GN, bf16) and its MEASURE_ROUNDS;
-# the f32 card-vs-CPU round takes the first FEDAVG_PARITY_CLIENTS clients
+# synthetic CIFAR-10 samples, ResNet-18-GN, bf16), FEDAVG_ROUNDS timed
+# rounds (bench.py's MEASURE_ROUNDS is 5: cut to 3, as phase fedsim times
+# the same G = 1 round four more times); the f32 card-vs-CPU round takes
+# the first FEDAVG_PARITY_CLIENTS clients
 FEDAVG_CONFIG = {
     "data_args": {"dataset": "cifar10"},
     "model_args": {"model": "resnet18_gn"},
@@ -145,7 +168,13 @@ FEDAVG_CONFIG = {
     "validation_args": {"frequency_of_the_test": 0},
     "comm_args": {"backend": "sp"},
 }
-FEDAVG_SAMPLES, FEDAVG_ROUNDS, FEDAVG_PARITY_CLIENTS = 96, 5, 4
+FEDAVG_SAMPLES, FEDAVG_ROUNDS, FEDAVG_PARITY_CLIENTS = 96, 3, 4
+# phase fedsim: the client-group widths timed at the flagship and their
+# timed rounds (after a warm one); the reduced cohort of the bitwise bars
+FEDSIM_GROUPS, FEDSIM_ROUNDS, FEDSIM_SMALL = (4, 10), 5, 8
+# vmap's per-example fallback warns; phase fedsim makes it an error
+VMAP_FALLBACK = ("There is a performance drop because we have not yet "
+                 "implemented the batching rule")
 
 
 def emit(obj) -> None:
@@ -1018,16 +1047,18 @@ def phase_train_profile(top: int = 25) -> None:
 
 
 # ------------------------------------------------------------------ phase 8
-def _fedavg_cfg(device: str):
-    """The flagship config through `fedml_tpu_torch.init`, its data cache
-    a directory of the checkout that holds no data, so the loader takes
-    the synthetic CIFAR-10 path."""
+def _fedavg_cfg(device: str, **train):
+    """The flagship config through `fedml_tpu_torch.init` (`train`
+    overrides train_args keys; an "extra" dict goes to train_args.extra),
+    its data cache a directory of the checkout that holds no data, so the
+    loader takes the synthetic CIFAR-10 path."""
     import copy
     import os
 
     import fedml_tpu_torch
 
     d = copy.deepcopy(FEDAVG_CONFIG)
+    d["train_args"].update(train)
     d["data_args"]["data_cache_dir"] = os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "chiprun_out", "no_data")
     d["data_args"]["synthetic_samples_per_client"] = FEDAVG_SAMPLES
@@ -1075,9 +1106,12 @@ def _fedavg_parity(ds) -> dict:
     CPU's (1e-3 of the update) or, where f32 itself departs from exact
     arithmetic by more, to be as close to the f64 round as the CPU's f32
     round is, within 2x: a wrong convolution, padding or norm on the card
-    departs by the size of the update."""
+    departs by the size of the update. The card runs with the port's
+    determinism (`_device.deterministic_cuda`, which the Simulator sets),
+    so the round reads the same in every call."""
     import torch
 
+    from fedml_tpu_torch._device import deterministic_cuda
     from fedml_tpu_torch.algorithms.builtin import build_algorithm
     from fedml_tpu_torch.config import TrainArgs
     from fedml_tpu_torch.core.algorithm import make_batch_indices
@@ -1097,6 +1131,7 @@ def _fedavg_parity(ds) -> dict:
         client_generator(0, c), ds.shard_size, t.batch_size, 1)
         for c in range(n)])
     ids, weights = np.arange(n), ds.counts[:n].astype(np.float32)
+    deterministic_cuda(torch.device(DEV))
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1252,6 +1287,437 @@ def phase_fedavg_profile(top: int = 25) -> None:
     torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def _tf32_off():
+    """cuBLAS's and cuDNN's TF32 off inside, restored after."""
+    import torch
+
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old
+
+
+def _parity_params():
+    """ResNet-18-GN's parameters from one CPU draw (the parity rounds')."""
+    import torch
+
+    from fedml_tpu_torch.models import hub
+
+    model = hub.create("resnet18_gn", 10, (32, 32, 3), device="meta")
+    return hub.init_params(model, torch.Generator().manual_seed(0))
+
+
+def f32_round_digest(group: int = 1, deterministic: bool = True) -> str:
+    """sha256 of one f32 round of FEDAVG_PARITY_CLIENTS clients at full
+    ResNet-18-GN width through the Simulator (its parameters after the
+    round, then its metrics row), TF32 off. The Simulator sets the
+    port's determinism; `deterministic=False` undoes cuDNN's half of it
+    after construction, to show what the setting is for. Phase fedsim
+    runs this in its own process and in a child process."""
+    import hashlib
+
+    import torch
+
+    from fedml_tpu_torch.simulation.simulator import Simulator
+
+    n = FEDAVG_PARITY_CLIENTS
+    cfg = _fedavg_cfg(DEV, client_num_in_total=n, client_num_per_round=n,
+                      compute_dtype="float32",
+                      extra={"clients_per_device_parallel": group})
+    with _tf32_off():
+        sim = Simulator(cfg, params=_parity_params())
+        on = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            row = sim.run_round(0)
+        finally:
+            torch.backends.cudnn.deterministic = on
+    h = hashlib.sha256()
+    for k in sorted(sim.server_state.params):
+        h.update(sim.server_state.params[k].cpu().numpy().tobytes())
+    h.update(json.dumps(row, sort_keys=True).encode())
+    return h.hexdigest()
+
+
+def _one_step_rounds(ds) -> dict:
+    """One f32 FedAvg round of FEDAVG_PARITY_CLIENTS clients, ONE local
+    step each, from one parameter draw and one batch schedule, TF32 off:
+    on the CPU in f64 and f32, and on the card at G = 1 and G = 4 (one
+    vmapped group), each with cuDNN deterministic (the Simulator's
+    setting) and without. One step is far better conditioned than the
+    flagship round's seven (PERF.md §6), so the card is held to the plain
+    rule, 1e-3 of the CPU round's largest update, and G = 4 to the same
+    rule against G = 1; every run's distance to the f64 round and the
+    card's worst leaves are reported beside them."""
+    import torch
+
+    from fedml_tpu_torch.algorithms.builtin import build_algorithm
+    from fedml_tpu_torch.config import TrainArgs
+    from fedml_tpu_torch.models import hub
+    from fedml_tpu_torch.parallel.round import (
+        build_round_fn, draw_schedules,
+    )
+
+    n = FEDAVG_PARITY_CLIENTS
+    cfg_t = FEDAVG_CONFIG["train_args"]
+    t = TrainArgs(epochs=1, batch_size=cfg_t["batch_size"],
+                  learning_rate=cfg_t["learning_rate"])
+    model = hub.create("resnet18_gn", ds.num_classes, ds.x_train.shape[2:],
+                       device="meta")
+    params0 = _parity_params()
+    alg = build_algorithm("FedAvg", hub.apply_fn(model), t)
+    ids, weights = np.arange(n), ds.counts[:n].astype(np.float32)
+    sched = draw_schedules(alg, 0, ids, ds.shard_size)[:, :1]
+    runs = (("cpu_f64", "cpu", torch.float64, 1, True),
+            ("cpu", "cpu", torch.float32, 1, True),
+            ("card", DEV, torch.float32, 1, True),
+            ("card_g4", DEV, torch.float32, 4, True),
+            ("card_nondet", DEV, torch.float32, 1, False),
+            ("card_g4_nondet", DEV, torch.float32, 4, False))
+    out = {}
+    det = torch.backends.cudnn.deterministic
+    try:
+        with _tf32_off():
+            for name, dev, dt, g, deterministic in runs:
+                torch.backends.cudnn.deterministic = deterministic
+                data = {"x": torch.from_numpy(ds.x_train[:n]).to(dev, dt),
+                        "y": torch.from_numpy(ds.y_train[:n]).to(dev),
+                        "mask": torch.from_numpy(ds.mask_train[:n]).to(
+                            dev, dt)}
+                o = build_round_fn(alg, group_size=g)(
+                    alg.server_init({k: v.to(dev, dt)
+                                     for k, v in params0.items()}),
+                    None, data, ids, weights, seed=0, batch_idx=sched)
+                out[name] = ({k: v.cpu().double()
+                              for k, v in o.server_state.params.items()},
+                             o.metrics["train_loss"].item())
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+    def leaf(a, b, k):
+        return (out[a][0][k] - out[b][0][k]).abs().max().item()
+
+    def dist(a, b):
+        return max(leaf(a, b, k) for k in params0)
+
+    update = max((out["cpu"][0][k] - params0[k].double()).abs().max().item()
+                 for k in params0)
+    worst = sorted(params0, key=lambda k: -leaf("card", "cpu_f64", k))[:3]
+    res = {"clients": n, "local_steps": n, "max_abs_update": update,
+           "card_vs_cpu_ratio": dist("card", "cpu") / update,
+           "g4_vs_g1_ratio": dist("card_g4", "card") / update,
+           "tol": PARITY_TOL,
+           "vs_f64_ratio": {k: dist(k, "cpu_f64") / update
+                            for k, *_ in runs[1:]},
+           "card_worst_leaves_vs_f64": {
+               k: leaf("card", "cpu_f64", k) / update for k in worst},
+           "losses": {k: v[1] for k, v in out.items()}}
+    emit({"phase": "fedsim", "one_step_f32": res})
+    check(update > 0 and res["card_vs_cpu_ratio"] <= PARITY_TOL,
+          f"one-step f32 round, card vs CPU: {res['card_vs_cpu_ratio']} "
+          f"of the update > {PARITY_TOL}")
+    check(res["g4_vs_g1_ratio"] <= PARITY_TOL,
+          f"one-step f32 round on the card, G = 4 vs G = 1: "
+          f"{res['g4_vs_g1_ratio']} of the update > {PARITY_TOL}")
+    return res
+
+
+def _profile_round(sim, n_clients: int, steps: int) -> dict:
+    """torch.profiler over one round of the Simulator's first `n_clients`
+    clients (two groups): kernel launches and device ms per group step
+    and per client step, and the device's idle share of the round."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fedml_tpu_torch.parallel.round import group_width
+    from fedml_tpu_torch.simulation.simulator import fetch
+
+    ids = np.arange(n_clients)
+
+    def run():
+        out = sim.round_fn(sim.server_state, sim.client_states, sim.data,
+                           ids, sim.counts[ids], seed=(0, 99))
+        fetch(out.metrics)
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = _kernel_rows(prof)
+    busy = sum(r[2] for r in rows)
+    launches = sum(r[1] for r in rows)
+    group_steps = n_clients // group_width(n_clients, sim.group_size) * steps
+    return {"clients": n_clients, "group_steps": group_steps,
+            "launches": launches,
+            "launches_per_group_step": launches / group_steps,
+            "launches_per_client_step": launches / (n_clients * steps),
+            "device_ms_per_client_step": busy / (n_clients * steps),
+            "device_busy_ms": busy, "wall_ms": wall_ms,
+            "device_idle_share": 1 - busy / wall_ms,
+            "top": [{"name": k[:70], "calls": c, "device_ms": ms}
+                    for k, c, ms in rows[:6]]}
+
+
+def _timed_rounds(sim, first: int, n: int, modes=None) -> list:
+    """`n` synchronised rounds from round `first`: ms each and the loss;
+    `modes[i]`, when given, sets cuDNN's deterministic flag for round i."""
+    import torch
+
+    rows = []
+    for i in range(n):
+        if modes is not None:
+            torch.backends.cudnn.deterministic = modes[i] == "on"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = sim.run_round(first + i)
+        torch.cuda.synchronize()
+        rows.append({"round": first + i,
+                     "ms": (time.perf_counter() - t0) * 1e3,
+                     "train_loss": m["train_loss"],
+                     **({"determinism": modes[i]} if modes else {})})
+    return rows
+
+
+def _flagship_groups(ds) -> dict:
+    """The flagship at G = 1 (the determinism setting on and off, in
+    turns: on, off, off, on, after a warm round) and at each of
+    FEDSIM_GROUPS (a warm round, then FEDSIM_ROUNDS timed): ms a round,
+    rounds/s, ms a group step, peak memory, the losses; and a profiled
+    round of two groups for launches a step."""
+    import torch
+
+    from fedml_tpu_torch.parallel.round import group_width
+    from fedml_tpu_torch.simulation.simulator import Simulator
+
+    steps = ds.shard_size // FEDAVG_CONFIG["train_args"]["batch_size"]
+    res = {}
+    for g in (1,) + FEDSIM_GROUPS:
+        torch.cuda.reset_peak_memory_stats()
+        sim = Simulator(_fedavg_cfg(
+            DEV, extra={"clients_per_device_parallel": g}), ds)
+        gw = group_width(ds.num_clients, g)
+        warm = _timed_rounds(sim, 0, 1)
+        if g == 1:
+            modes = ("on", "off", "off", "on")
+            timed = _timed_rounds(sim, 1, len(modes), modes)
+            torch.backends.cudnn.deterministic = True
+            on = [r["ms"] for r in timed if r["determinism"] == "on"]
+            off = [r["ms"] for r in timed if r["determinism"] == "off"]
+            med = statistics.median(on)
+            extra = {"determinism_on_ms": on, "determinism_off_ms": off,
+                     "determinism_cost": statistics.mean(on)
+                     / statistics.mean(off) - 1}
+        else:
+            timed = _timed_rounds(sim, 1, FEDSIM_ROUNDS)
+            med = statistics.median(r["ms"] for r in timed)
+            extra = {}
+        peak = torch.cuda.max_memory_allocated()
+        groups = ds.num_clients // gw
+        res[g] = {"group_size": gw, "groups_per_round": groups,
+                  "rounds": warm + timed, "ms_per_round_median": med,
+                  "rounds_per_s": 1e3 / med,
+                  "ms_per_group_step": med / (groups * steps),
+                  "ms_per_client_step": med / (ds.num_clients * steps),
+                  "max_memory_allocated_bytes": peak, **extra,
+                  "profile": _profile_round(sim, 2 * gw, steps)}
+        emit({"phase": "fedsim", "flagship": res[g]})
+        losses = [r["train_loss"] for r in res[g]["rounds"]]
+        check(all(np.isfinite(losses)), f"G = {g}: a loss is not finite")
+        check(losses[-1] < losses[0], f"G = {g}: the loss did not fall: "
+              f"{losses}")
+        del sim
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def _stateful_at_flagship(ds) -> dict:
+    """SCAFFOLD, FedDyn and Mime, one round each at the flagship width
+    (100 clients, G = 10): the loss finite, the client state (Mime: the
+    server momentum) moved, the peak memory. Then SCAFFOLD over 12
+    clients, 5 a round: every unsampled client's state bitwise unchanged
+    by a round, every sampled one's moved."""
+    import torch
+
+    from fedml_tpu_torch.data import loader
+    from fedml_tpu_torch.simulation.simulator import Simulator
+
+    res = {}
+    for opt in ("SCAFFOLD", "FedDyn", "Mime"):
+        torch.cuda.reset_peak_memory_stats()
+        sim = Simulator(_fedavg_cfg(
+            DEV, federated_optimizer=opt,
+            extra={"clients_per_device_parallel": 10}), ds)
+        (row,) = _timed_rounds(sim, 0, 1)
+        state = (sim.client_states if sim.client_states is not None
+                 else sim.server_state.extra["m"])
+        moved = max(v.abs().max().item() for v in state.values())
+        res[opt] = {**row, "state_max_abs": moved,
+                    "max_memory_allocated_bytes":
+                        torch.cuda.max_memory_allocated()}
+        check(np.isfinite(row["train_loss"]), f"{opt}: loss not finite")
+        check(moved > 0, f"{opt}: the client state did not move")
+        del sim, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    cfg = _fedavg_cfg(DEV, federated_optimizer="SCAFFOLD",
+                      client_num_in_total=12, client_num_per_round=5,
+                      extra={"clients_per_device_parallel": 5})
+    sim = Simulator(cfg, loader.load(cfg))
+    sim.run_round(0)
+    before = {k: v.clone() for k, v in sim.client_states.items()}
+    ids = set(sim.sample_clients(1).tolist())
+    sim.run_round(1)
+    same = [all(torch.equal(sim.client_states[k][c], before[k][c])
+                for k in before) for c in range(12)]
+    res["unsampled_unchanged"] = all(same[c] for c in range(12)
+                                     if c not in ids)
+    res["sampled_moved"] = not any(same[c] for c in ids)
+    emit({"phase": "fedsim", "stateful": res})
+    check(res["unsampled_unchanged"], "SCAFFOLD: an unsampled client's "
+          "state changed")
+    check(res["sampled_moved"], "SCAFFOLD: a sampled client's state did "
+          "not move")
+    del sim, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _same_run(a, b) -> bool:
+    """Histories equal and parameters, server extra and client states
+    bitwise."""
+    import torch
+
+    from fedml_tpu_torch.ops.tree import tree_leaves
+
+    def leaves(s):
+        return [x for t in (s.server_state.params, s.server_state.extra,
+                            s.client_states) if t is not None
+                for x in tree_leaves(t)]
+
+    la, lb = leaves(a), leaves(b)
+    return a.history == b.history and len(la) == len(lb) and all(
+        torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _bitwise_bars() -> dict:
+    """The reference's bars on the card at the flagship model with a
+    reduced cohort of FEDSIM_SMALL clients, bf16, G = 2: four rounds as a
+    block of K = 4 against one at a time; cohort_chunk 4 against
+    single-shot; SCAFFOLD (6 of the clients a round) killed after two
+    rounds and resumed from its checkpoint against an uninterrupted run."""
+    import os
+    import shutil
+
+    from fedml_tpu_torch.data import loader
+    from fedml_tpu_torch.simulation.simulator import Simulator
+
+    n = FEDSIM_SMALL
+
+    def cfg(**extra):
+        opt = extra.pop("opt", "FedAvg")
+        m = extra.pop("m", n)
+        return _fedavg_cfg(DEV, federated_optimizer=opt,
+                           client_num_in_total=n, client_num_per_round=m,
+                           comm_round=4,
+                           extra={"clients_per_device_parallel": 2, **extra})
+
+    ds = loader.load(cfg())
+    t0 = time.perf_counter()
+    ref = Simulator(cfg(), ds)
+    ref.run()
+    blk = Simulator(cfg(rounds_per_block=4), ds)
+    blk.run()
+    chk = Simulator(cfg(cohort_chunk=4), ds)
+    chk.run()
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     "chiprun_out", "fedsim_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    full = Simulator(cfg(opt="SCAFFOLD", m=6), ds)
+    full.run()
+    first = Simulator(cfg(opt="SCAFFOLD", m=6), ds)
+    first.run(num_rounds=2, checkpoint_dir=d, checkpoint_every=1)
+    resumed = Simulator(cfg(opt="SCAFFOLD", m=6), ds)
+    resumed.run(checkpoint_dir=d, checkpoint_every=0)
+    shutil.rmtree(d, ignore_errors=True)
+    res = {"clients": n, "rounds": 4,
+           "block_equals_per_round": _same_run(ref, blk)
+           and blk.block_fn is not None,
+           "chunked_equals_single_shot": _same_run(ref, chk),
+           "resumed_equals_uninterrupted": _same_run(full, resumed),
+           "losses": [r["train_loss"] for r in ref.history],
+           "seconds": time.perf_counter() - t0}
+    emit({"phase": "fedsim", "bitwise": res})
+    for k in ("block_equals_per_round", "chunked_equals_single_shot",
+              "resumed_equals_uninterrupted"):
+        check(res[k], f"on the card: {k} is false")
+    return res
+
+
+def phase_fedsim() -> dict:
+    """Phase 9 (module docstring)."""
+    import os
+    import subprocess
+    import warnings
+
+    import torch
+
+    from fedml_tpu_torch.data import loader
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.ops import paged_attention as pa
+
+    warnings.filterwarnings("error", message=VMAP_FALLBACK)
+    fa.launch_count.update(dict.fromkeys(fa.launch_count, 0))
+    pa.launch_count = 0
+    t0 = time.perf_counter()
+    # C.1: the same f32 round twice here and once in a child process
+    here = [f32_round_digest(), f32_round_digest()]
+    child = subprocess.run(
+        [sys.executable, "-c",
+         "import chip_smoke; print(chip_smoke.f32_round_digest())"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    check(child.returncode == 0,
+          f"the digest's child process failed: {child.stderr[-2000:]}")
+    there = child.stdout.strip().splitlines()[-1]
+    g4 = [f32_round_digest(4), f32_round_digest(4)]
+    off = [f32_round_digest(deterministic=False) for _ in range(2)]
+    c1 = {"digests": here + [there], "g4_digests": g4,
+          "repeats_in_process": here[0] == here[1],
+          "repeats_across_processes": here[0] == there,
+          "g4_repeats": g4[0] == g4[1],
+          "repeats_without_cudnn_deterministic": off[0] == off[1]
+          and off[0] == here[0], "seconds": time.perf_counter() - t0}
+    emit({"phase": "fedsim", "f32_round_repeats": c1})
+    check(c1["repeats_in_process"] and c1["repeats_across_processes"]
+          and c1["g4_repeats"], f"the f32 round does not repeat bit for "
+          f"bit: {c1}")
+    ds = loader.load(_fedavg_cfg(DEV))
+    res = {"f32_round_repeats": c1, "one_step_f32": _one_step_rounds(ds),
+           "flagship": _flagship_groups(ds),
+           "stateful": _stateful_at_flagship(ds),
+           "bitwise": _bitwise_bars()}
+    launches = {**fa.launch_count, "paged": pa.launch_count}
+    res["k1_k4_launches"] = launches
+    emit({"phase": "fedsim", "k1_k4_launches": launches,
+          "seconds": time.perf_counter() - t0})
+    check(not any(launches.values()),
+          f"the simulation engine launched a flash or paged kernel: "
+          f"{launches}")
+    return res
+
+
 def kernel_rows(kern: dict, runs: dict, flash: dict, train: dict,
                 every_phase: bool) -> list:
     """The `kernels` line's rows from the phases' results; with
@@ -1398,6 +1864,8 @@ def main() -> int:
         phase_fedavg()
     if "fedavg_profile" in args.only:
         phase_fedavg_profile()
+    if "fedsim" in args.only:
+        phase_fedsim()
 
     kernels = kernel_rows(kern, runs, flash, train,
                           every_phase=set(PHASES) <= set(args.only))

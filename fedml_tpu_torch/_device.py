@@ -5,6 +5,9 @@ Every entry point (`DecodeEngine`, `TransformerLM`, `init_params`,
 There is no silent fallback: asking for CUDA on a machine without a
 visible GPU raises, so a run that was meant for the card can never
 quietly measure the CPU.
+
+`deterministic_cuda` is the one place the port makes the card's rounds
+repeat bit for bit.
 """
 from __future__ import annotations
 
@@ -32,3 +35,17 @@ def resolve_device(
         raise ValueError(
             f"fedml_tpu_torch supports device 'cuda' or 'cpu'; got {dev}")
     return dev
+
+
+def deterministic_cuda(device: torch.device) -> None:
+    """On a CUDA device, make cuDNN pick deterministic algorithms and stop
+    it from benchmarking them: its fastest weight- and data-gradient
+    convolutions sum with atomics, in an order that changes from run to
+    run, and the benchmark may pick another algorithm in each process. The
+    JAX package's rounds repeat bit for bit, and its bars (a block equals
+    its rounds one at a time, chunked equals single-shot, a resumed run
+    equals an uninterrupted one) need the same here. Process-wide, as
+    cuDNN's flags are; nothing else changes."""
+    if device.type == "cuda":
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False

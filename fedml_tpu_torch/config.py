@@ -246,8 +246,7 @@ class Config:
         if t.comm_round < 1 or t.epochs < 1 or t.batch_size < 1:
             raise ValueError("comm_round, epochs and batch_size must be >= 1")
         # the simulator's execution knobs, validated as the JAX package
-        # validates them (the port's Simulator refuses rounds_per_block > 1
-        # and cohort_chunk)
+        # validates them
         for knob, lo in (("rounds_per_block", 1), ("block_pipeline_depth", 1),
                          ("cohort_chunk", 1), ("ingest_prefetch", 0)):
             val = t.extra.get(knob)
@@ -268,6 +267,45 @@ class Config:
                 "train_args.ingest_prefetch requires cohort_chunk — the "
                 "streaming ingest pipeline only exists for chunked rounds; "
                 "without it the knob would be silently ignored")
+        cm = t.extra.get("cost_model")
+        if cm not in (None, False, True):
+            if not isinstance(cm, dict):
+                raise ValueError(
+                    "train_args.cost_model must be a boolean or a dict of "
+                    f"{{fit_after_rounds, error_threshold}}; got {cm!r}")
+            unknown_cm = set(cm) - {"fit_after_rounds", "error_threshold"}
+            if unknown_cm:
+                raise ValueError(
+                    f"unknown cost_model knob(s) {sorted(unknown_cm)}; "
+                    "valid: ['error_threshold', 'fit_after_rounds']")
+            far = cm.get("fit_after_rounds")
+            if far is not None and (isinstance(far, bool)
+                                    or not isinstance(far, int) or far < 1):
+                raise ValueError(
+                    "cost_model.fit_after_rounds must be an integer >= 1; "
+                    f"got {far!r}")
+            et = cm.get("error_threshold")
+            if et is not None:
+                try:
+                    ok = not isinstance(et, bool) and float(et) > 0
+                except (TypeError, ValueError):
+                    ok = False
+                if not ok:
+                    raise ValueError(
+                        "cost_model.error_threshold must be a positive "
+                        f"number; got {et!r}")
+        # a client group that does not divide the chunk would change the
+        # groups' boundaries against the single-shot round, and chunked ==
+        # single-shot would hold only to float tolerance (one device: the
+        # per-device chunk is the chunk; the JAX Simulator's check)
+        group = int(t.extra.get("clients_per_device_parallel", 1) or 1)
+        cc = t.extra.get("cohort_chunk")
+        if cc and group > 1 and int(cc) % group:
+            raise ValueError(
+                f"train_args.clients_per_device_parallel ({group}) must "
+                f"divide the per-device chunk (cohort_chunk = {int(cc)}): "
+                "unaligned client groups break chunked == single-shot "
+                "bit-identity")
         if t.extra.get("cohort_chunk") and t.extra.get("health_stats") is True:
             raise ValueError(
                 "train_args.health_stats=true cannot be combined with "

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from ..algorithms.builtin import make_fedavg
 from ..config import TrainArgs
-from ..core.algorithm import FedAlgorithm
+from ..core.algorithm import FedAlgorithm, autograd_grad
 from ..models.hub import mixed_precision_apply
 from .lora import count_params, lora_apply_fn, lora_init, lora_merge
 from .transformer import TransformerLM
@@ -27,7 +27,10 @@ def federated_lora(model: TransformerLM, base_state: dict, t: TrainArgs,
     model's own state (`TransformerLM.from_state`); the adapters' A is
     drawn from `generator`. `t.compute_dtype` is honoured as in the JAX
     function: the model runs under `mixed_precision_apply`, the adapters
-    and the optimizer stay f32."""
+    and the optimizer stay f32. Gradients come from `torch.autograd.grad`
+    (`core.algorithm.autograd_grad`): the model's per-block remat installs
+    saved-tensor hooks, which `torch.func.grad` refuses, and so the round
+    cannot vmap these clients either (ROADMAP 'Port queue' item 3d.1b)."""
     own = model.state_dict()
     if own.keys() != base_state.keys() or any(
             own[k].data_ptr() != v.data_ptr() for k, v in base_state.items()):
@@ -35,4 +38,5 @@ def federated_lora(model: TransformerLM, base_state: dict, t: TrainArgs,
                          "(build the model with TransformerLM.from_state)")
     adapters = lora_init(base_state, rank, targets, generator=generator)
     base_apply = mixed_precision_apply(model, t.compute_dtype)
-    return make_fedavg(lora_apply_fn(base_apply, alpha), t), adapters
+    return make_fedavg(lora_apply_fn(base_apply, alpha), t,
+                       grad_engine=autograd_grad), adapters

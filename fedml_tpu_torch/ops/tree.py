@@ -1,24 +1,28 @@
-"""Arithmetic over nested dicts of tensors: what the round engine needs of
-`fedml_tpu/ops/tree.py` (map, add, sub, scale, leaves, zeros-like, the
-f32 dot product)."""
+"""Arithmetic over nested dicts, tuples and lists of tensors: what the
+round engine needs of `fedml_tpu/ops/tree.py` (map, add, sub, scale,
+leaves, zeros-like, the f32 dot product)."""
 from __future__ import annotations
 
 from typing import Any, Callable, Mapping
 
 import torch
 
-Tree = Any   # a tensor or a Mapping of trees
+Tree = Any   # a tensor, or a Mapping, tuple or list of trees
 
 
 def tree_map(f: Callable, *trees: Tree) -> Tree:
     if isinstance(trees[0], Mapping):
         return {k: tree_map(f, *(t[k] for t in trees)) for k in trees[0]}
+    if isinstance(trees[0], (tuple, list)):
+        return type(trees[0])(tree_map(f, *xs) for xs in zip(*trees))
     return f(*trees)
 
 
 def tree_leaves(t: Tree) -> list[torch.Tensor]:
     if isinstance(t, Mapping):
         return [x for v in t.values() for x in tree_leaves(v)]
+    if isinstance(t, (tuple, list)):
+        return [x for v in t for x in tree_leaves(v)]
     return [t]
 
 

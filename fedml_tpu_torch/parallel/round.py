@@ -1,32 +1,55 @@
-"""One federated round on one device (port of the single-device LINEAR
-path of `fedml_tpu/parallel/round.py:build_round_fn(alg, mesh=None)`).
+"""The federated round on one device (port of the single-device LINEAR
+path of `fedml_tpu/parallel/round.py`: `make_round_parts`,
+`build_round_fn`, `build_block_fn`, `build_chunk_fns`).
 
     round_fn(server_state, client_states, data, ids, weights, seed,
              batch_idx=None) -> RoundOutput
 
 data = {"x": [N, S, ...], "y": [N, S, ...], "mask": [N, S]} on the device;
-ids [m] are the sampled clients, weights [m] their aggregation weights.
-The clients train in sequence, in id order (the JAX round's G = 1 scan);
-each update is folded into num += w * update and den += w in that order,
-and the aggregate num / max(den, 1e-12) goes to `alg.server_update`.
-Client i draws its batch order from a `torch.Generator` seeded from
-(seed..., ids[i]) (`seed` an int or a tuple of ints, such as the
-Simulator's (random_seed, round)) unless `batch_idx[i]` ([steps, B])
-gives it. Metrics: train_loss, train_acc and n_samples over the clients
-with weight > 0; with `health_stats`, also metrics["health"] =
+ids [m] are the sampled clients (host integers), weights [m] their
+aggregation weights. The clients train in G-way groups, in id order
+(`run_clients_acc` of the JAX round): g is the largest divisor of the
+cohort (of the chunk, when chunked) that is at most `group_size`, and each
+group is one `torch.func.vmap` of `alg.client_update` over (shard, client
+state, batch order), the broadcast unbatched; a group of one calls the
+client directly. Each group's weight-premultiplied sum folds into the
+carry, num + sum_g(u * w) and den + sum_g(w), in that order, so a chunk
+boundary cannot change the order of the additions; the aggregate
+num / max(den, 1e-12) goes to `alg.server_update`. Client i's batch order
+is `batch_idx[i]` ([steps, B]) when given, else `alg.schedule` of a
+`torch.Generator` seeded from (seed..., ids[i]) (`seed` an int or a tuple
+of ints, such as the Simulator's (random_seed, round)); it is drawn on the
+host, outside vmap. Metrics: train_loss, train_acc and n_samples over the
+clients with weight > 0; with `health_stats`, also metrics["health"] =
 {"update_norm", "cosine", "loss_delta"}, [m] f32 each (`_client_health`).
 Health keeps every client's update, stacked per leaf ([m, ...]), until
 the round ends: m x the update's size of device memory.
 
-client_states passes through untouched (these algorithms keep none).
-Meshes, client groups, FULL-mode aggregation, the update/aggregate hooks
-(and so their hook state), chaos faults and per-client state are not
-ported: asking for any of them raises NotImplementedError naming its
-ROADMAP port-queue item.
+Per-client state (`alg.client_state_init`: SCAFFOLD, FedDyn) is stacked
+[N, ...] per leaf on the device. A round gathers its cohort's states at
+the start, buffers the new ones and scatters them once, at the end, into
+`client_states` in place (the JAX round donates them): a mesh or chunk
+pad, a zero-weight duplicate of an id, then recomputes from its source's
+pre-round state, never from an updated one, and the scatter writes each
+id's first row. Unsampled clients' states are untouched. Algorithms
+without state pass `client_states` (None) through.
+
+The round is split as the JAX round is (`RoundParts`): `zero_carry`, one
+`chunk_body` per chunk of the cohort, `finalize_body`. The single-shot
+round is the three in a row, so the chunked round (`build_chunk_fns`)
+runs exactly its arithmetic. `build_block_fn` runs K rounds back to back
+with no host synchronisation between them and returns their metrics
+stacked [K]. Host arrays reach the card through pinned memory without a
+synchronising copy.
+
+Meshes, FULL-mode aggregation, the update/aggregate hooks (and so their
+hook state) and chaos faults are not ported: asking for any of them raises
+NotImplementedError naming its ROADMAP port-queue item, as does a group of
+clients that `torch.func.vmap` cannot batch (item 3d.1b).
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -48,6 +71,32 @@ def client_generator(seed, client_id: int) -> torch.Generator:
     entropy = [int(s) for s in np.atleast_1d(seed)] + [int(client_id)]
     g = torch.Generator()
     g.manual_seed(int(np.random.SeedSequence(entropy).generate_state(1)[0]))
+    return g
+
+
+def draw_schedules(alg: FedAlgorithm, seed, ids, shard_size: int):
+    """[m, steps, B] int64 on the host: each client's batch order drawn
+    from `client_generator(seed, id)`."""
+    return torch.stack([alg.schedule(client_generator(seed, c), shard_size)
+                        for c in np.asarray(ids).tolist()])
+
+
+def to_device(a, device: torch.device) -> torch.Tensor:
+    """A host array or tensor on `device`. To the card it goes through
+    pinned memory with a non-blocking copy, so the host does not wait for
+    the work already queued there."""
+    t = torch.as_tensor(a)
+    if device.type != "cuda" or t.device.type == "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def group_width(m: int, group_size: int) -> int:
+    """The largest divisor of m that is at most group_size (the JAX
+    round's g: m = 100 at G = 8 gives 5)."""
+    g = max(1, min(group_size, m))
+    while m % g:
+        g -= 1
     return g
 
 
@@ -73,24 +122,32 @@ def _client_health(upds, agg, loss_per_client: torch.Tensor,
             "loss_delta": loss_per_client - cohort}
 
 
-def build_round_fn(alg: FedAlgorithm, mesh=None, group_size: int = 1,
-                   postprocess_update=None, postprocess_agg=None,
-                   health_stats: bool = False, client_dropout: float = 0.0,
-                   client_straggler: float = 0.0):
-    """The single-round function (module docstring has its contract)."""
+class RoundParts(NamedTuple):
+    """The round in its chunk-streamable pieces (module docstring)."""
+    zero_carry: Callable      # (client_states, ids, device) -> carry
+    chunk_body: Callable      # (carry, server_state, data, rows, ids, w,
+    #                            seed, off, batch_idx=None) -> carry
+    finalize_body: Callable   # (server_state, carry, ids) -> RoundOutput
+    round_body: Callable      # the single-shot round (round_fn)
+
+
+def _refuse(alg: FedAlgorithm, mesh, group_size: int, postprocess_update,
+            postprocess_agg, client_dropout: float,
+            client_straggler: float) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "round over a device mesh is not ported yet (ROADMAP 'Port "
             "queue' item 4, multi-GPU)")
     later = {
-        "group_size > 1 (clients batched with torch.func.vmap)":
-            (group_size != 1, "3d.1"),
+        "group_size > 1 for a client torch.func.vmap cannot batch (the "
+        "FedLLM LoRA round: its flash autograd.Function has no vmap rule "
+        "and its per-block remat no torch.func.grad)":
+            (group_size > 1 and not alg.vmap_ok, "3d.1b"),
         "FULL-mode aggregation": (alg.agg_mode != LINEAR, "3e"),
         "postprocess_update": (postprocess_update is not None, "3e"),
         "postprocess_agg": (postprocess_agg is not None, "3e"),
         "client_dropout / client_straggler (chaos faults)":
             (client_dropout > 0.0 or client_straggler > 0.0, "3e"),
-        "per-client state": (alg.client_state_init is not None, "3c"),
     }
     asked = [(name, item) for name, (on, item) in later.items() if on]
     if asked:
@@ -98,48 +155,213 @@ def build_round_fn(alg: FedAlgorithm, mesh=None, group_size: int = 1,
             f"{name}: not ported yet (ROADMAP 'Port queue' item {item})"
             for name, item in asked))
 
-    def round_fn(server_state: ServerState, client_states, data: dict, ids,
-                 weights, seed, batch_idx=None):
+
+def make_round_parts(alg: FedAlgorithm, group_size: int = 1,
+                     health_stats: bool = False) -> RoundParts:
+    """The round's pieces (module docstring), shared by `build_round_fn`,
+    `build_block_fn` and `build_chunk_fns`."""
+    has_cstate = alg.client_state_init is not None
+
+    def one_client(bcast, shard, cstate, batch_idx):
+        upd, new_state, met = alg.client_update(bcast, shard, cstate,
+                                                batch_idx)
+        out = (upd, (met.loss_sum, met.correct, met.count))
+        return out + (new_state,) if has_cstate else out
+
+    def run_group(bcast, shards, cstates, batch_idx, g):
+        """One group: (updates, (loss_sum, correct, count), new states or
+        None), every leaf with a leading [g] axis."""
+        if g == 1:
+            first = (lambda t: tree_map(lambda a: a[0], t))
+            out = tree_map(lambda a: a.unsqueeze(0), one_client(
+                bcast, first(shards), first(cstates) if has_cstate else None,
+                batch_idx[0]))
+        else:
+            out = torch.func.vmap(
+                one_client, in_dims=(None, 0, 0 if has_cstate else None, 0),
+                randomness="error")(bcast, shards, cstates, batch_idx)
+        return out if has_cstate else out + (None,)
+
+    def zero_carry(full_cstates, ids, device) -> dict:
+        """The carry at the start of a round: the weighted sums (allocated
+        by the first group), the metric sums, and the client-state plane:
+        the cohort's states gathered here, at round start, and a buffer
+        for the new ones (module docstring)."""
+        m = len(ids)
+        carry = {"m": m, "num": None, "msum": None,
+                 "den": torch.zeros((), dtype=torch.float32, device=device),
+                 "cstates": full_cstates, "bufs": {}}
+        if has_cstate:
+            rows = to_device(np.asarray(ids, np.int64), device)
+            cs = tree_map(lambda a: a.index_select(0, rows), full_cstates)
+            carry["bufs"]["cs"] = cs
+            carry["bufs"]["ns"] = tree_map(torch.empty_like, cs)
+        if health_stats:
+            carry["bufs"]["loss"] = torch.zeros(m, dtype=torch.float32,
+                                                device=device)
+        return carry
+
+    def chunk_body(carry: dict, server_state: ServerState, data: dict, rows,
+                   ids, weights, seed, off: int, batch_idx=None) -> dict:
+        """Fold the clients `ids` (host ints, the data's rows `rows`) into
+        the carry, in groups; `off` is their first row in the round's
+        buffers. `batch_idx` ([c, steps, B]) or `alg.schedule` gives each
+        client's batch order."""
         bcast = alg.broadcast(server_state)
         dev = data["y"].device
-        ids = torch.as_tensor(ids).tolist()
-        m = len(ids)
-        weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)
-        num, den = None, torch.zeros((), dtype=torch.float32, device=dev)
-        msum, stack = None, None
-        client_loss = torch.zeros(m, dtype=torch.float32, device=dev)
-        for i, cid in enumerate(ids):
-            shard = {k: v[cid] for k, v in data.items()}
-            upd, _state, met = alg.client_update(
-                bcast, shard, None, client_generator(seed, cid),
-                None if batch_idx is None else batch_idx[i])
-            w = weights[i]
-            num = (tree_map(lambda u: u * w, upd) if num is None else
-                   tree_map(lambda n, u: n + u * w, num, upd))
-            den = den + w
-            # zero-weight clients stay out of the reported metrics
+        c = len(ids)
+        g = group_width(c, group_size)
+        w_all = to_device(np.asarray(weights, np.float32), dev)
+        if batch_idx is None:
+            batch_idx = draw_schedules(alg, seed, ids, data["y"].shape[1])
+        elif not isinstance(batch_idx, torch.Tensor):
+            batch_idx = torch.stack([torch.as_tensor(b) for b in batch_idx])
+        batch_idx = to_device(batch_idx, dev)
+        rows = np.asarray(rows, np.int64)
+        rows_dev = None if g == 1 else to_device(rows, dev)
+        bufs = carry["bufs"]
+        for j in range(c // g):
+            lo, hi = j * g, (j + 1) * g
+            if g == 1:   # a view of the client's rows, no copy
+                shards = {k: v[int(rows[lo])].unsqueeze(0)
+                          for k, v in data.items()}
+            else:
+                shards = {k: v.index_select(0, rows_dev[lo:hi])
+                          for k, v in data.items()}
+            cs = (tree_map(lambda a: a[off + lo:off + hi], bufs["cs"])
+                  if has_cstate else None)
+            upd, mets, ns = run_group(bcast, shards, cs,
+                                      batch_idx[lo:hi], g)
+            w = w_all[lo:hi]
+            # zero-weight clients are pads: out of the reported metrics
             live = (w > 0).float()
-            met = [met.loss_sum * live, met.correct * live,
-                   met.count * live]
-            msum = met if msum is None else [a + b for a, b in
-                                             zip(msum, met)]
+            mets = [a * live.to(a.dtype) for a in mets]
+            gsum = tree_map(lambda u: (u * w.reshape(
+                (-1,) + (1,) * (u.dim() - 1)).to(u.dtype)).sum(0), upd)
+            if carry["num"] is None:
+                carry["num"] = tree_map(torch.zeros_like, gsum)
+                carry["msum"] = [torch.zeros_like(a[0]) for a in mets]
+            carry["num"] = tree_map(torch.add, carry["num"], gsum)
+            carry["den"] = carry["den"] + w.sum()
+            carry["msum"] = [s + a.sum(0) for s, a in
+                             zip(carry["msum"], mets)]
+            if has_cstate:
+                tree_map(lambda b, n: b[off + lo:off + hi].copy_(n),
+                         bufs["ns"], ns)
             if health_stats:
-                if stack is None:
-                    stack = tree_map(lambda u: torch.empty(
-                        (m,) + tuple(u.shape), dtype=u.dtype,
+                if "u" not in bufs:
+                    bufs["u"] = tree_map(lambda u: torch.empty(
+                        (carry["m"],) + tuple(u.shape[1:]), dtype=u.dtype,
                         device=u.device), upd)
-                tree_map(lambda s, u: s[i].copy_(u), stack, upd)
-                client_loss[i] = met[0].float() / torch.clamp(met[2],
-                                                              min=1.0)
-        agg = tree_map(lambda a: a / torch.clamp(den, min=1e-12), num)
-        loss_sum, correct, count = msum
+                tree_map(lambda b, u: b[off + lo:off + hi].copy_(u),
+                         bufs["u"], upd)
+                bufs["loss"][off + lo:off + hi] = (
+                    mets[0].float() / torch.clamp(mets[2], min=1.0))
+        return carry
+
+    def finalize_body(server_state: ServerState, carry: dict,
+                      ids) -> RoundOutput:
+        """Close the round: the aggregate, the server step, the metrics
+        row, and the one client-state scatter."""
+        den = torch.clamp(carry["den"], min=1e-12)
+        agg = tree_map(lambda a: a / den.to(a.dtype), carry["num"])
+        loss_sum, correct, count = carry["msum"]
         n = torch.clamp(count, min=1.0)
         metrics = {"train_loss": loss_sum / n, "train_acc": correct / n,
                    "n_samples": count}
         if health_stats:
-            metrics["health"] = _client_health(stack, agg, client_loss,
-                                               loss_sum, count)
+            metrics["health"] = _client_health(
+                carry["bufs"]["u"], agg, carry["bufs"]["loss"], loss_sum,
+                count)
         new_server = alg.server_update(server_state, agg)
-        return RoundOutput(new_server, client_states, metrics)
+        full = carry["cstates"]
+        if has_cstate:
+            # each id's first row: a pad duplicate's recompute never wins
+            uniq, first = np.unique(np.asarray(ids, np.int64),
+                                    return_index=True)
+            dev = tree_leaves(full)[0].device
+            dst, src = to_device(uniq, dev), to_device(first, dev)
+            tree_map(lambda f, n: f.index_copy_(0, dst,
+                                                n.index_select(0, src)),
+                     full, carry["bufs"]["ns"])
+        return RoundOutput(new_server, full, metrics)
 
-    return round_fn
+    def round_body(server_state: ServerState, client_states, data: dict,
+                   ids, weights, seed, batch_idx=None) -> RoundOutput:
+        ids = np.asarray(ids)
+        carry = zero_carry(client_states, ids, data["y"].device)
+        carry = chunk_body(carry, server_state, data, ids, ids, weights, seed,
+                           0, batch_idx)
+        return finalize_body(server_state, carry, ids)
+
+    return RoundParts(zero_carry, chunk_body, finalize_body, round_body)
+
+
+def build_round_fn(alg: FedAlgorithm, mesh=None, group_size: int = 1,
+                   postprocess_update=None, postprocess_agg=None,
+                   health_stats: bool = False, client_dropout: float = 0.0,
+                   client_straggler: float = 0.0) -> Callable:
+    """The single-round function (module docstring has its contract)."""
+    _refuse(alg, mesh, group_size, postprocess_update, postprocess_agg,
+            client_dropout, client_straggler)
+    return make_round_parts(alg, group_size, health_stats).round_body
+
+
+def build_block_fn(alg: FedAlgorithm, group_size: int = 1,
+                   health_stats: bool = False) -> Callable:
+    """K rounds back to back over the round body:
+
+        block_fn(server_state, client_states, data, ids [K, m],
+                 weights [K, m], seed, rounds [K], batch_idx=None)
+            -> RoundOutput with metrics stacked [K] ([K, m] for health)
+
+    Round k's seed is (seed, rounds[k]), the one the Simulator's
+    per-round loop gives it; `batch_idx[k]`, when given, is its
+    [m, steps, B] schedule.
+    Nothing in the block waits for the card: the host queues the K rounds
+    and the caller fetches the stacked metrics in one transfer."""
+    round_body = make_round_parts(alg, group_size, health_stats).round_body
+
+    def block_fn(server_state, client_states, data, ids, weights, seed,
+                 rounds, batch_idx=None) -> RoundOutput:
+        rows = []
+        for k, r in enumerate(rounds):
+            out = round_body(server_state, client_states, data, ids[k],
+                             weights[k], (seed, int(r)),
+                             None if batch_idx is None else batch_idx[k])
+            server_state, client_states = out.server_state, out.client_states
+            rows.append(out.metrics)
+        return RoundOutput(server_state, client_states,
+                           _stack_metrics(rows))
+
+    return block_fn
+
+
+def _stack_metrics(rows: list) -> dict:
+    if isinstance(rows[0], dict):
+        return {k: _stack_metrics([r[k] for r in rows]) for k in rows[0]}
+    return torch.stack(rows)
+
+
+def build_chunk_fns(alg: FedAlgorithm, group_size: int = 1,
+                    health_stats: bool = False):
+    """The round split over chunks of the cohort (the JAX
+    `build_chunk_fns`): (chunk_fn, finalize_fn, make_carry) with
+
+        make_carry(client_states, ids, device) -> carry
+        chunk_fn(carry, server_state, chunk_data, rows, chunk_ids,
+                 chunk_weights, seed, offset, batch_idx=None) -> carry
+        finalize_fn(server_state, carry, ids) -> RoundOutput
+
+    The Simulator streams each chunk's client data onto the card
+    (`simulation/ingest.py`) and passes rows = arange(chunk); the carry
+    holds the partial sums and the cohort's state buffers. Health stats
+    do not ride chunks (the cosine with the aggregate needs every update
+    against the final aggregate, which chunking exists not to keep)."""
+    if health_stats:
+        raise ValueError(
+            "health_stats cannot ride chunked rounds: cosine-to-aggregate "
+            "needs the full update stack; run unchunked or disable "
+            "train_args.extra.health_stats")
+    parts = make_round_parts(alg, group_size, health_stats)
+    return parts.chunk_body, parts.finalize_body, parts.zero_carry

@@ -2,38 +2,65 @@
 single-device path of `fedml_tpu/simulation/simulator.py`).
 
 The host samples clients (seeded by round), runs one round
-(`parallel/round.py`: every sampled client's local training in sequence,
-the weighted aggregate, the server step, health stats), feeds the health
-tracker, evaluates on its cadence and logs one history row per round. The
-federated data goes onto the device once, at construction.
+(`parallel/round.py`: the sampled clients' local training in G-way vmapped
+groups, `clients_per_device_parallel`, the weighted aggregate, the server
+step, health stats), feeds the health tracker, evaluates on its cadence,
+checkpoints on its cadence and logs one history row per round. Three
+loops run the same round body:
+
+- per round (the default);
+- round blocks (`rounds_per_block` K > 1): K rounds queued back to back
+  with no host synchronisation, their metrics fetched in one transfer,
+  `block_pipeline_depth` blocks in flight; a block never spans an eval or
+  checkpoint round, and the ragged pieces around those barriers run one
+  round at a time, so the history is the per-round run's;
+- cohort chunks (`cohort_chunk` C): the data stays in host memory and
+  each round streams C clients at a time onto the card through
+  `simulation/ingest.py` (`ingest_prefetch` chunks ahead); the cohort is
+  padded to a multiple of C with zero-weight duplicates of its first id.
+  Chunked rounds are the single-shot rounds bit for bit, and may run in
+  blocks too.
+
+`run(checkpoint_dir=..., checkpoint_every=n)` saves every n rounds
+(`utils/checkpoint.py`) and resumes from the latest checkpoint it finds
+there; the resumed run is the uninterrupted one bit for bit. On a GPU the
+Simulator makes cuDNN deterministic (`_device.deterministic_cuda`), so the
+same round repeats bit for bit.
 
 This is the JAX package's `backend: sp` path, and its `backend: xla` path
 when one device is visible. Not ported yet, each refused with a
 NotImplementedError naming its ROADMAP port-queue item: a mesh or several
-GPUs (item 4), clients batched with vmap (`clients_per_device_parallel`
-> 1, item 3d.1), round blocks (`rounds_per_block` > 1, item 3d.2), cohort
-chunking (`cohort_chunk`, item 3d.3), checkpoints (`checkpoint_dir`, item
-3d.4), attacks, defenses, DP, compression and chaos faults (item 3e), and
-the artifact store and metrics endpoint (item 5).
+GPUs, and the cost model that places clients across them (item 4);
+attacks, defenses, DP, compression and chaos faults (item 3e); the
+artifact store and metrics endpoint (item 5).
 """
 from __future__ import annotations
 
+import logging
 import time
-from typing import Optional
+from collections import deque
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import deterministic_cuda, resolve_device
 from ..algorithms.builtin import build_algorithm
 from ..config import BACKEND_XLA, Config
-from ..core.algorithm import make_eval_fn
+from ..core.algorithm import ServerState, make_eval_fn
 from ..data import loader as data_loader
 from ..data.fed_dataset import FedDataset
 from ..models import hub as model_hub
-from ..parallel.round import build_round_fn
+from ..ops.tree import tree_leaves, tree_map
+from ..parallel.round import (
+    build_block_fn, build_chunk_fns, build_round_fn, group_width,
+)
+from ..utils import checkpoint as ckpt
 from ..utils.events import recorder
 from ..utils.health import HealthTracker
+from .ingest import DeviceChunk, IngestPipeline
+
+log = logging.getLogger(__name__)
 
 
 def _later(what: str, item: str) -> NotImplementedError:
@@ -51,15 +78,10 @@ def _refuse_unported(cfg: Config, device: torch.device) -> None:
             and torch.cuda.device_count() > 1):
         raise _later("backend 'xla' over more than one GPU (a mesh)",
                      "4, multi-GPU")
-    if int(x.get("clients_per_device_parallel", 1)) > 1:
-        raise _later("clients_per_device_parallel > 1 (clients batched "
-                     "with torch.func.vmap)", "3d.1")
-    if int(x.get("rounds_per_block", 1) or 1) > 1:
-        raise _later("rounds_per_block > 1 (round blocks)", "3d.2")
-    if x.get("cohort_chunk"):
-        raise _later("cohort_chunk (streamed cohorts)", "3d.3")
-    if x.get("checkpoint_dir"):
-        raise _later("checkpoint_dir (checkpoint and resume)", "3d.4")
+    if x.get("cost_model"):
+        raise _later("train_args.cost_model (the Parrot cost model and LPT "
+                     "placement, which only place clients across devices)",
+                     "4, multi-GPU")
     sec, dp = cfg.security_args, cfg.dp_args
     plugins = {
         "security_args.enable_attack": sec.enable_attack,
@@ -92,6 +114,21 @@ def _pad_test_batches(x: np.ndarray, y: np.ndarray, batch_size: int):
     return rs(xp), rs(yp), rs(mask)
 
 
+def fetch(tree) -> dict:
+    """Every leaf of a tree of device tensors as numpy, in one
+    device-to-host transfer."""
+    leaves = tree_leaves(tree)
+    flat = torch.cat([t.float().reshape(-1) for t in leaves]).cpu().numpy()
+    offs = np.cumsum([0] + [t.numel() for t in leaves])
+    it = iter(range(len(leaves)))
+
+    def take(t):
+        i = next(it)
+        return flat[offs[i]:offs[i + 1]].reshape(tuple(t.shape))
+
+    return tree_map(take, tree)
+
+
 class Simulator:
     """fedml.run_simulation on one GPU. `device=None` takes the device
     `fedml_tpu_torch.init` put in `device_args.extra["device"]`, else CUDA
@@ -111,6 +148,7 @@ class Simulator:
             device if device is not None
             else cfg.device_args.extra.get("device"))
         _refuse_unported(cfg, self.device)
+        deterministic_cuda(self.device)
         self.cfg = cfg
         t = cfg.train_args
         self.dataset = dataset if dataset is not None else data_loader.load(cfg)
@@ -128,19 +166,57 @@ class Simulator:
         self.alg = build_algorithm(
             t.federated_optimizer, self.apply_fn, t,
             t.client_num_in_total, t.client_num_per_round)
+        self.group_size = int(t.extra.get("clients_per_device_parallel", 1))
         # per-client health stats ride the round's metrics (default on, as
         # in the JAX package; train_args.extra.health_stats=False opts out);
         # the tracker's participation and straggler accounting always runs
         self._health_enabled = bool(t.extra.get("health_stats", True))
         self.health = HealthTracker.from_config(cfg)
-        self.round_fn = build_round_fn(self.alg,
-                                       health_stats=self._health_enabled)
+        self._cohort_chunk = int(t.extra.get("cohort_chunk", 0) or 0)
+        cc, m = self._cohort_chunk, t.client_num_per_round
+        g = group_width(cc or m, self.group_size)
+        if g < self.group_size:
+            log.warning(
+                "clients_per_device_parallel=%d does not divide the %s (%d):"
+                " the clients train in groups of %d, the largest divisor",
+                self.group_size, "cohort chunk" if cc else "cohort",
+                cc or m, g)
+        self.round_fn = self.chunk_fn = self.finalize_fn = None
+        self._make_carry = None
+        if self._cohort_chunk:
+            if self._health_enabled:
+                log.info("cohort_chunk=%d: per-client health stats do not "
+                         "ride chunked rounds; participation and straggler "
+                         "tracking stay on", self._cohort_chunk)
+            self._health_enabled = False
+            self.chunk_fn, self.finalize_fn, self._make_carry = \
+                build_chunk_fns(self.alg, self.group_size)
+        else:
+            self.round_fn = build_round_fn(self.alg,
+                                           group_size=self.group_size,
+                                           health_stats=self._health_enabled)
+        self.block_fn = None   # built at the first blocked dispatch
         self.server_state = self.alg.server_init(self.params, cfg)
-        self.client_states = None
+        n = self.dataset.num_clients
+        self.client_states = None if self.alg.client_state_init is None \
+            else tree_map(lambda a: a.unsqueeze(0).expand(
+                (n,) + tuple(a.shape)).clone(),
+                self.alg.client_state_init(self.params))
         ds = self.dataset
-        self.data = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
-            self.device) for k, v in (("x", ds.x_train), ("y", ds.y_train),
-                                      ("mask", ds.mask_train))}
+        raw = {"x": ds.x_train, "y": ds.y_train, "mask": ds.mask_train}
+        if self._cohort_chunk:
+            # the dataset stays in host memory; each round streams its
+            # cohort chunk by chunk
+            self._host_data = {k: np.asarray(v) for k, v in raw.items()}
+            self.data = None
+            self._ingest = IngestPipeline(
+                int(t.extra.get("ingest_prefetch", 1) or 0))
+            self._ingest_stream = (torch.cuda.Stream(self.device)
+                                   if self.device.type == "cuda" else None)
+        else:
+            self._host_data = self._ingest = None
+            self.data = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                self.device) for k, v in raw.items()}
         self.counts = np.asarray(ds.counts, np.float32)
         xb, yb, mb = _pad_test_batches(ds.x_test, ds.y_test,
                                        max(t.batch_size, 64))
@@ -161,45 +237,154 @@ class Simulator:
 
     def _pad_only(self, ids: np.ndarray):
         """(ids, weights, pad): the sampled ids with their sample counts
-        as weights. Without a mesh or cohort chunks nothing is padded."""
-        return ids, self.counts[ids].astype(np.float32), 0
+        as weights, padded to a multiple of the cohort chunk (when
+        chunking) with zero-weight duplicates of ids[0]. A duplicate of an
+        already-sampled client recomputes from the same pre-round state
+        and is never the row the state scatter keeps; padding with id 0
+        would corrupt client 0's persistent state on rounds it was not
+        sampled."""
+        weights = self.counts[ids].astype(np.float32)
+        pad = (-len(ids)) % self._cohort_chunk if self._cohort_chunk else 0
+        if pad:
+            ids = np.concatenate([ids, np.full(pad, ids[0], np.int32)])
+            weights = np.concatenate([weights, np.zeros(pad, np.float32)])
+        return ids, weights, pad
+
+    def _round_inputs(self, round_idx: int, batch_idx=None):
+        """(ids, weights, batch_idx) of one round; a given schedule of the
+        sampled clients gains its pads' rows (ids[0]'s, which is what a
+        pad would draw)."""
+        ids, weights, pad = self._pad_only(self.sample_clients(round_idx))
+        if batch_idx is not None and pad:
+            batch_idx = torch.as_tensor(np.asarray(batch_idx))
+            batch_idx = torch.cat([batch_idx, batch_idx[:1].expand(
+                (pad,) + tuple(batch_idx.shape[1:]))])
+        return ids, weights, batch_idx
+
+    def _seed(self, round_idx: int):
+        return (self.cfg.common_args.random_seed, round_idx)
+
+    def _observe(self, round_idx, ids, weights, metrics: dict,
+                 duration_s: float) -> dict:
+        """Feed the health tracker one round; returns the history row's
+        scalar metrics."""
+        health = metrics.pop("health", None)
+        self.health.observe_round(round_idx, ids, weights, health,
+                                  duration_s=duration_s)
+        return {k: float(v) for k, v in metrics.items()}
 
     def run_round(self, round_idx: int, batch_idx=None) -> dict:
         """One round. `batch_idx` ([m, steps, B], optional) is every
         sampled client's batch order; by default each client draws its own
         from (random_seed, round, client id)."""
-        ids, weights, _ = self._pad_only(self.sample_clients(round_idx))
+        if self._cohort_chunk:
+            return self._run_round_chunked(round_idx, batch_idx)
+        ids, weights, batch_idx = self._round_inputs(round_idx, batch_idx)
         t0 = time.perf_counter()
         with recorder.span("train", round=round_idx):
             out = self.round_fn(
                 self.server_state, self.client_states, self.data, ids,
-                weights, seed=(self.cfg.common_args.random_seed, round_idx),
-                batch_idx=batch_idx)
-            metrics = out.metrics
-            health = metrics.pop("health", None)
-            # one device-to-host transfer for the scalars, one per health
-            # array
-            names = list(metrics)
-            vals = torch.stack([metrics[k].float() for k in names]).tolist()
-            metrics = dict(zip(names, vals))
-            if health is not None:
-                health = {k: v.cpu().numpy() for k, v in health.items()}
+                weights, seed=self._seed(round_idx), batch_idx=batch_idx)
+            metrics = fetch(out.metrics)
         self.server_state = out.server_state
         self.client_states = out.client_states
-        dur = time.perf_counter() - t0
-        self.health.observe_round(round_idx, ids, weights, health,
-                                  duration_s=dur)
-        return metrics
+        return self._observe(round_idx, ids, weights, metrics,
+                             time.perf_counter() - t0)
+
+    # ------------------------------------------- chunked cohort execution
+    def _chunk_thunk(self, cids: np.ndarray):
+        """One ingest unit: host-gather the chunk's client rows and copy
+        them onto the device (on the ingest worker's thread)."""
+        def put():
+            arrays = {k: v[cids] for k, v in self._host_data.items()}
+            nbytes = sum(a.nbytes for a in arrays.values())
+            return DeviceChunk(arrays, self.device,
+                               self._ingest_stream), nbytes
+        return put
+
+    def _dispatch_chunked(self, round_idx: int, batch_idx=None):
+        """Queue one chunk-streamed round: chunk k+1's gather and copy
+        overlap chunk k's compute, the partial aggregate rides the carry,
+        finalize closes the round. Returns (ids, weights, RoundOutput)."""
+        ids, weights, batch_idx = self._round_inputs(round_idx, batch_idx)
+        c = self._cohort_chunk
+        carry = self._make_carry(self.client_states, ids, self.device)
+        thunks = [self._chunk_thunk(ids[j:j + c])
+                  for j in range(0, len(ids), c)]
+        for j, chunk in enumerate(self._ingest.stream(thunks)):
+            lo = j * c
+            carry = self.chunk_fn(
+                carry, self.server_state, chunk.ready(), np.arange(c),
+                ids[lo:lo + c], weights[lo:lo + c], self._seed(round_idx),
+                lo, None if batch_idx is None else batch_idx[lo:lo + c])
+        out = self.finalize_fn(self.server_state, carry, ids)
+        self.server_state = out.server_state
+        self.client_states = out.client_states
+        return ids, weights, out
+
+    def _run_round_chunked(self, round_idx: int, batch_idx=None) -> dict:
+        t0 = time.perf_counter()
+        with recorder.span("train", round=round_idx) as sp:
+            ids, weights, out = self._dispatch_chunked(round_idx, batch_idx)
+            sp.meta["chunks"] = len(ids) // self._cohort_chunk
+            metrics = fetch(out.metrics)
+        return self._observe(round_idx, ids, weights, metrics,
+                             time.perf_counter() - t0)
+
+    def _eval_dispatch(self):
+        """Queue the test-set eval; the values stay on the device until
+        `_eval_finish`."""
+        return self._eval(self.server_state.params, *self._test)
+
+    @staticmethod
+    def _eval_finish(m) -> dict:
+        m = fetch({"loss": m["loss"], "acc": m["acc"]})
+        return {"test_loss": float(m["loss"]), "test_acc": float(m["acc"])}
 
     def evaluate(self) -> dict:
         with recorder.span("eval"):
-            m = self._eval(self.server_state.params, *self._test)
-            loss, acc = torch.stack([m["loss"], m["acc"]]).tolist()
-        return {"test_loss": loss, "test_acc": acc}
+            return self._eval_finish(self._eval_dispatch())
 
+    # ---------------------------------------------------- checkpoint/resume
+    def _server_dict(self) -> dict:
+        st = self.server_state
+        return {"params": st.params, "opt_state": st.opt_state,
+                "round": st.round, "extra": st.extra}
+
+    def save(self, ckpt_dir: str, keep: Optional[int] = 3) -> str:
+        rounds_done = len(self.history)
+        if rounds_done == 0:
+            raise ValueError(
+                "nothing to checkpoint: no rounds have completed (a "
+                "round_-1 directory would be invisible to restore)")
+        return ckpt.save_checkpoint(
+            ckpt_dir, rounds_done - 1, self._server_dict(),
+            client_states=self.client_states, history=self.history,
+            keep=keep)
+
+    def restore(self, ckpt_dir: str) -> int:
+        """Load the latest checkpoint; returns the next round to run.
+        Sampling and batch draws are seeded by round, so the resumed run
+        continues exactly where the dead one stopped."""
+        r, server, clients, history = ckpt.restore_checkpoint(
+            ckpt_dir, self._server_dict(), self.client_states,
+            device=self.device)
+        self.server_state = ServerState(**server)
+        if clients is not None:
+            self.client_states = clients
+        self.history = list(history)
+        return r + 1
+
+    # ------------------------------------------------------------ run loop
     def _eval_due(self, r: int, rounds: int) -> bool:
         f = self.cfg.validation_args.frequency_of_the_test
         return bool(f) and (r % f == 0 or r == rounds - 1)
+
+    @staticmethod
+    def _ckpt_due(r: int, rounds: int, checkpoint_dir,
+                  checkpoint_every) -> bool:
+        return checkpoint_dir is not None and bool(checkpoint_every) and (
+            (r + 1) % checkpoint_every == 0 or r == rounds - 1)
 
     def _run_one(self, r: int, rounds: int, batch_idx=None) -> None:
         """One host-synchronous round: train, eval on cadence, log."""
@@ -209,20 +394,149 @@ class Simulator:
         recorder.log(row)
         self.history.append(row)
 
-    def run(self, num_rounds: Optional[int] = None,
-            batch_schedule=None) -> list[dict]:
-        """`num_rounds` rounds (default comm_round); `batch_schedule(r)`,
-        when given, returns round r's `batch_idx` (the tests hand the JAX
-        package's schedules over this way)."""
+    # ------------------------------------------------- round-block pipeline
+    def _dispatch_block(self, blk: list, rounds: int,
+                        batch_schedule: Optional[Callable]):
+        """Queue one block of rounds, and the eval that must read its
+        parameters, without waiting for the device."""
+        t0 = time.perf_counter()
+        sched = (lambda r: None) if batch_schedule is None \
+            else batch_schedule
+        if self._cohort_chunk:
+            # chunked and blocked: each round streams its chunks; the
+            # block defers every metric fetch to drain time
+            trips = [self._dispatch_chunked(r, sched(r)) for r in blk]
+            ids = np.stack([i for i, _, _ in trips])
+            weights = np.stack([w for _, w, _ in trips])
+            metrics = [o.metrics for _, _, o in trips]
+        else:
+            if self.block_fn is None:
+                self.block_fn = build_block_fn(
+                    self.alg, self.group_size, self._health_enabled)
+            trips = [self._round_inputs(r, sched(r)) for r in blk]
+            ids = np.stack([i for i, _, _ in trips])
+            weights = np.stack([w for _, w, _ in trips])
+            batch_idx = (None if batch_schedule is None
+                         else [b for _, _, b in trips])
+            out = self.block_fn(
+                self.server_state, self.client_states, self.data, ids,
+                weights, self.cfg.common_args.random_seed, blk, batch_idx)
+            self.server_state = out.server_state
+            self.client_states = out.client_states
+            metrics = out.metrics
+        eval_out = (self._eval_dispatch()
+                    if self._eval_due(blk[-1], rounds) else None)
+        return blk, ids, weights, metrics, eval_out, t0
+
+    def _drain_block(self, pending) -> None:
+        """Materialise one queued block: ONE host transfer for its stacked
+        [K] metrics, then per-round history rows as the per-round loop
+        writes them."""
+        blk, ids, weights, metrics, eval_out, t0 = pending
+        if isinstance(metrics, list):
+            metrics = {k: torch.stack([m[k] for m in metrics])
+                       for k in metrics[0]}
+        with recorder.span("train", rounds=list(blk), block=True):
+            m = fetch(metrics)
+        block_s = time.perf_counter() - t0
+        health = m.pop("health", None)
+        for j, r in enumerate(blk):
+            row = {"round": r, **{k: float(v[j]) for k, v in m.items()}}
+            h_j = ({k: v[j] for k, v in health.items()}
+                   if health is not None else None)
+            self.health.observe_round(r, ids[j], weights[j], h_j,
+                                      duration_s=block_s / len(blk))
+            if eval_out is not None and r == blk[-1]:
+                row.update(self._eval_finish(eval_out))
+            recorder.log(row)
+            self.history.append(row)
+
+    def _run_blocked(self, start: int, rounds: int, block_size: int,
+                     checkpoint_dir, checkpoint_every,
+                     batch_schedule: Optional[Callable]) -> None:
+        """Pipelined round-block loop: K rounds per dispatch, block i+1
+        queued before block i's metrics are fetched. Blocks never span an
+        eval or checkpoint round, so blocked and per-round runs give the
+        same history; the ragged pieces (a cadence K does not divide, the
+        end of the horizon) run one round at a time."""
         t = self.cfg.train_args
-        rounds = num_rounds if num_rounds is not None else t.comm_round
-        for r in range(rounds):
+        depth = max(1, int(t.extra.get("block_pipeline_depth", 2) or 1))
+        cadences = [c for c in (
+            self.cfg.validation_args.frequency_of_the_test,
+            checkpoint_every if checkpoint_dir is not None else 0) if c]
+        if cadences and min(cadences) < block_size:
+            log.warning(
+                "rounds_per_block=%d exceeds the eval/checkpoint cadence "
+                "(%d): blocks between barriers never fill, so most or all "
+                "rounds will run one at a time", block_size, min(cadences))
+        pending: deque = deque()
+
+        def drain_all():
+            while pending:
+                self._drain_block(pending.popleft())
+
+        def one(r):
             self._run_one(r, rounds, None if batch_schedule is None
                           else batch_schedule(r))
+
+        blk: list = []
+        for r in range(start, rounds):
+            blk.append(r)
+            due = self._ckpt_due(r, rounds, checkpoint_dir, checkpoint_every)
+            if not (self._eval_due(r, rounds) or due) \
+                    and len(blk) < block_size:
+                continue
+            if len(blk) == block_size:
+                pending.append(self._dispatch_block(blk, rounds,
+                                                    batch_schedule))
+                while len(pending) >= depth:
+                    self._drain_block(pending.popleft())
+            else:
+                drain_all()
+                for rr in blk:
+                    one(rr)
+            blk = []
+            if due:
+                drain_all()
+                self.save(checkpoint_dir)
+        drain_all()
+        for rr in blk:   # a ragged tail with no barrier at the end
+            one(rr)
+
+    def run(self, num_rounds: Optional[int] = None,
+            checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
+            batch_schedule: Optional[Callable] = None) -> list[dict]:
+        """`num_rounds` rounds (default comm_round), resuming from the
+        latest checkpoint under `checkpoint_dir` and saving every
+        `checkpoint_every` rounds there; `batch_schedule(r)`, when given,
+        returns round r's `batch_idx` for the sampled clients (the tests
+        hand the JAX package's schedules over this way)."""
+        t = self.cfg.train_args
+        rounds = num_rounds if num_rounds is not None else t.comm_round
+        start = 0
+        if checkpoint_dir is not None \
+                and ckpt.latest_round(checkpoint_dir) is not None:
+            start = self.restore(checkpoint_dir)
+        block_size = max(1, int(t.extra.get("rounds_per_block", 1) or 1))
+        if block_size > 1:
+            self._run_blocked(start, rounds, block_size, checkpoint_dir,
+                              checkpoint_every, batch_schedule)
+            return self.history
+        for r in range(start, rounds):
+            self._run_one(r, rounds, None if batch_schedule is None
+                          else batch_schedule(r))
+            if self._ckpt_due(r, rounds, checkpoint_dir, checkpoint_every):
+                self.save(checkpoint_dir)
         return self.history
 
 
 def run_simulation(cfg: Config, dataset=None, model=None, *, device=None,
                    params=None, batch_schedule=None) -> list[dict]:
+    """The simulation of `cfg`; `train_args.extra.checkpoint_dir` turns on
+    saving and resuming (every round, or every `checkpoint_every`)."""
+    ckpt_dir = cfg.train_args.extra.get("checkpoint_dir")
+    every = int(cfg.train_args.extra.get("checkpoint_every", 1) or 0)
     return Simulator(cfg, dataset, model, device=device,
-                     params=params).run(batch_schedule=batch_schedule)
+                     params=params).run(
+        checkpoint_dir=ckpt_dir, checkpoint_every=every if ckpt_dir else 0,
+        batch_schedule=batch_schedule)
