@@ -85,6 +85,22 @@ exits non-zero; nothing is caught and carried past):
              cohort chunks of 4 and a SCAFFOLD run resumed from its
              checkpoint, each bitwise its one-at-a-time, single-shot or
              uninterrupted run. No K1-K4 launch.
+10. plugins - the round's plugins at the flagship shape (100 clients,
+             ResNet-18-GN, synthetic CIFAR-10, bf16, G = 10): the plain
+             round, then (a) multikrum (f = 10) against a byzantine random
+             attack on 10 clients, (b) wise_median under chaos dropout 0.1
+             and straggler 0.05, (c) FoolsGold with its [100, D] history,
+             (d) LDP Gaussian (clip 1.0) after top-k 0.05, (e) EF-TopK
+             0.05: a warm round and PLUGIN_ROUNDS timed ones each, ms a
+             round, the plugin's own ms (its hooks between CUDA events),
+             peak memory, the losses finite. Then a 4-client f32 round of
+             one local step with krum, dp_clip and top-k on the card and
+             on the CPU from one parameter draw and schedule (TF32 off):
+             the training within 1e-3 of the CPU's largest update, the
+             plugins fed the same updates within 1e-6 (top-k flips coordinates at its threshold:
+             `_plugin_parity`); and (b)
+             over 8 clients in cohort chunks of 4, bitwise its
+             single-shot run. No K1-K4 launch.
 
 Then the `kernels` line, the raw `nvidia-smi` name/power-limit line, and as
 the last line {"ok": true, "device": {...}}. Imports nothing of JAX or of
@@ -95,6 +111,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import re
@@ -106,7 +123,7 @@ import time
 import numpy as np
 
 PHASES = ("device", "build", "kernel", "engine", "serve", "flash", "train",
-          "fedavg", "fedsim")
+          "fedavg", "fedsim", "plugins")
 # run only when named in --only
 OPTIONAL = ("profile", "train_profile", "fedavg_profile")
 DEV = "cuda"
@@ -170,8 +187,45 @@ FEDAVG_CONFIG = {
 }
 FEDAVG_SAMPLES, FEDAVG_ROUNDS, FEDAVG_PARITY_CLIENTS = 96, 3, 4
 # phase fedsim: the client-group widths timed at the flagship and their
-# timed rounds (after a warm one); the reduced cohort of the bitwise bars
-FEDSIM_GROUPS, FEDSIM_ROUNDS, FEDSIM_SMALL = (4, 10), 5, 8
+# timed rounds (after a warm one; 3 since phase plugins joined the script,
+# to keep it under half its time limit); the reduced cohort of the
+# bitwise bars
+FEDSIM_GROUPS, FEDSIM_ROUNDS, FEDSIM_SMALL = (4, 10), 3, 8
+# phase plugins: timed rounds after the warm one, each configuration's
+# train_args / security / dp / chaos sections over the flagship config at
+# G = 10. LDP's sensitivity is 1e-3 (sigma 4.8e-3 a coordinate), so that
+# the noised flagship keeps a finite loss over its rounds; the noise's
+# arithmetic is the same at any scale.
+# timed rounds a configuration: (c)-(e) and the plain round take one, so
+# that the phase stays near 90 s and the script under half its limit
+PLUGIN_G = 10
+PLUGIN_ROUNDS = {"plain": 1, "a_multikrum_vs_byzantine": 2,
+                 "b_median_chaos": 2, "c_foolsgold": 1, "d_ldp_topk": 1,
+                 "e_eftopk": 1}
+PLUGIN_CONFIGS = {
+    "plain": {},
+    "a_multikrum_vs_byzantine": {
+        "security_args": {"enable_defense": True, "defense_type": "multikrum",
+                          "defense_spec": {"byzantine_client_num": 10},
+                          "enable_attack": True, "attack_type": "byzantine",
+                          "attack_spec": {"byzantine_client_num": 10,
+                                          "attack_mode": "random"}}},
+    "b_median_chaos": {
+        "security_args": {"enable_defense": True,
+                          "defense_type": "wise_median"},
+        "common_args": {"chaos": {"client_dropout": 0.1,
+                                  "client_straggler": 0.05}}},
+    "c_foolsgold": {
+        "security_args": {"enable_defense": True,
+                          "defense_type": "foolsgold"}},
+    "d_ldp_topk": {
+        "dp_args": {"enable_dp": True, "dp_solution_type": "ldp",
+                    "mechanism_type": "gaussian", "clipping_norm": 1.0,
+                    "epsilon": 1.0, "sensitivity": 1e-3},
+        "train_args": {"compression": "topk", "compression_ratio": 0.05}},
+    "e_eftopk": {
+        "train_args": {"compression": "eftopk", "compression_ratio": 0.05}},
+}
 # vmap's per-example fallback warns; phase fedsim makes it an error
 VMAP_FALLBACK = ("There is a performance drop because we have not yet "
                  "implemented the batching rule")
@@ -1489,8 +1543,8 @@ def _timed_rounds(sim, first: int, n: int, modes=None) -> list:
 
 
 def _flagship_groups(ds) -> dict:
-    """The flagship at G = 1 (the determinism setting on and off, in
-    turns: on, off, off, on, after a warm round) and at each of
+    """The flagship at G = 1 (the determinism setting on, then off, a
+    round each after a warm round) and at each of
     FEDSIM_GROUPS (a warm round, then FEDSIM_ROUNDS timed): ms a round,
     rounds/s, ms a group step, peak memory, the losses; and a profiled
     round of two groups for launches a step."""
@@ -1508,7 +1562,7 @@ def _flagship_groups(ds) -> dict:
         gw = group_width(ds.num_clients, g)
         warm = _timed_rounds(sim, 0, 1)
         if g == 1:
-            modes = ("on", "off", "off", "on")
+            modes = ("on", "off")
             timed = _timed_rounds(sim, 1, len(modes), modes)
             torch.backends.cudnn.deterministic = True
             on = [r["ms"] for r in timed if r["determinism"] == "on"]
@@ -1718,6 +1772,344 @@ def phase_fedsim() -> dict:
     return res
 
 
+# ----------------------------------------------------------------- phase 10
+def _plugin_cfg(device: str, sections: dict, **train):
+    """The flagship config (`_fedavg_cfg`) with a configuration's
+    sections merged in; `train` overrides train_args keys."""
+    import copy
+
+    extra = {"clients_per_device_parallel": PLUGIN_G,
+             **train.pop("extra", {})}
+    cfg = _fedavg_cfg(device, extra=extra, **train)
+    for sec, kv in copy.deepcopy(sections).items():
+        if sec == "train_args":
+            cfg.train_args.extra.update(kv)
+            continue
+        dc = getattr(cfg, sec)
+        for k, v in kv.items():
+            if k in {f.name for f in dataclasses.fields(dc)}:
+                setattr(dc, k, v)
+            else:
+                dc.extra[k] = v
+    cfg.validate()
+    return cfg
+
+
+class _HookTimer:
+    """CUDA events around every call of the round's plugin hooks; `take()`
+    returns the device ms between each pair, summed, since the last
+    take."""
+
+    def __init__(self):
+        self.pairs = []
+
+    def wrap(self, f):
+        import torch
+
+        if f is None:
+            return None
+
+        def timed(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = f(*a, **kw)
+            end.record()
+            self.pairs.append((start, end))
+            return out
+
+        return timed
+
+    def take(self) -> tuple:
+        import torch
+
+        torch.cuda.synchronize()
+        ms = sum(s.elapsed_time(e) for s, e in self.pairs)
+        n, self.pairs = len(self.pairs), []
+        return ms, n
+
+
+def _timed_hooks(sim) -> _HookTimer:
+    """Rebuild the Simulator's round with its plugin hooks (and EF-TopK's
+    finish_update) between CUDA events."""
+    from fedml_tpu_torch.parallel.round import build_round_fn
+
+    timer = _HookTimer()
+    hooks = ("aggregate_full", "postprocess_update", "postprocess_agg")
+    plugins = {k: timer.wrap(v) if k in hooks else v
+               for k, v in sim._plugins.items()}
+    if sim.alg.finish_update is not None:
+        sim.alg = dataclasses.replace(
+            sim.alg, finish_update=timer.wrap(sim.alg.finish_update))
+    sim.round_fn = build_round_fn(sim.alg, group_size=sim.group_size,
+                                  health_stats=sim._health_enabled,
+                                  **plugins)
+    return timer
+
+
+def _plugins_at_flagship(ds) -> dict:
+    """Each of PLUGIN_CONFIGS at the flagship (module docstring)."""
+    import torch
+
+    from fedml_tpu_torch.simulation.simulator import Simulator
+
+    res = {}
+    for name, sections in PLUGIN_CONFIGS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sim = Simulator(_plugin_cfg(DEV, sections), ds)
+        timer = _timed_hooks(sim)
+        rows = []
+        for r in range(1 + PLUGIN_ROUNDS[name]):   # round 0 is the warm one
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            m = sim.run_round(r)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+            hook_ms, calls = timer.take()
+            rows.append({"round": r, "ms": ms, "plugin_ms": hook_ms,
+                         "hook_calls": calls, "train_loss": m["train_loss"],
+                         **({"dp_epsilon": m["dp_epsilon"]}
+                            if "dp_epsilon" in m else {})})
+        timed = rows[1:]
+        hook = sim.hook_state
+        res[name] = {
+            "rounds": rows,
+            "ms_per_round_median": statistics.median(r["ms"] for r in timed),
+            "plugin_ms_median": statistics.median(
+                r["plugin_ms"] for r in timed),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "hook_state_bytes": 0 if hook is None else sum(
+                v.numel() * v.element_size() for v in hook.values()
+                if v is not None),
+            "client_state_bytes": 0 if sim.client_states is None else sum(
+                v.numel() * v.element_size()
+                for v in _leaves(sim.client_states)),
+            "health_flags": sum(sim.health.flag_counts.values()),
+            "seconds": time.perf_counter() - t0}
+        emit({"phase": "plugins", "config": name, "nvidia_smi":
+              nvidia_smi_line(), **res[name]})
+        losses = [r["train_loss"] for r in rows]
+        check(all(np.isfinite(losses)), f"{name}: a loss is not finite: "
+              f"{losses}")
+        del sim, hook
+    plain = res["plain"]["ms_per_round_median"]
+    for name in res:
+        res[name]["vs_plain"] = res[name]["ms_per_round_median"] / plain - 1
+    return res
+
+
+def _leaves(tree):
+    from fedml_tpu_torch.ops.tree import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def _plugin_parity(ds) -> dict:
+    """The f32 round of FEDAVG_PARITY_CLIENTS clients, one local step
+    each, with krum, dp_clip (1.0) and top-k (0.05) in the Simulator's
+    order, on the card (in one vmapped group, as the flagship's clients
+    train, and, reported, one client at a time) and on the CPU, from one
+    parameter draw and batch schedule, TF32 off. Top-k is
+    discontinuous: where a leaf's k-th magnitude falls between two
+    coordinates whose f32 values the card and the CPU round apart, each
+    side keeps another one; that coordinate differs by about the
+    threshold, and dp_clip's global norm carries the difference to every
+    kept coordinate. So the round is held in its two halves. The
+    training: the kept client's update before the transforms within
+    1e-3 of its largest value, card against CPU. The plugins: the
+    card's transforms and
+    krum fed the CPU's updates, within 1e-6 of the CPU's aggregate with
+    the same coordinates kept, and krum keeping the same client
+    everywhere. The whole round's ratio (to the CPU round's largest
+    update), that ratio on the coordinates both sides kept or dropped,
+    and the coordinates kept on one side only are reported beside
+    them."""
+    import torch
+
+    from fedml_tpu_torch import compression, security
+    from fedml_tpu_torch import dp as dp_mod
+    from fedml_tpu_torch.algorithms.builtin import build_algorithm
+    from fedml_tpu_torch.config import TrainArgs
+    from fedml_tpu_torch.models import hub
+    from fedml_tpu_torch.ops import keys
+    from fedml_tpu_torch.ops.tree import tree_map
+    from fedml_tpu_torch.parallel.round import (
+        build_round_fn, draw_schedules,
+    )
+    from fedml_tpu_torch.security import defenses
+    from fedml_tpu_torch.simulation.simulator import _compose
+
+    n = FEDAVG_PARITY_CLIENTS
+    cfg = _plugin_cfg("cpu", {
+        "security_args": {"enable_defense": True, "defense_type": "krum",
+                          "defense_spec": {"byzantine_client_num": 1}},
+        "dp_args": {"enable_dp": True, "dp_solution_type": "dp_clip",
+                    "clipping_norm": 1.0},
+        "train_args": {"compression": "topk", "compression_ratio": 0.05}},
+        client_num_in_total=n, client_num_per_round=n,
+        compute_dtype="float32")
+    pipeline = security.build_server_pipeline(*security.from_config(cfg))
+    post = _compose(compression.make_compression_transform("topk", 0.05),
+                    dp_mod.from_config(cfg).client_transform())
+    runs = (("cpu", "cpu", 1), ("card", DEV, n), ("card_g1", DEV, 1))
+    seen = {name: {"pre": {}} for name, *_ in runs}
+
+    def hooks(name):
+        def post_seen(upd, key):
+            seen[name]["pre"][key[-1]] = tree_map(
+                lambda a: a.detach().cpu().double(), upd)
+            return post(upd, key)
+
+        def agg_seen(stacked, w, ctx):
+            U, _ = defenses.stack_flat(stacked)
+            seen[name]["kept"] = int(defenses.krum_select(U, 1)[0])
+            agg, st = pipeline(stacked, w, ctx)
+            seen[name]["agg"] = tree_map(lambda a: a.detach().cpu(), agg)
+            return agg, st
+        return post_seen, agg_seen
+
+    cfg_t = FEDAVG_CONFIG["train_args"]
+    t = TrainArgs(epochs=1, batch_size=cfg_t["batch_size"],
+                  learning_rate=cfg_t["learning_rate"])
+    model = hub.create("resnet18_gn", ds.num_classes, ds.x_train.shape[2:],
+                       device="meta")
+    params0 = _parity_params()
+    alg = build_algorithm("FedAvg", hub.apply_fn(model), t)
+    ids, weights = np.arange(n), ds.counts[:n].astype(np.float32)
+    sched = draw_schedules(alg, 0, ids, ds.shard_size)[:, :1]
+    out = {}
+    with _tf32_off():
+        for name, dev, g in runs:
+            t0 = time.perf_counter()
+            data = {"x": torch.from_numpy(ds.x_train[:n]).to(dev),
+                    "y": torch.from_numpy(ds.y_train[:n]).to(dev),
+                    "mask": torch.from_numpy(ds.mask_train[:n]).to(dev)}
+            post_seen, agg_seen = hooks(name)
+            o = build_round_fn(alg, group_size=g, aggregate_full=agg_seen,
+                               postprocess_update=post_seen)(
+                alg.server_init({k: v.to(dev) for k, v in params0.items()}),
+                None, data, ids, weights, seed=0, batch_idx=sched)
+            out[name] = ({k: v.cpu().double()
+                          for k, v in o.server_state.params.items()},
+                         time.perf_counter() - t0)
+        # the card's transforms and krum on the CPU's updates
+        rows = [post({k: v.float().to(DEV) for k, v in
+                      seen["cpu"]["pre"][int(c)].items()}, (0, int(c)))
+                for c in ids]
+        same_in, _ = pipeline(
+            {k: torch.stack([r[k] for r in rows]) for k in params0},
+            torch.from_numpy(weights).to(DEV),
+            {"key": keys.fold(0, keys.SERVER), "state": None,
+             "ids": torch.from_numpy(ids).to(DEV), "params": params0})
+    p0 = {k: v.double() for k, v in params0.items()}
+    upd = {k: out[k][0] for k in ("cpu", "card")}
+    kc = seen["cpu"]["kept"]
+    pre = {name: seen[name]["pre"][kc] for name in seen}
+    pre_max = max(v.abs().max().item() for v in pre["cpu"].values())
+
+    def diff(a, b):
+        return max((a[k].double() - b[k].double()).abs().max().item()
+                   for k in p0)
+
+    update = max((upd["cpu"][k] - p0[k]).abs().max().item() for k in p0)
+    moved = {s: {k: upd[s][k] != p0[k] for k in p0} for s in upd}
+    agreed = max(((upd["card"][k] - upd["cpu"][k]).abs()
+                  * (moved["card"][k] == moved["cpu"][k])).max().item()
+                 for k in p0)
+    agg_cpu = seen["cpu"]["agg"]
+    same_mask = all(torch.equal(same_in[k].cpu() != 0, agg_cpu[k] != 0)
+                    for k in p0)
+    res = {"clients": n, "local_steps": n, "card_group": n,
+           "max_abs_update": update, "tol": PARITY_TOL,
+           "krum_kept": {s: seen[s]["kept"] for s in seen},
+           "pre_transform_ratio": {
+               s: diff(pre[s], pre["cpu"]) / pre_max
+               for s in ("card", "card_g1")},
+           "same_input_rel": diff({k: v.cpu() for k, v in same_in.items()},
+                                  agg_cpu)
+           / max(v.abs().max().item() for v in agg_cpu.values()),
+           "same_input_same_coordinates": same_mask,
+           "whole_round_ratio": diff(upd["card"], upd["cpu"]) / update,
+           "agreed_coordinates_ratio": agreed / update,
+           "topk_kept_on_one_side_only": sum(
+               int((moved["card"][k] != moved["cpu"][k]).sum()) for k in p0),
+           "coordinates_moved": sum(int(moved["cpu"][k].sum()) for k in p0),
+           "seconds": {k: v[1] for k, v in out.items()}}
+    emit({"phase": "plugins", "f32_card_vs_cpu": res})
+    check(len(set(res["krum_kept"].values())) == 1,
+          f"krum kept another client somewhere: {res['krum_kept']}")
+    check(update > 0 and res["pre_transform_ratio"]["card"] <= PARITY_TOL,
+          f"f32 krum + dp_clip + top-k round, card vs CPU: {res}")
+    check(res["same_input_rel"] <= 1e-6 and same_mask,
+          f"the plugins on the card fed the CPU's updates: {res}")
+    return res
+
+
+def _plugin_chunks_bitwise(ds) -> dict:
+    """(b), wise_median under chaos faults, over FEDSIM_SMALL clients of
+    the flagship model at G = 2, three rounds: cohort chunks of 4 against
+    the single-shot round, bitwise."""
+    from fedml_tpu_torch.data import loader
+    from fedml_tpu_torch.simulation.simulator import Simulator
+
+    n = FEDSIM_SMALL
+    sections = PLUGIN_CONFIGS["b_median_chaos"]
+
+    def cfg(**extra):
+        return _plugin_cfg(DEV, sections, client_num_in_total=n,
+                           client_num_per_round=n, comm_round=3,
+                           extra={"clients_per_device_parallel": 2, **extra})
+
+    small = loader.load(cfg())
+    t0 = time.perf_counter()
+    ref = Simulator(cfg(), small)
+    ref.run()
+    chk = Simulator(cfg(cohort_chunk=4), small)
+    chk.run()
+    res = {"clients": n, "rounds": 3,
+           "chunked_equals_single_shot": _same_run(ref, chk),
+           "injected_faults": sum(ref.health.flag_counts.values()),
+           "losses": [r["train_loss"] for r in ref.history],
+           "seconds": time.perf_counter() - t0}
+    emit({"phase": "plugins", "bitwise": res})
+    check(res["chunked_equals_single_shot"], "on the card, under wise_median "
+          "and chaos faults: chunked != single-shot")
+    return res
+
+
+def phase_plugins() -> dict:
+    """Phase 10 (module docstring)."""
+    import warnings
+
+    import torch
+
+    from fedml_tpu_torch.data import loader
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.ops import paged_attention as pa
+
+    warnings.filterwarnings("error", message=VMAP_FALLBACK)
+    fa.launch_count.update(dict.fromkeys(fa.launch_count, 0))
+    pa.launch_count = 0
+    t0 = time.perf_counter()
+    ds = loader.load(_fedavg_cfg(DEV))
+    res = {"flagship": _plugins_at_flagship(ds),
+           "f32_card_vs_cpu": _plugin_parity(ds),
+           "bitwise": _plugin_chunks_bitwise(ds)}
+    launches = {**fa.launch_count, "paged": pa.launch_count}
+    res["k1_k4_launches"] = launches
+    emit({"phase": "plugins", "nvidia_smi": nvidia_smi_line(),
+          "vs_plain": {k: v["vs_plain"] for k, v in res["flagship"].items()},
+          "k1_k4_launches": launches, "seconds": time.perf_counter() - t0})
+    check(not any(launches.values()),
+          f"the plugins launched a flash or paged kernel: {launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def kernel_rows(kern: dict, runs: dict, flash: dict, train: dict,
                 every_phase: bool) -> list:
     """The `kernels` line's rows from the phases' results; with
@@ -1866,6 +2258,8 @@ def main() -> int:
         phase_fedavg_profile()
     if "fedsim" in args.only:
         phase_fedsim()
+    if "plugins" in args.only:
+        phase_plugins()
 
     kernels = kernel_rows(kern, runs, flash, train,
                           every_phase=set(PHASES) <= set(args.only))

@@ -312,6 +312,12 @@ class Config:
                 "cohort_chunk: per-client health stats need the full "
                 "update stack the chunked engine exists to avoid "
                 "materializing")
+        # the chaos plane's plan fails at load, not at the first round
+        chaos = self.common_args.extra.get("chaos")
+        if chaos is not None:
+            from .comm.chaos import FaultSpec
+
+            FaultSpec.from_dict(chaos)
         if t.extra.get("resume") and not t.extra.get("checkpoint_dir"):
             raise ValueError(
                 "train_args.resume requires checkpoint_dir — resume loads "

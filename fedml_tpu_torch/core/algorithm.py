@@ -236,6 +236,10 @@ class FedAlgorithm:
     schedule: Optional[Callable] = None
     # whether client_update runs under torch.func.vmap (client groups)
     vmap_ok: bool = True
+    # (update, new client state, key) -> (update, new client state): run
+    # by the round on each client outside vmap, so it may draw from the
+    # client's key (`ops/keys.py`); EF-TopK's compression
+    finish_update: Optional[Callable] = None
 
     def __post_init__(self):
         if self.broadcast is None:

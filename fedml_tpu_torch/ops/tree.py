@@ -1,6 +1,7 @@
 """Arithmetic over nested dicts, tuples and lists of tensors: what the
-round engine needs of `fedml_tpu/ops/tree.py` (map, add, sub, scale,
-leaves, zeros-like, the f32 dot product)."""
+round engine and its plugins need of `fedml_tpu/ops/tree.py` (map, add,
+sub, scale, leaves, zeros-like, the f32 dot product and norm, the global
+norm clip)."""
 from __future__ import annotations
 
 from typing import Any, Callable, Mapping
@@ -47,3 +48,17 @@ def tree_vdot(a: Tree, b: Tree) -> torch.Tensor:
     norms do not saturate)."""
     return sum(torch.dot(x.reshape(-1).float(), y.reshape(-1).float())
                for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def tree_norm(t: Tree) -> torch.Tensor:
+    """The global L2 norm of a tree, summed in f32 over every leaf."""
+    return torch.sqrt(tree_vdot(t, t))
+
+
+def tree_clip_by_global_norm(t: Tree, max_norm) -> Tree:
+    """The tree scaled by min(1, max_norm / max(norm, 1e-12)), so that its
+    global L2 norm is at most max_norm."""
+    scale = torch.clamp(max_norm / torch.clamp(tree_norm(t), min=1e-12),
+                        max=1.0)
+    return tree_scale(t, scale)
+

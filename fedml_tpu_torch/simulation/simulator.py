@@ -21,17 +21,29 @@ loops run the same round body:
   Chunked rounds are the single-shot rounds bit for bit, and may run in
   blocks too.
 
+The round's plugins come from the config as in the JAX Simulator:
+attacks and defenses (`security_args`: the FULL-mode hook, the client
+and aggregate transforms, data poisoning of the host arrays before
+upload), DP (`dp_args`: its client transform, and its server noise after
+the defense's post-processing, keyed apart from every client), update
+compression (`train_args.compression`; `eftopk` keeps its residuals on
+the client-state plane) and chaos client faults
+(`common_args.extra.chaos`: client_dropout, client_straggler). The
+client-side pipeline is defender, then compression, then DP. The DP
+accountant steps once a round and `dp_epsilon` joins the history rows of
+every loop.
+
 `run(checkpoint_dir=..., checkpoint_every=n)` saves every n rounds
 (`utils/checkpoint.py`) and resumes from the latest checkpoint it finds
-there; the resumed run is the uninterrupted one bit for bit. On a GPU the
-Simulator makes cuDNN deterministic (`_device.deterministic_cuda`), so the
-same round repeats bit for bit.
+there (the plugins' hook state too, and the DP accountant is set to the
+rounds done); the resumed run is the uninterrupted one bit for bit. On a
+GPU the Simulator makes cuDNN deterministic (`_device.deterministic_cuda`),
+so the same round repeats bit for bit.
 
 This is the JAX package's `backend: sp` path, and its `backend: xla` path
 when one device is visible. Not ported yet, each refused with a
 NotImplementedError naming its ROADMAP port-queue item: a mesh or several
-GPUs, and the cost model that places clients across them (item 4);
-attacks, defenses, DP, compression and chaos faults (item 3e); the
+GPUs, and the cost model that places clients across them (item 4); the
 artifact store and metrics endpoint (item 5).
 """
 from __future__ import annotations
@@ -44,16 +56,24 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import dp as dp_mod
+from .. import security as sec_mod
 from .._device import deterministic_cuda, resolve_device
 from ..algorithms.builtin import build_algorithm
+from ..comm.chaos import FaultSpec
+from ..compression import (
+    make_compression_transform, wrap_algorithm_with_eftopk,
+)
 from ..config import BACKEND_XLA, Config
 from ..core.algorithm import ServerState, make_eval_fn
 from ..data import loader as data_loader
 from ..data.fed_dataset import FedDataset
 from ..models import hub as model_hub
+from ..ops import keys
 from ..ops.tree import tree_leaves, tree_map
 from ..parallel.round import (
     build_block_fn, build_chunk_fns, build_round_fn, group_width,
+    stack_metrics,
 )
 from ..utils import checkpoint as ckpt
 from ..utils.events import recorder
@@ -82,25 +102,26 @@ def _refuse_unported(cfg: Config, device: torch.device) -> None:
         raise _later("train_args.cost_model (the Parrot cost model and LPT "
                      "placement, which only place clients across devices)",
                      "4, multi-GPU")
-    sec, dp = cfg.security_args, cfg.dp_args
-    plugins = {
-        "security_args.enable_attack": sec.enable_attack,
-        "security_args.enable_defense": sec.enable_defense,
-        "dp_args.enable_dp": dp.enable_dp,
-        "train_args.compression":
-            str(x.get("compression", "none")).lower() != "none",
-        "common_args.chaos client faults": any(
-            float((cfg.common_args.extra.get("chaos") or {}).get(k, 0) or 0)
-            > 0 for k in ("client_dropout", "client_straggler")),
-    }
-    on = [k for k, v in plugins.items() if v]
-    if on:
-        raise _later(", ".join(on) + " (the round's plugins)", "3e")
     tr = cfg.tracking_args.extra
     if tr.get("artifact_store") or tr.get("artifact_dir"):
         raise _later("the model-artifact store", "5")
     if cfg.common_args.extra.get("metrics_port") is not None:
         raise _later("the /metrics endpoint (metrics_port)", "5")
+
+
+def _compose(*fns):
+    """Chain (update, key) -> update transforms, None entries skipped;
+    stage i draws from key + (0x9A + i,)."""
+    fns = [f for f in fns if f is not None]
+    if not fns:
+        return None
+
+    def chained(upd, key):
+        for i, f in enumerate(fns):
+            upd = f(upd, keys.fold(key, i + 0x9A))
+        return upd
+
+    return chained
 
 
 def _pad_test_batches(x: np.ndarray, y: np.ndarray, batch_size: int):
@@ -166,6 +187,46 @@ class Simulator:
         self.alg = build_algorithm(
             t.federated_optimizer, self.apply_fn, t,
             t.client_num_in_total, t.client_num_per_round)
+        # the round's plugins: security, DP, compression, chaos faults
+        self.attacker, self.defender = sec_mod.from_config(cfg)
+        self.dp = dp_mod.from_config(cfg, counts=self.dataset.counts)
+        comp_name = str(t.extra.get("compression", "none")).lower()
+        comp_ratio = float(t.extra.get("compression_ratio", 0.05))
+        if comp_name == "eftopk":
+            # the residual rides the client-state plane; the defender's
+            # transform runs before the sparsification, as with every
+            # other compressor (defender -> compress -> DP)
+            self.alg = wrap_algorithm_with_eftopk(
+                self.alg, comp_ratio,
+                pre_transform=self.defender.update_transform())
+            post_update = _compose(self.dp.client_transform())
+        else:
+            post_update = _compose(
+                self.defender.update_transform(),
+                make_compression_transform(
+                    comp_name, comp_ratio,
+                    int(t.extra.get("quantize_bits", 8))),
+                self.dp.client_transform())
+        agg_full = sec_mod.build_server_pipeline(self.attacker,
+                                                 self.defender)
+        dp_server = self.dp.server_transform()
+        dfs_post = self.defender.postprocess_agg()
+        post_agg = None
+        if dp_server is not None or dfs_post is not None:
+            def post_agg(agg, ctx):
+                if dfs_post is not None:
+                    agg = dfs_post(agg, ctx)
+                if dp_server is not None:
+                    agg = dp_server(agg, keys.fold(ctx["key"], 0xD9))
+                return agg
+        self.fault_spec = FaultSpec.from_config(cfg)
+        fs = self.fault_spec
+        self._plugins = dict(
+            aggregate_full=agg_full, postprocess_update=post_update,
+            postprocess_agg=post_agg,
+            num_real_clients=t.client_num_per_round,
+            client_dropout=fs.client_dropout if fs else 0.0,
+            client_straggler=fs.client_straggler if fs else 0.0)
         self.group_size = int(t.extra.get("clients_per_device_parallel", 1))
         # per-client health stats ride the round's metrics (default on, as
         # in the JAX package; train_args.extra.health_stats=False opts out);
@@ -190,12 +251,16 @@ class Simulator:
                          "tracking stay on", self._cohort_chunk)
             self._health_enabled = False
             self.chunk_fn, self.finalize_fn, self._make_carry = \
-                build_chunk_fns(self.alg, self.group_size)
+                build_chunk_fns(self.alg, self.group_size, **self._plugins)
         else:
-            self.round_fn = build_round_fn(self.alg,
-                                           group_size=self.group_size,
-                                           health_stats=self._health_enabled)
+            self.round_fn = build_round_fn(
+                self.alg, group_size=self.group_size,
+                health_stats=self._health_enabled, **self._plugins)
         self.block_fn = None   # built at the first blocked dispatch
+        self.hook_state = sec_mod.init_pipeline_state(
+            self.attacker, self.defender, self.params,
+            t.client_num_per_round, self.device) \
+            if agg_full is not None else None
         self.server_state = self.alg.server_init(self.params, cfg)
         n = self.dataset.num_clients
         self.client_states = None if self.alg.client_state_init is None \
@@ -204,6 +269,8 @@ class Simulator:
                 self.alg.client_state_init(self.params))
         ds = self.dataset
         raw = {"x": ds.x_train, "y": ds.y_train, "mask": ds.mask_train}
+        # data poisoning changes the host arrays before they are uploaded
+        raw = self.attacker.poison_dataset(raw, self.num_classes)
         if self._cohort_chunk:
             # the dataset stays in host memory; each round streams its
             # cohort chunk by chunk
@@ -266,28 +333,46 @@ class Simulator:
 
     def _observe(self, round_idx, ids, weights, metrics: dict,
                  duration_s: float) -> dict:
-        """Feed the health tracker one round; returns the history row's
-        scalar metrics."""
+        """Feed the health tracker one round and step the DP accountant;
+        returns the history row's scalar metrics (with dp_epsilon where
+        the DP is accounted)."""
         health = metrics.pop("health", None)
+        faults = metrics.pop("faults", None)
         self.health.observe_round(round_idx, ids, weights, health,
-                                  duration_s=duration_s)
-        return {k: float(v) for k, v in metrics.items()}
+                                  duration_s=duration_s, faults=faults)
+        row = {k: float(v) for k, v in metrics.items()}
+        self.dp.step_round()
+        if self.dp.enabled and self.dp.accountant is not None:
+            row["dp_epsilon"] = self.dp.get_epsilon()
+        return row
 
-    def run_round(self, round_idx: int, batch_idx=None) -> dict:
+    def _pad_faults(self, faults, pad: int):
+        """A given {"dropped", "straggled"} of the sampled clients, its
+        pads' rows those of ids[0], which a pad shares."""
+        if faults is None or not pad:
+            return faults
+        return {k: np.concatenate([np.asarray(v), np.full(pad, np.asarray(
+            v)[0])]) for k, v in faults.items()}
+
+    def run_round(self, round_idx: int, batch_idx=None, faults=None) -> dict:
         """One round. `batch_idx` ([m, steps, B], optional) is every
         sampled client's batch order; by default each client draws its own
-        from (random_seed, round, client id)."""
+        from (random_seed, round, client id). `faults` ({"dropped",
+        "straggled"}, [m] 0/1, optional) replaces the chaos plane's draws
+        (the tests hand the JAX round's masks over this way)."""
         if self._cohort_chunk:
-            return self._run_round_chunked(round_idx, batch_idx)
+            return self._run_round_chunked(round_idx, batch_idx, faults)
         ids, weights, batch_idx = self._round_inputs(round_idx, batch_idx)
         t0 = time.perf_counter()
         with recorder.span("train", round=round_idx):
             out = self.round_fn(
                 self.server_state, self.client_states, self.data, ids,
-                weights, seed=self._seed(round_idx), batch_idx=batch_idx)
+                weights, seed=self._seed(round_idx), batch_idx=batch_idx,
+                hook_state=self.hook_state, faults=faults)
             metrics = fetch(out.metrics)
         self.server_state = out.server_state
         self.client_states = out.client_states
+        self.hook_state = out.hook_state
         return self._observe(round_idx, ids, weights, metrics,
                              time.perf_counter() - t0)
 
@@ -302,12 +387,14 @@ class Simulator:
                                self._ingest_stream), nbytes
         return put
 
-    def _dispatch_chunked(self, round_idx: int, batch_idx=None):
+    def _dispatch_chunked(self, round_idx: int, batch_idx=None, faults=None):
         """Queue one chunk-streamed round: chunk k+1's gather and copy
         overlap chunk k's compute, the partial aggregate rides the carry,
         finalize closes the round. Returns (ids, weights, RoundOutput)."""
         ids, weights, batch_idx = self._round_inputs(round_idx, batch_idx)
         c = self._cohort_chunk
+        faults = self._pad_faults(
+            faults, len(ids) - self.cfg.train_args.client_num_per_round)
         carry = self._make_carry(self.client_states, ids, self.device)
         thunks = [self._chunk_thunk(ids[j:j + c])
                   for j in range(0, len(ids), c)]
@@ -316,16 +403,21 @@ class Simulator:
             carry = self.chunk_fn(
                 carry, self.server_state, chunk.ready(), np.arange(c),
                 ids[lo:lo + c], weights[lo:lo + c], self._seed(round_idx),
-                lo, None if batch_idx is None else batch_idx[lo:lo + c])
-        out = self.finalize_fn(self.server_state, carry, ids)
+                lo, None if batch_idx is None else batch_idx[lo:lo + c],
+                None if faults is None
+                else {k: v[lo:lo + c] for k, v in faults.items()})
+        out = self.finalize_fn(self.server_state, carry, ids, self.hook_state)
         self.server_state = out.server_state
         self.client_states = out.client_states
+        self.hook_state = out.hook_state
         return ids, weights, out
 
-    def _run_round_chunked(self, round_idx: int, batch_idx=None) -> dict:
+    def _run_round_chunked(self, round_idx: int, batch_idx=None,
+                           faults=None) -> dict:
         t0 = time.perf_counter()
         with recorder.span("train", round=round_idx) as sp:
-            ids, weights, out = self._dispatch_chunked(round_idx, batch_idx)
+            ids, weights, out = self._dispatch_chunked(round_idx, batch_idx,
+                                                       faults)
             sp.meta["chunks"] = len(ids) // self._cohort_chunk
             metrics = fetch(out.metrics)
         return self._observe(round_idx, ids, weights, metrics,
@@ -360,19 +452,24 @@ class Simulator:
         return ckpt.save_checkpoint(
             ckpt_dir, rounds_done - 1, self._server_dict(),
             client_states=self.client_states, history=self.history,
-            keep=keep)
+            keep=keep, hook_state=self.hook_state)
 
     def restore(self, ckpt_dir: str) -> int:
         """Load the latest checkpoint; returns the next round to run.
-        Sampling and batch draws are seeded by round, so the resumed run
+        Sampling and every draw are seeded by round, and the DP
+        accountant is set to the rounds done, so the resumed run
         continues exactly where the dead one stopped."""
-        r, server, clients, history = ckpt.restore_checkpoint(
+        r, server, clients, hook, history = ckpt.restore_checkpoint(
             ckpt_dir, self._server_dict(), self.client_states,
-            device=self.device)
+            device=self.device, hook_template=self.hook_state)
         self.server_state = ServerState(**server)
         if clients is not None:
             self.client_states = clients
+        if hook is not None:
+            self.hook_state = hook
         self.history = list(history)
+        if self.dp.enabled and self.dp.accountant is not None:
+            self.dp.accountant.steps = r + 1
         return r + 1
 
     # ------------------------------------------------------------ run loop
@@ -412,7 +509,8 @@ class Simulator:
         else:
             if self.block_fn is None:
                 self.block_fn = build_block_fn(
-                    self.alg, self.group_size, self._health_enabled)
+                    self.alg, self.group_size, self._health_enabled,
+                    **self._plugins)
             trips = [self._round_inputs(r, sched(r)) for r in blk]
             ids = np.stack([i for i, _, _ in trips])
             weights = np.stack([w for _, w, _ in trips])
@@ -420,9 +518,11 @@ class Simulator:
                          else [b for _, _, b in trips])
             out = self.block_fn(
                 self.server_state, self.client_states, self.data, ids,
-                weights, self.cfg.common_args.random_seed, blk, batch_idx)
+                weights, self.cfg.common_args.random_seed, blk, batch_idx,
+                self.hook_state)
             self.server_state = out.server_state
             self.client_states = out.client_states
+            self.hook_state = out.hook_state
             metrics = out.metrics
         eval_out = (self._eval_dispatch()
                     if self._eval_due(blk[-1], rounds) else None)
@@ -434,18 +534,14 @@ class Simulator:
         writes them."""
         blk, ids, weights, metrics, eval_out, t0 = pending
         if isinstance(metrics, list):
-            metrics = {k: torch.stack([m[k] for m in metrics])
-                       for k in metrics[0]}
+            metrics = stack_metrics(metrics)
         with recorder.span("train", rounds=list(blk), block=True):
             m = fetch(metrics)
         block_s = time.perf_counter() - t0
-        health = m.pop("health", None)
         for j, r in enumerate(blk):
-            row = {"round": r, **{k: float(v[j]) for k, v in m.items()}}
-            h_j = ({k: v[j] for k, v in health.items()}
-                   if health is not None else None)
-            self.health.observe_round(r, ids[j], weights[j], h_j,
-                                      duration_s=block_s / len(blk))
+            row = {"round": r, **self._observe(
+                r, ids[j], weights[j], tree_map(lambda v: v[j], m),
+                block_s / len(blk))}
             if eval_out is not None and r == blk[-1]:
                 row.update(self._eval_finish(eval_out))
             recorder.log(row)

@@ -6,13 +6,17 @@ Every piece of cross-round state round-trips:
     server_state   (params, optimizer state, round counter, algorithm
                     extra: a dict of those four)
     client_states  (the stacked per-client state: SCAFFOLD c_i, FedDyn
-                    h_i; absent for stateless algorithms)
+                    h_i, EF-TopK residuals; absent for stateless
+                    algorithms)
+    hook_state     (the round plugins' state: FoolsGold's and
+                    cross-round's history, the lazy worker's last
+                    updates; absent without a FULL-mode hook)
     round_idx      (drives the round-seeded client sampler and batch
                     draws, so a resumed run is bitwise the uninterrupted
                     one)
 
-Layout: <dir>/round_<n>/{server_state,client_states}.pt and a `meta.json`
-sidecar (round, wall time, which parts are present, the history, a
+Layout: <dir>/round_<n>/{server_state,client_states,hook_state}.pt and a
+`meta.json` sidecar (round, wall time, which parts are present, the history, a
 writer's `extra`) written LAST and atomically: its presence marks the
 checkpoint complete. Files load with `weights_only=True` onto the
 caller's device. Reading a JAX (orbax) checkpoint is out of scope.
@@ -31,7 +35,7 @@ import torch
 from ..ops.tree import tree_map
 
 _ROUND_RE = re.compile(r"^round_(\d+)$")
-_PARTS = ("server_state", "client_states")
+_PARTS = ("server_state", "client_states", "hook_state")
 
 
 class CheckpointStructureError(ValueError):
@@ -71,7 +75,7 @@ def read_meta(path: str, round_idx: Optional[int] = None) -> dict:
 def save_checkpoint(path: str, round_idx: int, server_state,
                     client_states=None, history: Optional[list] = None,
                     keep: Optional[int] = 3,
-                    extra: Optional[dict] = None) -> str:
+                    extra: Optional[dict] = None, hook_state=None) -> str:
     """Write one checkpoint; returns its directory. `server_state` is a
     dict of trees (or tensors, ints, None); `keep` prunes older rounds
     (None keeps everything); `extra` is a JSON-able dict for meta.json."""
@@ -82,7 +86,7 @@ def save_checkpoint(path: str, round_idx: int, server_state,
         shutil.rmtree(d, ignore_errors=True)
     os.makedirs(d, exist_ok=True)
     present = {}
-    for name, tree in zip(_PARTS, (server_state, client_states)):
+    for name, tree in zip(_PARTS, (server_state, client_states, hook_state)):
         present[name] = tree is not None
         if tree is not None:
             torch.save(tree_map(lambda t: t.detach().cpu() if isinstance(
@@ -149,11 +153,12 @@ def _check_structure(d: str, name: str, saved, template) -> None:
 
 def restore_checkpoint(path: str, server_template,
                        client_template=None,
-                       round_idx: Optional[int] = None, device="cpu"):
-    """(round_idx, server_state, client_states, history) of the latest (or
-    `round_idx`) checkpoint, each part held to its template's structure
-    (keys, shapes, dtypes) and loaded onto `device`. A part that is
-    absent, or has no template, comes back None."""
+                       round_idx: Optional[int] = None, device="cpu",
+                       hook_template=None):
+    """(round_idx, server_state, client_states, hook_state, history) of
+    the latest (or `round_idx`) checkpoint, each part held to its
+    template's structure (keys, shapes, dtypes) and loaded onto `device`.
+    A part that is absent, or has no template, comes back None."""
     r = _resolve(path, round_idx)
     d = _round_dir(path, r)
     with open(os.path.join(d, "meta.json")) as f:
@@ -168,7 +173,8 @@ def restore_checkpoint(path: str, server_template,
         return saved
 
     return (r, load("server_state", server_template),
-            load("client_states", client_template), meta.get("history", []))
+            load("client_states", client_template),
+            load("hook_state", hook_template), meta.get("history", []))
 
 
 def _prune(path: str, keep: int) -> None:

@@ -11,7 +11,14 @@ update norms, cosines to the aggregate and loss deltas with its metrics;
 - participation: a `fed.participation.c<id>` counter per real
   (weight > 0) cohort appearance;
 - stragglers: the same test over round wall times bumps
-  `fed.health.straggler_rounds`.
+  `fed.health.straggler_rounds`;
+- injected faults: the chaos plane's masks (`faults`, the round's
+  metrics["faults"]) take the dropped and straggled clients out of the
+  participation counters and the anomaly pools, count them in
+  `fed.chaos.client_dropouts` / `fed.chaos.client_stragglers`, and flag
+  each one (`injected_dropout`, `injected_straggler`).
+
+`flag_counts` keeps each client's number of flags over the run.
 
 Flags land in the `fed.health.*` counters and gauges of `utils/metrics.py`
 and as a metrics row and a zero-duration `health.flag` span in
@@ -70,6 +77,7 @@ class HealthTracker:
         self._cosines: deque = deque(maxlen=int(window))
         self._durations: deque = deque(maxlen=int(window))
         self.rounds_seen = 0
+        self.flag_counts: dict = {}   # client id -> flags over the run
 
     @classmethod
     def from_config(cls, cfg) -> "HealthTracker":
@@ -105,28 +113,51 @@ class HealthTracker:
 
     def observe_round(self, round_idx: int, ids, weights,
                       health: Optional[dict],
-                      duration_s: Optional[float] = None) -> dict:
+                      duration_s: Optional[float] = None,
+                      faults: Optional[dict] = None) -> dict:
         """`health`: the round's {"update_norm", "cosine", ...} as numpy
-        arrays over `ids`, or None when health stats are off."""
+        arrays over `ids`, or None when health stats are off; `faults`:
+        its {"dropped", "straggled"} 0/1 arrays over `ids`, or None. The
+        weights are the host's, before the round zeroed the faulted
+        clients'."""
         ids = np.asarray(ids)
         real = np.asarray(weights) > 0
         mx.set_gauge("fed.round", float(round_idx))
         mx.inc("fed.rounds_total")
-        for cid in ids[real]:
+        injected: list[dict] = []
+        participated = real
+        if faults is not None:
+            z = np.zeros(len(ids))
+            dropped = np.asarray(faults.get("dropped", z)) > 0.5
+            straggled = np.asarray(faults.get("straggled", z)) > 0.5
+            nd, ns = int(np.sum(dropped & real)), int(np.sum(straggled & real))
+            if nd:
+                mx.inc("fed.chaos.client_dropouts", nd)
+            if ns:
+                mx.inc("fed.chaos.client_stragglers", ns)
+            injected = ([{"client": int(c), "reasons": ["injected_dropout"]}
+                         for c in ids[dropped & real]]
+                        + [{"client": int(c),
+                            "reasons": ["injected_straggler"]}
+                           for c in ids[straggled & real]])
+            participated = real & ~dropped & ~straggled
+        for cid in ids[participated]:
             record_participation(cid)
 
         flags: list[dict] = []
         if health is not None:
-            norms = np.asarray(health["update_norm"], np.float64)[real]
-            cosines = np.asarray(health["cosine"], np.float64)[real]
+            norms = np.asarray(health["update_norm"],
+                               np.float64)[participated]
+            cosines = np.asarray(health["cosine"], np.float64)[participated]
             mx.set_gauge("fed.health.update_norm_median",
                          float(np.median(norms)) if norms.size else 0.0)
             mx.set_gauge("fed.health.cosine_min",
                          float(cosines.min()) if cosines.size else 0.0)
             if self.rounds_seen >= self.warmup_rounds:
-                flags = self._flag_clients(ids[real], norms, cosines)
+                flags = self._flag_clients(ids[participated], norms, cosines)
             self._norms.append(norms)
             self._cosines.append(cosines)
+        flags = flags + injected
 
         straggler = False
         if duration_s is not None:
@@ -144,6 +175,8 @@ class HealthTracker:
             mx.inc("fed.health.flags_total", len(flags))
             for f in flags:
                 mx.inc(f"fed.health.flags.c{f['client']}")
+                self.flag_counts[f["client"]] = \
+                    self.flag_counts.get(f["client"], 0) + 1
         if flags or straggler:
             self._rec.log({"health": {"round": int(round_idx),
                                       "flags": flags,

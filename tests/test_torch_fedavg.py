@@ -446,11 +446,6 @@ def test_simulator_runs_with_its_own_draws():
 
 # ----------------------------------------------------------------- refusals
 REFUSED = [
-    ({"security_args": {"enable_attack": True}}, "item 3e"),
-    ({"security_args": {"enable_defense": True}}, "item 3e"),
-    ({"dp_args": {"enable_dp": True}}, "item 3e"),
-    ({"train_args": {"compression": "topk"}}, "item 3e"),
-    ({"common_args": {"chaos": {"client_dropout": 0.1}}}, "item 3e"),
     ({"device_args": {"mesh_shape": {"clients": 2}}}, "item 4"),
     ({"train_args": {"cost_model": True}}, "item 4"),
     ({"tracking_args": {"artifact_dir": "/nonexistent"}}, "item 5"),
@@ -476,12 +471,34 @@ def test_unported_knobs_raise(override, item, tmp_path):
         Simulator(cfg, device="cpu")
 
 
+# the round's plugins (item 3e): each knob builds a Simulator now
+PLUGIN_KNOBS = [
+    {"security_args": {"enable_attack": True}},
+    {"security_args": {"enable_defense": True, "defense_type": "krum"}},
+    {"dp_args": {"enable_dp": True}},
+    {"train_args": {"compression": "topk"}},
+    {"common_args": {"chaos": {"client_dropout": 0.1}}},
+]
+
+
+@pytest.mark.parametrize("override", PLUGIN_KNOBS,
+                         ids=[str(o) for o in PLUGIN_KNOBS])
+def test_plugin_knobs_build(override, tmp_path):
+    d = {"data_args": {"dataset": "synthetic",
+                       "data_cache_dir": str(tmp_path)},
+         "train_args": {"client_num_in_total": 2}}
+    for sec, kv in override.items():
+        d[sec] = {**d.get(sec, {}), **kv}
+    sim = Simulator(Config.from_dict(d), device="cpu")
+    assert sim.round_fn is not None
+
+
 def test_unported_round_options_raise():
+    """The round's hooks and chaos faults build (item 3e is ported); a
+    mesh and the tracking sinks still raise with their items."""
     alg = build_algorithm("FedAvg", lambda p, x: x, TrainArgs())
-    with pytest.raises(NotImplementedError, match="item 3e"):
-        build_round_fn(alg, postprocess_update=lambda u, r: u)
-    with pytest.raises(NotImplementedError, match="item 3e"):
-        build_round_fn(alg, client_dropout=0.1)
+    build_round_fn(alg, postprocess_update=lambda u, r: u)
+    build_round_fn(alg, client_dropout=0.1)
     with pytest.raises(NotImplementedError, match="item 4"):
         build_round_fn(alg, mesh=object())
     with pytest.raises(NotImplementedError, match="item 5"):
