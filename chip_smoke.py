@@ -17,7 +17,8 @@ exits non-zero; nothing is caught and carried past):
              error relative to that row's magnitude; then CUDA-event medians
              of the kernel, the plain version, the library yardstick and the
              HBM bound at C=1, and of the kernel at the serve shape phase
-             `serve` gives it (64-entry tables, the wave's reservations).
+             `serve` gives it (64-entry tables, the wave's reservations) at
+             C=1 and at the speculative window's C=5, checked there too.
 4. engine  - LLaMA-2-7B width in f32 (seeded random weights, TF32 off): the
              kernel engine and the gather engine, on the same weights, serve
              10 greedy requests (prompts 40-600 tokens, two sharing a
@@ -28,7 +29,24 @@ exits non-zero; nothing is caught and carried past):
              pool and with an int8 pool: decode tokens/s, TTFT p50, the int8
              engine's greedy match rate against bf16 (printed, not gated:
              the weights are random), kernel launches.
-6. flash   - the flash-attention kernels (K1 forward, K2 dQ, K3 dK/dV: the
+6. serve_surface - the serving surface at LLaMA-2-7B width. In f32 at
+             full width and 4 layers (TF32 off; width is not cut, depth is,
+             to keep the phase short): spec-on (spec_k 4, K4 at C = 5) vs
+             spec-off, admit_batch 4 vs 1, an engine with rank-8 adapters
+             (nonzero B) vs one over the lora_merge'd weights, the
+             contiguous layout vs paged, the per-request path vs the
+             engine, and FedMLInferenceRunner's 10 concurrent answers vs
+             direct submits, all under the near-tie rule, plus one SSE
+             stream equal to its JSON answer and /ready, /info. In bf16 at
+             full depth: the spec-on wave's decode tokens/s, TTFT p50 and
+             accept rate against spec-off, K4 launches by C (all at C = 5);
+             admit_batch 4's TTFT p50; rank-8 adapters hot-swapped mid-wave
+             (version 0 -> 1, every ticket finishes, a mismatched swap
+             refused) and the peak memory; then the main path: the runner
+             over GreedyLMPredictor (8 slots, paged, kernel, spec,
+             adapters), 10 concurrent POSTs, each answered 200 and in
+             full, with the K4 counts zeroed just before and read after.
+7. flash   - the flash-attention kernels (K1 forward, K2 dQ, K3 dK/dV: the
              tensor-core kernels in bf16; in f32 the three-pass TF32
              tensor-core kernels) against their plain versions at the shape
              phase train gives them (BH = 2 x 32, T = 2048, D = 128) in f32
@@ -41,7 +59,7 @@ exits non-zero; nothing is caught and carried past):
              instance of the same tensor-core kernels, checked and timed
              the same way at BH 4, T 256 and at the flagship BH 64,
              T 2048.
-7. train   - federated LoRA at full LLaMA-2-7B width and depth (bf16 base,
+8. train   - federated LoRA at full LLaMA-2-7B width and depth (bf16 base,
              rank 8 on wq/wk/wv/wo, per-block remat, flash attention, bf16
              compute): two FedAvg rounds of 2 clients x 4 sequences x 2048
              tokens; losses finite, every adapter moved, the base bitwise
@@ -51,7 +69,7 @@ exits non-zero; nothing is caught and carried past):
              flash (the three-pass TF32 forward, dQ and dK/dV, and only
              they) and with dense attention from the same adapters and
              batch schedule: the adapters agree.
-8. fedavg  - the FedAvg simulation path at bench.py's flagship shape
+9. fedavg  - the FedAvg simulation path at bench.py's flagship shape
              (`_flagship_config`: 100 clients of synthetic CIFAR-10, 96
              samples each, Dirichlet alpha 0.5, all 100 per round, batch
              32, 1 epoch, lr 0.05, resnet18_gn, bf16 compute, health stats
@@ -61,11 +79,11 @@ exits non-zero; nothing is caught and carried past):
              itself departs further from the f64 round, as close to the
              f64 round as the CPU's f32 round (`_fedavg_parity`); then,
              through
-             `fedml_tpu_torch.init` and the Simulator, a warm round and 3
+             `fedml_tpu_torch.init` and the Simulator, a warm round and 2
              timed rounds (rounds/s, ms per round and per local step, peak
              memory, losses, conv + matmul FLOPs and their share of the
              bf16 peak), the loss falling, then one eval. No K1-K4 launch.
-9. fedsim  - the rest of the round engine (vmapped client groups,
+10. fedsim - the rest of the round engine (vmapped client groups,
              SCAFFOLD / FedDyn / Mime, round blocks, cohort chunks,
              checkpoint and resume), vmap's per-example fallback an
              error: the f32 4-client round through the Simulator twice in
@@ -85,7 +103,7 @@ exits non-zero; nothing is caught and carried past):
              cohort chunks of 4 and a SCAFFOLD run resumed from its
              checkpoint, each bitwise its one-at-a-time, single-shot or
              uninterrupted run. No K1-K4 launch.
-10. plugins - the round's plugins at the flagship shape (100 clients,
+11. plugins - the round's plugins at the flagship shape (100 clients,
              ResNet-18-GN, synthetic CIFAR-10, bf16, G = 10): the plain
              round, then (a) multikrum (f = 10) against a byzantine random
              attack on 10 clients, (b) wise_median under chaos dropout 0.1
@@ -122,8 +140,8 @@ import time
 
 import numpy as np
 
-PHASES = ("device", "build", "kernel", "engine", "serve", "flash", "train",
-          "fedavg", "fedsim", "plugins")
+PHASES = ("device", "build", "kernel", "engine", "serve", "serve_surface",
+          "flash", "train", "fedavg", "fedsim", "plugins")
 # run only when named in --only
 OPTIONAL = ("profile", "train_profile", "fedavg_profile")
 DEV = "cuda"
@@ -136,6 +154,10 @@ RES_CHECK = [128, 96, 64, 64, 40, 17, 8, 2]
 RES_SERVE, MP_SERVE = [20, 41, 5, 9, 24, 6, 32, 13], 64
 # engine shapes (phases 4-5)
 N_SLOTS, MAX_LEN, PREFILL_CHUNK = 8, 1024, 256
+# phase serve_surface: spec_k drafts a window (K4 at C = SPEC_K + 1), the
+# batched admission width, the adapters' rank, and the depth of its f32
+# identity checks (full width; the bf16 main path runs at full depth)
+SPEC_K, ADMIT_BATCH, LORA_RANK, SURFACE_F32_LAYERS = 4, 4, 8, 4
 # the kernel against its plain version under `rowwise_rel_err` (each
 # (s, c, h) row's error relative to that row's largest value, one ulp of
 # the output forgiven). f32: both sum the same f32 products in another
@@ -173,8 +195,9 @@ PARITY_TOL = 1e-3
 # phase fedavg: bench.py's `_flagship_config` (FedAvg, 100 clients x 96
 # synthetic CIFAR-10 samples, ResNet-18-GN, bf16), FEDAVG_ROUNDS timed
 # rounds (bench.py's MEASURE_ROUNDS is 5: cut to 3, as phase fedsim times
-# the same G = 1 round four more times); the f32 card-vs-CPU round takes
-# the first FEDAVG_PARITY_CLIENTS clients
+# the same G = 1 round three more times, then to 2 when phase
+# serve_surface joined the script, to keep it near half its time limit);
+# the f32 card-vs-CPU round takes the first FEDAVG_PARITY_CLIENTS clients
 FEDAVG_CONFIG = {
     "data_args": {"dataset": "cifar10"},
     "model_args": {"model": "resnet18_gn"},
@@ -185,12 +208,12 @@ FEDAVG_CONFIG = {
     "validation_args": {"frequency_of_the_test": 0},
     "comm_args": {"backend": "sp"},
 }
-FEDAVG_SAMPLES, FEDAVG_ROUNDS, FEDAVG_PARITY_CLIENTS = 96, 3, 4
+FEDAVG_SAMPLES, FEDAVG_ROUNDS, FEDAVG_PARITY_CLIENTS = 96, 2, 4
 # phase fedsim: the client-group widths timed at the flagship and their
-# timed rounds (after a warm one; 3 since phase plugins joined the script,
-# to keep it under half its time limit); the reduced cohort of the
-# bitwise bars
-FEDSIM_GROUPS, FEDSIM_ROUNDS, FEDSIM_SMALL = (4, 10), 3, 8
+# timed rounds (after a warm one; 3 since phase plugins joined the script
+# and 2 since phase serve_surface did, to keep it near half its time
+# limit); the reduced cohort of the bitwise bars
+FEDSIM_GROUPS, FEDSIM_ROUNDS, FEDSIM_SMALL = (4, 10), 2, 8
 # phase plugins: timed rounds after the warm one, each configuration's
 # train_args / security / dp / chaos sections over the flagship config at
 # G = 10. LDP's sensitivity is 1e-3 (sigma 4.8e-3 a coordinate), so that
@@ -427,7 +450,8 @@ def phase_kernel(bw: float) -> dict:
         errs, rels = [], []
         # every pool kind gets the same page tables and positions (one seed
         # per case), so the kinds' times compare like with like
-        for seed, c, serve in ((0, 1, False), (1, 5, False), (2, 1, True)):
+        for seed, c, serve in ((0, 1, False), (1, 5, False), (2, 1, True),
+                               (3, 5, True)):
             case = _kernel_case(np.random.default_rng(seed), c, kind, serve)
             q, k, v, pages, pos, ks, vs = case
             got = pa.paged_attention(*case)
@@ -444,20 +468,24 @@ def phase_kernel(bw: float) -> dict:
                   "tol_row_rel": TOL[kind]})
             check(rel <= TOL[kind], f"{where}: row-relative err {rel} > "
                   f"{TOL[kind]}")
-            if c != 1:
+            if c != 1 and not serve:
                 continue
-            # timing at the decode step's C=1
+            # timing at the decode step's C=1, and at the serve shape's
+            # speculative verify window (C = spec_k + 1 = 5)
             ms = time_ms(lambda: pa.paged_attention(*case))
             lib_ms = _sdpa_gathered_ms(*case)
             nbytes, flops = _case_cost(q, k, pages, pos, ks is not None)
             row = {"ms": ms, "library_ms": lib_ms,
+                   "plain_ms": time_ms(lambda: pa.paged_attention_ref(*case),
+                                       n=50, warmup=2),
                    **_bound(nbytes, flops, q.dtype, bw)}
-            if serve:
+            if not serve:
+                out[kind] = row
+            elif c == 1:
                 out[kind]["serve_shape"] = row
             else:
-                row["plain_ms"] = time_ms(
-                    lambda: pa.paged_attention_ref(*case), n=50, warmup=2)
-                out[kind] = row
+                row.update(max_abs_err=err, max_row_rel_err=rel)
+                out[kind]["serve_c5"] = row
             emit({"phase": "kernel", "pool": kind, "C": c, "serve": serve,
                   "max_pages": pages.shape[1],
                   "pages_per_split": pa.pages_per_split(pages.shape[1]),
@@ -484,11 +512,11 @@ def _requests(vocab: int, seed: int = 1):
     return list(zip(prompts, news))
 
 
-def _wave(eng, reqs):
+def _wave(eng, reqs, **submit_kw):
     """Submit every request at once, wait for all; returns (token lists,
-    stats)."""
+    stats). `submit_kw` (temperature, seed) goes to every submit."""
     t0 = time.perf_counter()
-    tickets = [eng.submit(p, n) for p, n in reqs]
+    tickets = [eng.submit(p, n, **submit_kw) for p, n in reqs]
     outs = [t.result(timeout=600) for t in tickets]
     t1 = time.perf_counter()
     first = min(t.t_first for t in tickets)
@@ -509,32 +537,47 @@ def _wave(eng, reqs):
 def _engine(model, **kw):
     from fedml_tpu_torch.serving.engine import DecodeEngine
 
-    return DecodeEngine(model, n_slots=N_SLOTS, max_len=MAX_LEN,
-                        page_size=PS, prefill_chunk=PREFILL_CHUNK,
-                        device=DEV, **kw).start()
+    return DecodeEngine(model, **{
+        "n_slots": N_SLOTS, "max_len": MAX_LEN, "page_size": PS,
+        "prefill_chunk": PREFILL_CHUNK, "device": DEV, **kw}).start()
 
 
-def _serve(model, reqs, **kw) -> tuple[list, dict]:
+def _serve(model, reqs, submit_kw=None, **kw) -> tuple[list, dict]:
     """One engine over `model`: warm it up, then serve `reqs` with the
-    kernel launch count and prefix hits read around the wave."""
+    kernel launches (all, and by query count C), the prefix hits and the
+    speculation counters read around the wave."""
     import torch
 
     from fedml_tpu_torch.ops import paged_attention as pa
     from fedml_tpu_torch.utils import metrics as mx
 
+    def counters():
+        c = mx.snapshot()["counters"]
+        return {k: c.get(k, 0) for k in (
+            "serving.prefix_hits", "serving.spec.proposed",
+            "serving.spec.accepted")}
+
     eng = _engine(model, **kw)
     try:
         eng.submit(list(range(1, 33)), 4).result(timeout=600)   # warm-up
-        hits0 = mx.snapshot()["counters"].get("serving.prefix_hits", 0)
+        c0 = counters()
         steps0 = eng.decode_steps
         pa.launch_count = 0
-        outs, stats = _wave(eng, reqs)
+        pa.launches_by_c.clear()
+        outs, stats = _wave(eng, reqs, **(submit_kw or {}))
         stats["launches"] = pa.launch_count
+        stats["launches_by_c"] = dict(pa.launches_by_c)
         stats["decode_steps"] = eng.decode_steps - steps0
-        stats["prefix_hits"] = (mx.snapshot()["counters"]
-                                .get("serving.prefix_hits", 0) - hits0)
+        c1 = counters()
+        stats["prefix_hits"] = (c1["serving.prefix_hits"]
+                                - c0["serving.prefix_hits"])
+        prop = c1["serving.spec.proposed"] - c0["serving.spec.proposed"]
+        acc = c1["serving.spec.accepted"] - c0["serving.spec.accepted"]
+        if prop:
+            stats["spec"] = {"proposed": prop, "accepted": acc,
+                             "accept_rate": acc / prop}
         # every page is free again or a resident prefix page nobody holds
-        stats["pool_back_to_budget"] = (
+        stats["pool_back_to_budget"] = not eng.kv_page_size or (
             len(eng._free_pages) + len(eng._prefix) == eng._usable
             and all(e.refs == 0 for e in eng._prefix.values()))
     finally:
@@ -554,11 +597,12 @@ def _top2_margin(model, tokens) -> float:
     return float(top[0] - top[1])
 
 
-def _near_tie_identical(model, reqs, ref_outs, outs) -> dict:
+def _near_tie_identical(model, reqs, ref_outs, outs,
+                        phase: str = "engine") -> dict:
     """Token identity under the near-tie rule: identical streams pass; a
     stream whose first difference sits where the reference's top-2 margin
-    is below NEAR_TIE passes (nothing after it is checked); anything else
-    fails."""
+    (under `model`) is below NEAR_TIE passes (nothing after it is
+    checked); anything else fails."""
     ties = []
     for i, ((prompt, _n), a, b) in enumerate(zip(reqs, ref_outs, outs)):
         if a == b:
@@ -567,8 +611,8 @@ def _near_tie_identical(model, reqs, ref_outs, outs) -> dict:
                  None)
         check(j is not None, f"request {i}: lengths {len(a)} vs {len(b)}")
         margin = _top2_margin(model, prompt + a[:j])
-        emit({"phase": "engine", "near_tie": {"request": i, "pick": j,
-                                              "margin": margin}})
+        emit({"phase": phase, "near_tie": {"request": i, "pick": j,
+                                           "margin": margin}})
         check(margin < NEAR_TIE, f"request {i} differs at pick {j} with "
               f"top-2 margin {margin} >= {NEAR_TIE}")
         ties.append(i)
@@ -639,6 +683,325 @@ def phase_serve(reqs) -> dict:
     return {"bf16": st_b, "int8": st_q}
 
 
+# ------------------------------------------------------------- phase 6
+def _adapters(model, seed: int) -> dict:
+    """Rank-LORA_RANK adapters on wq/wk/wv/wo (the LoRA round's targets)
+    with a nonzero B, drawn on the card from one seeded generator."""
+    import torch
+
+    from fedml_tpu_torch.llm.lora import lora_init
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    ads = lora_init(model.state_dict(), rank=LORA_RANK, generator=gen)
+    for ab in ads.values():
+        ab["b"] = 0.05 * torch.randn(ab["b"].shape, generator=gen,
+                                     device=DEV)
+    return ads
+
+
+def _post(port: int, body: dict) -> tuple[int, bytes]:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request("POST", "/predict", body=json.dumps(body).encode(),
+                  headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    out = resp.status, resp.read()
+    conn.close()
+    return out
+
+
+def _get(port: int, path: str) -> tuple[int, dict]:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    out = resp.status, json.loads(resp.read())
+    conn.close()
+    return out
+
+
+def _http_wave(port: int, reqs) -> tuple[list, list, float]:
+    """Every request POSTed at once, one thread each: (status codes, token
+    lists, wall seconds)."""
+    import threading
+
+    res = [None] * len(reqs)
+
+    def post(i):
+        prompt, n = reqs[i]
+        res[i] = _post(port, {"tokens": prompt, "max_new_tokens": n})
+
+    threads = [threading.Thread(target=post, args=(i,))
+               for i in range(len(reqs))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    return ([c for c, _b in res],
+            [json.loads(b)["generated_tokens"] if c == 200 else None
+             for c, b in res], wall)
+
+
+def _surface_f32(reqs) -> dict:
+    """The f32 identity checks at full width and SURFACE_F32_LAYERS
+    layers (TF32 off): (a) spec-on vs spec-off, (b) admit_batch vs one
+    admission a chunk, (c) adapters vs the lora_merge'd weights, (d) the
+    contiguous layout vs paged, (e) the HTTP runner's answers vs direct
+    submits, one SSE stream vs its JSON answer, and the per-request path
+    vs the engine."""
+    import torch
+
+    from fedml_tpu_torch.llm.lora import lora_merge
+    from fedml_tpu_torch.llm.transformer import (
+        LLAMA2_7B, TransformerLM, init_params,
+    )
+    from fedml_tpu_torch.serving.inference_runner import FedMLInferenceRunner
+    from fedml_tpu_torch.serving.predictor import GreedyLMPredictor
+
+    dims = dataclasses.replace(LLAMA2_7B, n_layers=SURFACE_F32_LAYERS)
+    out = {"layers": SURFACE_F32_LAYERS}
+    with _tf32_off():
+        state = init_params(dims, seed=0, dtype=torch.float32, device=DEV)
+        model = TransformerLM.from_state(dims, state)
+        base, st = _serve(model, reqs, paged_kernel=True)
+        out["base"] = st
+        checks = {
+            "a_spec": dict(spec_decode="ngram", spec_k=SPEC_K),
+            "b_admit_batch": dict(admit_batch=ADMIT_BATCH),
+            "d_contiguous": dict(page_size=0, prefill_chunk=0,
+                                 paged_kernel=False)}
+        for name, kw in checks.items():
+            outs, st = _serve(model, reqs, **{"paged_kernel": True, **kw})
+            out[name] = {**_near_tie_identical(model, reqs, base, outs,
+                                               "serve_surface"), **st}
+            check(all(len(o) == n for o, (_p, n) in zip(outs, reqs)),
+                  f"{name}: a ticket ended short of max_new_tokens")
+        check(out["a_spec"]["launches_by_c"].get(SPEC_K + 1, 0) > 0,
+              "the f32 spec wave launched no C = 5 window")
+        ads = _adapters(model, seed=1)
+        merged = TransformerLM.from_state(dims, lora_merge(state, ads))
+        ref, _st = _serve(merged, reqs, paged_kernel=True)
+        outs, st = _serve(model, reqs, paged_kernel=True, adapters=ads)
+        out["c_adapters"] = {**_near_tie_identical(
+            merged, reqs, ref, outs, "serve_surface"), **st}
+        per_req = GreedyLMPredictor(model, max_len=MAX_LEN, kv_cache=True,
+                                    device=DEV)
+        p_outs = [per_req.predict({"tokens": p, "max_new_tokens": n})
+                  ["generated_tokens"] for p, n in reqs[:3]]
+        out["e_per_request"] = _near_tie_identical(
+            model, reqs[:3], base[:3], p_outs, "serve_surface")
+        pred = GreedyLMPredictor(
+            model, max_len=MAX_LEN, kv_cache=True, adapters=ads,
+            decode_slots=N_SLOTS, kv_page_size=PS,
+            prefill_chunk=PREFILL_CHUNK, paged_kernel=True,
+            spec_decode="ngram", spec_k=SPEC_K, device=DEV)
+        runner = FedMLInferenceRunner(pred, port=0).start()
+        try:
+            codes, http_outs, _wall = _http_wave(runner.port, reqs)
+            check(codes == [200] * len(reqs), f"HTTP codes {codes}")
+            direct = [t.result(timeout=600) for t in
+                      [pred.engine.submit(p, n) for p, n in reqs]]
+            out["e_http"] = _near_tie_identical(merged, reqs, direct,
+                                                http_outs, "serve_surface")
+            # a prompt shorter than a page: no prefix hit can change the
+            # chunking between the two calls, so the tokens are equal
+            body = {"tokens": reqs[0][0][:12], "max_new_tokens": 24}
+            code, raw = _post(runner.port, body)
+            check(code == 200, f"JSON predict answered {code}")
+            want = json.loads(raw)["generated_tokens"]
+            code, raw = _post(runner.port, {**body, "stream": True})
+            events = [json.loads(ln[len(b"data: "):])
+                      for ln in raw.splitlines() if ln.startswith(b"data: ")]
+            check(code == 200 and [e.get("token") for e in events[:-1]]
+                  == want and events[-1] == {"done": True,
+                                             "generated_tokens": want},
+                  "the SSE stream differs from its JSON answer")
+            ready, info = _get(runner.port, "/ready"), _get(runner.port,
+                                                            "/info")
+            check(ready[0] == 200 and info[0] == 200
+                  and info[1]["kv_page_size"] == PS, f"/ready {ready}, "
+                  f"/info {info}")
+            out["e_sse_equals_json"] = True
+            out["e_info"] = info[1] | {"prefix_digests": len(
+                info[1]["prefix_digests"])}
+        finally:
+            runner.stop()
+    del model, merged, state, per_req, pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_surface(reqs, serve_runs: dict) -> dict:
+    """The serving surface at LLaMA-2-7B width: f32 identity checks at
+    reduced depth (`_surface_f32`; width is not cut), then in bf16 at full
+    depth: (a) two spec-on waves (spec_k 4, kernel) between two spec-off
+    ones, accept rate, K4 launches by C, then a seeded sampled wave with
+    and without speculation (the accepted-count read-back's cost; bf16
+    equality reported, not gated); (b) admit_batch 4's TTFT
+    against the spec-off waves' (one admission a chunk); (c) an engine
+    with rank-8 adapters, hot-swapped mid-wave (version 0 -> 1, every
+    ticket finishes, a mismatched swap refused) and its peak memory;
+    (e) the main path: FedMLInferenceRunner -> GreedyLMPredictor (8 slots,
+    paged, kernel, spec, adapters) -> DecodeEngine, 10 concurrent POSTs
+    with the launch counts zeroed just before and read just after: the
+    engine serves all 10 and every window launches K4 at C = 5 in every
+    layer."""
+    import torch
+
+    from fedml_tpu_torch.llm.transformer import (
+        LLAMA2_7B, TransformerLM, init_params,
+    )
+    from fedml_tpu_torch.ops import paged_attention as pa
+    from fedml_tpu_torch.serving.inference_runner import FedMLInferenceRunner
+    from fedml_tpu_torch.serving.predictor import GreedyLMPredictor
+    from fedml_tpu_torch.utils import metrics as mx
+
+    t0 = time.perf_counter()
+    out = {"f32": _surface_f32(reqs)}
+    emit({"phase": "serve_surface", "f32": out["f32"]})
+    model = TransformerLM.from_state(
+        LLAMA2_7B, init_params(LLAMA2_7B, seed=0, dtype=torch.bfloat16,
+                               device=DEV))
+    L = LLAMA2_7B.n_layers
+    # spec-off and spec-on waves in turns (off, on, on, off): the wave is
+    # host-bound and the host drifts within a call
+    spec = dict(paged_kernel=True, spec_decode="ngram", spec_k=SPEC_K)
+    off_outs, off = _serve(model, reqs, paged_kernel=True)
+    on_outs, on = _serve(model, reqs, **spec)
+    _o, on2 = _serve(model, reqs, **spec)
+    _o, off2 = _serve(model, reqs, paged_kernel=True)
+    c5 = on["launches_by_c"].get(SPEC_K + 1, 0)
+    check(c5 == L * on["decode_steps"] > 0 and on["launches"] == c5,
+          f"spec wave: C = {SPEC_K + 1} launches {on['launches_by_c']} != "
+          f"{L} x {on['decode_steps']} windows")
+
+    def mean(key, *waves):
+        return statistics.mean(w[key] for w in waves)
+
+    out["a_spec"] = {
+        "spec_off": off, "spec_on": on, "spec_on_2": on2, "spec_off_2": off2,
+        "serve_phase_spec_off": serve_runs.get("bf16"),
+        "decode_tokens_per_s_ratio": (
+            mean("decode_tokens_per_s", on, on2)
+            / mean("decode_tokens_per_s", off, off2)),
+        "ttft_p50_ratio": (mean("ttft_p50_s", on, on2)
+                           / mean("ttft_p50_s", off, off2)),
+        "ms_per_iteration": {
+            name: w["wall_s"] * 1e3 / w["decode_steps"]
+            for name, w in (("off", off), ("on", on), ("on_2", on2),
+                            ("off_2", off2))},
+        "tokens_equal_spec_off": sum(a == b for a, b in zip(off_outs,
+                                                            on_outs))}
+    # seeded sampling: a window with a sampled slot reads its accepted
+    # counts back before the next window's draws (greedy windows do not)
+    sampled = {"temperature": 0.7, "seed": 11}
+    s_off_outs, s_off = _serve(model, reqs, submit_kw=sampled,
+                               paged_kernel=True)
+    s_on_outs, s_on = _serve(model, reqs, submit_kw=sampled, **spec)
+    out["a_spec"]["sampled"] = {
+        "spec_off": s_off, "spec_on": s_on,
+        "ms_per_iteration": {
+            name: w["wall_s"] * 1e3 / w["decode_steps"]
+            for name, w in (("off", s_off), ("on", s_on))},
+        "tokens_equal_spec_off": sum(a == b for a, b in zip(s_off_outs,
+                                                            s_on_outs))}
+    _outs, ab = _serve(model, reqs, paged_kernel=True,
+                       admit_batch=ADMIT_BATCH)
+    out["b_admit_batch"] = {"admit_batch_4": ab,
+                            "ttft_p50_ratio": ab["ttft_p50_s"]
+                            / mean("ttft_p50_s", off, off2)}
+    # (c) adapters, merged once, hot-swapped mid-wave
+    from fedml_tpu_torch.serving.engine import DecodeEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ads, ads2 = _adapters(model, seed=1), _adapters(model, seed=2)
+    eng = _engine(model, adapters=ads, paged_kernel=True,
+                  spec_decode="ngram", spec_k=SPEC_K)
+    try:
+        tickets = [eng.submit(p, n) for p, n in reqs]
+        next(tickets[0].stream(timeout=600))
+        t_swap = time.perf_counter()
+        ver = eng.swap_adapters(ads2)
+        swap_s = time.perf_counter() - t_swap
+        outs = [t.result(timeout=600) for t in tickets]
+        check(ver == 1 == eng.model_version, f"model_version {ver}")
+        check(all(len(o) == n for o, (_p, n) in zip(outs, reqs)),
+              "a ticket ended short of max_new_tokens across the swap")
+        bad = {k: {"a": ab_["a"][:, :4], "b": ab_["b"][:4]}
+               for k, ab_ in ads2.items()}
+        try:
+            eng.swap_adapters(bad)
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused and eng.model_version == 1,
+              "a mismatched adapter swap was not refused")
+        torch.cuda.synchronize()
+        merged_bytes = sum(
+            p.numel() * p.element_size()
+            for n, p in eng.serving_model.state_dict().items() if n in ads)
+        out["c_adapters"] = {
+            "version_after_swap": eng.model_version,
+            "swap_s": swap_s, "mismatched_swap_refused": refused,
+            "merged_kernel_bytes": merged_bytes,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    finally:
+        eng.stop()
+    del eng, ads2
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (e) the main path over HTTP
+    pred = GreedyLMPredictor(
+        model, max_len=MAX_LEN, kv_cache=True, adapters=ads,
+        decode_slots=N_SLOTS, kv_page_size=PS, prefill_chunk=PREFILL_CHUNK,
+        paged_kernel=True, spec_decode="ngram", spec_k=SPEC_K, device=DEV)
+    runner = FedMLInferenceRunner(pred, port=0).start()
+    try:
+        code, _raw = _post(runner.port, {"tokens": list(range(1, 33)),
+                                         "max_new_tokens": 4})   # warm-up
+        check(code == 200, f"warm-up answered {code}")
+        served0 = mx.snapshot()["counters"].get("serving.engine.requests", 0)
+        steps0 = pred.engine.decode_steps
+        pa.launch_count = 0
+        pa.launches_by_c.clear()
+        codes, outs, wall = _http_wave(runner.port, reqs)
+        launches = {"all": pa.launch_count, "by_c": dict(pa.launches_by_c)}
+        windows = pred.engine.decode_steps - steps0
+        served = (mx.snapshot()["counters"].get("serving.engine.requests", 0)
+                  - served0)
+    finally:
+        runner.stop()
+    check(codes == [200] * len(reqs), f"HTTP codes {codes}")
+    check(all(len(o) == n for o, (_p, n) in zip(outs, reqs)),
+          "an HTTP answer is short of max_new_tokens")
+    # every request went through the engine, and every window of the wave
+    # through K4 at C = 5 in every layer (none served by the plain path)
+    check(served == len(reqs), f"the engine served {served} of {len(reqs)}")
+    c5 = launches["by_c"].get(SPEC_K + 1, 0)
+    check(c5 == L * windows > 0 and launches["all"] == c5,
+          f"main path: C = {SPEC_K + 1} launches {launches['by_c']} != "
+          f"{L} x {windows} windows")
+    out["e_main_path"] = {"launches": launches, "windows": windows,
+                          "engine_requests": served, "wall_s": wall,
+                          "tokens_per_s": sum(map(len, outs)) / wall}
+    out["launches_c5"] = launches["by_c"].get(SPEC_K + 1, 0)
+    out["seconds"] = time.perf_counter() - t0
+    emit({"phase": "serve_surface", "dtype": "bfloat16",
+          **{k: v for k, v in out.items() if k != "f32"}})
+    del pred, runner, model, ads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _kernel_rows(prof) -> list:
     """(name, calls, device ms) of each kernel in a torch.profiler run,
     longest first. Only the device's own events: a host op's row (aten::mm,
@@ -693,7 +1056,7 @@ def phase_profile(reqs, top: int = 15) -> None:
     torch.cuda.empty_cache()
 
 
-# ------------------------------------------------------------------ phase 6
+# ------------------------------------------------------------------ phase 7
 def _flash_cost(kernel: str, bh: int, t: int, d: int, es: int):
     """(bytes, flops) the function must move/do: each input read once,
     each output written once; causal products count T(T+1)/2 score
@@ -910,7 +1273,7 @@ def _flash_d40_case(bw: float) -> dict:
     return out
 
 
-# ------------------------------------------------------------------ phase 7
+# ------------------------------------------------------------------ phase 8
 def _token_data(vocab: int, seed: int) -> dict:
     """{"x", "y": [clients, seqs, T] next-token pairs of random tokens,
     "mask": [clients, seqs]} on the device, from numpy's generator."""
@@ -1100,7 +1463,7 @@ def phase_train_profile(top: int = 25) -> None:
     torch.cuda.empty_cache()
 
 
-# ------------------------------------------------------------------ phase 8
+# ------------------------------------------------------------------ phase 9
 def _fedavg_cfg(device: str, **train):
     """The flagship config through `fedml_tpu_torch.init` (`train`
     overrides train_args keys; an "extra" dict goes to train_args.extra),
@@ -1772,7 +2135,7 @@ def phase_fedsim() -> dict:
     return res
 
 
-# ----------------------------------------------------------------- phase 10
+# ----------------------------------------------------------------- phase 11
 def _plugin_cfg(device: str, sections: dict, **train):
     """The flagship config (`_fedavg_cfg`) with a configuration's
     sections merged in; `train` overrides train_args keys."""
@@ -2111,12 +2474,27 @@ def phase_plugins() -> dict:
 
 
 def kernel_rows(kern: dict, runs: dict, flash: dict, train: dict,
-                every_phase: bool) -> list:
+                surface: dict, every_phase: bool) -> list:
     """The `kernels` line's rows from the phases' results; with
     `every_phase`, also checks that each kernel was launched where it
     should have been."""
     kernels = []
     for kind, k in kern.items():
+        if kind == "bf16" and "serve_c5" in k:
+            # K4 at the speculative verify window's C = 5, at the serve
+            # shape; `launches` from phase serve_surface's main path
+            c5 = k["serve_c5"]
+            kernels.append({
+                "name": "paged_attention_bf16_c5", "route": "cuda",
+                "design": "split-page",
+                "source": "fedml_tpu_torch/csrc/paged_attention.cu",
+                "replaces": "fedml_tpu/ops/paged_attention.py:84",
+                "launches": surface.get("launches_c5", 0),
+                "max_abs_err": c5["max_abs_err"],
+                "max_row_rel_err": c5["max_row_rel_err"], "ms": c5["ms"],
+                "plain_ms": c5["plain_ms"], "bound_ms": c5["bound_ms"],
+                "bound_by": c5["bound_by"],
+                "library_ms": c5["library_ms"]})
         run = runs.get(kind, {"launches": 0, "decode_steps": 0})
         kernels.append({
             "name": f"paged_attention_{kind}", "route": "cuda",
@@ -2246,6 +2624,8 @@ def main() -> int:
         runs["f32"] = phase_engine(reqs)
     if "serve" in args.only:
         runs.update(phase_serve(reqs))
+    surface = (phase_serve_surface(reqs, runs)
+               if "serve_surface" in args.only else {})
     if "profile" in args.only:
         phase_profile(reqs)
     flash = phase_flash(bw) if "flash" in args.only else {}
@@ -2261,7 +2641,7 @@ def main() -> int:
     if "plugins" in args.only:
         phase_plugins()
 
-    kernels = kernel_rows(kern, runs, flash, train,
+    kernels = kernel_rows(kern, runs, flash, train, surface,
                           every_phase=set(PHASES) <= set(args.only))
     emit({"kernels": kernels})
     print(smi, flush=True)

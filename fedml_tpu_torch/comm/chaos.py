@@ -1,10 +1,11 @@
 """The chaos plane's fault plan (a trimmed copy of `FaultSpec` from
-`fedml_tpu/comm/chaos.py`: the dataclass, `from_config` / `from_dict` and
-their validation).
+`fedml_tpu/comm/chaos.py`: the dataclass, `from_config` / `from_dict`,
+their validation and `replica_killed`).
 
-The simulator reads only the client-fault rates, `client_dropout` and
+The simulator reads the client-fault rates, `client_dropout` and
 `client_straggler`: the round draws its masks from them
-(`parallel/round.py`). The link faults, crash and flap schedules and the
+(`parallel/round.py`). The serving runner reads `replica_kill` through
+`replica_killed` (`serving/inference_runner.py`). The link faults, crash and flap schedules and the
 transport that injects them (`ChaosTransport`) come with the
 communication layer (ROADMAP 'Port queue' item 5); the spec already
 validates them, so a plan that the JAX package refuses is refused here
@@ -104,6 +105,12 @@ class FaultSpec:
                     "common_args.extra.chaos.flap values must be "
                     '{"up": >=1, "down": >=1} send-count cycles; got '
                     f"{rank!r}: {cyc!r}")
+
+    def replica_killed(self, rank: int, n_tokens: int) -> bool:
+        """True once serving replica `rank` has streamed `n_tokens` >= its
+        scheduled kill count (the inference runner then dies mid-stream)."""
+        after = self.replica_kill.get(rank)
+        return after is not None and n_tokens >= after
 
     @classmethod
     def from_config(cls, cfg) -> Optional["FaultSpec"]:

@@ -146,8 +146,9 @@ class DPArgs:
 
 @dataclass
 class ServeArgs:
-    """Model-serving knobs; all ride `extra` (the engine's own arguments
-    in the port, `serving/engine.py`)."""
+    """Model-serving knobs; all ride `extra`, validated at load against
+    `serving/knobs.py` and mapped onto the LM predictor by
+    `serving.lm_predictor_from_config`."""
     extra: dict = field(default_factory=dict)
 
 
@@ -318,6 +319,11 @@ class Config:
             from .comm.chaos import FaultSpec
 
             FaultSpec.from_dict(chaos)
+        # the serving knobs fail at load too (serving/knobs.py, the
+        # registry the predictor's knob mapping reads)
+        from .serving.knobs import validate_serve_args
+
+        validate_serve_args(self.serve_args.extra)
         if t.extra.get("resume") and not t.extra.get("checkpoint_dir"):
             raise ValueError(
                 "train_args.resume requires checkpoint_dir — resume loads "

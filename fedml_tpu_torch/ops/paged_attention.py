@@ -32,7 +32,9 @@ merges the partials in split order. `paged_attention_split_ref` is the
 plain version of that split-and-merge arithmetic, which the CPU tests pin
 to the JAX kernel. `launch_count` counts `paged_attention` calls that
 launched the kernels (one per call, though each launches two), and
-nothing else, so a run can show its path went through the kernel.
+nothing else, so a run can show its path went through the kernel;
+`launches_by_c` counts the same launches by the query count C (1 for a
+decode step, spec_k + 1 for a speculative verify window).
 """
 from __future__ import annotations
 
@@ -48,6 +50,7 @@ MAX_SPLITS = 16   # splits per slot: enough blocks to cover the card
 _KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 launch_count = 0
+launches_by_c: dict[int, int] = {}
 
 _lib = None
 
@@ -160,6 +163,7 @@ def paged_attention(q, k_pool, v_pool, pages, pos, k_scales=None,
             "paged_attention kernel launch failed: CUDA error "
             f"{err} ({lib.fedml_cuda_error_string(err).decode()})")
     launch_count += 1
+    launches_by_c[c] = launches_by_c.get(c, 0) + 1
     return out
 
 

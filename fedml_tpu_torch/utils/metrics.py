@@ -1,8 +1,8 @@
 """Process-local counters, gauges and fixed-bucket histograms.
 
 A trimmed copy of `fedml_tpu/utils/metrics.py`: the instruments the
-decode engine and the health tracker call (`inc`, `set_gauge`, `observe`)
-and `snapshot()`, under
+decode engine, the serving runner and the health tracker call (`inc`,
+`set_gauge`, `observe`, `AtomicCounter`) and `snapshot()`, under
 the same metric names, so a later slice can expose them on `/metrics`
 unchanged. Instruments are guarded by one lock each: the engine thread
 and request threads both write them.
@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import bisect
 import threading
-from typing import Sequence
+from typing import Optional, Sequence
 
 # latency buckets in seconds, 1 µs .. 60 s, ~1-2-5 per decade (the JAX
 # package's LATENCY_BUCKETS_S)
@@ -82,6 +82,34 @@ class Histogram:
             return {"count": self._n, "sum": self._sum,
                     "max": self._max if self._n else None,
                     "edges": list(self.edges), "counts": list(self._counts)}
+
+
+class AtomicCounter:
+    """Lock-protected up/down counter for in-flight accounting (the
+    serving runner's queue depth). `gauge` names a registry gauge updated
+    INSIDE the same lock, so two finishing threads cannot reorder their
+    gauge writes and leave a phantom depth behind."""
+
+    __slots__ = ("_value", "_lock", "_gauge")
+
+    def __init__(self, initial: int = 0, gauge: Optional[str] = None):
+        self._value = int(initial)
+        self._lock = threading.Lock()
+        self._gauge = gauge
+
+    def inc(self, n: int = 1) -> int:
+        with self._lock:
+            self._value += n
+            if self._gauge is not None:
+                set_gauge(self._gauge, self._value)
+            return self._value
+
+    def dec(self, n: int = 1) -> int:
+        return self.inc(-n)
+
+    def value(self) -> int:
+        with self._lock:
+            return self._value
 
 
 class MetricsRegistry:

@@ -126,7 +126,7 @@ def test_paged_decode_matches_jax(flax_scan, kernel, quant):
                                                             device="cpu"))
     jc, js, jv, _ = (jax.jit(f) for f in jax_make_paged(
         H, PS, kernel=kernel, quant=quant))
-    tc, ts, tv = make_paged_kv_decode(H, PS, kernel=kernel, quant=quant)
+    tc, ts, tv, _ = make_paged_kv_decode(H, PS, kernel=kernel, quant=quant)
     dt = jnp.int8 if quant else jnp.float32
     z = (L, P, PS, H, D // H)
     jcache = {"k": jnp.zeros(z, dt), "v": jnp.zeros(z, dt)}
