@@ -119,6 +119,33 @@ exits non-zero; nothing is caught and carried past):
              `_plugin_parity`); and (b)
              over 8 clients in cohort chunks of 4, bitwise its
              single-shot run. No K1-K4 launch.
+12. cross_silo - cross-silo FedAvg over the message layer through
+             `FedMLRunner(training_type: cross_silo)`: (a) the flagship
+             shape as one server and 100 client runners over loopback in
+             this process (100 silos of the non-IID synthetic CIFAR-10
+             shards, all 100 a round, ResNet-18-GN, batch 32, 1 epoch, lr
+             0.05, bf16), a warm round and CS_ROUNDS timed: ms a round
+             (the median), the clients' `train` spans (sum and largest),
+             the wire's serialise / deserialise seconds, bytes and frames
+             a round, the aggregate's ms (CUDA events), peak memory,
+             every round receiving 100 results; then the port
+             Simulator's G = 1 round at the same shape for comparison.
+             (b) A 4-silo f32 federation (silos of 32, 48, 64 and 96
+             N(0, 1) images at the same shape, so that the aggregate's
+             weights differ; 2 rounds of one local step of 32, one CPU
+             parameter draw and numpy batch orders, TF32 off) on the card
+             and on the CPU: within 1e-3 of the CPU's largest update; and
+             each of its rounds on the card against the port Simulator's
+             run_round from the same params and batch orders, within
+             1e-5 of the round's largest update (the only difference is
+             the aggregate's order of summation). Reported beside it, not
+             held to 1e-5: the Simulator's 2 rounds chained from the
+             federation's start, and how far the Simulator's own round 1
+             moves between the two starts. (c) That federation twice,
+             bitwise; `server_kill_restart_soak` bitwise
+             `uninterrupted_final_params` on the card. (d) It under a
+             chaos plan (drop, duplicate, reorder 0.1 each) with
+             `comm_retry`, bitwise (c)'s clean run. No K1-K4 launch.
 
 Then the `kernels` line, the raw `nvidia-smi` name/power-limit line, and as
 the last line {"ok": true, "device": {...}}. Imports nothing of JAX or of
@@ -141,7 +168,7 @@ import time
 import numpy as np
 
 PHASES = ("device", "build", "kernel", "engine", "serve", "serve_surface",
-          "flash", "train", "fedavg", "fedsim", "plugins")
+          "flash", "train", "fedavg", "fedsim", "plugins", "cross_silo")
 # run only when named in --only
 OPTIONAL = ("profile", "train_profile", "fedavg_profile")
 DEV = "cuda"
@@ -249,6 +276,17 @@ PLUGIN_CONFIGS = {
     "e_eftopk": {
         "train_args": {"compression": "eftopk", "compression_ratio": 0.05}},
 }
+# phase cross_silo: timed flagship rounds after the warm one; the f32
+# federation of its bars (silos of CS_SHARDS samples, so that the
+# aggregate's weights differ, each taking one local step of CS_BATCH a
+# round for CS_SMALL_ROUNDS rounds), its chaos plan (with the retry budget
+# that makes it deliver), and its tolerance against the Simulator's rounds
+CS_ROUNDS = 2
+CS_SHARDS, CS_BATCH, CS_SMALL_ROUNDS = (32, 48, 64, 96), 32, 2
+CS_SILOS = len(CS_SHARDS)
+CS_CHAOS = {"seed": 3, "drop": 0.1, "duplicate": 0.1, "reorder": 0.1}
+CS_RETRY = {"ack_timeout_s": 1.0, "max_attempts": 20, "deadline_s": 120.0}
+CS_SIM_TOL = 1e-5
 # vmap's per-example fallback warns; phase fedsim makes it an error
 VMAP_FALLBACK = ("There is a performance drop because we have not yet "
                  "implemented the batching rule")
@@ -2473,6 +2511,390 @@ def phase_plugins() -> dict:
     return res
 
 
+# ----------------------------------------------------------------- phase 12
+def _cs_cfg(device: str, run_id: str, rounds: int, **train):
+    """The flagship config (`_fedavg_cfg`) as a cross-silo run over
+    loopback; `train` overrides train_args keys, a "common_extra" dict
+    goes to common_args.extra."""
+    common = train.pop("common_extra", {})
+    cfg = _fedavg_cfg(device, comm_round=rounds, **train)
+    cfg.common_args.training_type = "cross_silo"
+    cfg.common_args.extra.update(common)
+    cfg.comm_args.extra["run_id"] = run_id
+    cfg.validate()
+    return cfg
+
+
+def _federation(cfg, silos: list, init=None, schedules=None,
+                timeout: float = 900.0, clients_must_finish: bool = True,
+                eval_fn=None):
+    """One cross-silo federation through `FedMLRunner`: a server and one
+    client per (x, y) of `silos`, each rank's receive loop a thread of this
+    process. `init` (the server's initial params) and `schedules[i](r)`
+    (client i+1's batch order) are handed over when given, and `eval_fn`
+    (the server's per-round hook) too. Returns (the
+    server manager, the clients that finished).
+    A client whose S2C_FINISH a chaos plan dropped never finishes: the
+    server stops its transport, retransmitter included, right after
+    sending it, as the JAX server does (ROADMAP C.5);
+    `clients_must_finish=False` allows that, and every client still
+    running is stopped at the end."""
+    import torch
+
+    from fedml_tpu_torch.comm import release_router
+    from fedml_tpu_torch.models import hub
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    model = hub.create(cfg.model_args.model, 10, silos[0][0].shape[1:],
+                       device="meta")
+    srv = FedMLRunner(cfg, model=model, role="server", eval_fn=eval_fn,
+                      **({} if init is None else {"params": init})).runner
+    clients = [FedMLRunner(cfg, dataset=xy, model=model, role="client",
+                           rank=i + 1, **({} if schedules is None else
+                                          {"batch_schedule": schedules[i]})
+                           ).runner for i, xy in enumerate(silos)]
+    try:
+        srv.run(background=True)
+        for c in clients:
+            c.run(background=True)
+            c.announce_ready()
+        check(srv.done.wait(timeout), "the cross-silo run did not finish")
+        finished = sum(c.done.wait(60 if clients_must_finish else 5)
+                       for c in clients)
+        check(finished == len(clients) or not clients_must_finish,
+              f"{len(clients) - finished} client(s) did not finish")
+        check(srv.error is None, f"the cross-silo server failed: {srv.error}")
+    finally:
+        for c in clients:
+            if not c.done.is_set():
+                c._stopped.set()
+                c.comm.stop()
+        release_router(cfg.comm_args.extra["run_id"])
+    del clients
+    torch.cuda.synchronize()
+    return srv, finished
+
+
+def _wire_alone(params: dict, n: int = 5) -> dict:
+    """One model frame's host costs with nothing else running: the median
+    ms of `Message.encode` (leaf copies, join, CRC), `Message.decode`
+    (CRC, parse, leaf copies) and the CRC alone, over `n` runs each."""
+    from fedml_tpu_torch.comm import Message
+    from fedml_tpu_torch.native import crc32c
+
+    msg = Message("s2c_sync_model", 0, 1, {"model_params": params,
+                                           "round_idx": 1, "run_gen": 0})
+
+    def med(f):
+        ts = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            f()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts)
+
+    frame = msg.encode()
+    return {"frame_bytes": len(frame), "encode_ms": med(msg.encode),
+            "decode_ms": med(lambda: Message.decode(frame)),
+            "crc_ms": med(lambda: crc32c(frame))}
+
+
+def _cs_flagship(ds) -> dict:
+    """(a): the flagship as 100 silos, a warm round and CS_ROUNDS timed."""
+    import torch
+
+    from fedml_tpu_torch.utils.events import recorder
+
+    silos = [(ds.x_train[i][:int(ds.counts[i])],
+              ds.y_train[i][:int(ds.counts[i])])
+             for i in range(ds.num_clients)]
+    cfg = _cs_cfg(DEV, "cs-flagship", 1 + CS_ROUNDS)
+    recorder.spans.clear()
+    dropped0 = recorder.dropped
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srv, _ = _federation(cfg, silos)
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    spans = list(recorder.spans)
+    # the start-up handshake alone records ~4 x silos^2 status spans (every
+    # CONNECTION_IS_READY before the first round re-checks every silo, as
+    # in the JAX server); the counts below need the whole run in the ring
+    check(recorder.dropped == dropped0,
+          f"the span ring evicted {recorder.dropped - dropped0} of the "
+          f"run's {len(spans)} spans")
+    rounds = sorted((s for s in spans if s.name == "round"),
+                    key=lambda s: s.meta["round"])
+    check(len(rounds) == 1 + CS_ROUNDS,
+          f"{len(rounds)} round spans for {1 + CS_ROUNDS} rounds")
+    rows = []
+    for rs in rounds:
+        # the server's `round` span: its broadcast to its close, with the
+        # aggregate's CUDA-event ms and the process's wire work in it
+        r, lo, hi = rs.meta["round"], rs.start, rs.end
+
+        def span_s(prefix):
+            return sum(s.duration for s in spans if s.name.startswith(prefix)
+                       and lo <= s.start < hi)
+
+        train = [s.duration * 1e3 for s in spans
+                 if s.name == "train" and s.meta.get("round") == r
+                 and "client" in s.meta]
+        rows.append(dict(
+            round=r, ms=rs.duration * 1e3, **rs.meta["wire"],
+            n_received=rs.meta["n_received"], agg_ms=rs.meta["agg_ms"],
+            train_spans=len(train), train_sum_ms=sum(train),
+            train_max_ms=max(train),
+            server_model_sends_s=span_s("comm.send.s2c_"),
+            client_model_sends_s=span_s("comm.send.c2s_send_model")))
+    timed = rows[1:]
+    res = {"silos": len(silos), "samples": int(ds.counts.sum()),
+           "steps_per_round": int(sum(len(x) // min(32, len(x))
+                                      for x, _ in silos)),
+           "rounds": rows,
+           "ms_per_round_median": statistics.median(r["ms"] for r in timed),
+           "timed_mean": {k: statistics.mean(r[k] for r in timed) for k in (
+               "ms", "serialize_s", "deserialize_s", "bytes_sent",
+               "frames_sent", "agg_ms", "train_sum_ms", "train_max_ms",
+               "server_model_sends_s", "client_model_sends_s")},
+           "wall_s": wall_s, "spans": len(spans),
+           "max_memory_allocated_bytes": peak}
+    res["frame_bytes"] = res["timed_mean"]["bytes_sent"] / max(
+        res["timed_mean"]["frames_sent"], 1)
+    res["wire_alone"] = _wire_alone(srv.params)
+    emit({"phase": "cross_silo", "flagship": res,
+          "nvidia_smi": nvidia_smi_line()})
+    check(all(r["n_received"] == len(silos) for r in srv.history),
+          f"a round did not receive every silo's result: {srv.history}")
+    check(all(r["train_spans"] == len(silos) for r in rows),
+          "a round did not train every silo once: train spans a round "
+          f"{[r['train_spans'] for r in rows]}")
+    check(all(np.isfinite(v).all() for v in srv.params.values()),
+          "the aggregate is not finite")
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _cs_sim_round(ds) -> dict:
+    """The port Simulator's G = 1 round at the same shape, for comparison
+    (after phase (a), which warmed the same convolution shapes)."""
+    import torch
+
+    from fedml_tpu_torch.simulation.simulator import Simulator
+
+    sim = Simulator(_fedavg_cfg(DEV), ds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = sim.run_round(0)
+    torch.cuda.synchronize()
+    res = {"ms": (time.perf_counter() - t0) * 1e3,
+           "train_loss": m["train_loss"]}
+    del sim
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _cs_small():
+    """The 4-silo f32 federation of (b)-(d): silos of CS_SHARDS N(0, 1)
+    images at the flagship's shape with random labels, the initial
+    parameters of one CPU draw, and one [1, CS_BATCH] batch order per
+    (silo, round) from numpy's generator."""
+    rs = np.random.RandomState(7)
+    silos = [(rs.randn(n, 32, 32, 3).astype(np.float32),
+              rs.randint(0, 10, n).astype(np.int64)) for n in CS_SHARDS]
+    orders = [[rs.permutation(n)[:CS_BATCH] for _ in range(CS_SMALL_ROUNDS)]
+              for n in CS_SHARDS]
+    schedules = [(lambda r, i=i: orders[i][r][None])
+                 for i in range(CS_SILOS)]
+    init = {k: v.numpy() for k, v in _parity_params().items()}
+    return silos, schedules, init
+
+
+def _cs_run_small(device: str, tag: str, **common_extra):
+    """The 4-silo f32 federation on `device`: (server manager, initial
+    params followed by the params after each round, the clients that
+    finished)."""
+    silos, schedules, init = _cs_small()
+    cfg = _cs_cfg(device, f"cs-{tag}", CS_SMALL_ROUNDS,
+                  client_num_in_total=CS_SILOS,
+                  client_num_per_round=CS_SILOS, compute_dtype="float32",
+                  common_extra=common_extra)
+    rounds = [init]
+    with _tf32_off():
+        srv, finished = _federation(
+            cfg, silos, init=init, schedules=schedules, timeout=300,
+            clients_must_finish="chaos" not in common_extra,
+            eval_fn=lambda params, r: rounds.append(params) or {})
+    return srv, rounds, finished
+
+
+def _cs_sim(device: str, starts=None) -> list:
+    """The 4-silo federation again as CS_SMALL_ROUNDS rounds of the port
+    Simulator's run_round with the same batch orders (FedAvg, server lr
+    1, the shards padded to the largest and masked, weighted by their
+    counts), chained from the same initial params, or with `starts`,
+    round r started from starts[r]: the only difference is the
+    aggregate's order of summation (the Simulator adds the weighted mean
+    of the updates to the params; the server takes the weighted mean of
+    the params). Returns the params after each round."""
+    import torch
+
+    from fedml_tpu_torch.data.fed_dataset import FedDataset
+    from fedml_tpu_torch.simulation.simulator import Simulator
+
+    silos, schedules, init = _cs_small()
+    n_max = max(CS_SHARDS)
+
+    def pad(a):
+        return np.concatenate(
+            [a, np.zeros((n_max - len(a),) + a.shape[1:], a.dtype)])
+
+    ds = FedDataset(
+        x_train=np.stack([pad(x) for x, _ in silos]),
+        y_train=np.stack([pad(y) for _, y in silos]),
+        mask_train=np.stack([(np.arange(n_max) < n).astype(np.float32)
+                             for n in CS_SHARDS]),
+        counts=np.array(CS_SHARDS), x_test=silos[0][0][:8],
+        y_test=silos[0][1][:8], num_classes=10)
+    cfg = _fedavg_cfg(device, client_num_in_total=CS_SILOS,
+                      client_num_per_round=CS_SILOS, compute_dtype="float32",
+                      comm_round=CS_SMALL_ROUNDS)
+    out = []
+    with _tf32_off():
+        sim = Simulator(cfg, ds, device=device)
+        for r in range(CS_SMALL_ROUNDS):
+            if r == 0 or starts is not None:
+                start = init if starts is None else starts[r]
+                sim.server_state = sim.alg.server_init(
+                    {k: torch.from_numpy(v).to(sim.device)
+                     for k, v in start.items()}, cfg)
+            sim.run_round(r, batch_idx=np.stack([s(r) for s in schedules]))
+            out.append({k: v.cpu().numpy()
+                        for k, v in sim.server_state.params.items()})
+    return out
+
+
+def _rel(a: dict, b: dict, init: dict) -> float:
+    """max |a - b| over the largest |b - init|."""
+    upd = max(float(np.abs(b[k].astype(np.float64) - init[k]).max())
+              for k in init)
+    return max(float(np.abs(a[k].astype(np.float64) - b[k]).max())
+               for k in init) / upd
+
+
+def _same(a: dict, b: dict) -> bool:
+    return all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def _cs_bars() -> dict:
+    """(b) parity, (c) repeat and durability, (d) chaos (module
+    docstring)."""
+    import tempfile
+
+    from fedml_tpu_torch.cross_silo.soak import (
+        server_kill_restart_soak, uninterrupted_final_params,
+    )
+
+    t0 = time.perf_counter()
+    card, card_rounds, _ = _cs_run_small(DEV, "card")
+    init = card_rounds[0]
+    cpu, *_ = _cs_run_small("cpu", "cpu")
+    chained = _cs_sim(DEV)
+    by_round = _cs_sim(DEV, card_rounds)
+    again, *_ = _cs_run_small(DEV, "again")
+    chaos, _, chaos_finished = _cs_run_small(
+        DEV, "chaos", chaos=CS_CHAOS, comm_retry=CS_RETRY)
+    with tempfile.TemporaryDirectory() as d:
+        soak = server_kill_restart_soak(d, device=DEV)
+    ref, _ = uninterrupted_final_params(device=DEV)
+    res = {
+        "silos": CS_SILOS, "shards": CS_SHARDS, "rounds": CS_SMALL_ROUNDS,
+        "card_vs_cpu_ratio": _rel(card.params, cpu.params, init),
+        # each round against the Simulator's from the same params, over
+        # that round's largest update (the bar); each round's params
+        # against the Simulator's rounds chained from the same start, over
+        # the largest update since the start; and the Simulator's rounds
+        # from the federation's params against its chained ones: how far
+        # round 0's differences in the order of summation grow in training
+        "card_vs_simulator_by_round": [
+            _rel(card_rounds[r + 1], by_round[r], card_rounds[r])
+            for r in range(CS_SMALL_ROUNDS)],
+        "card_vs_simulator_chained": [
+            _rel(card_rounds[r + 1], chained[r], init)
+            for r in range(CS_SMALL_ROUNDS)],
+        "simulator_by_round_vs_chained": [
+            _rel(by_round[r], chained[r], init)
+            for r in range(CS_SMALL_ROUNDS)],
+        "tol": {"cpu": PARITY_TOL, "simulator": CS_SIM_TOL},
+        "repeat_bitwise": _same(card.params, again.params),
+        "chaos_bitwise": _same(card.params, chaos.params),
+        "chaos_n_received": [r["n_received"] for r in chaos.history],
+        "chaos_clients_finished": chaos_finished,
+        "soak_bitwise": _same(ref, soak["params"]),
+        "soak_generation": soak["generation"],
+        "soak_recovery_s": soak["recovery_s"],
+        "seconds": time.perf_counter() - t0}
+    emit({"phase": "cross_silo", "bars": res,
+          "nvidia_smi": nvidia_smi_line()})
+    check(res["card_vs_cpu_ratio"] <= PARITY_TOL,
+          f"the card's 4-silo f32 run vs the CPU's: "
+          f"{res['card_vs_cpu_ratio']} of the update > {PARITY_TOL}")
+    check(max(res["card_vs_simulator_by_round"]) <= CS_SIM_TOL,
+          f"the card's 4-silo rounds vs the Simulator's from the same "
+          f"params: {res['card_vs_simulator_by_round']} of the round's "
+          f"update > {CS_SIM_TOL}")
+    check(res["repeat_bitwise"], "the 4-silo run does not repeat bitwise")
+    check(res["chaos_bitwise"] and all(
+        n == CS_SILOS for n in res["chaos_n_received"]),
+          "the chaos run with retries is not bitwise the clean run")
+    check(res["soak_bitwise"] and soak["error"] is None
+          and soak["generation"] == 1,
+          "the server kill-restart soak is not bitwise the uninterrupted run")
+    return res
+
+
+def phase_cross_silo(fedsim_g1=None) -> dict:
+    """Phase 12 (module docstring). `fedsim_g1`, phase fedsim's G = 1
+    result when that phase ran in this call, stands for the Simulator's
+    round at the same shape (it timed the same round on the same card),
+    instead of one more round here."""
+    import torch
+
+    from fedml_tpu_torch.data import loader
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.ops import paged_attention as pa
+
+    fa.launch_count.update(dict.fromkeys(fa.launch_count, 0))
+    pa.launch_count = 0
+    t0 = time.perf_counter()
+    ds = loader.load(_fedavg_cfg(DEV))
+    res = {"flagship": _cs_flagship(ds)}
+    launches = {**fa.launch_count, "paged": pa.launch_count}
+    res["k1_k4_launches"] = launches
+    res["simulator_g1_round"] = _cs_sim_round(ds) if fedsim_g1 is None \
+        else {"ms": fedsim_g1["ms_per_round_median"],
+              "from": "phase fedsim, G = 1, this call"}
+    emit({"phase": "cross_silo", "simulator_g1_round":
+          res["simulator_g1_round"], "cross_silo_vs_simulator":
+          res["flagship"]["ms_per_round_median"]
+          / res["simulator_g1_round"]["ms"],
+          "nvidia_smi": nvidia_smi_line()})
+    res["bars"] = _cs_bars()
+    emit({"phase": "cross_silo", "k1_k4_launches": launches,
+          "nvidia_smi": nvidia_smi_line(),
+          "seconds": time.perf_counter() - t0})
+    check(not any(launches.values()),
+          f"the cross-silo path launched a flash or paged kernel: "
+          f"{launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def kernel_rows(kern: dict, runs: dict, flash: dict, train: dict,
                 surface: dict, every_phase: bool) -> list:
     """The `kernels` line's rows from the phases' results; with
@@ -2636,10 +3058,11 @@ def main() -> int:
         phase_fedavg()
     if "fedavg_profile" in args.only:
         phase_fedavg_profile()
-    if "fedsim" in args.only:
-        phase_fedsim()
+    fedsim = phase_fedsim() if "fedsim" in args.only else {}
     if "plugins" in args.only:
         phase_plugins()
+    if "cross_silo" in args.only:
+        phase_cross_silo(fedsim.get("flagship", {}).get(1))
 
     kernels = kernel_rows(kern, runs, flash, train, surface,
                           every_phase=set(PHASES) <= set(args.only))

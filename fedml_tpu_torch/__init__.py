@@ -11,8 +11,9 @@ engine (`serving.engine.DecodeEngine`) over a LLaMA-shaped
 paged-attention kernel (`ops.paged_attention`); and federated LoRA
 training (`llm.federated_lora` under `parallel.round.build_round_fn`) with
 causal attention through hand-written CUDA flash-attention kernels
-(`ops.flash_attention`: forward, dQ, dK/dV). Kernel sources are in
-`csrc/`.
+(`ops.flash_attention`: forward, dQ, dK/dV); and cross-silo FedAvg over
+the message layer (`FedMLRunner` with `training_type: cross_silo`:
+`comm/`, `cross_silo/`). Kernel sources are in `csrc/`.
 
 Entry points default to `device="cuda"` and raise when no GPU is
 visible; pass `device="cpu"` to run the plain PyTorch versions.
@@ -27,7 +28,16 @@ from ._device import resolve_device
 from .config import Config, load_config
 
 __all__ = ["Config", "load_config", "init", "run_simulation",
-           "resolve_device"]
+           "resolve_device", "FedMLRunner"]
+
+
+def __getattr__(name):
+    # lazy, as in the JAX package: the runner pulls in the runtimes
+    if name == "FedMLRunner":
+        from .runner import FedMLRunner
+
+        return FedMLRunner
+    raise AttributeError(name)
 
 
 def init(config_path: str | None = None, config: Config | dict | None = None,
@@ -36,8 +46,10 @@ def init(config_path: str | None = None, config: Config | dict | None = None,
     generators from `common_args.random_seed` (torch draws come only from
     explicit generators), and record the run's device (None: CUDA, which
     raises without a GPU) in `device_args.extra["device"]` for
-    `run_simulation`. Tracking sinks and per-client silo overrides are not
-    ported yet (ROADMAP 'Port queue' item 5)."""
+    `run_simulation` and `FedMLRunner`. Tracking sinks, the model-artifact
+    store (`tracking_args.artifact_store` / `artifact_dir`) and per-client
+    silo overrides are not ported yet and raise (ROADMAP 'Port queue'
+    item 5)."""
     if config_path is not None:
         cfg = load_config(config_path)
     elif isinstance(config, Config):
@@ -53,6 +65,9 @@ def init(config_path: str | None = None, config: Config | dict | None = None,
         raise NotImplementedError(
             "tracking sinks (tracking_args) are not ported yet (ROADMAP "
             "'Port queue' item 5)")
+    from .runner import refuse_artifact_store
+
+    refuse_artifact_store(cfg)
     if cfg.rank > 0 and (cfg.client_specific_args.get("data_silo_config")
                          or cfg.train_args.extra.get("data_silo_config")):
         raise NotImplementedError(

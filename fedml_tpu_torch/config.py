@@ -313,12 +313,63 @@ class Config:
                 "cohort_chunk: per-client health stats need the full "
                 "update stack the chunked engine exists to avoid "
                 "materializing")
-        # the chaos plane's plan fails at load, not at the first round
+        # the cross-silo durability knobs, validated as the JAX package
+        # validates them, so a typo'd config fails at load, not as a hang
+        # rounds into a federation
+        for knob in ("round_timeout", "heartbeat_s", "liveness_timeout_s",
+                     "server_timeout_s"):
+            val = t.extra.get(knob)
+            if val is None:
+                continue
+            try:
+                ok = not isinstance(val, bool) and float(val) > 0
+            except (TypeError, ValueError):
+                ok = False
+            if not ok:
+                raise ValueError(
+                    f"train_args.{knob} must be a positive number of "
+                    f"seconds; got {val!r}")
+        qf = t.extra.get("quorum_frac")
+        if qf is not None:
+            try:
+                ok = not isinstance(qf, bool) and 0.0 < float(qf) <= 1.0
+            except (TypeError, ValueError):
+                ok = False
+            if not ok:
+                raise ValueError(
+                    "train_args.quorum_frac must be a fraction in (0, 1]; "
+                    f"got {qf!r}")
+        for knob, lo in (("max_rearms", 1), ("checkpoint_every", 0),
+                         ("checkpoint_keep", 1)):
+            val = t.extra.get(knob)
+            if val is None:
+                continue
+            try:
+                ok = (not isinstance(val, bool)
+                      and int(val) == float(val) and int(val) >= lo)
+            except (TypeError, ValueError):
+                ok = False
+            if not ok:
+                raise ValueError(
+                    f"train_args.{knob} must be an integer >= {lo}; "
+                    f"got {val!r}")
+        for knob in ("resume", "reattach"):
+            val = t.extra.get(knob)
+            if val is not None and not isinstance(val, bool):
+                raise ValueError(
+                    f"train_args.{knob} must be a boolean; got {val!r}")
+        # the chaos plane's plan and the retry budget fail at load, not at
+        # the first round
         chaos = self.common_args.extra.get("chaos")
         if chaos is not None:
             from .comm.chaos import FaultSpec
 
             FaultSpec.from_dict(chaos)
+        cr = self.common_args.extra.get("comm_retry")
+        if cr not in (None, False):
+            from .comm.reliable import RetryPolicy
+
+            RetryPolicy.from_dict(cr)
         # the serving knobs fail at load too (serving/knobs.py, the
         # registry the predictor's knob mapping reads)
         from .serving.knobs import validate_serve_args

@@ -22,6 +22,7 @@ cast to the compute dtype at use, so the trained parameters stay f32.
 """
 from __future__ import annotations
 
+import copy
 import math
 from typing import Mapping, Sequence
 
@@ -346,6 +347,19 @@ def mixed_precision_apply(apply_fn, compute_dtype: str):
         return apply_fn(x, *args, dtype=dtype, **kwargs).float()
 
     return wrapped
+
+
+def structure_copy(module: nn.Module) -> nn.Module:
+    """A copy of `module` whose parameters and buffers live on the "meta"
+    device (no memory). `functional_call` swaps the given tensors into the
+    module for the length of one call, so threads that train concurrently
+    (cross-silo clients in one process) each need a module of their own."""
+    memo = {}
+    for t in list(module.parameters()) + list(module.buffers()):
+        meta = torch.empty_like(t, device="meta")
+        memo[id(t)] = (nn.Parameter(meta, requires_grad=t.requires_grad)
+                       if isinstance(t, nn.Parameter) else meta)
+    return copy.deepcopy(module, memo)
 
 
 def apply_fn(module: nn.Module, compute_dtype: str = "float32"):

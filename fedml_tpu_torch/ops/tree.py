@@ -1,7 +1,8 @@
 """Arithmetic over nested dicts, tuples and lists of tensors: what the
-round engine and its plugins need of `fedml_tpu/ops/tree.py` (map, add,
-sub, scale, leaves, zeros-like, the f32 dot product and norm, the global
-norm clip)."""
+round engine, its plugins and the cross-silo aggregator need of
+`fedml_tpu/ops/tree.py` (map, add, sub, scale, leaves, zeros-like, the f32
+dot product and norm, the global norm clip, stack, the weighted mean over
+a stacked axis)."""
 from __future__ import annotations
 
 from typing import Any, Callable, Mapping
@@ -62,3 +63,23 @@ def tree_clip_by_global_norm(t: Tree, max_norm) -> Tree:
                         max=1.0)
     return tree_scale(t, scale)
 
+
+
+def tree_stack(trees: list) -> Tree:
+    """[tree, tree, ...] -> one tree with a leading stacked axis on every
+    leaf."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def tree_weighted_mean(stacked: Tree, weights: torch.Tensor) -> Tree:
+    """The weighted mean over the leading (client) axis of a stacked tree,
+    FedAvg's merge, as the JAX function computes it: the weights
+    normalised by max(their sum, 1e-12), cast to each leaf's dtype, then
+    sum(x * w) over the axis."""
+    w = weights / torch.clamp(weights.sum(), min=1e-12)
+
+    def mean_leaf(x):
+        wb = w.reshape((-1,) + (1,) * (x.dim() - 1)).to(x.dtype)
+        return (x * wb).sum(dim=0)
+
+    return tree_map(mean_leaf, stacked)

@@ -139,7 +139,7 @@ def _listing(leaves: dict, limit: int = 12) -> list:
     return names[:limit] + (["..."] if len(names) > limit else [])
 
 
-def _check_structure(d: str, name: str, saved, template) -> None:
+def check_structure(d: str, name: str, saved, template) -> None:
     got, want = _leaves(saved), _leaves(template)
     if got != want:
         diff = sorted(k for k in set(got) | set(want)
@@ -169,7 +169,7 @@ def restore_checkpoint(path: str, server_template,
             return None
         saved = torch.load(os.path.join(d, name + ".pt"),
                            map_location=device, weights_only=True)
-        _check_structure(d, name, saved, template)
+        check_structure(d, name, saved, template)
         return saved
 
     return (r, load("server_state", server_template),

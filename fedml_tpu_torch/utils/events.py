@@ -3,12 +3,17 @@
 `recorder.span(name, **meta)` is a context manager that records the
 span's name, metadata and duration into a bounded ring (`recorder.spans`),
 which is what the decode engine's admit and fetch spans need;
-`recorder.log(row)` appends a metrics row (a simulation round, a health
-flag) to a second bounded ring (`recorder.metrics`).
+`recorder.record(span)` appends a span timed elsewhere. `recorder.dropped`
+counts the spans the ring evicted, so a reader can tell a missing span
+from one the ring no longer holds. `recorder.log(row)` appends a metrics
+row (a simulation round, a health flag) to a second bounded ring
+(`recorder.metrics`). Both rings hold the JAX recorder's default of
+`DEFAULT_EVENTS_CAP` rows.
 """
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -26,10 +31,21 @@ class Span:
         return self.end - self.start
 
 
+DEFAULT_EVENTS_CAP = 100_000
+
+
 class EventRecorder:
-    def __init__(self, max_rows: int = 10000):
+    def __init__(self, max_rows: int = DEFAULT_EVENTS_CAP):
         self.spans: deque = deque(maxlen=max_rows)   # appends are atomic
         self.metrics: deque = deque(maxlen=max_rows)
+        self.dropped = 0
+        self._lock = threading.Lock()
+
+    def record(self, s: Span) -> None:
+        with self._lock:
+            if len(self.spans) == self.spans.maxlen:
+                self.dropped += 1
+            self.spans.append(s)
 
     @contextlib.contextmanager
     def span(self, name: str, **meta):
@@ -38,7 +54,7 @@ class EventRecorder:
             yield s
         finally:
             s.end = time.perf_counter()
-            self.spans.append(s)
+            self.record(s)
 
     def log(self, row: dict) -> None:
         self.metrics.append(row)

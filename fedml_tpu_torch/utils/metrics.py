@@ -20,6 +20,12 @@ LATENCY_BUCKETS_S = (
     1e-3, 2e-3, 5e-3, 1e-2, 2e-2, 5e-2, 1e-1, 2e-1, 5e-1,
     1.0, 2.0, 5.0, 10.0, 30.0, 60.0,
 )
+# per-link round-trip buckets in milliseconds (the reliable layer's acks)
+RTT_BUCKETS_MS = (
+    0.01, 0.02, 0.05, 0.1, 0.2, 0.5, 1.0, 2.0, 5.0,
+    10.0, 20.0, 50.0, 100.0, 200.0, 500.0,
+    1000.0, 2000.0, 5000.0, 10000.0,
+)
 
 
 class Counter:
@@ -117,15 +123,19 @@ class MetricsRegistry:
         self._instruments: dict = {}
         self._lock = threading.Lock()
 
-    def _get(self, name: str, cls):
+    def _get(self, name: str, cls, *args):
         with self._lock:
             inst = self._instruments.get(name)
             if inst is None:
-                inst = self._instruments[name] = cls(name)
+                inst = self._instruments[name] = cls(name, *args)
         if not isinstance(inst, cls):
             raise TypeError(f"metric {name!r} already registered as "
                             f"{type(inst).__name__}, requested {cls.__name__}")
         return inst
+
+    def histogram(self, name: str,
+                  buckets: Sequence[float] = LATENCY_BUCKETS_S) -> Histogram:
+        return self._get(name, Histogram, buckets)
 
     def snapshot(self) -> dict:
         """{"counters": {name: int}, "gauges": {name: float},

@@ -1,8 +1,11 @@
 """The port stands alone: nothing in `fedml_tpu_torch/` or `chip_smoke.py`
-imports JAX, flax, optax or the JAX package, and the package imports in a
-process where `jax` cannot be imported at all."""
+imports JAX, flax, optax or the JAX package, names a file path into the
+JAX package (a `ctypes` load of its native library by path would pass the
+import check), and the package imports in a process where `jax` cannot be
+imported at all."""
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -30,6 +33,58 @@ def test_no_jax_or_reference_import(path):
     bad = [m for m in _imports(tree)
            if any(m == f or m.startswith(f + ".") for f in FORBIDDEN)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+# a `file:line` reference to a TPU kernel (the `kernels` line's "replaces")
+# names the reference without opening it; any other path into the JAX
+# package, its bare directory name as a path component, or its native
+# library is refused
+_FILE_LINE_REF = re.compile(r"^fedml_tpu/[\w/]+\.py:\d*$")
+_INTO_JAX = re.compile(r"(^|[^\w])fedml_tpu[/\\]")
+
+
+def _code_strings(tree):
+    """(line, text) of every string constant that is not a docstring (the
+    literal pieces of f-strings included)."""
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(
+                    first.value, ast.Constant):
+                docs.add(id(first.value))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and id(node) not in docs:
+            yield node.lineno, node.value
+
+
+def path_into_jax_package(text: str) -> bool:
+    if "fedml_native" in text or text.strip("/\\") == "fedml_tpu":
+        return True
+    return bool(_INTO_JAX.search(text)) and not _FILE_LINE_REF.match(text)
+
+
+def test_path_rule_catches_a_native_load_by_path():
+    src = ("import ctypes, os\n"
+           "ctypes.CDLL('fedml_tpu/native/libfedml_native.so')\n"
+           "os.path.join(ROOT, 'fedml_tpu', 'native')\n"
+           "open(f'{ROOT}/fedml_tpu/comm/base.py')\n"
+           "ROW = {'replaces': 'fedml_tpu/ops/paged_attention.py:84'}\n")
+    flagged = [ln for ln, t in _code_strings(ast.parse(src))
+               if path_into_jax_package(t)]
+    assert flagged == [2, 3, 4]
+
+
+@pytest.mark.parametrize("path", FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in FILES])
+def test_no_path_into_the_jax_package(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [(ln, t[:80]) for ln, t in _code_strings(tree)
+           if path_into_jax_package(t)]
+    assert not bad, f"{path.relative_to(ROOT)} names paths into the JAX " \
+        f"package: {bad}"
 
 
 def test_package_imports_without_jax():
