@@ -79,8 +79,8 @@ exits non-zero; nothing is caught and carried past):
              itself departs further from the f64 round, as close to the
              f64 round as the CPU's f32 round (`_fedavg_parity`); then,
              through
-             `fedml_tpu_torch.init` and the Simulator, a warm round and 2
-             timed rounds (rounds/s, ms per round and per local step, peak
+             `fedml_tpu_torch.init` and the Simulator, a warm round and a
+             timed one (rounds/s, ms per round and per local step, peak
              memory, losses, conv + matmul FLOPs and their share of the
              bf16 peak), the loss falling, then one eval. No K1-K4 launch.
 10. fedsim - the rest of the round engine (vmapped client groups,
@@ -88,20 +88,20 @@ exits non-zero; nothing is caught and carried past):
              checkpoint and resume), vmap's per-example fallback an
              error: the f32 4-client round through the Simulator twice in
              this process and once in a child process, bitwise the same
-             (sha256 of parameters and metrics; G = 4 twice too; and,
-             reported, whether it repeats with cuDNN's deterministic flag
-             undone); one local step of that round on the card within
-             1e-3 of the CPU's largest update, and at G = 4 within 1e-3
-             of G = 1; the flagship at G = 1 (the determinism setting on
-             and off in turns), 4 and 10: a warm round and timed rounds,
-             ms a round and a group step, rounds/s, peak memory, the
-             loss falling, and a profiled round of two groups (launches
-             and device ms a step); SCAFFOLD, FedDyn and Mime one round
-             each at the flagship with G = 10, and SCAFFOLD over 12
-             clients, 5 a round, leaving unsampled states bitwise alone;
-             at the flagship model over 8 clients, a block of 4 rounds,
-             cohort chunks of 4 and a SCAFFOLD run resumed from its
-             checkpoint, each bitwise its one-at-a-time, single-shot or
+             (sha256 of parameters and metrics; G = 4 twice too); one
+             local step of that round on the card within 1e-3 of the
+             CPU's largest update, and at G = 4 within 1e-3 of G = 1;
+             the flagship at G = 1 (one timed round, after a warm one
+             unless phase fedavg ran the same round in this process),
+             G = 4 (the determinism setting on and off, a round each)
+             and G = 10 (a warm round and a timed one): ms a round and a
+             group step, rounds/s, peak memory, the loss falling;
+             SCAFFOLD, FedDyn and Mime one round each at the flagship
+             with G = 10, and SCAFFOLD over 12 clients, 5 a round,
+             leaving unsampled states bitwise alone; at the flagship
+             model over 8 clients, a block of 4 rounds, cohort chunks of
+             4 and a SCAFFOLD run resumed from its checkpoint, each
+             bitwise its one-at-a-time, single-shot or
              uninterrupted run. No K1-K4 launch.
 11. plugins - the round's plugins at the flagship shape (100 clients,
              ResNet-18-GN, synthetic CIFAR-10, bf16, G = 10): the plain
@@ -146,6 +146,35 @@ exits non-zero; nothing is caught and carried past):
              `uninterrupted_final_params` on the card. (d) It under a
              chaos plan (drop, duplicate, reorder 0.1 each) with
              `comm_retry`, bitwise (c)'s clean run. No K1-K4 launch.
+13. cross_silo_secure - the rest of cross-silo over the message layer:
+             (a) SecAgg (`train_args.extra.secagg`, field_pack on the
+             masked uploads) at the flagship width over the first
+             SA_SILOS = 10 shards (each client draws SA_SILOS PRG masks
+             of 11.17 M entries a round: the cut), bf16, a warm round and
+             a timed one (one round when phase cross_silo warmed the
+             shapes in this process): ms a round, a client's mask ms,
+             the unmask ms, the masked bytes raw and packed, peak
+             memory; the unmasked
+             aggregate bitwise dequantize(sum quantize(vec_i n_i/N)) /
+             (sum n_i/N) of the silos' own trained vectors and within
+             n x 2^-16 of their float weighted mean. (b) On phase
+             cross_silo's 4-silo f32 federation: silo 4 stops after
+             setup, round_timeout drops it and its sk is rebuilt, the
+             round within 3 x 2^-16 / (sum n_i/N) of a FedServerManager
+             round over the survivors; silo 4 stopped and silo 3 mute on
+             the unmask request fail the run loudly; the server severed
+             after round 0 and resumed from its checkpoint, bitwise an
+             uninterrupted run. (c) The flagship as 100 silos with
+             bench.py's codec (sparse_topk 0.12, val_bits 16, error
+             feedback), a warm round and a timed one (as (a)): bytes raw
+             and on the wire, the reduction (the codec's arithmetic
+             exactly, 5.59x here), encode / decode ms p50, the round's
+             ms beside phase cross_silo's dense round, 100 results and no frame
+             dropped. (d) The 4-silo federation over broker and web3,
+             `run_cross_cloud` with a late join and cross-device dense,
+             each bitwise the loopback run; cross-device with
+             uplink_topk; a flaky device dropped from the registry. No
+             K1-K4 launch.
 
 Then the `kernels` line, the raw `nvidia-smi` name/power-limit line, and as
 the last line {"ok": true, "device": {...}}. Imports nothing of JAX or of
@@ -168,7 +197,8 @@ import time
 import numpy as np
 
 PHASES = ("device", "build", "kernel", "engine", "serve", "serve_surface",
-          "flash", "train", "fedavg", "fedsim", "plugins", "cross_silo")
+          "flash", "train", "fedavg", "fedsim", "plugins", "cross_silo",
+          "cross_silo_secure")
 # run only when named in --only
 OPTIONAL = ("profile", "train_profile", "fedavg_profile")
 DEV = "cuda"
@@ -223,7 +253,8 @@ PARITY_TOL = 1e-3
 # synthetic CIFAR-10 samples, ResNet-18-GN, bf16), FEDAVG_ROUNDS timed
 # rounds (bench.py's MEASURE_ROUNDS is 5: cut to 3, as phase fedsim times
 # the same G = 1 round three more times, then to 2 when phase
-# serve_surface joined the script, to keep it near half its time limit);
+# serve_surface joined the script, to 1 when phase cross_silo_secure did,
+# to keep the script near 75% of its time limit);
 # the f32 card-vs-CPU round takes the first FEDAVG_PARITY_CLIENTS clients
 FEDAVG_CONFIG = {
     "data_args": {"dataset": "cifar10"},
@@ -235,23 +266,25 @@ FEDAVG_CONFIG = {
     "validation_args": {"frequency_of_the_test": 0},
     "comm_args": {"backend": "sp"},
 }
-FEDAVG_SAMPLES, FEDAVG_ROUNDS, FEDAVG_PARITY_CLIENTS = 96, 2, 4
-# phase fedsim: the client-group widths timed at the flagship and their
-# timed rounds (after a warm one; 3 since phase plugins joined the script
-# and 2 since phase serve_surface did, to keep it near half its time
-# limit); the reduced cohort of the bitwise bars
-FEDSIM_GROUPS, FEDSIM_ROUNDS, FEDSIM_SMALL = (4, 10), 2, 8
+FEDAVG_SAMPLES, FEDAVG_ROUNDS, FEDAVG_PARITY_CLIENTS = 96, 1, 4
+# phase fedsim: the client-group widths timed at the flagship beside
+# G = 1, G = 10's timed rounds after its warm one (3 since phase plugins
+# joined the script, 2 since phase serve_surface did, 1 since phase
+# cross_silo_secure did, to keep the script near 75% of its time limit;
+# G = 1 times one round, G = 4 two, with the determinism setting on and
+# off), and the reduced cohort of the bitwise bars
+FEDSIM_GROUPS, FEDSIM_ROUNDS, FEDSIM_SMALL = (4, 10), 1, 8
 # phase plugins: timed rounds after the warm one, each configuration's
 # train_args / security / dp / chaos sections over the flagship config at
 # G = 10. LDP's sensitivity is 1e-3 (sigma 4.8e-3 a coordinate), so that
 # the noised flagship keeps a finite loss over its rounds; the noise's
 # arithmetic is the same at any scale.
-# timed rounds a configuration: (c)-(e) and the plain round take one, so
-# that the phase stays near 90 s and the script under half its limit
+# timed rounds a configuration: one each ((a) and (b) took two until phase
+# cross_silo_secure joined the script)
 PLUGIN_G = 10
-PLUGIN_ROUNDS = {"plain": 1, "a_multikrum_vs_byzantine": 2,
-                 "b_median_chaos": 2, "c_foolsgold": 1, "d_ldp_topk": 1,
-                 "e_eftopk": 1}
+PLUGIN_ROUNDS = dict.fromkeys(
+    ("plain", "a_multikrum_vs_byzantine", "b_median_chaos", "c_foolsgold",
+     "d_ldp_topk", "e_eftopk"), 1)
 PLUGIN_CONFIGS = {
     "plain": {},
     "a_multikrum_vs_byzantine": {
@@ -276,17 +309,29 @@ PLUGIN_CONFIGS = {
     "e_eftopk": {
         "train_args": {"compression": "eftopk", "compression_ratio": 0.05}},
 }
-# phase cross_silo: timed flagship rounds after the warm one; the f32
+# phase cross_silo: timed flagship rounds after the warm one (2 until
+# phase cross_silo_secure joined the script); the f32
 # federation of its bars (silos of CS_SHARDS samples, so that the
 # aggregate's weights differ, each taking one local step of CS_BATCH a
 # round for CS_SMALL_ROUNDS rounds), its chaos plan (with the retry budget
 # that makes it deliver), and its tolerance against the Simulator's rounds
-CS_ROUNDS = 2
+CS_ROUNDS = 1
 CS_SHARDS, CS_BATCH, CS_SMALL_ROUNDS = (32, 48, 64, 96), 32, 2
 CS_SILOS = len(CS_SHARDS)
 CS_CHAOS = {"seed": 3, "drop": 0.1, "duplicate": 0.1, "reorder": 0.1}
 CS_RETRY = {"ack_timeout_s": 1.0, "max_attempts": 20, "deadline_s": 120.0}
 CS_SIM_TOL = 1e-5
+# phase cross_silo_secure: (a) SecAgg at the flagship over the first
+# SA_SILOS shards of its partition (each client draws SA_SILOS PRG masks of
+# D = 11.17 M field elements a round, so the host's work grows with
+# SA_SILOS^2; 100 silos would draw ~1.1e11 a round); (b)'s round timeouts
+# (dropout recovery, then the loud quorum failure); (c) the wire codec of
+# bench.py:bench_comm_codec at the flagship; (d)'s flaky device's timeout
+SA_SILOS, SA_TIMEOUT, SA_FAIL_TIMEOUT = 10, 6.0, 4.0
+SA_CODEC = {"kind": "dense"}       # field_pack rides c2s_sa_masked
+CODEC = {"kind": "sparse_topk", "ratio": 0.12, "val_bits": 16,
+         "error_feedback": True}
+CD_TIMEOUT = 6.0
 # vmap's per-example fallback warns; phase fedsim makes it an error
 VMAP_FALLBACK = ("There is a performance drop because we have not yet "
                  "implemented the batching rule")
@@ -1768,16 +1813,13 @@ def _parity_params():
     return hub.init_params(model, torch.Generator().manual_seed(0))
 
 
-def f32_round_digest(group: int = 1, deterministic: bool = True) -> str:
+def f32_round_digest(group: int = 1) -> str:
     """sha256 of one f32 round of FEDAVG_PARITY_CLIENTS clients at full
     ResNet-18-GN width through the Simulator (its parameters after the
-    round, then its metrics row), TF32 off. The Simulator sets the
-    port's determinism; `deterministic=False` undoes cuDNN's half of it
-    after construction, to show what the setting is for. Phase fedsim
-    runs this in its own process and in a child process."""
+    round, then its metrics row), TF32 off, under the determinism setting
+    the Simulator makes. Phase fedsim runs this in its own process and in
+    a child process."""
     import hashlib
-
-    import torch
 
     from fedml_tpu_torch.simulation.simulator import Simulator
 
@@ -1787,12 +1829,7 @@ def f32_round_digest(group: int = 1, deterministic: bool = True) -> str:
                       extra={"clients_per_device_parallel": group})
     with _tf32_off():
         sim = Simulator(cfg, params=_parity_params())
-        on = torch.backends.cudnn.deterministic
-        torch.backends.cudnn.deterministic = deterministic
-        try:
-            row = sim.run_round(0)
-        finally:
-            torch.backends.cudnn.deterministic = on
+        row = sim.run_round(0)
     h = hashlib.sha256()
     for k in sorted(sim.server_state.params):
         h.update(sim.server_state.params[k].cpu().numpy().tobytes())
@@ -1883,46 +1920,6 @@ def _one_step_rounds(ds) -> dict:
     return res
 
 
-def _profile_round(sim, n_clients: int, steps: int) -> dict:
-    """torch.profiler over one round of the Simulator's first `n_clients`
-    clients (two groups): kernel launches and device ms per group step
-    and per client step, and the device's idle share of the round."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from fedml_tpu_torch.parallel.round import group_width
-    from fedml_tpu_torch.simulation.simulator import fetch
-
-    ids = np.arange(n_clients)
-
-    def run():
-        out = sim.round_fn(sim.server_state, sim.client_states, sim.data,
-                           ids, sim.counts[ids], seed=(0, 99))
-        fetch(out.metrics)
-
-    run()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = _kernel_rows(prof)
-    busy = sum(r[2] for r in rows)
-    launches = sum(r[1] for r in rows)
-    group_steps = n_clients // group_width(n_clients, sim.group_size) * steps
-    return {"clients": n_clients, "group_steps": group_steps,
-            "launches": launches,
-            "launches_per_group_step": launches / group_steps,
-            "launches_per_client_step": launches / (n_clients * steps),
-            "device_ms_per_client_step": busy / (n_clients * steps),
-            "device_busy_ms": busy, "wall_ms": wall_ms,
-            "device_idle_share": 1 - busy / wall_ms,
-            "top": [{"name": k[:70], "calls": c, "device_ms": ms}
-                    for k, c, ms in rows[:6]]}
-
-
 def _timed_rounds(sim, first: int, n: int, modes=None) -> list:
     """`n` synchronised rounds from round `first`: ms each and the loss;
     `modes[i]`, when given, sets cuDNN's deterministic flag for round i."""
@@ -1943,12 +1940,17 @@ def _timed_rounds(sim, first: int, n: int, modes=None) -> list:
     return rows
 
 
-def _flagship_groups(ds) -> dict:
-    """The flagship at G = 1 (the determinism setting on, then off, a
-    round each after a warm round) and at each of
-    FEDSIM_GROUPS (a warm round, then FEDSIM_ROUNDS timed): ms a round,
-    rounds/s, ms a group step, peak memory, the losses; and a profiled
-    round of two groups for launches a step."""
+def _flagship_groups(ds, g1_warm: bool = True) -> dict:
+    """The flagship at G = 1 (one timed round, the determinism setting on;
+    after a warm round unless `g1_warm` is false, when phase fedavg has
+    just run the same round in this process), at G = 4 (the determinism
+    setting on and off, a round each: its cost; a warm round read within
+    their spread on the H100, so there is none) and
+    at G = 10 (a warm round, then FEDSIM_ROUNDS timed): ms a round,
+    rounds/s, ms a group step, peak memory, the losses. (The profiled
+    rounds of two groups went when phase cross_silo_secure joined the
+    script: PERF.md keeps their readings, and `--only fedavg_profile`
+    profiles the flagship round.)"""
     import torch
 
     from fedml_tpu_torch.parallel.round import group_width
@@ -1957,25 +1959,27 @@ def _flagship_groups(ds) -> dict:
     steps = ds.shard_size // FEDAVG_CONFIG["train_args"]["batch_size"]
     res = {}
     for g in (1,) + FEDSIM_GROUPS:
+        t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         sim = Simulator(_fedavg_cfg(
             DEV, extra={"clients_per_device_parallel": g}), ds)
         gw = group_width(ds.num_clients, g)
-        warm = _timed_rounds(sim, 0, 1)
-        if g == 1:
+        warm = (_timed_rounds(sim, 0, 1)
+                if {1: g1_warm, 4: False}.get(g, True) else [])
+        extra = {}
+        if g == 4:
             modes = ("on", "off")
-            timed = _timed_rounds(sim, 1, len(modes), modes)
+            timed = _timed_rounds(sim, 0, len(modes), modes)
             torch.backends.cudnn.deterministic = True
             on = [r["ms"] for r in timed if r["determinism"] == "on"]
             off = [r["ms"] for r in timed if r["determinism"] == "off"]
-            med = statistics.median(on)
             extra = {"determinism_on_ms": on, "determinism_off_ms": off,
                      "determinism_cost": statistics.mean(on)
                      / statistics.mean(off) - 1}
         else:
-            timed = _timed_rounds(sim, 1, FEDSIM_ROUNDS)
-            med = statistics.median(r["ms"] for r in timed)
-            extra = {}
+            timed = _timed_rounds(sim, len(warm),
+                                  1 if g == 1 else FEDSIM_ROUNDS)
+        med = statistics.median(r["ms"] for r in timed)
         peak = torch.cuda.max_memory_allocated()
         groups = ds.num_clients // gw
         res[g] = {"group_size": gw, "groups_per_round": groups,
@@ -1984,12 +1988,13 @@ def _flagship_groups(ds) -> dict:
                   "ms_per_group_step": med / (groups * steps),
                   "ms_per_client_step": med / (ds.num_clients * steps),
                   "max_memory_allocated_bytes": peak, **extra,
-                  "profile": _profile_round(sim, 2 * gw, steps)}
+                  "seconds": time.perf_counter() - t0}
         emit({"phase": "fedsim", "flagship": res[g]})
         losses = [r["train_loss"] for r in res[g]["rounds"]]
         check(all(np.isfinite(losses)), f"G = {g}: a loss is not finite")
-        check(losses[-1] < losses[0], f"G = {g}: the loss did not fall: "
-              f"{losses}")
+        if len(losses) > 1:
+            check(losses[-1] < losses[0], f"G = {g}: the loss did not "
+                  f"fall: {losses}")
         del sim
         gc.collect()
         torch.cuda.empty_cache()
@@ -2120,8 +2125,10 @@ def _bitwise_bars() -> dict:
     return res
 
 
-def phase_fedsim() -> dict:
-    """Phase 9 (module docstring)."""
+def phase_fedsim(fedavg_ran: bool = False) -> dict:
+    """Phase 10 (module docstring). `fedavg_ran`: phase fedavg ran the
+    flagship's G = 1 round in this process, so G = 1 needs no warm
+    round here."""
     import os
     import subprocess
     import warnings
@@ -2147,22 +2154,25 @@ def phase_fedsim() -> dict:
           f"the digest's child process failed: {child.stderr[-2000:]}")
     there = child.stdout.strip().splitlines()[-1]
     g4 = [f32_round_digest(4), f32_round_digest(4)]
-    off = [f32_round_digest(deterministic=False) for _ in range(2)]
     c1 = {"digests": here + [there], "g4_digests": g4,
           "repeats_in_process": here[0] == here[1],
           "repeats_across_processes": here[0] == there,
-          "g4_repeats": g4[0] == g4[1],
-          "repeats_without_cudnn_deterministic": off[0] == off[1]
-          and off[0] == here[0], "seconds": time.perf_counter() - t0}
+          "g4_repeats": g4[0] == g4[1], "seconds": time.perf_counter() - t0}
     emit({"phase": "fedsim", "f32_round_repeats": c1})
     check(c1["repeats_in_process"] and c1["repeats_across_processes"]
           and c1["g4_repeats"], f"the f32 round does not repeat bit for "
           f"bit: {c1}")
     ds = loader.load(_fedavg_cfg(DEV))
-    res = {"f32_round_repeats": c1, "one_step_f32": _one_step_rounds(ds),
-           "flagship": _flagship_groups(ds),
-           "stateful": _stateful_at_flagship(ds),
-           "bitwise": _bitwise_bars()}
+    res = {"f32_round_repeats": c1}
+    for part, fn in (
+            ("one_step_f32", lambda: _one_step_rounds(ds)),
+            ("flagship", lambda: _flagship_groups(ds, not fedavg_ran)),
+            ("stateful", lambda: _stateful_at_flagship(ds)),
+            ("bitwise", _bitwise_bars)):
+        t1 = time.perf_counter()
+        res[part] = fn()
+        emit({"phase": "fedsim", "part": part,
+              "seconds": time.perf_counter() - t1})
     launches = {**fa.launch_count, "paged": pa.launch_count}
     res["k1_k4_launches"] = launches
     emit({"phase": "fedsim", "k1_k4_launches": launches,
@@ -2515,25 +2525,30 @@ def phase_plugins() -> dict:
 def _cs_cfg(device: str, run_id: str, rounds: int, **train):
     """The flagship config (`_fedavg_cfg`) as a cross-silo run over
     loopback; `train` overrides train_args keys, a "common_extra" dict
-    goes to common_args.extra."""
+    goes to common_args.extra and a "comm_extra" dict (transport,
+    comm_codec) to comm_args.extra."""
     common = train.pop("common_extra", {})
+    comm = train.pop("comm_extra", {})
     cfg = _fedavg_cfg(device, comm_round=rounds, **train)
     cfg.common_args.training_type = "cross_silo"
     cfg.common_args.extra.update(common)
-    cfg.comm_args.extra["run_id"] = run_id
+    cfg.comm_args.extra.update(comm, run_id=run_id)
     cfg.validate()
     return cfg
 
 
 def _federation(cfg, silos: list, init=None, schedules=None,
                 timeout: float = 900.0, clients_must_finish: bool = True,
-                eval_fn=None):
+                eval_fn=None, prepare=None, expect_error: bool = False):
     """One cross-silo federation through `FedMLRunner`: a server and one
     client per (x, y) of `silos`, each rank's receive loop a thread of this
-    process. `init` (the server's initial params) and `schedules[i](r)`
-    (client i+1's batch order) are handed over when given, and `eval_fn`
-    (the server's per-round hook) too. Returns (the
-    server manager, the clients that finished).
+    process (SecAgg's managers with `train_args.extra.secagg`). `init`
+    (the server's initial params) and `schedules[i](r)` (client i+1's
+    batch order) are handed over when given, and `eval_fn` (the server's
+    per-round hook) too; `prepare(clients)` runs before the start. With
+    `expect_error` the server's failure is the expected outcome. Returns
+    (the server manager, the clients that finished, the client
+    managers).
     A client whose S2C_FINISH a chaos plan dropped never finishes: the
     server stops its transport, retransmitter included, right after
     sending it, as the JAX server does (ROADMAP C.5);
@@ -2541,7 +2556,7 @@ def _federation(cfg, silos: list, init=None, schedules=None,
     running is stopped at the end."""
     import torch
 
-    from fedml_tpu_torch.comm import release_router
+    from fedml_tpu_torch.comm import release_broker, release_router
     from fedml_tpu_torch.models import hub
     from fedml_tpu_torch.runner import FedMLRunner
 
@@ -2553,6 +2568,8 @@ def _federation(cfg, silos: list, init=None, schedules=None,
                            rank=i + 1, **({} if schedules is None else
                                           {"batch_schedule": schedules[i]})
                            ).runner for i, xy in enumerate(silos)]
+    if prepare is not None:
+        prepare(clients)
     try:
         srv.run(background=True)
         for c in clients:
@@ -2563,16 +2580,18 @@ def _federation(cfg, silos: list, init=None, schedules=None,
                        for c in clients)
         check(finished == len(clients) or not clients_must_finish,
               f"{len(clients) - finished} client(s) did not finish")
-        check(srv.error is None, f"the cross-silo server failed: {srv.error}")
+        check(srv.error is None or expect_error,
+              f"the cross-silo server failed: {srv.error}")
     finally:
         for c in clients:
             if not c.done.is_set():
-                c._stopped.set()
+                if hasattr(c, "_stopped"):
+                    c._stopped.set()
                 c.comm.stop()
         release_router(cfg.comm_args.extra["run_id"])
-    del clients
+        release_broker(cfg.comm_args.extra["run_id"])
     torch.cuda.synchronize()
-    return srv, finished
+    return srv, finished, clients
 
 
 def _wire_alone(params: dict, n: int = 5) -> dict:
@@ -2614,7 +2633,8 @@ def _cs_flagship(ds) -> dict:
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    srv, _ = _federation(cfg, silos)
+    srv, _, clients = _federation(cfg, silos)
+    del clients
     wall_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     spans = list(recorder.spans)
@@ -2714,22 +2734,31 @@ def _cs_small():
     return silos, schedules, init
 
 
-def _cs_run_small(device: str, tag: str, **common_extra):
-    """The 4-silo f32 federation on `device`: (server manager, initial
-    params followed by the params after each round, the clients that
-    finished)."""
-    silos, schedules, init = _cs_small()
-    cfg = _cs_cfg(device, f"cs-{tag}", CS_SMALL_ROUNDS,
-                  client_num_in_total=CS_SILOS,
-                  client_num_per_round=CS_SILOS, compute_dtype="float32",
-                  common_extra=common_extra)
-    rounds = [init]
+def _cs_run_small(device: str, tag: str, silos=None, comm_extra=None,
+                  prepare=None, expect_error: bool = False, rounds=None,
+                  train_extra=None, **common_extra):
+    """The 4-silo f32 federation on `device` (`silos`: the indices of the
+    silos that take part, all four by default; `comm_extra`: transport and
+    codec; `train_extra`: train_args.extra, SecAgg's knobs): (server
+    manager, initial params followed by the params after each round, the
+    clients that finished, the client managers)."""
+    every, schedules, init = _cs_small()
+    keep = list(range(CS_SILOS)) if silos is None else list(silos)
+    cfg = _cs_cfg(device, f"cs-{tag}", rounds or CS_SMALL_ROUNDS,
+                  client_num_in_total=len(keep),
+                  client_num_per_round=len(keep), compute_dtype="float32",
+                  common_extra=common_extra, comm_extra=comm_extra or {},
+                  extra=train_extra or {})
+    rounds_seen = [init]
     with _tf32_off():
-        srv, finished = _federation(
-            cfg, silos, init=init, schedules=schedules, timeout=300,
-            clients_must_finish="chaos" not in common_extra,
-            eval_fn=lambda params, r: rounds.append(params) or {})
-    return srv, rounds, finished
+        srv, finished, clients = _federation(
+            cfg, [every[i] for i in keep], init=init,
+            schedules=[schedules[i] for i in keep], timeout=300,
+            clients_must_finish="chaos" not in common_extra
+            and prepare is None,
+            eval_fn=lambda params, r: rounds_seen.append(params) or {},
+            prepare=prepare, expect_error=expect_error)
+    return srv, rounds_seen, finished, clients
 
 
 def _cs_sim(device: str, starts=None) -> list:
@@ -2792,7 +2821,8 @@ def _same(a: dict, b: dict) -> bool:
 
 def _cs_bars() -> dict:
     """(b) parity, (c) repeat and durability, (d) chaos (module
-    docstring)."""
+    docstring). The readings, and under "card_params" the card's 4-silo
+    params (phase cross_silo_secure's loopback reference)."""
     import tempfile
 
     from fedml_tpu_torch.cross_silo.soak import (
@@ -2800,13 +2830,13 @@ def _cs_bars() -> dict:
     )
 
     t0 = time.perf_counter()
-    card, card_rounds, _ = _cs_run_small(DEV, "card")
+    card, card_rounds, *_ = _cs_run_small(DEV, "card")
     init = card_rounds[0]
     cpu, *_ = _cs_run_small("cpu", "cpu")
     chained = _cs_sim(DEV)
     by_round = _cs_sim(DEV, card_rounds)
     again, *_ = _cs_run_small(DEV, "again")
-    chaos, _, chaos_finished = _cs_run_small(
+    chaos, _, chaos_finished, _ = _cs_run_small(
         DEV, "chaos", chaos=CS_CHAOS, comm_retry=CS_RETRY)
     with tempfile.TemporaryDirectory() as d:
         soak = server_kill_restart_soak(d, device=DEV)
@@ -2854,7 +2884,7 @@ def _cs_bars() -> dict:
     check(res["soak_bitwise"] and soak["error"] is None
           and soak["generation"] == 1,
           "the server kill-restart soak is not bitwise the uninterrupted run")
-    return res
+    return {**res, "card_params": card.params}
 
 
 def phase_cross_silo(fedsim_g1=None) -> dict:
@@ -2889,6 +2919,493 @@ def phase_cross_silo(fedsim_g1=None) -> dict:
           "seconds": time.perf_counter() - t0})
     check(not any(launches.values()),
           f"the cross-silo path launched a flash or paged kernel: "
+          f"{launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+
+# ----------------------------------------------------------------- phase 13
+def _round_rows(spans: list, round_spans: list, upload: str) -> list:
+    """Per-round readings of a federation's spans: the server's `round`
+    span (ms, wire work, results), the clients' spans that started in its
+    window, and the wire codec's bytes on `upload` messages (raw and on
+    the wire) and encode / decode ms."""
+    rows = []
+    for rs in round_spans:
+        lo, hi = rs.start, rs.end
+
+        def inside(name, mtype=None):
+            return [x for x in spans if x.name == name and lo <= x.start < hi
+                    and (mtype is None or x.meta.get("type") == mtype)]
+
+        enc = inside("comm.codec.encode", upload)
+        dec = inside("comm.codec.decode", upload)
+        rows.append(dict(
+            round=rs.meta["round"], ms=rs.duration * 1e3,
+            n_received=rs.meta["n_received"], **rs.meta["wire"],
+            codec_bytes_raw=sum(x.meta["bytes_raw"] for x in enc),
+            codec_bytes_wire=sum(x.meta["bytes_wire"] for x in enc),
+            codec_encodes=len(enc), codec_decodes=len(dec),
+            encode_ms_p50=statistics.median(
+                x.duration * 1e3 for x in enc) if enc else None,
+            decode_ms_p50=statistics.median(
+                x.duration * 1e3 for x in dec) if dec else None,
+            **{k: v for k, v in rs.meta.items()
+               if k not in ("round", "n_received", "wire")}))
+    return rows
+
+
+def _run_spans(run, *a, **kw):
+    """`run(*a, **kw)` with the span ring emptied before and read after:
+    (its result, the spans); fails by name if the ring evicted any."""
+    from fedml_tpu_torch.utils.events import recorder
+
+    recorder.spans.clear()
+    dropped0 = recorder.dropped
+    out = run(*a, **kw)
+    spans = list(recorder.spans)
+    check(recorder.dropped == dropped0,
+          f"the span ring evicted {recorder.dropped - dropped0} of the "
+          f"run's {len(spans)} spans")
+    return out, spans
+
+
+def _sa_expected(results: list, weight_norm: float):
+    """What the unmask must give for the silos' trained `results`
+    ((params, n, metrics) each): dequantize(sum quantize(vec_i n_i / N))
+    / (sum n_i / N) as f32, the weights' sum, and max|vec_i n_i/N| x n
+    against the field's budget p / 2^(q_bits + 1)."""
+    from fedml_tpu_torch.cross_silo.secagg_manager import flatten_params
+    from fedml_tpu_torch.mpc.finite import DEFAULT_PRIME, dequantize, quantize
+
+    q, peak = 0, 0.0
+    for p, n, _m in results:
+        x = flatten_params(p) * (n / weight_norm)
+        peak = max(peak, float(np.abs(x).max()))
+        q = (q + quantize(x)) % DEFAULT_PRIME
+    wsum = sum(n for _p, n, _m in results) / weight_norm
+    want = (dequantize(q) / max(wsum, 1e-9)).astype(np.float32)
+    return want, wsum, {"max_abs_x_times_n": peak * len(results),
+                        "budget": DEFAULT_PRIME / 2.0 / (1 << 16)}
+
+
+def _float_mean(results: list) -> dict:
+    """Plain FedAvg of the same results: the port's aggregator on the
+    card."""
+    from fedml_tpu_torch.cross_silo import FedAggregator
+
+    agg = FedAggregator(DEV)
+    agg.reset(range(len(results)))
+    for i, (p, n, _m) in enumerate(results):
+        agg.add_local_trained_result(i, p, float(n))
+    return agg.aggregate()
+
+
+def _max_dev(a: dict, b: dict) -> float:
+    return max(float(np.abs(np.asarray(a[k], np.float64) - b[k]).max())
+               for k in b)
+
+
+def _sa_flagship(ds, rounds: int) -> dict:
+    """(a): SecAgg at the flagship width over SA_SILOS silos, `rounds`
+    rounds (the last one timed)."""
+    import torch
+
+    from fedml_tpu_torch.cross_silo.secagg_manager import flatten_params
+
+    silos = [(ds.x_train[i][:int(ds.counts[i])],
+              ds.y_train[i][:int(ds.counts[i])]) for i in range(SA_SILOS)]
+    cfg = _cs_cfg(DEV, "sa-flagship", rounds, client_num_in_total=SA_SILOS,
+                  client_num_per_round=SA_SILOS, extra={"secagg": True},
+                  comm_extra={"comm_codec": SA_CODEC})
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (srv, _, clients), spans = _run_spans(_federation, cfg, silos)
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    round_spans = sorted((x for x in spans if x.name == "round"),
+                         key=lambda x: x.meta["round"])
+    check(len(round_spans) == rounds,
+          f"{len(round_spans)} round spans for {rounds} rounds")
+    rows = _round_rows(spans, round_spans, "c2s_sa_masked")
+    for row in rows:
+        mask = [x.duration * 1e3 for x in spans if x.name == "sa_mask"
+                and x.meta["round"] == row["round"]]
+        train = [x.duration * 1e3 for x in spans if x.name == "sa_train"
+                 and x.meta["round"] == row["round"]]
+        row.update(mask_ms_mean=statistics.mean(mask), mask_ms_max=max(mask),
+                   masks=len(mask), train_ms_max=max(train))
+    # the bars, on the trainers' cached last round
+    memo = [c.trainer._memo for c in clients]
+    check(all(m[0] == rounds - 1 for m in memo),
+          "a silo's cached round is not the last one")
+    results = [m[2] for m in memo]
+    want, wsum, budget = _sa_expected(results, srv.weight_norm)
+    got = flatten_params(srv.params)
+    step = SA_SILOS * 2.0 ** -16 / wsum
+    res = {"silos": SA_SILOS, "samples": int(sum(len(x) for x, _ in silos)),
+           "params": int(got.size), "rounds": rows,
+           "timed": rows[-1], "wall_s": wall_s,
+           "max_memory_allocated_bytes": peak,
+           "aggregate_bitwise_quantized_sum": bool(np.array_equal(
+               got, want.astype(np.float64))),
+           "vs_float_mean": _max_dev(srv.params, _float_mean(results)),
+           "quantization_step_x_n": step, "field": budget,
+           "losses": [m[2][2]["train_loss"] for m in memo]}
+    emit({"phase": "cross_silo_secure", "a_secagg_flagship": res,
+          "nvidia_smi": nvidia_smi_line()})
+    check(all(r["n_received"] == SA_SILOS for r in srv.history),
+          f"a SecAgg round missed a silo: {srv.history}")
+    check(all(r["masks"] == SA_SILOS for r in rows),
+          "a round did not mask every silo's upload once")
+    check(res["aggregate_bitwise_quantized_sum"],
+          "the unmasked aggregate is not bitwise the plain quantized sum")
+    check(res["vs_float_mean"] <= step,
+          f"the SecAgg aggregate is {res['vs_float_mean']} from the float "
+          f"weighted mean, over one quantization step ({step})")
+    check(budget["max_abs_x_times_n"] < budget["budget"],
+          f"the field budget is exceeded: {budget}")
+    check(all(np.isfinite(res["losses"])), "a silo's loss is not finite")
+    del srv, clients, memo, results
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+class _DeadSilo:
+    """A silo's trainer that fails from round `after` on: its manager's
+    handler raises (counted, the receive loop survives) and the silo
+    never uploads that round."""
+
+    def __init__(self, inner, after: int):
+        self.inner, self.after = inner, after
+        self.n_samples = inner.n_samples
+
+    def train(self, params, r):
+        if r >= self.after:
+            raise RuntimeError(f"silo stopped before round {r}")
+        return self.inner.train(params, r)
+
+
+def _kill_silo(i: int, after: int = 0, mute_unmask=()):
+    """A `prepare` hook: silo i's trainer stops at round `after`; the
+    silos in `mute_unmask` never answer an unmask request."""
+    from fedml_tpu_torch.cross_silo import message_define as md
+
+    def prepare(clients):
+        clients[i].trainer = _DeadSilo(clients[i].trainer, after)
+        for j in mute_unmask:
+            clients[j].comm.register_message_receive_handler(
+                md.S2C_SA_UNMASK_REQ, lambda _m: None)
+
+    return prepare
+
+
+def _sa_kill_resume(ref_params: dict) -> dict:
+    """The 4-silo SecAgg federation with the server severed after round 0
+    and resumed from its round-boundary checkpoint, against
+    `ref_params` (the same federation uninterrupted)."""
+    import tempfile
+
+    from fedml_tpu_torch.comm import release_router
+    from fedml_tpu_torch.cross_silo.soak import secagg_server_kill_restart
+    from fedml_tpu_torch.models import hub
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    every, schedules, init = _cs_small()
+    tmp = tempfile.TemporaryDirectory()
+    d = tmp.name
+    cfg = _cs_cfg(DEV, "sa-kill", CS_SMALL_ROUNDS,
+                  client_num_in_total=CS_SILOS,
+                  client_num_per_round=CS_SILOS, compute_dtype="float32",
+                  extra={"secagg": True, "checkpoint_dir": d},
+                  comm_extra={"comm_codec": SA_CODEC})
+    model = hub.create("resnet18_gn", 10, (32, 32, 3), device="meta")
+    clients = [FedMLRunner(cfg, dataset=every[i], model=model, role="client",
+                           rank=i + 1, batch_schedule=schedules[i]).runner
+               for i in range(CS_SILOS)]
+
+    def make_server(resume):
+        cfg.train_args.extra["resume"] = resume
+        return FedMLRunner(cfg, model=model, role="server",
+                           params=init).runner
+
+    t0 = time.perf_counter()
+    try:
+        with _tf32_off():
+            srv = secagg_server_kill_restart(make_server, clients, 1)
+    finally:
+        for c in clients:
+            c.comm.stop()
+        release_router("sa-kill")
+        tmp.cleanup()
+    return {"resumed": srv._resumed, "error": srv.error,
+            "rounds": [h["round"] for h in srv.history],
+            "bitwise": _same(srv.params, ref_params),
+            "seconds": time.perf_counter() - t0}
+
+
+def _sa_bars() -> dict:
+    """(b): dropout recovery, a loud quorum failure and a server kill and
+    resume on the 4-silo f32 federation of phase cross_silo's bars."""
+    sa = dict(comm_extra={"comm_codec": SA_CODEC})
+    t0 = time.perf_counter()
+    # silo 4 stops after setup: the timeout drops it, its sk is rebuilt
+    drop, drop_rounds, *_ = _cs_run_small(
+        DEV, "sa-drop", rounds=1, prepare=_kill_silo(3),
+        train_extra={"secagg": True, "round_timeout": SA_TIMEOUT}, **sa)
+    plain, *_ = _cs_run_small(DEV, "sa-drop-plain", silos=[0, 1, 2],
+                              rounds=1)
+    n_surv = sum(CS_SHARDS[:3])
+    wsum = n_surv / drop.weight_norm
+    step = 3 * 2.0 ** -16 / wsum
+    # silo 4 stops and silo 3 never answers the unmask request: the
+    # b-shares stay below t+1 = 3
+    fail, *_ = _cs_run_small(
+        DEV, "sa-fail", rounds=1, expect_error=True,
+        prepare=_kill_silo(3, mute_unmask=(2,)),
+        train_extra={"secagg": True, "round_timeout": SA_FAIL_TIMEOUT}, **sa)
+    ref, *_ = _cs_run_small(DEV, "sa-ref", train_extra={"secagg": True},
+                            **sa)
+    res = {"dropped_log": drop.dropped_log,
+           "sk_rebuilt": sorted(drop.dropped_sk),
+           "n_received": [h["n_received"] for h in drop.history],
+           "vs_plain_fedavg_over_survivors": _max_dev(drop.params,
+                                                      plain.params),
+           "quantization_step_x_n": step,
+           "quorum_failure": fail.error,
+           "kill_resume": _sa_kill_resume(ref.params),
+           "seconds": time.perf_counter() - t0}
+    emit({"phase": "cross_silo_secure", "b_secagg_bars": res,
+          "nvidia_smi": nvidia_smi_line()})
+    check(drop.dropped_log == [(0, [CS_SILOS])]
+          and res["sk_rebuilt"] == [CS_SILOS] and res["n_received"] == [3],
+          f"the dropout was not recovered: {res}")
+    check(res["vs_plain_fedavg_over_survivors"] <= step,
+          f"the recovered round is {res['vs_plain_fedavg_over_survivors']} "
+          f"from plain FedAvg over the survivors, over {step}")
+    check(fail.error is not None and "unmask" in fail.error,
+          f"an unmask below quorum did not fail loudly: {fail.error!r}")
+    kr = res["kill_resume"]
+    check(kr["resumed"] and kr["error"] is None and kr["bitwise"]
+          and kr["rounds"] == list(range(CS_SMALL_ROUNDS)),
+          f"the SecAgg kill and resume is not bitwise: {kr}")
+    return res
+
+
+def _leaf_wire_bytes(params: dict, ratio: float, val_bytes: int) -> int:
+    """The sparse codec's payload bytes for one upload of `params`: each
+    float leaf's k = max(1, int(n * ratio)) kept values, with uint16
+    indices up to 65536 entries and int32 past that (the JAX package's
+    `encode_sparse`)."""
+    total = 0
+    for a in params.values():
+        n = int(np.size(a))
+        k = min(n, max(1, int(n * ratio)))
+        total += k * ((2 if n <= 65536 else 4) + val_bytes)
+    return total
+
+
+def _codec_flagship(ds, rounds: int, dense_round=None) -> dict:
+    """(c): the flagship as 100 silos with CODEC on the uploads, `rounds`
+    rounds (the last one timed)."""
+    import torch
+
+    from fedml_tpu_torch.utils import metrics as mx
+
+    silos = [(ds.x_train[i][:int(ds.counts[i])],
+              ds.y_train[i][:int(ds.counts[i])])
+             for i in range(ds.num_clients)]
+    cfg = _cs_cfg(DEV, "codec-flagship", rounds,
+                  comm_extra={"comm_codec": CODEC})
+    errs0 = mx.snapshot()["counters"].get("comm.loopback.decode_errors", 0)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (srv, _, clients), spans = _run_spans(_federation, cfg, silos)
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    errs = mx.snapshot()["counters"].get("comm.loopback.decode_errors",
+                                         0) - errs0
+    round_spans = sorted((x for x in spans if x.name == "round"),
+                         key=lambda x: x.meta["round"])
+    check(len(round_spans) == rounds,
+          f"{len(round_spans)} round spans for {rounds} rounds")
+    rows = _round_rows(spans, round_spans, "c2s_send_model")
+    for r in rows:
+        r["reduction_x"] = r["codec_bytes_raw"] / max(r["codec_bytes_wire"], 1)
+    per_upload = _leaf_wire_bytes(srv.params, CODEC["ratio"], 2)
+    raw_upload = sum(int(np.size(a)) * 4 for a in srv.params.values())
+    losses = [c.trainer._memo[2][2]["train_loss"] for c in clients]
+    res = {"silos": len(silos), "rounds": rows, "timed": rows[-1],
+           "wall_s": wall_s, "decode_errors": errs,
+           "expected_bytes_wire_per_upload": per_upload,
+           "expected_reduction_x": raw_upload / per_upload,
+           "digits_bench_bar_x": 8.0,
+           "max_memory_allocated_bytes": peak,
+           "loss_min": min(losses), "loss_max": max(losses),
+           "dense_round_ms": dense_round}
+    emit({"phase": "cross_silo_secure", "c_codec_flagship": res,
+          "nvidia_smi": nvidia_smi_line()})
+    n = len(silos)
+    check(all(h["n_received"] == n for h in srv.history),
+          f"a codec round did not receive every silo: {srv.history}")
+    check(all(np.isfinite(losses)), "a silo's loss is not finite")
+    check(errs == 0, f"{errs} frames were dropped for a decode error")
+    check(all(r["codec_encodes"] == r["codec_decodes"] == n
+              and r["codec_bytes_raw"] == n * raw_upload
+              and r["codec_bytes_wire"] == n * per_upload for r in rows),
+          f"the uploads' bytes are not the codec's arithmetic: {rows}")
+    check(rows[-1]["reduction_x"] >= 5.5,
+          f"the payload reduction {rows[-1]['reduction_x']} is under 5.5x")
+    del srv, clients
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _cd_run(tag: str, uplink_topk=None, flaky=None, timeout=None) -> object:
+    """The 4-silo f32 federation as cross-device: a CrossDeviceServer and
+    four EdgeClients through `FedMLRunner` (all four sampled a round);
+    `flaky`, a device index whose trainer stops from round 1."""
+    from fedml_tpu_torch.comm import release_router
+    from fedml_tpu_torch.models import hub
+    from fedml_tpu_torch.runner import FedMLRunner
+
+    every, schedules, init = _cs_small()
+    cfg = _cs_cfg(DEV, f"cd-{tag}", CS_SMALL_ROUNDS,
+                  client_num_in_total=CS_SILOS,
+                  client_num_per_round=CS_SILOS, compute_dtype="float32",
+                  extra={"min_devices": CS_SILOS,
+                         "round_timeout": timeout or 120.0,
+                         **({} if uplink_topk is None else
+                            {"uplink_topk": uplink_topk})})
+    cfg.common_args.training_type = "cross_device"
+    model = hub.create("resnet18_gn", 10, (32, 32, 3), device="meta")
+    srv = FedMLRunner(cfg, model=model, role="server", params=init).runner
+    clients = [FedMLRunner(cfg, dataset=every[i], model=model, role="client",
+                           rank=i + 1, batch_schedule=schedules[i]).runner
+               for i in range(CS_SILOS)]
+    if flaky is not None:
+        clients[flaky].trainer = _DeadSilo(clients[flaky].trainer, 1)
+    try:
+        with _tf32_off():
+            srv.run(background=True)
+            for c in clients:
+                c.run(background=True)
+            for c in clients:
+                c.register()
+            check(srv.done.wait(300), f"cross-device {tag} did not finish")
+    finally:
+        for c in clients:
+            c.comm.stop()
+        release_router(f"cd-{tag}")
+    check(srv.error is None, f"cross-device {tag} failed: {srv.error}")
+    return srv
+
+
+def _transports_and_edges(ref_params=None) -> dict:
+    """(d): the 4-silo f32 federation over broker and web3 against its
+    loopback run (`ref_params`, or run here); `run_cross_cloud` with a
+    late join; cross-device dense, with `uplink_topk` and with a flaky
+    device."""
+    from fedml_tpu_torch.cross_cloud import run_cross_cloud
+    from fedml_tpu_torch.models import hub
+
+    t0 = time.perf_counter()
+    ref = ref_params if ref_params is not None else \
+        _cs_run_small(DEV, "tr-loopback")[0].params
+    broker, *_ = _cs_run_small(DEV, "tr-broker",
+                               comm_extra={"transport": "broker"})
+    web3, *_ = _cs_run_small(DEV, "tr-web3", comm_extra={"transport": "web3"})
+    every, schedules, init = _cs_small()
+    t = _cs_cfg(DEV, "cc-args", CS_SMALL_ROUNDS, client_num_in_total=4,
+                client_num_per_round=4,
+                compute_dtype="float32").train_args
+    with _tf32_off():
+        cc = run_cross_cloud(
+            hub.create("resnet18_gn", 10, (32, 32, 3), device="meta"), init,
+            t, every, CS_SMALL_ROUNDS, round_timeout=120.0,
+            late_join_delay=0.5, run_id="cc-late", device=DEV,
+            batch_schedules=schedules)
+    dense = _cd_run("dense")
+    sparse = _cd_run("topk", uplink_topk=CODEC["ratio"])
+    flaky = _cd_run("flaky", flaky=CS_SILOS - 1, timeout=CD_TIMEOUT)
+    res = {"loopback_from_phase_cross_silo": ref_params is not None,
+           "broker_bitwise_loopback": _same(broker.params, ref),
+           "web3_bitwise_loopback": _same(web3.params, ref),
+           "cross_cloud_n_received": [h["n_received"] for h in cc.history],
+           "cross_cloud_bitwise_loopback": _same(cc.params, ref),
+           "cross_device_dense_bitwise_loopback": _same(dense.params, ref),
+           "cross_device_topk_n_received": [h["n_received"]
+                                            for h in sparse.history],
+           "cross_device_topk_vs_dense": _max_dev(sparse.params,
+                                                  dense.params),
+           "cross_device_flaky": {"dropped_log": flaky.dropped_log,
+                                  "history": flaky.history},
+           "seconds": time.perf_counter() - t0}
+    emit({"phase": "cross_silo_secure", "d_transports_and_edges": res,
+          "nvidia_smi": nvidia_smi_line()})
+    check(res["broker_bitwise_loopback"] and res["web3_bitwise_loopback"],
+          "a broker federation is not bitwise the loopback one")
+    check(res["cross_cloud_n_received"] == [CS_SILOS] * CS_SMALL_ROUNDS
+          and res["cross_cloud_bitwise_loopback"],
+          f"the late-join cross-cloud run is not the loopback one: {res}")
+    check(res["cross_device_dense_bitwise_loopback"],
+          "cross-device dense is not bitwise the loopback federation")
+    check(res["cross_device_topk_n_received"]
+          == [CS_SILOS] * CS_SMALL_ROUNDS and all(
+              np.isfinite(v).all() for v in sparse.params.values()),
+          "cross-device with uplink_topk did not complete")
+    check(flaky.dropped_log == [(1, [CS_SILOS])]
+          and flaky.history[-1]["n_online"] == CS_SILOS - 1
+          and flaky.history[-1]["n_received"] == CS_SILOS - 1,
+          f"the flaky device was not dropped: {res['cross_device_flaky']}")
+    return res
+
+
+def phase_cross_silo_secure(cs_flagship=None, loopback_params=None) -> dict:
+    """Phase 13 (module docstring). `cs_flagship`, phase cross_silo's
+    flagship result when that phase ran in this call, gives the dense
+    round's ms beside the codec's; that phase has then warmed the
+    flagship's shapes in this process, so (a) and (c) time one round
+    with no warm round before it. `loopback_params`, its 4-silo card
+    federation's params, stand for (d)'s loopback run (the same
+    program)."""
+    import torch
+
+    from fedml_tpu_torch.data import loader
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.ops import paged_attention as pa
+
+    fa.launch_count.update(dict.fromkeys(fa.launch_count, 0))
+    pa.launch_count = 0
+    t0 = time.perf_counter()
+    ds = loader.load(_fedavg_cfg(DEV))
+    rounds = 2 if cs_flagship is None else 1
+    res = {}
+    for part, fn in (
+            ("a_secagg_flagship", lambda: _sa_flagship(ds, rounds)),
+            ("b_secagg_bars", _sa_bars),
+            ("c_codec_flagship", lambda: _codec_flagship(
+                ds, rounds, None if cs_flagship is None
+                else cs_flagship["ms_per_round_median"])),
+            ("d_transports_and_edges",
+             lambda: _transports_and_edges(loopback_params))):
+        t1 = time.perf_counter()
+        res[part] = fn()
+        emit({"phase": "cross_silo_secure", "part": part,
+              "seconds": time.perf_counter() - t1})
+    launches = {**fa.launch_count, "paged": pa.launch_count}
+    res["k1_k4_launches"] = launches
+    emit({"phase": "cross_silo_secure", "k1_k4_launches": launches,
+          "nvidia_smi": nvidia_smi_line(),
+          "seconds": time.perf_counter() - t0})
+    check(not any(launches.values()),
+          f"the secure cross-silo path launched a flash or paged kernel: "
           f"{launches}")
     gc.collect()
     torch.cuda.empty_cache()
@@ -3039,30 +3556,37 @@ def main() -> int:
     check(sass["HMMA"] + sass["HGMMA"] > 0,
           "the flash library holds no tensor-core instruction")
 
-    kern = phase_kernel(bw) if "kernel" in args.only else {}
+    def run(name, fn, *a, default=None):
+        """Phase `name` when selected, its wall seconds on a line of its
+        own; `default` otherwise."""
+        if name not in args.only:
+            return default
+        t1 = time.perf_counter()
+        out = fn(*a)
+        emit({"phase": name, "wall_s": time.perf_counter() - t1})
+        return out
+
+    kern = run("kernel", phase_kernel, bw, default={})
     reqs = _requests(32000)
     runs = {}   # pool kind -> the main-path wave that used it
     if "engine" in args.only:
-        runs["f32"] = phase_engine(reqs)
-    if "serve" in args.only:
-        runs.update(phase_serve(reqs))
-    surface = (phase_serve_surface(reqs, runs)
-               if "serve_surface" in args.only else {})
-    if "profile" in args.only:
-        phase_profile(reqs)
-    flash = phase_flash(bw) if "flash" in args.only else {}
-    train = phase_train() if "train" in args.only else {"launches": {}}
-    if "train_profile" in args.only:
-        phase_train_profile()
-    if "fedavg" in args.only:
-        phase_fedavg()
-    if "fedavg_profile" in args.only:
-        phase_fedavg_profile()
-    fedsim = phase_fedsim() if "fedsim" in args.only else {}
-    if "plugins" in args.only:
-        phase_plugins()
-    if "cross_silo" in args.only:
-        phase_cross_silo(fedsim.get("flagship", {}).get(1))
+        runs["f32"] = run("engine", phase_engine, reqs)
+    runs.update(run("serve", phase_serve, reqs, default={}))
+    surface = run("serve_surface", phase_serve_surface, reqs, runs,
+                  default={})
+    run("profile", phase_profile, reqs)
+    flash = run("flash", phase_flash, bw, default={})
+    train = run("train", phase_train, default={"launches": {}})
+    run("train_profile", phase_train_profile)
+    run("fedavg", phase_fedavg)
+    run("fedavg_profile", phase_fedavg_profile)
+    fedsim = run("fedsim", phase_fedsim, "fedavg" in args.only, default={})
+    run("plugins", phase_plugins)
+    cross_silo = run("cross_silo", phase_cross_silo,
+                     fedsim.get("flagship", {}).get(1), default={})
+    run("cross_silo_secure", phase_cross_silo_secure,
+        cross_silo.get("flagship"),
+        cross_silo.get("bars", {}).get("card_params"))
 
     kernels = kernel_rows(kern, runs, flash, train, surface,
                           every_phase=set(PHASES) <= set(args.only))

@@ -7,10 +7,12 @@ Every transport funnels its wire traffic through `_encode_frame` /
 (`utils/metrics.py`) under the JAX package's names:
 `comm.<backend>.bytes_sent` / `bytes_recv` / `msgs_sent` / `msgs_recv`
 counters, the `serialize_s` / `deserialize_s` histograms and the per-link
-`comm.link.<src>.<dst>.bytes`. The JAX package's flight-recorder frame
-ring (its `utils/postmortem.py`) and wire codec plane (`comm/codec.py`,
-`set_codec`) are not ported (ROADMAP 'Port queue' item 5):
-`create_transport` refuses `comm_codec`.
+`comm.link.<src>.<dst>.bytes`. The wire codec plane (`comm/codec.py`)
+hooks in here too: with a policy set (`set_codec`), `_encode_frame`
+compresses a message's training payloads before framing, and
+`_decode_frame` reverses any codec header a frame carries. The JAX
+package's flight-recorder frame ring (its `utils/postmortem.py`) is not
+ported (ROADMAP 'Port queue' item 5).
 """
 from __future__ import annotations
 
@@ -40,6 +42,17 @@ class BaseTransport(abc.ABC):
 
     def __init__(self):
         self._observers: list[Observer] = []
+        #: the wire codec plane: when set, `_encode_frame` compresses
+        #: training payloads per message type and `_decode_frame` reverses
+        #: them off the frame's own codec header. Attached to the innermost
+        #: transport (create_transport does this before the chaos and
+        #: reliable wrappers), so injected faults and retransmits see
+        #: compressed frames.
+        self._codec = None
+
+    def set_codec(self, policy) -> None:
+        """Attach a comm.codec.CodecPolicy (or None to disable)."""
+        self._codec = policy
 
     def add_observer(self, obs: Observer) -> None:
         self._observers.append(obs)
@@ -77,8 +90,12 @@ class BaseTransport(abc.ABC):
 
     # ------------------------------------------------- instrumented codec
     def _encode_frame(self, msg: Message) -> bytes:
-        """Serialize and count: the single choke point for outbound bytes
-        on every transport."""
+        """Compress (with a codec), serialize and count: the single choke
+        point for outbound bytes on every transport."""
+        if self._codec is not None:
+            # idempotent per message object: a retransmit re-entering here
+            # sees the codec header marker and passes through unchanged
+            self._codec.encode_message(msg, self.backend_name)
         t0 = time.perf_counter()
         frame = msg.encode()
         pre = f"comm.{self.backend_name}"
@@ -92,6 +109,12 @@ class BaseTransport(abc.ABC):
     def _decode_frame(self, frame: bytes) -> Message:
         t0 = time.perf_counter()
         msg = Message.decode(frame)
+        # codec headers are self-describing, so this runs whatever the local
+        # policy; a mismatched or unknown codec raises out of here and
+        # `_notify_frame` counts and drops the frame
+        from . import codec as _codec
+
+        _codec.decode_message(msg, self._codec, self.backend_name)
         pre = f"comm.{self.backend_name}"
         _mx.observe(f"{pre}.deserialize_s", time.perf_counter() - t0)
         _mx.inc(f"{pre}.bytes_recv", len(frame))

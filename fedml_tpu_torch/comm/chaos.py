@@ -237,6 +237,11 @@ class ChaosTransport(BaseTransport, Observer):
     def backend_name(self) -> str:  # metric namespace stays the inner one's
         return self.inner.backend_name
 
+    def set_codec(self, policy) -> None:
+        # raw-frame injection reads inner._encode_frame: the codec sits
+        # there, so corrupt / duplicate faults act on compressed frames
+        self.inner.set_codec(policy)
+
     def receive_message(self, msg_type: str, msg: Message) -> None:
         self._notify(msg)        # inner -> our observers, unchanged
 

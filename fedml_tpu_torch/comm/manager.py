@@ -1,12 +1,14 @@
 """FedCommManager — handler registry and event loop over a pluggable
 transport (port of `fedml_tpu/comm/manager.py`).
 
-Backends: "loopback" (in-process queues). Not ported, each refused with a
-NotImplementedError naming its ROADMAP item: "grpc" (the `grpc` package
-is not on the card's machine), the pub/sub "broker" family (mqtt_s3,
-mqtt_web3, ...) and the wire codec plane (`comm_codec`), all ROADMAP
-'Port queue' item 5. "xla", "trpc" and "mpi" raise ValueError as in the
-JAX package.
+Backends: "loopback" (in-process queues); the pub/sub broker "broker" /
+"mqtt_s3" / "mqtt" (store-and-forward topics and a blob plane,
+`comm/broker.py`) and its content-addressed form "mqtt_web3" /
+"mqtt_thetastore" / "web3". The wire codec plane (`comm_codec`) attaches
+to the innermost transport of any of them. "grpc" is not ported (the
+`grpc` package is not on the card's machine): it is refused with a
+NotImplementedError naming ROADMAP 'Port queue' item 5. "xla", "trpc" and
+"mpi" raise ValueError as in the JAX package.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from .message import Message
 def _later(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP 'Port queue' item 5, the "
-        "cross-silo transports and codec)")
+        "cross-silo transports)")
 
 
 def _backend_of(transport: BaseTransport) -> str:
@@ -130,25 +132,45 @@ def create_transport(backend: str, rank: int, run_id: str = "default",
     comm_retry: RetryPolicy, `common_args.extra.comm_retry` dict, or True
     for defaults — wraps the stack in a ReliableTransport (seq / ack /
     retransmit / dedup, comm/reliable.py).
+    comm_codec: CodecPolicy or `comm_args.comm_codec` dict — attaches the
+    wire codec plane to the innermost transport, so chaos injection and
+    reliable retransmits act on compressed frames. Enable it on both ends
+    of a link: delta frames decode against the receiver's anchor state.
+    kw: the broker transport's arguments (`broker`, `blob_threshold`, ...).
     """
-    if comm_codec is not None:
-        raise _later("the wire codec plane (comm_args.comm_codec, "
-                     "comm/codec.py)")
     policy = None
     if comm_retry is not None and comm_retry is not False:
         from .reliable import RetryPolicy
 
         policy = comm_retry if isinstance(comm_retry, RetryPolicy) \
             else RetryPolicy.from_dict(comm_retry)
+
+    def _stack(t: BaseTransport) -> BaseTransport:
+        if comm_codec is not None:
+            from .codec import CodecPolicy
+
+            t.set_codec(CodecPolicy.from_config(comm_codec))
+        return _wrap_transport(t, chaos, policy)
+
     b = (backend or "loopback").lower()
     if b == "loopback":
-        return _wrap_transport(LoopbackTransport(rank, run_id), chaos, policy)
+        return _stack(LoopbackTransport(rank, run_id))
+    if b in ("broker", "mqtt_s3", "mqtt"):
+        # the cross-org pub/sub plane: store-and-forward topics and a blob
+        # side-channel (the reference's MQTT + S3 shape)
+        from .broker import BrokerTransport
+
+        return _stack(BrokerTransport(rank, run_id, **kw))
+    if b in ("mqtt_web3", "mqtt_thetastore", "web3"):
+        # the decentralized-storage shape: a content-addressed, verified,
+        # deduplicating blob plane (reference: mqtt_web3/, mqtt_thetastore/)
+        from .broker import BrokerTransport, get_cas_broker
+
+        kw.setdefault("broker", get_cas_broker(run_id))
+        return _stack(BrokerTransport(rank, run_id, **kw))
     if b == "grpc":
         raise _later("the gRPC transport (the grpc package is not on the "
                      "card's machine)")
-    if b in ("broker", "mqtt_s3", "mqtt", "mqtt_web3", "mqtt_thetastore",
-             "web3"):
-        raise _later(f"the pub/sub broker transport ({b!r})")
     if b == "xla":
         raise ValueError(
             "backend='xla' is the in-program collective path (simulation over "
@@ -158,5 +180,6 @@ def create_transport(backend: str, rank: int, run_id: str = "default",
     if b in ("trpc", "mpi"):
         raise ValueError(
             f"backend {b!r} is a reference transport not provided in this "
-            "build; 'loopback' covers single-box runs")
+            "build; 'broker' covers the MQTT+S3 cross-org role and "
+            "'loopback' covers single-box runs")
     raise ValueError(f"unknown comm backend {backend!r}")

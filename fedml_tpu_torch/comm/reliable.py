@@ -199,6 +199,12 @@ class ReliableTransport(BaseTransport, Observer):
     def backend_name(self) -> str:
         return self.inner.backend_name
 
+    def set_codec(self, policy) -> None:
+        # the wire codec lives on the innermost transport, whose
+        # _encode_frame / _decode_frame run; set here it would leave the
+        # frames dense
+        self.inner.set_codec(policy)
+
     def handle_receive_message(self) -> None:
         self.inner.handle_receive_message()
 

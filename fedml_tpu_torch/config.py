@@ -375,6 +375,32 @@ class Config:
         from .serving.knobs import validate_serve_args
 
         validate_serve_args(self.serve_args.extra)
+        # the wire codec's knobs (comm/codec.py CODEC_KNOBS): unknown keys,
+        # bad kinds and knobs gated on an unselected codec fail at load
+        cc = self.comm_args.extra.get("comm_codec")
+        if cc is not None:
+            from .comm.codec import validate_comm_codec
+
+            validate_comm_codec(cc)
+            # the pre-mask sparsifier lives in the SecAgg client; without
+            # SecAgg the knob would be silently ignored
+            if cc.get("secagg_premask_ratio") is not None \
+                    and not t.extra.get("secagg"):
+                raise ValueError(
+                    "comm_codec.secagg_premask_ratio requires "
+                    "train_args.secagg — the pre-mask sparsifier lives in "
+                    "the secagg client; without it the knob would be "
+                    "silently ignored")
+        # the SecAgg client has no noise stage: DP with SecAgg would upload
+        # un-noised masked updates while the operator believes DP is on
+        if self.common_args.training_type == TRAINING_TYPE_CROSS_SILO \
+                and t.extra.get("secagg") and self.dp_args.enable_dp:
+            raise ValueError(
+                "dp_args.enable_dp cannot be combined with "
+                "train_args.secagg: the secagg client has no client-side "
+                "noise stage yet, so DP would be silently dropped — "
+                "disable one (noise-before-mask is the composition a "
+                "future PR can add behind this same check)")
         if t.extra.get("resume") and not t.extra.get("checkpoint_dir"):
             raise ValueError(
                 "train_args.resume requires checkpoint_dir — resume loads "

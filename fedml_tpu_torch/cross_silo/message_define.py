@@ -1,9 +1,9 @@
 """Cross-silo message protocol constants: a copy of
 `fedml_tpu/cross_silo/message_define.py` (reference:
 cross_silo/server/message_define.py + client/message_define.py — the numeric
-MSG_TYPE_* FSM alphabet; strings here for self-describing wire frames). The
-SecAgg alphabet is kept so frames name the same types in both packages;
-the SecAgg managers are not ported (ROADMAP 'Port queue' item 5)."""
+MSG_TYPE_* FSM alphabet; strings here for self-describing wire frames),
+the SecAgg alphabet of `secagg_manager.py` included, so frames name the
+same types in both packages."""
 
 # connection info (reference: MSG_TYPE_CONNECTION_IS_READY = 0)
 CONNECTION_IS_READY = "connection_ready"

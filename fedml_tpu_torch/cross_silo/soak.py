@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import time
 import uuid
-from typing import Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -50,6 +50,25 @@ def _client_data(seed: int, n: int = 64, d: int = 8, classes: int = 3):
     return x, y
 
 
+def sever_server(srv) -> None:
+    """Kill a server manager (plain or SecAgg) the way SIGKILL would: cut
+    the receive loop, wait for the pump thread to wind down, then cancel
+    the timers (in that order: an in-flight handler may still finish its
+    transition and re-arm the round timer, which must not outlive the
+    incarnation). No FINISH, no checkpoint flush."""
+    srv.comm.transport.stop_receive_message()
+    th = srv.comm._thread
+    if th is not None:
+        th.join(timeout=10)
+    with srv._lock:
+        srv._cancel_timer()
+        liveness = getattr(srv, "_liveness_timer", None)
+        if liveness is not None:
+            liveness.cancel()
+    _mx.inc("fed.chaos.silo_kills")
+    record_kill("server rank 0")
+
+
 class SiloSoakHarness:
     """One in-process federation: a server and `n_clients` clients on a
     private loopback namespace, each startable, killable and restartable
@@ -61,13 +80,18 @@ class SiloSoakHarness:
                  checkpoint_dir: Optional[str] = None, seed: int = 0,
                  run_id: Optional[str] = None,
                  server_kw: Optional[dict] = None,
-                 client_kw: Optional[dict] = None, device=None):
+                 client_kw: Optional[dict] = None,
+                 comm_codec: Optional[dict] = None, device=None):
         self.n_clients = n_clients
         self.rounds = rounds
         self.checkpoint_dir = checkpoint_dir
         self.run_id = run_id or f"soak-{uuid.uuid4().hex[:8]}"
         self.server_kw = dict(server_kw or {})
         self.client_kw = dict(client_kw or {})
+        # every (re)started rank gets a fresh CodecPolicy: anchor rings and
+        # error-feedback residuals die with the process; the next dense
+        # broadcast re-anchors and stale delta frames are loud-dropped
+        self.comm_codec = comm_codec
         self.device = resolve_device(device)
         self.targs = TrainArgs(
             epochs=2, batch_size=16, learning_rate=0.3,
@@ -84,7 +108,12 @@ class SiloSoakHarness:
 
     # ------------------------------------------------------------- plumbing
     def _comm(self, rank: int) -> FedCommManager:
-        return FedCommManager(LoopbackTransport(rank, self.run_id), rank)
+        t = LoopbackTransport(rank, self.run_id)
+        if self.comm_codec is not None:
+            from ..comm.codec import CodecPolicy
+
+            t.set_codec(CodecPolicy.from_config(self.comm_codec))
+        return FedCommManager(t, rank)
 
     def _trainer(self, cid: int) -> SiloTrainer:
         x, y = _client_data(cid)
@@ -129,16 +158,7 @@ class SiloSoakHarness:
         No FINISH, no checkpoint flush."""
         srv = self.server
         assert srv is not None
-        srv.comm.transport.stop_receive_message()
-        th = srv.comm._thread
-        if th is not None:
-            th.join(timeout=10)
-        with srv._lock:
-            srv._cancel_timer()
-            if srv._liveness_timer is not None:
-                srv._liveness_timer.cancel()
-        _mx.inc("fed.chaos.silo_kills")
-        record_kill("server rank 0")
+        sever_server(srv)
         self._dead.append(srv)
         self.server = None
 
@@ -219,21 +239,23 @@ def _counters(srv: FedServerManager) -> dict:
 def chaos_kill_soak(spec, checkpoint_dir: str, n_clients: int = 2,
                     rounds: int = 5, seed: int = 0,
                     server_timeout_s: float = 0.5,
-                    timeout: float = 180.0, device=None) -> dict:
+                    timeout: float = 180.0, device=None,
+                    comm_codec: Optional[dict] = None) -> dict:
     """Drive a federation under a `FaultSpec.silo_kill` schedule ({rank:
     round}, rank 0 the server): each scheduled rank is severed once the run
     has completed that many rounds, then restarted (the server with
     `resume=True`, a client as a fresh manager on its rank). Kills land at
     round boundaries, where each scheduled client is idle between its
     upload and the next sync, so a full-participation run stays full and
-    its final params compare bitwise with an uninterrupted run's."""
+    its final params compare bitwise with an uninterrupted run's.
+    `comm_codec` runs the same soak over compressed frames."""
     kills = dict(spec.silo_kill) if hasattr(spec, "silo_kill") \
         else dict(spec or {})
     if hasattr(spec, "validate_tiers"):
         spec.validate_tiers(silo_ranks=range(n_clients + 1))
     h = SiloSoakHarness(
         n_clients=n_clients, rounds=rounds, checkpoint_dir=checkpoint_dir,
-        seed=seed, device=device,
+        seed=seed, device=device, comm_codec=comm_codec,
         server_kw=dict(round_timeout=10.0, quorum_frac=1.0),
         # a generous re-attach budget: on a loaded box the restarted
         # server's restore can take seconds, and a client that spends its
@@ -312,3 +334,36 @@ def server_kill_restart_soak(checkpoint_dir: str, n_clients: int = 2,
                 "reattaches": int(snap.get("fed.client.reattaches", 0))}
     finally:
         h.close()
+
+
+def secagg_server_kill_restart(make_server: Callable[[bool], Any],
+                               clients: list, kill_after: int,
+                               timeout: float = 120.0):
+    """SecAgg's durability contract: only the server dies, at a round
+    boundary, and resumes from its checkpoint while the clients keep their
+    key material. `make_server(resume)` builds a
+    `SecAggServerManager` writing checkpoints every round (resuming from
+    them with `resume=True`); `clients` are its SecAgg client managers.
+    The first server is severed once it has completed `kill_after` rounds
+    and a resumed one drives the run to its end. Returns the resumed
+    server; its final params are bitwise an uninterrupted run's."""
+    srv = make_server(False)
+    srv.run(background=True)
+    for c in clients:
+        c.run(background=True)
+        c.announce_ready()
+    end = time.monotonic() + timeout
+    while len(srv.history) < kill_after:
+        if srv.done.is_set() or time.monotonic() > end:
+            raise TimeoutError(
+                f"secagg server never completed {kill_after} rounds "
+                f"pre-kill (error: {srv.error})")
+        time.sleep(0.01)
+    sever_server(srv)
+    srv = make_server(True)
+    srv.run(background=True)
+    if not srv.done.wait(timeout):
+        raise TimeoutError("the resumed secagg run did not finish")
+    for c in clients:
+        c.done.wait(30)
+    return srv

@@ -380,14 +380,29 @@ def test_runner_params_keyword_and_refusals():
          "Dense_0.bias": np.zeros(3, np.float32)}
     srv = FedMLRunner(cfg, role="server", params=p)
     assert srv.runner.params["Dense_0.kernel"].sum() == 24
-    for over, item in (
-            ({"train_args": {"secagg": True}}, "item 5"),
+    from fedml_tpu_torch.comm import BrokerTransport, CodecPolicy
+    from fedml_tpu_torch.cross_device import CrossDeviceServer
+    from fedml_tpu_torch.cross_silo import SecAggServerManager
+
+    def transport(r):
+        t = r.runner.comm.transport
+        while hasattr(t, "inner"):
+            t = t.inner
+        return t
+
+    # (override, what the runner now builds, or the item it still refuses)
+    for over, want in (
+            ({"train_args": {"secagg": True}},
+             lambda r: isinstance(r.runner, SecAggServerManager)),
             ({"common_args": {"scenario": "hierarchical"}}, "item 4"),
-            ({"comm_args": {"comm_codec": {"kind": "dense"}}}, "item 5"),
+            ({"comm_args": {"comm_codec": {"kind": "dense"}}},
+             lambda r: isinstance(transport(r)._codec, CodecPolicy)),
             ({"comm_args": {"transport": "grpc"}}, "item 5"),
-            ({"comm_args": {"transport": "broker"}}, "item 5"),
+            ({"comm_args": {"transport": "broker"}},
+             lambda r: isinstance(transport(r), BrokerTransport)),
             ({"train_args": {"fa_task": "avg"}}, "item 5"),
-            ({"common_args": {"training_type": "cross_device"}}, "item 5"),
+            ({"common_args": {"training_type": "cross_device"}},
+             lambda r: isinstance(r.runner, CrossDeviceServer)),
             ({"common_args": {"training_type": "centralized"}}, "item 5"),
             ({"tracking_args": {"artifact_dir": "/x"}}, "item 5")):
         c = _runner_cfg(run)
@@ -396,9 +411,14 @@ def test_runner_params_keyword_and_refusals():
                 obj = getattr(c, sec)
                 setattr(obj, k, v) if hasattr(obj, k) else \
                     obj.extra.__setitem__(k, v)
-        with pytest.raises(NotImplementedError, match=item):
-            FedMLRunner(c, model=hub.create("lr", 3, (8,), device="meta"),
-                        role="server", params=p)
+        model = hub.create("lr", 3, (8,), device="meta")
+        if isinstance(want, str):
+            with pytest.raises(NotImplementedError, match=want):
+                FedMLRunner(c, model=model, role="server", params=p)
+        else:
+            r = FedMLRunner(c, model=model, role="server", params=p)
+            assert want(r), over
+            r.runner.comm.transport.stop_receive_message()
     with pytest.raises(NotImplementedError, match="item 4"):
         FedMLRunner(cfg, dataset=_silo_data("lr", 1),
                     model=hub.create("lr", 3, (8,), device="meta"),
@@ -406,7 +426,10 @@ def test_runner_params_keyword_and_refusals():
     with pytest.raises(NotImplementedError, match="artifact"):
         fedml_tpu_torch.init(config={"tracking_args": {
             "artifact_store": "file"}}, device="cpu")
+    from fedml_tpu_torch.comm import release_broker
+
     release_router(run)
+    release_broker(run)
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

@@ -103,3 +103,31 @@ def test_package_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 10
+
+
+NATIVE = sorted((ROOT / "fedml_tpu_torch" / "native").glob("*.cpp"))
+
+
+def test_every_subpackage_is_checked():
+    """The import and path checks above cover every module of the port,
+    the SecAgg, cross-cloud and cross-device subpackages included."""
+    checked = {p.relative_to(ROOT).parts[1] for p in FILES
+               if p.parent != ROOT and p.parent.name != "fedml_tpu_torch"}
+    for sub in ("mpc", "cross_cloud", "cross_device", "cross_silo", "comm",
+                "native"):
+        assert sub in checked, sub
+    assert {p.name for p in NATIVE} >= {"crc32c.cpp", "finite_field.cpp"}
+
+
+@pytest.mark.parametrize("path", NATIVE,
+                         ids=[str(p.relative_to(ROOT)) for p in NATIVE])
+def test_native_sources_stand_alone(path):
+    """The port's host C++ includes only system headers and names no path
+    into the JAX package (its native source or library)."""
+    text = path.read_text()
+    includes = re.findall(r'#include\s*[<"]([^>"]+)[>"]', text)
+    assert includes and all("/" not in i and not i.startswith("fedml")
+                            for i in includes), includes
+    bad = [(n, ln) for n, ln in enumerate(text.splitlines(), 1)
+           if path_into_jax_package(ln)]
+    assert not bad, bad
