@@ -176,6 +176,46 @@ exits non-zero; nothing is caught and carried past):
              uplink_topk; a flaky device dropped from the registry. No
              K1-K4 launch.
 
+14. standalone - the tools around a round, at the flagship (synthetic
+             CIFAR-10, ResNet-18-GN, batch 32): (a) the centralized
+             baseline through `FedMLRunner(training_type: centralized)`
+             with `metrics_port: 0` over the 9600 pooled rows (300 steps
+             an epoch), a warm epoch (with its eval) and a timed one: ms
+             an epoch and a step, launches a step, peak memory, one
+             /metrics scrape holding the `fed_epoch` gauge, the ratio to
+             phase fedsim's G = 1 round when it ran (700 steps: its
+             shards are padded to 224 rows); then 2 f32 epochs of one
+             batch (ST_BAR_ROWS rows, momentum 0.9, so the second step
+             reads the carried optimizer state) on the card and the CPU
+             from one parameter draw (TF32 off), within 1e-3 of the CPU's
+             largest update. (b) Contribution: ST_CONTRIB_M clients trained one
+             local epoch (bf16) from one global model, each subset's
+             utility the negative mean cross-entropy on ST_TEST_ROWS test
+             images in f32 (TF32 off); leave-one-out and GTG-Shapley over
+             the 10, MR-Shapley over the first ST_MR_M (255 subsets),
+             ST_CHUNK subsets a vmapped call: subsets evaluated, subsets a
+             second, peak memory; ST_SINGLE_CHECKS sampled subsets one at
+             a time within ST_SUBSET_TOL of the batched values. (c)
+             Gradient inversion of one test image through ResNet-18-GN in
+             f32 (TF32 off): `dlg_attack` and `invert_gradient_attack`,
+             ST_INVERT_STEPS steps each (a second derivative through
+             cuDNN convolutions and GroupNorm): ms a step, the match loss
+             at the first and last step (it must fall), the iDLG label
+             recovered; DLG on the card against the CPU from one start:
+             the loss at the start and the share of the input's
+             coordinates that agree after one step (its first
+             ST_INVERT_CHECK steps printed beside it). (d) `utils/flops.py`'s
+             count of one local step and one G = 10 group step, TFLOP a
+             round, and with phase fedsim's G = 10 round its achieved
+             TFLOP/s and share of the bf16 peak (printed, not gated). (e)
+             ST_EDGES `NativeCNNTrainer` devices (host C++,
+             `native/edge_trainer.cpp`, built here) of ST_EDGE_ROWS rows
+             in one cross-device round through `CrossDeviceServer` on the
+             card: the build's seconds, ms a device's train, and the
+             aggregate bitwise the weighted mean of the returned vectors
+             recomputed on the card (and its distance from their f64
+             mean). No K1-K4 launch.
+
 Then the `kernels` line, the raw `nvidia-smi` name/power-limit line, and as
 the last line {"ok": true, "device": {...}}. Imports nothing of JAX or of
 the JAX package; without a CUDA device it exits non-zero and prints no
@@ -198,7 +238,7 @@ import numpy as np
 
 PHASES = ("device", "build", "kernel", "engine", "serve", "serve_surface",
           "flash", "train", "fedavg", "fedsim", "plugins", "cross_silo",
-          "cross_silo_secure")
+          "cross_silo_secure", "standalone")
 # run only when named in --only
 OPTIONAL = ("profile", "train_profile", "fedavg_profile")
 DEV = "cuda"
@@ -332,6 +372,35 @@ SA_CODEC = {"kind": "dense"}       # field_pack rides c2s_sa_masked
 CODEC = {"kind": "sparse_topk", "ratio": 0.12, "val_bits": 16,
          "error_feedback": True}
 CD_TIMEOUT = 6.0
+# phase standalone: (a) the centralized bar: ST_BAR_ROWS rows (one batch,
+# so an epoch is one step; 8 steps over 154 rows read 4.1e-2 of the
+# update on the H100, where f32 itself departs, C.2) for two f32 epochs
+# with momentum ST_BAR_MOMENTUM on the card and the CPU; (b) contribution
+# over ST_CONTRIB_M trained clients (LOO, GTG), MR over the first ST_MR_M
+# (2^8 - 1 = 255 subsets), utilities on ST_TEST_ROWS test images (1024
+# until the H100 read 135 ms a subset there, 151 s for the part: GTG took
+# 890 of the 1023 subsets), ST_CHUNK subsets a vmapped call,
+# ST_SINGLE_CHECKS subsets one at a time within ST_SUBSET_TOL of the
+# batch (f32, TF32 off: the same products, only the vmapped kernels'
+# batch sizes differ); (c) ST_INVERT_STEPS attack steps; DLG on the card
+# and the CPU from one start (TF32 off): the match loss at the start
+# within ST_INVERT_LOSS_TOL, and after one step at least ST_INVERT_SHARE
+# of the input's coordinates within ST_INVERT_X_TOL. Adam's first step is
+# a sign step of size lr = 0.1: it agrees wherever the two devices'
+# gradients agree in sign. The first ST_INVERT_CHECK steps are printed,
+# not gated: a coordinate whose gradient sits within f32 rounding of zero
+# moves +lr on one side and -lr on the other, which moves every later
+# gradient (the H100 read the third step's loss 8.8e-3 apart, and 92% of
+# the coordinates more than 1e-3 apart after 3 steps); (e)
+# ST_EDGES native devices of ST_EDGE_ROWS rows each at ST_EDGE_LR (the
+# plain CNN has no normalisation; at the flagship's 0.05 its loss on the
+# synthetic images, std 1.8, runs to 11-14 in the first epoch)
+ST_BAR_ROWS, ST_BAR_MOMENTUM = 32, 0.9
+ST_CONTRIB_M, ST_MR_M, ST_TEST_ROWS, ST_CHUNK = 10, 8, 256, 16
+ST_SINGLE_CHECKS, ST_SUBSET_TOL = 8, 1e-4
+ST_INVERT_STEPS, ST_INVERT_CHECK = 50, 3
+ST_INVERT_X_TOL, ST_INVERT_LOSS_TOL, ST_INVERT_SHARE = 1e-3, 1e-4, 0.99
+ST_EDGES, ST_EDGE_ROWS, ST_EDGE_LR = 10, 96, 0.01
 # vmap's per-example fallback warns; phase fedsim makes it an error
 VMAP_FALLBACK = ("There is a performance drop because we have not yet "
                  "implemented the batching rule")
@@ -3412,6 +3481,500 @@ def phase_cross_silo_secure(cs_flagship=None, loopback_params=None) -> dict:
     return res
 
 
+# ----------------------------------------------------------------- phase 14
+def _http_metrics(port: int) -> dict:
+    """One scrape of a /metrics endpoint, parsed."""
+    import http.client
+
+    from fedml_tpu_torch.utils.prometheus import parse_prometheus
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    conn.request("GET", "/metrics")
+    resp = conn.getresponse()
+    body = resp.read().decode()
+    conn.close()
+    check(resp.status == 200, f"/metrics answered {resp.status}")
+    return parse_prometheus(body)
+
+
+def _step_launches(fn, steps: int) -> float:
+    """Kernel launches per step of `fn()` (which runs `steps` steps), from
+    torch.profiler's device rows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith(("Memcpy", "Memset")))
+    return n / steps
+
+
+def _small_pool(ds, clients: int, rows: int):
+    """The flagship dataset cut to the first `rows` rows of its first
+    `clients` clients."""
+    return dataclasses.replace(
+        ds, x_train=ds.x_train[:clients, :rows],
+        y_train=ds.y_train[:clients, :rows],
+        mask_train=ds.mask_train[:clients, :rows],
+        counts=np.minimum(ds.counts[:clients], rows))
+
+
+def _centralized(ds, fedsim_g1=None) -> dict:
+    """(a): the centralized baseline through FedMLRunner at the flagship
+    (the 9600 pooled rows, 300 steps an epoch), a warm epoch and a timed
+    one, /metrics scraped once; then the f32 bar on ST_BAR_ROWS rows,
+    card against CPU."""
+    import torch
+
+    from fedml_tpu_torch.runner import FedMLRunner
+    from fedml_tpu_torch.utils import prometheus as prom
+
+    cfg = _fedavg_cfg(DEV)
+    cfg.common_args.training_type = "centralized"
+    cfg.common_args.extra["metrics_port"] = 0
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = FedMLRunner(cfg, dataset=ds)
+    tr = runner.runner
+    rows = tr.pooled["y"].shape[0]
+    steps = rows // cfg.train_args.batch_size
+    warm = runner.run(epochs=1)           # the entry point: epoch + eval
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    lsum, _correct, cnt = tr._epoch(1)
+    loss = float(lsum) / float(cnt)       # synchronises
+    epoch_ms = (time.perf_counter() - t1) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    launches = _step_launches(
+        lambda: tr._epoch(2, tr._schedule(2)[:3]), 3)
+    scrape = _http_metrics(tr.metrics_exporter.port)
+    res = {"pooled_rows": rows, "steps_per_epoch": steps,
+           "warm_epoch_and_eval_s": warm_s, "epoch_ms": epoch_ms,
+           "ms_per_step": epoch_ms / steps, "launches_per_step": launches,
+           "max_memory_allocated_bytes": peak,
+           "losses": [warm[0]["train_loss"], loss],
+           "test_acc": warm[0]["test_acc"],
+           "fed_epoch_gauge": scrape["gauges"].get("fed_epoch")}
+    if fedsim_g1 is not None:
+        g1_steps = ds.num_clients * (ds.shard_size
+                                     // cfg.train_args.batch_size)
+        res["fedsim_g1_round_ms"] = fedsim_g1["ms_per_round_median"]
+        res["fedsim_g1_local_steps"] = g1_steps
+        res["epoch_over_g1_round"] = epoch_ms / res["fedsim_g1_round_ms"]
+        res["step_over_g1_step"] = (res["ms_per_step"] * g1_steps
+                                    / res["fedsim_g1_round_ms"])
+    prom._exporter.stop()
+    prom._exporter = None
+    del runner, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the bar: 2 f32 epochs of one batch each (with momentum, so the
+    # second step reads the optimizer state the first epoch left) on the
+    # card and on the CPU from one parameter draw; the batch orders come
+    # from the same CPU generators
+    from fedml_tpu_torch.centralized import CentralizedTrainer
+
+    small = _small_pool(ds, 1, ST_BAR_ROWS)
+    init = _parity_params()
+    out = {}
+    with _tf32_off():
+        for dev in (DEV, "cpu"):
+            c = _fedavg_cfg(dev, compute_dtype="float32",
+                            momentum=ST_BAR_MOMENTUM)
+            t = CentralizedTrainer(c, small, device=dev, params=init)
+            t.run(epochs=2)
+            out[dev] = {k: v.float().cpu() for k, v in t.params.items()}
+    upd = max(float((out["cpu"][k] - init[k]).abs().max()) for k in init)
+    err = max(float((out[DEV][k] - out["cpu"][k]).abs().max())
+              for k in init)
+    res["f32_card_vs_cpu"] = {"rows": ST_BAR_ROWS, "epochs": 2,
+                              "momentum": ST_BAR_MOMENTUM,
+                              "max_abs_err": err, "max_update": upd,
+                              "rel": err / upd}
+    emit({"phase": "standalone", "a_centralized": res,
+          "nvidia_smi": nvidia_smi_line()})
+    check(all(np.isfinite(res["losses"])), "a centralized loss is not finite")
+    check(res["fed_epoch_gauge"] is not None,
+          "the fed_epoch gauge is not on /metrics")
+    check(err <= PARITY_TOL * upd, f"the centralized f32 run is "
+          f"{err / upd:.3g} of its update from the CPU's (bar {PARITY_TOL})")
+    return res
+
+
+def _contribution(ds) -> dict:
+    """(b): ST_CONTRIB_M flagship clients trained one local epoch from one
+    global model; LOO and GTG over them, MR over the first ST_MR_M, each
+    subset's utility the negative mean cross-entropy on ST_TEST_ROWS test
+    images in f32 (TF32 off); then ST_SINGLE_CHECKS subsets one at a
+    time against the batched values."""
+    import torch
+
+    from fedml_tpu_torch import contribution as ca
+    from fedml_tpu_torch.core.algorithm import (
+        local_sgd, make_batch_indices, make_client_optimizer,
+        masked_softmax_ce,
+    )
+    from fedml_tpu_torch.models import hub
+    from fedml_tpu_torch.ops import keys
+
+    m = ST_CONTRIB_M
+    model = hub.create("resnet18_gn", 10, (32, 32, 3), device="meta")
+    g0 = {k: v.to(DEV) for k, v in _parity_params().items()}
+    train_fn = hub.apply_fn(model, "bfloat16")
+    opt = make_client_optimizer("sgd", FEDAVG_CONFIG["train_args"][
+        "learning_rate"])
+    bs = FEDAVG_CONFIG["train_args"]["batch_size"]
+    clients, counts = [], []
+    for i in range(m):
+        n = int(ds.counts[i])
+        shard = {"x": torch.from_numpy(ds.x_train[i][:n]).to(DEV),
+                 "y": torch.from_numpy(
+                     ds.y_train[i][:n].astype(np.int64)).to(DEV),
+                 "mask": torch.ones(n, device=DEV)}
+        idx = make_batch_indices(keys.generator((0, i)), n, bs, 1).to(DEV)
+        p, _m, _s = local_sgd(train_fn, g0, shard, idx, opt)
+        clients.append(p)
+        counts.append(float(n))
+    stacked = {k: torch.stack([c[k] for c in clients]) for k in g0}
+    weights = torch.tensor(counts, device=DEV)
+    del clients
+    f32 = hub.apply_fn(model)
+    # an NHWC view of NCHW storage: the model's NCHW permute is then
+    # contiguous, as group_norm needs under vmap (it cannot query
+    # channels-last contiguity of a tensor the vmap does not batch)
+    tx = torch.from_numpy(ds.x_test[:ST_TEST_ROWS]).to(DEV).permute(
+        0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    ty = torch.from_numpy(ds.y_test[:ST_TEST_ROWS].astype(np.int64)).to(DEV)
+    tm = torch.ones(ST_TEST_ROWS, device=DEV)
+
+    def utility(p):
+        return -masked_softmax_ce(f32(p, tx), ty, tm)[0]
+
+    res = {"clients": m, "mr_clients": ST_MR_M, "chunk": ST_CHUNK,
+           "test_rows": ST_TEST_ROWS}
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    with _tf32_off(), torch.no_grad():
+        u0 = float(utility(g0))
+        ids = list(range(m))
+        t0 = time.perf_counter()
+        loo = ca.leave_one_out(stacked, weights, ids, utility, ST_CHUNK)
+        res["loo_s"] = time.perf_counter() - t0
+        full = float(ca.batched_subset_utilities(
+            stacked, weights, np.ones((1, m), np.float32), utility)[0])
+        gtg = ca.GTGShapley(seed=0, chunk=ST_CHUNK)
+        t0 = time.perf_counter()
+        sv = gtg.run(stacked, weights, ids, utility, u0, full)
+        res["gtg_s"] = time.perf_counter() - t0
+        sub = {k: v[:ST_MR_M] for k, v in stacked.items()}
+        t0 = time.perf_counter()
+        mr = ca.mr_shapley(sub, weights[:ST_MR_M], list(range(ST_MR_M)),
+                           utility, baseline_utility=u0, chunk=ST_CHUNK)
+        res["mr_s"] = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        # the bar: sampled subsets one at a time against one batch
+        rs = np.random.RandomState(0)
+        masks = rs.randint(0, 2, (ST_SINGLE_CHECKS, m)).astype(np.float32)
+        masks[:, 0] = 1.0
+        batched = ca.batched_subset_utilities(stacked, weights, masks,
+                                              utility, ST_CHUNK)
+        single = np.array([ca.batched_subset_utilities(
+            stacked, weights, masks[i:i + 1], utility, 1)[0]
+            for i in range(ST_SINGLE_CHECKS)])
+    timed_s = res["loo_s"] + res["gtg_s"] + res["mr_s"]
+    counted_rows = (m + 1) + gtg.evaluated + 2 ** ST_MR_M - 1
+    res.update(u_global=u0, u_all=full, loo=loo, gtg=sv, mr=mr,
+               gtg_permutations=gtg.permutations,
+               gtg_subsets=gtg.evaluated,
+               subsets_evaluated=counted_rows,
+               subsets_per_s=counted_rows / timed_s,
+               max_memory_allocated_bytes=peak,
+               single_vs_batched_max_abs=float(np.abs(single
+                                                      - batched).max()))
+    emit({"phase": "standalone", "b_contribution": res,
+          "nvidia_smi": nvidia_smi_line()})
+    check(all(np.isfinite(list(loo.values()) + list(sv.values())
+                          + list(mr.values()))),
+          "a contribution value is not finite")
+    check(res["single_vs_batched_max_abs"] <= ST_SUBSET_TOL,
+          f"subsets one at a time differ from the batch by "
+          f"{res['single_vs_batched_max_abs']} (bar {ST_SUBSET_TOL})")
+    del stacked, sub
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _inversion(ds) -> dict:
+    """(c): one 32x32x3 image through ResNet-18-GN in f32 and its true
+    gradient; dlg_attack and invert_gradient_attack, ST_INVERT_STEPS steps
+    each; then DLG's first ST_INVERT_CHECK steps on the card against the
+    CPU (TF32 off) from one start."""
+    import torch
+
+    from fedml_tpu_torch.models import hub
+    from fedml_tpu_torch.security import attacks as atk
+
+    model = hub.create("resnet18_gn", 10, (32, 32, 3), device="meta")
+    fn = hub.apply_fn(model)
+    label = int(ds.y_test[0])
+    x_true = torch.from_numpy(ds.x_test[:1])
+    init = _parity_params()
+
+    def true_grads(dev):
+        p = {k: v.to(dev) for k, v in init.items()}
+        g = torch.func.grad(lambda pp: -torch.log_softmax(
+            fn(pp, x_true.to(dev)), -1)[0, label])(p)
+        return p, g
+
+    res = {"label": label}
+    with _tf32_off():
+        p, g = true_grads(DEV)
+        for name, attack, kw in (
+                ("dlg", atk.dlg_attack, {"lr": 0.1}),
+                ("invert_gradient", atk.invert_gradient_attack,
+                 {"lr": 0.05, "tv_weight": 1e-3})):
+            gen = torch.Generator(device=DEV).manual_seed(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, y, losses = attack(fn, p, g, (32, 32, 3), 10, generator=gen,
+                                  steps=ST_INVERT_STEPS, **kw)
+            losses = losses.cpu()
+            ms = (time.perf_counter() - t0) * 1e3
+            res[name] = {"ms_per_step": ms / ST_INVERT_STEPS,
+                         "loss_step_1": float(losses[0]),
+                         "loss_step_last": float(losses[-1]),
+                         "label_recovered": int(y.argmax()) == label,
+                         "mse_to_true": float(((x.cpu() - x_true) ** 2)
+                                              .mean())}
+        # card against CPU from one start: one step (gated) and
+        # ST_INVERT_CHECK steps (printed)
+        x0 = torch.randn((1, 32, 32, 3),
+                         generator=torch.Generator().manual_seed(2))
+        runs = {}
+        for dev in (DEV, "cpu"):
+            pd, gd = true_grads(dev)
+            runs[dev] = [atk.dlg_attack(fn, pd, gd, (32, 32, 3), 10,
+                                        x0=x0.to(dev), steps=n, lr=0.1)
+                         for n in (1, ST_INVERT_CHECK)]
+            runs[dev] = [(x.cpu(), losses.cpu()) for x, _y, losses
+                         in runs[dev]]
+
+    def compare(i):
+        diff = (runs[DEV][i][0] - runs["cpu"][i][0]).abs()
+        rel = ((runs[DEV][i][1] - runs["cpu"][i][1]).abs()
+               / runs["cpu"][i][1].abs()).tolist()
+        return {"share_within_x_tol": float((diff <= ST_INVERT_X_TOL)
+                                            .float().mean()),
+                "max_abs_x": float(diff.max()), "rel_loss_by_step": rel}
+
+    res["card_vs_cpu"] = {"one_step": compare(0),
+                          f"{ST_INVERT_CHECK}_steps": compare(1)}
+    agree = res["card_vs_cpu"]["one_step"]["share_within_x_tol"]
+    rel = res["card_vs_cpu"]["one_step"]["rel_loss_by_step"]
+    emit({"phase": "standalone", "c_inversion": res,
+          "nvidia_smi": nvidia_smi_line()})
+    for name in ("dlg", "invert_gradient"):
+        r = res[name]
+        check(r["label_recovered"], f"{name}: iDLG did not recover the label")
+        check(r["loss_step_last"] < r["loss_step_1"],
+              f"{name}: the match loss did not fall: {r}")
+    check(agree >= ST_INVERT_SHARE and rel[0] <= ST_INVERT_LOSS_TOL,
+          f"DLG on the card departs from the CPU's: {res['card_vs_cpu']}")
+    return res
+
+
+def _round_flops(ds, fedsim_g10=None) -> dict:
+    """(d): the port's analytic_flops of one flagship local step (B 32,
+    bf16) and one G = 10 group step, executed on the card; TFLOP a round
+    (100 clients x 7 steps: every step over the shards padded to 224
+    runs); with phase fedsim's G = 10 round, its achieved TFLOP/s and
+    share of the bf16 peak."""
+    import torch
+
+    from fedml_tpu_torch.core.algorithm import masked_softmax_ce
+    from fedml_tpu_torch.models import hub
+    from fedml_tpu_torch.utils.flops import analytic_flops, spec_peak_tflops
+
+    bs = FEDAVG_CONFIG["train_args"]["batch_size"]
+    model = hub.create("resnet18_gn", 10, (32, 32, 3), device="meta")
+    fn = hub.apply_fn(model, "bfloat16")
+    p = {k: v.to(DEV) for k, v in _parity_params().items()}
+    x = torch.randn(bs, 32, 32, 3, device=DEV)
+    y = torch.randint(0, 10, (bs,), device=DEV)
+    mk = torch.ones(bs, device=DEV)
+
+    def loss(pp, xx, yy, mm):
+        return masked_softmax_ce(fn(pp, xx), yy, mm)[0]
+
+    grad = torch.func.grad(loss)
+    step = analytic_flops(grad, p, x, y, mk)
+    g = 10
+    stk = lambda t: t.expand((g,) + t.shape).clone()  # noqa: E731
+    group = analytic_flops(torch.func.vmap(grad), {k: stk(v) for k, v
+                                                   in p.items()},
+                           stk(x), stk(y), stk(mk))
+    steps = ds.num_clients * (ds.shard_size // bs)
+    res = {"step_flops": step, "group_step_flops_g10": group,
+           "group_over_10_steps": group / (10 * step),
+           "local_steps_per_round": steps,
+           "tflop_per_round": step * steps / 1e12,
+           "spec_peak_tflops": spec_peak_tflops()}
+    if fedsim_g10 is not None:
+        ms = fedsim_g10["ms_per_round_median"]
+        res["fedsim_g10_round_ms"] = ms
+        res["achieved_tflops_g10"] = step * steps / (ms / 1e3) / 1e12
+        res["share_of_peak"] = res["achieved_tflops_g10"] / (
+            res["spec_peak_tflops"] or 989.0)
+    emit({"phase": "standalone", "d_flops": res,
+          "nvidia_smi": nvidia_smi_line()})
+    return res
+
+
+class _Kept:
+    """An edge trainer that keeps what it returned."""
+
+    def __init__(self, inner):
+        self.inner, self.n_samples = inner, inner.n_samples
+        self.out = None
+        self.ms = None
+
+    def train(self, params, round_idx):
+        t0 = time.perf_counter()
+        self.out = self.inner.train(params, round_idx)
+        self.ms = (time.perf_counter() - t0) * 1e3
+        return self.out
+
+
+def _native_edges(ds) -> dict:
+    """(e): ST_EDGES NativeCNNTrainer devices of ST_EDGE_ROWS flagship
+    rows each (32x32x3; conv 32, conv 64, dense 128) in one cross-device
+    round through CrossDeviceServer on the card; the aggregate against
+    the weighted mean of the returned vectors."""
+    import torch
+
+    from fedml_tpu_torch import native
+    from fedml_tpu_torch.comm import (
+        FedCommManager, LoopbackTransport, release_router,
+    )
+    from fedml_tpu_torch.cross_device import CrossDeviceServer, EdgeClient
+    from fedml_tpu_torch.models import hub
+    from fedml_tpu_torch.ops.tree import tree_weighted_mean
+
+    built = native.lib_path("edge_trainer").exists()
+    keep = ds.mask_train.reshape(-1) > 0
+    xs = ds.x_train.reshape((-1, 32, 32, 3))[keep]
+    ys = ds.y_train.reshape(-1)[keep]
+    init = {k: v.numpy() for k, v in hub.init_params(
+        hub.create("cnn", 10, (32, 32, 3), device="meta"),
+        torch.Generator().manual_seed(0)).items()}
+    t0 = time.perf_counter()      # the first trainer builds the library
+    trainers = [_Kept(native.NativeCNNTrainer(
+        xs[i * ST_EDGE_ROWS:(i + 1) * ST_EDGE_ROWS],
+        ys[i * ST_EDGE_ROWS:(i + 1) * ST_EDGE_ROWS], 10,
+        lr=ST_EDGE_LR, batch_size=FEDAVG_CONFIG["train_args"]["batch_size"],
+        seed=i + 1))
+        for i in range(ST_EDGES)]
+    build_s = time.perf_counter() - t0
+    run = "st-edges"
+    srv = CrossDeviceServer(FedCommManager(LoopbackTransport(0, run), 0),
+                            init_params=init, num_rounds=1,
+                            devices_per_round=ST_EDGES,
+                            min_devices=ST_EDGES, round_timeout=120.0,
+                            device=DEV)
+    edges = [EdgeClient(FedCommManager(LoopbackTransport(d, run), d), d,
+                        trainers[d - 1]) for d in range(1, ST_EDGES + 1)]
+    t0 = time.perf_counter()
+    try:
+        srv.run(background=True)
+        for e in edges:
+            e.run(background=True)
+        for e in edges:
+            e.register()
+        check(srv.done.wait(300), "the native cross-device round did not "
+              "finish")
+    finally:
+        for e in edges:
+            e.comm.stop()
+        release_router(run)
+    round_s = time.perf_counter() - t0
+    check(srv.error is None and srv.history[0]["n_received"] == ST_EDGES,
+          f"the native round missed a device: {srv.history} {srv.error}")
+    outs = [t.out for t in trainers]
+    stacked = {k: torch.stack([torch.from_numpy(o[0][k]) for o in outs])
+               .to(DEV) for k in init}
+    w = torch.tensor([float(o[1]) for o in outs], device=DEV)
+    want = {k: v.cpu().numpy() for k, v in
+            tree_weighted_mean(stacked, w).items()}
+    f64 = {k: np.einsum("i,i...->...", np.array([o[1] for o in outs],
+                                                np.float64)
+                        / sum(o[1] for o in outs),
+                        np.stack([o[0][k] for o in outs]).astype(np.float64))
+           for k in init}
+    res = {"devices": ST_EDGES, "rows_each": ST_EDGE_ROWS,
+           "edge_trainer_built_here": not built,
+           "edge_trainer_build_s": build_s, "round_s": round_s,
+           "train_ms_per_device": statistics.mean(t.ms for t in trainers),
+           "train_ms_max": max(t.ms for t in trainers),
+           "losses": [o[2]["train_loss"] for o in outs],
+           "aggregate_bitwise_weighted_mean": all(
+               np.array_equal(srv.params[k], want[k]) for k in init),
+           "aggregate_vs_f64_mean": max(float(np.abs(
+               srv.params[k] - f64[k]).max()) for k in init)}
+    emit({"phase": "standalone", "e_native_edges": res,
+          "nvidia_smi": nvidia_smi_line()})
+    check(res["aggregate_bitwise_weighted_mean"], "the cross-device "
+          "aggregate is not the weighted mean of the returned vectors")
+    check(all(np.isfinite(res["losses"])), "a native loss is not finite")
+    return res
+
+
+def phase_standalone(fedsim=None) -> dict:
+    """Phase 14 (module docstring). `fedsim`, phase fedsim's flagship
+    results when it ran in this call, gives the G = 1 and G = 10 rounds
+    beside (a) and (d)."""
+    import torch
+
+    from fedml_tpu_torch.data import loader
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.ops import paged_attention as pa
+
+    fa.launch_count.update(dict.fromkeys(fa.launch_count, 0))
+    pa.launch_count = 0
+    t0 = time.perf_counter()
+    ds = loader.load(_fedavg_cfg(DEV))
+    fedsim = fedsim or {}
+    res = {}
+    for part, fn in (
+            ("a_centralized", lambda: _centralized(ds, fedsim.get(1))),
+            ("b_contribution", lambda: _contribution(ds)),
+            ("c_inversion", lambda: _inversion(ds)),
+            ("d_flops", lambda: _round_flops(ds, fedsim.get(10))),
+            ("e_native_edges", lambda: _native_edges(ds))):
+        t1 = time.perf_counter()
+        res[part] = fn()
+        emit({"phase": "standalone", "part": part,
+              "seconds": time.perf_counter() - t1})
+    launches = {**fa.launch_count, "paged": pa.launch_count}
+    res["k1_k4_launches"] = launches
+    emit({"phase": "standalone", "k1_k4_launches": launches,
+          "nvidia_smi": nvidia_smi_line(),
+          "seconds": time.perf_counter() - t0})
+    check(not any(launches.values()),
+          f"the standalone tools launched a flash or paged kernel: "
+          f"{launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def kernel_rows(kern: dict, runs: dict, flash: dict, train: dict,
                 surface: dict, every_phase: bool) -> list:
     """The `kernels` line's rows from the phases' results; with
@@ -3587,6 +4150,7 @@ def main() -> int:
     run("cross_silo_secure", phase_cross_silo_secure,
         cross_silo.get("flagship"),
         cross_silo.get("bars", {}).get("card_params"))
+    run("standalone", phase_standalone, fedsim.get("flagship"))
 
     kernels = kernel_rows(kern, runs, flash, train, surface,
                           every_phase=set(PHASES) <= set(args.only))

@@ -1,7 +1,8 @@
 """The cross-silo message layer (port of `fedml_tpu/comm/`): the wire
-format, the loopback and broker transports, the comm manager, reliable
-delivery, the chaos plane and the wire codec. The gRPC transport is not
-ported (ROADMAP 'Port queue' item 5)."""
+format, the loopback, gRPC and broker transports, the comm manager,
+reliable delivery, the chaos plane and the wire codec. The gRPC transport
+(`comm.grpc_transport`) is not imported here: it imports the `grpc`
+package, which a host may lack."""
 from .base import BaseTransport, Observer
 from .broker import (
     BrokerTransport, ContentAddressedBroker, InMemoryBroker, get_broker,

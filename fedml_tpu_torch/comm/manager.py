@@ -1,14 +1,14 @@
 """FedCommManager — handler registry and event loop over a pluggable
 transport (port of `fedml_tpu/comm/manager.py`).
 
-Backends: "loopback" (in-process queues); the pub/sub broker "broker" /
-"mqtt_s3" / "mqtt" (store-and-forward topics and a blob plane,
-`comm/broker.py`) and its content-addressed form "mqtt_web3" /
+Backends: "loopback" (in-process queues); "grpc" (one server a rank,
+`comm/grpc_transport.py`; the `grpc` package is imported when one is
+built, and a host without it gets an ImportError naming it); the pub/sub
+broker "broker" / "mqtt_s3" / "mqtt" (store-and-forward topics and a blob
+plane, `comm/broker.py`) and its content-addressed form "mqtt_web3" /
 "mqtt_thetastore" / "web3". The wire codec plane (`comm_codec`) attaches
-to the innermost transport of any of them. "grpc" is not ported (the
-`grpc` package is not on the card's machine): it is refused with a
-NotImplementedError naming ROADMAP 'Port queue' item 5. "xla", "trpc" and
-"mpi" raise ValueError as in the JAX package.
+to the innermost transport of any of them. "xla", "trpc" and "mpi" raise
+ValueError as in the JAX package.
 """
 from __future__ import annotations
 
@@ -21,12 +21,6 @@ from ..utils.events import recorder
 from .base import BaseTransport, Observer
 from .loopback import LoopbackTransport
 from .message import Message
-
-
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP 'Port queue' item 5, the "
-        "cross-silo transports)")
 
 
 def _backend_of(transport: BaseTransport) -> str:
@@ -136,7 +130,10 @@ def create_transport(backend: str, rank: int, run_id: str = "default",
     wire codec plane to the innermost transport, so chaos injection and
     reliable retransmits act on compressed frames. Enable it on both ends
     of a link: delta frames decode against the receiver's anchor state.
-    kw: the broker transport's arguments (`broker`, `blob_threshold`, ...).
+    ip_table: grpc's {rank: "host:port"} dict or csv path; `comm_retry`
+    also gives grpc its per-RPC deadline (`rpc_timeout_s`).
+    kw: the transport's own arguments (grpc's `port`, the broker's
+    `broker`, `blob_threshold`, ...).
     """
     policy = None
     if comm_retry is not None and comm_retry is not False:
@@ -169,13 +166,22 @@ def create_transport(backend: str, rank: int, run_id: str = "default",
         kw.setdefault("broker", get_cas_broker(run_id))
         return _stack(BrokerTransport(rank, run_id, **kw))
     if b == "grpc":
-        raise _later("the gRPC transport (the grpc package is not on the "
-                     "card's machine)")
+        from .grpc_transport import GrpcTransport, load_ip_table
+
+        if ip_table is None:
+            raise ValueError("grpc backend needs ip_table={rank: "
+                             "'host:port'} or a csv path (reference: "
+                             "grpc_ipconfig.csv)")
+        if isinstance(ip_table, str):
+            ip_table = load_ip_table(ip_table)
+        if policy is not None:
+            kw.setdefault("rpc_timeout_s", policy.rpc_timeout_s)
+        return _stack(GrpcTransport(rank, ip_table, **kw))
     if b == "xla":
         raise ValueError(
             "backend='xla' is the in-program collective path (simulation over "
-            "a device mesh), not a message transport; use 'loopback' for the "
-            "cross-silo message layer"
+            "a device mesh), not a message transport; use 'grpc' or "
+            "'loopback' for the cross-silo message layer"
         )
     if b in ("trpc", "mpi"):
         raise ValueError(

@@ -313,6 +313,22 @@ class Config:
                 "cohort_chunk: per-client health stats need the full "
                 "update stack the chunked engine exists to avoid "
                 "materializing")
+        # the /metrics endpoint's port (utils/prometheus.py), validated at
+        # load as in the JAX package, so a typo'd value fails before a run
+        # comes up unscrapeable
+        mp = self.common_args.extra.get("metrics_port")
+        if mp is not None:
+            try:
+                # bool is an int subtype: `metrics_port: true` would pass
+                # as port 1 and fail only at bind time
+                ok = (not isinstance(mp, bool)
+                      and int(mp) == float(mp) and 0 <= int(mp) <= 65535)
+            except (TypeError, ValueError):
+                ok = False
+            if not ok:
+                raise ValueError(
+                    "common_args.extra.metrics_port must be an integer in "
+                    f"[0, 65535] (0 = ephemeral); got {mp!r}")
         # the cross-silo durability knobs, validated as the JAX package
         # validates them, so a typo'd config fails at load, not as a hang
         # rounds into a federation

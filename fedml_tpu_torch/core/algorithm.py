@@ -185,7 +185,9 @@ def local_sgd(apply_fn: Callable, params, shard: dict,
               batch_idx: torch.Tensor, opt: ClientOptimizer,
               objective: Optional[Callable] = None,
               grad_correction: Optional[Callable] = None,
-              grad_engine: Callable = func_grad):
+              grad_engine: Callable = func_grad,
+              opt_state: Optional[tuple] = None,
+              return_opt_state: bool = False):
     """Local training over the [steps, B] batch schedule, as arithmetic on
     tensors (the JAX `local_sgd`'s scan as a Python loop): each step takes
     the objective's gradient w.r.t. the parameters (`grad_engine`, by
@@ -196,7 +198,14 @@ def local_sgd(apply_fn: Callable, params, shard: dict,
     weight decay and momentum still move the weights). The same function
     runs one client or, under `torch.func.vmap`, a group of them.
     Returns (trained params, summed ClientMetrics, number of batches with
-    >= 1 real sample)."""
+    >= 1 real sample), and with `return_opt_state` the optimizer state
+    after the last step as a fourth element.
+
+    `opt_state`, that fourth element of an earlier call, continues the
+    optimizer where it stopped (momentum traces, Adam's moments and its
+    step count, which the JAX optimizer state carries), as ordinary
+    training across epochs needs; None starts it fresh. It is the pair
+    (`opt` state, steps taken)."""
     obj = objective or masked_softmax_ce
 
     def loss_fn(p, x, y, mask):
@@ -204,7 +213,8 @@ def local_sgd(apply_fn: Callable, params, shard: dict,
         return loss, (loss, correct, count)
 
     grad = grad_engine(loss_fn)
-    p, state = params, opt.init(params)
+    state, done = (opt.init(params), 0) if opt_state is None else opt_state
+    p = params
     per_step = []
     for i in range(batch_idx.shape[0]):
         idx = batch_idx[i]
@@ -212,12 +222,15 @@ def local_sgd(apply_fn: Callable, params, shard: dict,
             p, shard["x"][idx], shard["y"][idx], shard["mask"][idx])
         if grad_correction is not None:
             grads = grad_correction(grads, p)
-        p, state = opt.step(p, grads, state, i + 1)
+        p, state = opt.step(p, grads, state, done + i + 1)
         per_step.append((loss * count, correct, count,
                          (count > 0).float()))
     loss_sum, correct, count, steps = (torch.stack(v).sum()
                                        for v in zip(*per_step))
-    return p, ClientMetrics(loss_sum, correct, count), steps
+    out = (p, ClientMetrics(loss_sum, correct, count), steps)
+    if return_opt_state:
+        return out + ((state, done + batch_idx.shape[0]),)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

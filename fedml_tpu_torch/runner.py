@@ -17,11 +17,15 @@ Ported modes:
                          `round_timeout` default 30 s, in train_args.extra)
 - cross_device, client:  `cross_device.EdgeClient` over a `SiloTrainer`
                          (`uplink_topk` in train_args.extra)
+- centralized:           `centralized.CentralizedTrainer` over the pooled
+                         client shards (`dataset`, `model`; `device=`,
+                         `params=`)
 
 The message-layer roles read the keys the JAX runner reads:
 `common_args.extra.chaos` and `comm_retry`, the transport
-(`comm_args.extra.transport`: loopback, broker / mqtt_s3 / mqtt, or
-mqtt_web3 / mqtt_thetastore / web3), `run_id`, the wire codec
+(`comm_args.extra.transport`: loopback, grpc with the ip table at
+`comm_args.grpc_ipconfig_path`, broker / mqtt_s3 / mqtt, or mqtt_web3 /
+mqtt_thetastore / web3), `run_id`, the wire codec
 (`comm_args.extra.comm_codec`, cross-silo, on both roles), and
 `train_args.extra` round_timeout, quorum_frac, liveness_timeout_s,
 max_rearms, checkpoint_dir / checkpoint_every / checkpoint_keep / resume,
@@ -31,9 +35,9 @@ comes from `dp_args` (`dp.make_upload_dp`). Every role runs on `device`
 unmask is host work.
 
 Not ported, each refused with a NotImplementedError naming its ROADMAP
-'Port queue' item: async simulation, `fa_task` and centralized (item 5);
-the hierarchical scenario and a silo `mesh` (item 4); the gRPC transport
-(item 5, `comm.create_transport`); the model-artifact store
+'Port queue' item: async simulation and `fa_task` (item 5); the
+hierarchical scenario, a silo `mesh` and the centralized trainer's
+model-parallel mesh (item 4); the model-artifact store
 (`tracking_args.extra.artifact_store` / `artifact_dir`, item 5).
 """
 from __future__ import annotations
@@ -84,7 +88,9 @@ class FedMLRunner:
             self.runner = self._init_cross_device(
                 dataset, model, role, rank, transport, **kw)
         elif tt == TRAINING_TYPE_CENTRALIZED:
-            raise _later(f"training_type {tt!r}", "5")
+            from .centralized import CentralizedTrainer
+
+            self.runner = CentralizedTrainer(cfg, dataset, model, **kw)
         else:
             raise ValueError(
                 f"no runner for training_type={tt!r} (reference parity: "
@@ -107,8 +113,9 @@ class FedMLRunner:
 
     def _comm(self, backend, rank: int, default_run_id: str, **codec):
         """A FedCommManager over `backend` (or comm_args.extra.transport),
-        with the chaos and retry stack of common_args.extra. Loopback and
-        broker runs are namespaced by run_id: the broker is
+        with the chaos and retry stack of common_args.extra; a grpc
+        transport reads its ip table from comm_args.grpc_ipconfig_path.
+        Loopback and broker runs are namespaced by run_id: the broker is
         store-and-forward, so a shared namespace would leak one run's
         frames into the next."""
         from .comm import FedCommManager, create_transport
@@ -117,6 +124,7 @@ class FedMLRunner:
         tr = create_transport(
             backend or cfg.comm_args.extra.get("transport", "loopback"),
             rank, run_id=cfg.comm_args.extra.get("run_id", default_run_id),
+            ip_table=cfg.comm_args.grpc_ipconfig_path or None,
             chaos=cfg.common_args.extra.get("chaos"),
             comm_retry=cfg.common_args.extra.get("comm_retry"), **codec)
         return FedCommManager(tr, rank)

@@ -6,8 +6,14 @@ Model poisoning transforms the flat stacked updates U [m, D] of the
 clients a boolean mask marks malicious, and returns a new matrix (U is
 left as it is: the round's health stats read it after the hook). Data
 poisoning transforms the host's numpy arrays before they reach the
-device. The gradient-inversion attacks (DLG, inverting gradients) are
-ROADMAP port-queue item 3e.2.
+device. The gradient-inversion attacks (`dlg_attack`,
+`invert_gradient_attack`) reconstruct a training input from a shared
+gradient by matching it: the label first, analytically (iDLG), then the
+input by Adam on the match loss, whose gradient w.r.t. the input is a
+second derivative through the model (`torch.func.grad` of a
+`torch.func.grad`). They run on the device their tensors are on, outside
+the round: the round's attacker does nothing with "dlg" or
+"invert_gradient", as in the JAX package.
 """
 from __future__ import annotations
 
@@ -120,3 +126,131 @@ def _infer_label_from_grads(true_grads: Tree, num_classes: int):
         if leaf.dim() == 2 and leaf.shape[-1] == num_classes:
             return torch.argmin(leaf.sum(0))
     return None
+
+
+# ------------------------------------------------- gradient reconstruction
+def _label_onehot(true_grads: Tree, num_classes: int,
+                  device) -> torch.Tensor:
+    label = _infer_label_from_grads(true_grads, num_classes)
+    if label is None:
+        label = torch.zeros((), dtype=torch.int64, device=device)
+    return torch.nn.functional.one_hot(
+        label.reshape(1), num_classes).to(torch.float32)
+
+
+def _model_grads(apply_fn: Callable, params: Tree, y_onehot: torch.Tensor):
+    """x -> the gradient w.r.t. `params` of the cross-entropy of
+    `apply_fn(params, x)` against `y_onehot` (a function of x that
+    `torch.func.grad` differentiates again)."""
+    def loss_fn(p, x):
+        logp = torch.log_softmax(apply_fn(p, x), dim=-1)
+        return -(y_onehot * logp).sum(-1).mean()
+
+    grad = torch.func.grad(loss_fn)
+    return lambda x: grad(params, x)
+
+
+def _adam_steps(objective: Callable, x0: torch.Tensor, steps: int,
+                lr: float, signed: bool = False,
+                box: Optional[tuple] = None):
+    """`steps` Adam steps (optax's defaults, as the port's client
+    optimizer computes them) on `objective(x)` from x0; `signed` steps on
+    the gradient's sign, `box` clips x after each step. Returns (x, the
+    [steps] objective values, each before its step)."""
+    from ..core.algorithm import make_client_optimizer
+
+    opt = make_client_optimizer("adam", lr)
+    value_grad = torch.func.grad_and_value(objective)
+    x = {"x": x0}
+    state = opt.init(x)
+    losses = []
+    for i in range(steps):
+        g, loss = value_grad(x["x"])
+        losses.append(loss.detach())
+        x, state = opt.step(x, {"x": torch.sign(g) if signed else g}, state,
+                            i + 1)
+        if box is not None:
+            x = {"x": torch.clamp(x["x"], box[0], box[1])}
+        x = {"x": x["x"].detach()}
+    return x["x"], torch.stack(losses)
+
+
+def dlg_attack(apply_fn: Callable, params: Tree, true_grads: Tree,
+               data_shape: tuple, num_classes: int,
+               x0: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None,
+               steps: int = 200, lr: float = 0.1, loss_type: str = "l2"):
+    """Deep Leakage from Gradients (reference: dlg_attack.py; Zhu et al.
+    2019) and its cosine variant (loss_type "cosine"; Geiping et al.
+    2020). The label is recovered from the classifier head's gradient
+    (iDLG, Zhao et al. 2020), then only x is optimised, by Adam on the
+    gradient match: the summed squared difference of every leaf, or one
+    minus their global cosine. `apply_fn(params, x) -> logits`; `x0`
+    (shape (1, *data_shape)) is the start, by default a standard normal
+    draw from `generator`. Returns (x reconstructed, the one-hot label
+    [1, C], the [steps] match losses, each before its step)."""
+    dev = next(iter(true_grads.values())).device
+    y_onehot = _label_onehot(true_grads, num_classes, dev)
+    if x0 is None:
+        x0 = torch.randn((1,) + tuple(data_shape), generator=generator,
+                         device=dev)
+    grads_of = _model_grads(apply_fn, params, y_onehot)
+    names = list(true_grads)
+
+    def match_loss(x):
+        g = grads_of(x)
+        pairs = [(g[k], true_grads[k]) for k in names]
+        if loss_type == "cosine":
+            num = sum((a * b).sum() for a, b in pairs)
+            den = torch.sqrt(sum((a * a).sum() for a, _ in pairs)) \
+                * torch.sqrt(sum((b * b).sum() for _, b in pairs))
+            return 1.0 - num / torch.clamp(den, min=1e-12)
+        return sum(((a - b) ** 2).sum() for a, b in pairs)
+
+    x, losses = _adam_steps(match_loss, x0, steps, lr)
+    return x, y_onehot, losses
+
+
+def invert_gradient_attack(apply_fn: Callable, params: Tree,
+                           true_grads: Tree, data_shape: tuple,
+                           num_classes: int,
+                           x0: Optional[torch.Tensor] = None,
+                           generator: Optional[torch.Generator] = None,
+                           steps: int = 300, lr: float = 0.1,
+                           tv_weight: float = 1e-2,
+                           box: tuple = (0.0, 1.0)):
+    """Inverting Gradients (reference: invert_gradient_attack.py; Geiping
+    et al. 2020): one minus the mean per-layer cosine between the dummy
+    input's gradient and the shared one, plus a total-variation prior
+    (`tv_weight`) on the NHWC input, minimised by Adam on the gradient's
+    sign with x clipped to `box` after each step. The label comes from
+    iDLG first. `x0` is the start, by default uniform in `box` from
+    `generator`. Returns (x reconstructed, the one-hot label [1, C], the
+    [steps] objective values, each before its step)."""
+    dev = next(iter(true_grads.values())).device
+    y_onehot = _label_onehot(true_grads, num_classes, dev)
+    if x0 is None:
+        x0 = box[0] + (box[1] - box[0]) * torch.rand(
+            (1,) + tuple(data_shape), generator=generator, device=dev)
+    grads_of = _model_grads(apply_fn, params, y_onehot)
+    names = list(true_grads)
+
+    def total_variation(x):
+        dh = (x[:, 1:] - x[:, :-1]).abs().mean() if x.dim() >= 3 else 0.0
+        dw = (x[:, :, 1:] - x[:, :, :-1]).abs().mean() \
+            if x.dim() >= 4 else 0.0
+        return dh + dw
+
+    def objective(x):
+        g = grads_of(x)
+        # per-layer cosine (Geiping eq. 4 sums layerwise), not one global
+        # dot product
+        sims = torch.stack([
+            (g[k] * true_grads[k]).sum() / torch.clamp(
+                torch.linalg.vector_norm(g[k])
+                * torch.linalg.vector_norm(true_grads[k]), min=1e-12)
+            for k in names])
+        return 1.0 - sims.mean() + tv_weight * total_variation(x)
+
+    x, losses = _adam_steps(objective, x0, steps, lr, signed=True, box=box)
+    return x, y_onehot, losses

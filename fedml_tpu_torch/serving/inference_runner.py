@@ -1,6 +1,6 @@
 """HTTP inference runner over stdlib `http.server` (port of
 `fedml_tpu/serving/inference_runner.py`): POST /predict (JSON, or SSE with
-`"stream": true`), GET /ready and GET /info.
+`"stream": true`), GET /ready, GET /info and GET /metrics.
 
 - POST /predict with `"stream": true` answers `text/event-stream`: one
   `data: {"token": t, "index": i}` event per generated token as the
@@ -21,10 +21,11 @@
   (`kill()`).
 - `stop()` drains the predictor's engine first.
 
-Not ported yet, each answered with 501 naming its ROADMAP item: GET
-/metrics (the Prometheus exposition, `utils/prometheus`) and POST /swap
-(adapters fetched from the model-artifact store, `utils/artifacts`);
-a hot swap from Python is `GreedyLMPredictor.swap_adapters`.
+GET /metrics answers the process registry in the Prometheus text format
+(`utils/prometheus.py`). Not ported yet, answered with 501 naming its
+ROADMAP item: POST /swap (adapters fetched from the model-artifact store,
+`utils/artifacts`); a hot swap from Python is
+`GreedyLMPredictor.swap_adapters`.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ from typing import Optional
 
 from ..utils import metrics as _mx
 from ..utils.events import recorder
+from ..utils.prometheus import write_metrics_response
 from .predictor import Predictor
 
 log = logging.getLogger(__name__)
@@ -128,8 +130,9 @@ class FedMLInferenceRunner:
                                            if eng is not None else []),
                     })
                 elif self.path == "/metrics":
-                    self._send(501, {"error": "/metrics " + _ITEM_5.format(
-                        "the Prometheus exposition, utils/prometheus")})
+                    # the process registry (request latency, queue depth,
+                    # the engine's counters) in Prometheus text
+                    write_metrics_response(self)
                 else:
                     self._send(404, {"error": f"no route {self.path}"})
 

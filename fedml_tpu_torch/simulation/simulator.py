@@ -44,7 +44,8 @@ This is the JAX package's `backend: sp` path, and its `backend: xla` path
 when one device is visible. Not ported yet, each refused with a
 NotImplementedError naming its ROADMAP port-queue item: a mesh or several
 GPUs, and the cost model that places clients across them (item 4); the
-artifact store and metrics endpoint (item 5).
+artifact store (item 5). `common_args.extra.metrics_port` starts the
+process's /metrics endpoint (`utils/prometheus.py`).
 """
 from __future__ import annotations
 
@@ -78,6 +79,7 @@ from ..parallel.round import (
 from ..utils import checkpoint as ckpt
 from ..utils.events import recorder
 from ..utils.health import HealthTracker
+from ..utils.prometheus import maybe_start_metrics_server
 from .ingest import DeviceChunk, IngestPipeline
 
 log = logging.getLogger(__name__)
@@ -105,8 +107,6 @@ def _refuse_unported(cfg: Config, device: torch.device) -> None:
     tr = cfg.tracking_args.extra
     if tr.get("artifact_store") or tr.get("artifact_dir"):
         raise _later("the model-artifact store", "5")
-    if cfg.common_args.extra.get("metrics_port") is not None:
-        raise _later("the /metrics endpoint (metrics_port)", "5")
 
 
 def _compose(*fns):
@@ -171,6 +171,8 @@ class Simulator:
         _refuse_unported(cfg, self.device)
         deterministic_cuda(self.device)
         self.cfg = cfg
+        # opt-in live scrape surface (common_args.extra.metrics_port)
+        self.metrics_exporter = maybe_start_metrics_server(cfg)
         t = cfg.train_args
         self.dataset = dataset if dataset is not None else data_loader.load(cfg)
         self.num_classes = self.dataset.num_classes

@@ -3,8 +3,8 @@
 A trimmed copy of `fedml_tpu/utils/metrics.py`: the instruments the
 decode engine, the serving runner and the health tracker call (`inc`,
 `set_gauge`, `observe`, `AtomicCounter`) and `snapshot()`, under
-the same metric names, so a later slice can expose them on `/metrics`
-unchanged. Instruments are guarded by one lock each: the engine thread
+the same metric names, so `utils/prometheus.py` renders them on
+`/metrics` as the JAX package does. Instruments are guarded by one lock each: the engine thread
 and request threads both write them.
 """
 from __future__ import annotations
@@ -84,10 +84,39 @@ class Histogram:
             self._max = max(self._max, v)
 
     def snapshot(self) -> dict:
+        """{count, sum, max, edges, counts, p50, p99}: sum and max rounded
+        to 9 places and the percentiles from the bucket counts, as the
+        JAX registry reports them (the /metrics exposition renders it)."""
         with self._lock:
-            return {"count": self._n, "sum": self._sum,
-                    "max": self._max if self._n else None,
-                    "edges": list(self.edges), "counts": list(self._counts)}
+            counts, total, n, mx = (list(self._counts), self._sum, self._n,
+                                    self._max)
+        out = {"count": n, "sum": round(total, 9),
+               "max": round(mx, 9) if n else None,
+               "edges": list(self.edges), "counts": counts}
+        for q in (0.5, 0.99):
+            out[f"p{int(q * 100)}"] = percentile_from_counts(
+                self.edges, counts, q, observed_max=mx if n else None)
+        return out
+
+
+def percentile_from_counts(edges: Sequence[float], counts: Sequence[int],
+                           q: float, observed_max: Optional[float] = None
+                           ) -> Optional[float]:
+    """Approximate q-quantile from bucket counts: the upper bound of the
+    bucket holding the q-th observation (the overflow bucket reports the
+    observed max when known, else the last edge); None when empty."""
+    total = sum(counts)
+    if total <= 0:
+        return None
+    target = q * total
+    cum = 0
+    for i, c in enumerate(counts):
+        cum += c
+        if cum >= target:
+            if i < len(edges):
+                return edges[i]
+            break
+    return observed_max if observed_max is not None else edges[-1]
 
 
 class AtomicCounter:

@@ -9,7 +9,7 @@ cross-device dense run is held to the JAX package's cross-device run
 from the same initial params and batch draws within 1e-5 of the largest
 update (the rule of `tests/test_torch_cross_silo.py`), and bitwise to a
 plain FedServerManager run; the sparse uplink is held bitwise to its own
-decoded deltas.
+decoded deltas and to the JAX package's sparse run within 1e-5.
 """
 import threading
 import time
@@ -298,14 +298,15 @@ def _cross_device(n, rounds, uplink_topk=None, flaky=None,
     return srv, trainers
 
 
-def _jax_cross_device(n, rounds):
+def _jax_cross_device(n, rounds, uplink_topk=None):
     run = _run_id("jcd")
     model = jax_hub.create("lr", 3)
     srv = JaxCDServer(JaxComm(JaxLoopback(0, run), 0),
                       init_params=_jax_init(), num_rounds=rounds,
                       devices_per_round=n, min_devices=n, round_timeout=6.0)
     cls = [JaxEdge(JaxComm(JaxLoopback(d, run), d), d, JaxSiloTrainer(
-        model.apply, JaxTrainArgs(**T), *_mk_data(d), seed=d))
+        model.apply, JaxTrainArgs(**T), *_mk_data(d), seed=d),
+        uplink_topk=uplink_topk)
         for d in range(1, n + 1)]
     srv.run(background=True)
     for c in cls:
@@ -348,6 +349,22 @@ def test_cross_device_sparse_uplink_is_its_decoded_deltas():
                                          float(n))
         g = agg.aggregate()
     assert _same(srv.params, g)
+
+
+@pytest.mark.parametrize("topk", [0.5, 0.2])
+def test_cross_device_sparse_uplink_matches_jax(topk):
+    """The sparse uplink against the JAX package's cross-device run with
+    the same top-k, initial params and batch draws: within 1e-5 of the
+    largest update (top-k keeps the same coordinates on both sides; the
+    updates differ by f32 rounding only)."""
+    srv, _t = _cross_device(3, 2, uplink_topk=topk)
+    assert [h["n_received"] for h in srv.history] == [3, 3]
+    want = _jax_cross_device(3, 2, uplink_topk=topk)
+    init = _init()
+    upd = max(float(np.abs(want[k] - init[k]).max()) for k in want)
+    assert upd > 1e-3
+    assert max(float(np.abs(srv.params[k] - want[k]).max())
+               for k in want) <= TOL * upd
 
 
 def test_cross_device_drops_a_flaky_device_from_the_registry():

@@ -363,12 +363,21 @@ def test_reliable_gives_up_loudly_on_a_dead_peer():
 # ------------------------------------------------------------- refusals
 @pytest.mark.parametrize("backend", ["grpc", "broker", "mqtt_s3", "web3"])
 def test_unported_transports_refused(backend):
-    """gRPC stays refused (item 5: the grpc package is not on the card's
-    machine); the broker family builds its transport."""
+    """Every transport is ported now: grpc builds its transport from an ip
+    table (and refuses to build without one, as in JAX), the broker
+    family builds its own."""
     run = _run_id("t-refuse")
     if backend == "grpc":
-        with pytest.raises(NotImplementedError, match="item 5"):
+        from fedml_tpu_torch.comm.grpc_transport import GrpcTransport
+
+        with pytest.raises(ValueError, match="ip_table"):
             create_transport(backend, 0, run_id=run)
+        t = create_transport(backend, 0, ip_table={0: "127.0.0.1:1"},
+                             port=0)
+        try:
+            assert isinstance(t, GrpcTransport)
+        finally:
+            t.shutdown(grace=0)
         return
     from fedml_tpu_torch.comm import BrokerTransport, release_broker
 

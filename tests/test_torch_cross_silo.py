@@ -14,6 +14,7 @@ wires both roles. The `gpu` cases hold the card's runs to the CPU's
 to themselves, bitwise (repeat, kill and resume, chaos with retries).
 """
 import functools
+import socket
 import time
 import uuid
 
@@ -373,16 +374,25 @@ def test_runner_simulation_branch(tmp_path):
         FedMLRunner(fedml_tpu_torch.init(config=d, device="cpu"))
 
 
-def test_runner_params_keyword_and_refusals():
+def test_runner_params_keyword_and_refusals(tmp_path):
     run = _run_id("t-refuse")
     cfg = _runner_cfg(run)
     p = {"Dense_0.kernel": np.ones((8, 3), np.float32),
          "Dense_0.bias": np.zeros(3, np.float32)}
     srv = FedMLRunner(cfg, role="server", params=p)
     assert srv.runner.params["Dense_0.kernel"].sum() == 24
+    from fedml_tpu_torch.centralized import CentralizedTrainer
     from fedml_tpu_torch.comm import BrokerTransport, CodecPolicy
+    from fedml_tpu_torch.comm.grpc_transport import GrpcTransport
     from fedml_tpu_torch.cross_device import CrossDeviceServer
     from fedml_tpu_torch.cross_silo import SecAggServerManager
+
+    # the grpc server's ip table: rank 0 on a free port
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        free = s.getsockname()[1]
+    table = tmp_path / "grpc_ipconfig.csv"
+    table.write_text(f"receiver_id,ip,port\n0,127.0.0.1,{free}\n")
 
     def transport(r):
         t = r.runner.comm.transport
@@ -397,13 +407,19 @@ def test_runner_params_keyword_and_refusals():
             ({"common_args": {"scenario": "hierarchical"}}, "item 4"),
             ({"comm_args": {"comm_codec": {"kind": "dense"}}},
              lambda r: isinstance(transport(r)._codec, CodecPolicy)),
-            ({"comm_args": {"transport": "grpc"}}, "item 5"),
+            ({"comm_args": {"transport": "grpc",
+                            "grpc_ipconfig_path": str(table)}},
+             lambda r: isinstance(transport(r), GrpcTransport)
+             and transport(r).port == free),
             ({"comm_args": {"transport": "broker"}},
              lambda r: isinstance(transport(r), BrokerTransport)),
             ({"train_args": {"fa_task": "avg"}}, "item 5"),
             ({"common_args": {"training_type": "cross_device"}},
              lambda r: isinstance(r.runner, CrossDeviceServer)),
-            ({"common_args": {"training_type": "centralized"}}, "item 5"),
+            ({"common_args": {"training_type": "centralized"},
+              "data_args": {"dataset": "synthetic",
+                            "data_cache_dir": str(tmp_path)}},
+             lambda r: isinstance(r.runner, CentralizedTrainer)),
             ({"tracking_args": {"artifact_dir": "/x"}}, "item 5")):
         c = _runner_cfg(run)
         for sec, kv in over.items():
@@ -418,7 +434,8 @@ def test_runner_params_keyword_and_refusals():
         else:
             r = FedMLRunner(c, model=model, role="server", params=p)
             assert want(r), over
-            r.runner.comm.transport.stop_receive_message()
+            if hasattr(r.runner, "comm"):
+                r.runner.comm.transport.stop_receive_message()
     with pytest.raises(NotImplementedError, match="item 4"):
         FedMLRunner(cfg, dataset=_silo_data("lr", 1),
                     model=hub.create("lr", 3, (8,), device="meta"),

@@ -449,7 +449,6 @@ REFUSED = [
     ({"device_args": {"mesh_shape": {"clients": 2}}}, "item 4"),
     ({"train_args": {"cost_model": True}}, "item 4"),
     ({"tracking_args": {"artifact_dir": "/nonexistent"}}, "item 5"),
-    ({"common_args": {"metrics_port": 0}}, "item 5"),
     ({"train_args": {"task": "nwp"}}, "item 5"),
     ({"data_args": {"dataset": "shakespeare"}}, "item 5"),
     ({"data_args": {"dataset": "pascal_voc"}}, "item 5"),

@@ -110,13 +110,19 @@ NATIVE = sorted((ROOT / "fedml_tpu_torch" / "native").glob("*.cpp"))
 
 def test_every_subpackage_is_checked():
     """The import and path checks above cover every module of the port,
-    the SecAgg, cross-cloud and cross-device subpackages included."""
+    the SecAgg, cross-cloud, cross-device, contribution and centralized
+    subpackages and the gRPC, FLOP and Prometheus modules included."""
     checked = {p.relative_to(ROOT).parts[1] for p in FILES
                if p.parent != ROOT and p.parent.name != "fedml_tpu_torch"}
     for sub in ("mpc", "cross_cloud", "cross_device", "cross_silo", "comm",
-                "native"):
+                "native", "contribution", "centralized"):
         assert sub in checked, sub
-    assert {p.name for p in NATIVE} >= {"crc32c.cpp", "finite_field.cpp"}
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for mod in ("utils/flops.py", "utils/prometheus.py",
+                "comm/grpc_transport.py"):
+        assert f"fedml_tpu_torch/{mod}" in names, mod
+    assert {p.name for p in NATIVE} >= {"crc32c.cpp", "finite_field.cpp",
+                                        "edge_trainer.cpp"}
 
 
 @pytest.mark.parametrize("path", NATIVE,

@@ -2,7 +2,7 @@
 package: the per-request generate path and `GreedyLMPredictor` (routing,
 fallbacks, the version pin, hot swap), `TorchPredictor` against
 `JaxPredictor`, the HTTP runner (JSON, SSE, the 400/409/500/501 mapping,
-/ready, /info, chaos replica_kill), `validate_serve_args` on the JAX
+/ready, /info, /metrics, chaos replica_kill), `validate_serve_args` on the JAX
 package's accept/refuse dicts, `lm_predictor_from_config`, and
 `serve_simulator` / `predictor_from_checkpoint` over a small Simulator.
 
@@ -373,9 +373,15 @@ def test_http_sse_ready_info_and_error_mapping(served):
     assert stale["model_version"] == 0
     assert _http(runner.port, "POST", "/predict", raw=b"{oops")[0] == 400
     assert _http(runner.port, "POST", "/predict", raw=b"[1]")[0] == 400
-    for method, path in (("GET", "/metrics"), ("POST", "/swap")):
-        code, payload, _ = _http(runner.port, method, path, {})
-        assert code == 501 and "item 5" in payload
+    # /metrics serves the process registry as Prometheus text (the
+    # requests above were counted); /swap waits for the artifact store
+    code, payload, headers = _http(runner.port, "GET", "/metrics")
+    assert code == 200 and headers["Content-Type"].startswith("text/plain")
+    from fedml_tpu_torch.utils.prometheus import parse_prometheus
+
+    assert parse_prometheus(payload)["histograms"]
+    code, payload, _ = _http(runner.port, "POST", "/swap", {})
+    assert code == 501 and "item 5" in payload
     assert _http(runner.port, "GET", "/nope")[0] == 404
 
     class Broken:
