@@ -216,6 +216,36 @@ exits non-zero; nothing is caught and carried past):
              recomputed on the card (and its distance from their f64
              mean). No K1-K4 launch.
 
+15. entry  - the single-process entry surface at the flagship (G = 10,
+             ENTRY_ROUNDS rounds): (a) the same rounds untracked, then
+             `init` -> `mlops.init` -> the Simulator's run (what
+             `run_simulation` runs) -> `mlops.finish`, tracked into a run
+             dir with the file artifact store, sysperf every
+             ENTRY_SYSPERF_S and /metrics: a `train` span a round in the
+             events JSONL, sysperf rows with the card's bytes in use, the
+             end-of-run report row, the Chrome trace's round track, the
+             postmortem's reason `finish`, an aggregated artifact a round
+             and the last bitwise the final parameters; ms of the warm
+             round with and without tracking, ms a publish, the
+             artifact's bytes. (b) `report --format json` (a `train` span
+             a round, each round's compute time > 0), `top --once` and
+             `logs --list` on the run dir, as subprocesses started
+             together with (c) and `env`. (c) `python -m fedml_tpu_torch
+             run` on the same config written as JSON, one round: rc 0 and
+             a round-0 last line. (d)
+             `predictor_from_artifact` behind the HTTP runner: /predict on
+             32 test images equal to apply_fn of the final parameters on
+             the same batch (labels and rounded probabilities). (e) in
+             phase serve_surface, on its runner over the kernel engine:
+             rank-8 adapters put into a file store and swapped in by POST
+             /swap (200, version 2, the fetched tree bitwise the one put),
+             then 4 concurrent POSTs answered in full with K4 launched;
+             the swap's ms. (f) `env` names nvidia-smi's card, and
+             `diagnosis` (K1-K4 built and held against their plain
+             versions, the transports, the serving engine through K4)
+             exits 0 with every required probe passed; each probe's
+             seconds.
+
 Then the `kernels` line, the raw `nvidia-smi` name/power-limit line, and as
 the last line {"ok": true, "device": {...}}. Imports nothing of JAX or of
 the JAX package; without a CUDA device it exits non-zero and prints no
@@ -238,7 +268,7 @@ import numpy as np
 
 PHASES = ("device", "build", "kernel", "engine", "serve", "serve_surface",
           "flash", "train", "fedavg", "fedsim", "plugins", "cross_silo",
-          "cross_silo_secure", "standalone")
+          "cross_silo_secure", "standalone", "entry")
 # run only when named in --only
 OPTIONAL = ("profile", "train_profile", "fedavg_profile")
 DEV = "cuda"
@@ -314,6 +344,9 @@ FEDAVG_SAMPLES, FEDAVG_ROUNDS, FEDAVG_PARITY_CLIENTS = 96, 1, 4
 # G = 1 times one round, G = 4 two, with the determinism setting on and
 # off), and the reduced cohort of the bitwise bars
 FEDSIM_GROUPS, FEDSIM_ROUNDS, FEDSIM_SMALL = (4, 10), 1, 8
+# phase entry: rounds of each flagship run (the first warms), and the
+# sysperf sampler's period in the tracked run
+ENTRY_ROUNDS, ENTRY_SYSPERF_S = 2, 1.0
 # phase plugins: timed rounds after the warm one, each configuration's
 # train_args / security / dp / chaos sections over the flagship config at
 # G = 10. LDP's sensitivity is 1e-3 (sigma 4.8e-3 a coordinate), so that
@@ -852,11 +885,12 @@ def _adapters(model, seed: int) -> dict:
     return ads
 
 
-def _post(port: int, body: dict) -> tuple[int, bytes]:
+def _post(port: int, body: dict, path: str = "/predict") -> tuple[int,
+                                                                  bytes]:
     import http.client
 
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
-    conn.request("POST", "/predict", body=json.dumps(body).encode(),
+    conn.request("POST", path, body=json.dumps(body).encode(),
                   headers={"Content-Type": "application/json"})
     resp = conn.getresponse()
     out = resp.status, resp.read()
@@ -1129,6 +1163,7 @@ def phase_serve_surface(reqs, serve_runs: dict) -> dict:
         windows = pred.engine.decode_steps - steps0
         served = (mx.snapshot()["counters"].get("serving.engine.requests", 0)
                   - served0)
+        swap = _swap_from_store(runner, pred, model, reqs)
     finally:
         runner.stop()
     check(codes == [200] * len(reqs), f"HTTP codes {codes}")
@@ -1144,6 +1179,7 @@ def phase_serve_surface(reqs, serve_runs: dict) -> dict:
     out["e_main_path"] = {"launches": launches, "windows": windows,
                           "engine_requests": served, "wall_s": wall,
                           "tokens_per_s": sum(map(len, outs)) / wall}
+    out["swap"] = swap
     out["launches_c5"] = launches["by_c"].get(SPEC_K + 1, 0)
     out["seconds"] = time.perf_counter() - t0
     emit({"phase": "serve_surface", "dtype": "bfloat16",
@@ -1154,16 +1190,68 @@ def phase_serve_surface(reqs, serve_runs: dict) -> dict:
     return out
 
 
+def _swap_from_store(runner, pred, model, reqs) -> dict:
+    """Phase entry (e), on phase serve_surface's runner (the kernel engine
+    at full depth): rank-8 adapters put into a FileArtifactStore, POST
+    /swap naming the store and version 2, the fetched tree bitwise the
+    tree put, then 4 concurrent POSTs all answered in full with K4
+    launched in that wave."""
+    import tempfile
+
+    import torch
+
+    from fedml_tpu_torch.ops import paged_attention as pa
+    from fedml_tpu_torch.utils.artifacts import (
+        FileArtifactStore, adapter_name, store_spec,
+    )
+
+    ads3 = _adapters(model, seed=3)
+    with tempfile.TemporaryDirectory() as d:
+        store = FileArtifactStore(d)
+        t0 = time.perf_counter()
+        store.put(adapter_name(1), ads3)
+        put_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        code, raw = _post(runner.port, {"store": store_spec(store),
+                                        "name": adapter_name(1),
+                                        "version": 2}, path="/swap")
+        swap_ms = (time.perf_counter() - t0) * 1e3
+    check(code == 200, f"/swap answered {code}: {raw[:300]!r}")
+    ver = json.loads(raw)["model_version"]
+    check(ver == 2 == pred.model_version, f"/swap model_version {ver}")
+    served = pred.adapters
+    check(set(served) == set(ads3) and all(
+        torch.equal(served[n][k].cpu(), ads3[n][k].cpu())
+        for n in ads3 for k in ("a", "b")),
+        "the adapters /swap fetched are not bitwise the ones put")
+    pa.launch_count = 0
+    pa.launches_by_c.clear()
+    wave = reqs[:4]
+    codes, outs, wall = _http_wave(runner.port, wave)
+    launches = {"all": pa.launch_count, "by_c": dict(pa.launches_by_c)}
+    check(codes == [200] * len(wave), f"post-swap HTTP codes {codes}")
+    check(all(len(o) == n for o, (_p, n) in zip(outs, wave)),
+          "a post-swap answer is short of max_new_tokens")
+    check(launches["all"] > 0, "the post-swap wave launched no K4")
+    return {"put_ms": put_ms, "swap_ms": swap_ms, "model_version": ver,
+            "adapter_bytes": sum(t.numel() * t.element_size()
+                                 for ab in ads3.values()
+                                 for t in ab.values()),
+            "wave_launches": launches, "wave_wall_s": wall}
+
+
 def _kernel_rows(prof) -> list:
     """(name, calls, device ms) of each kernel in a torch.profiler run,
     longest first. Only the device's own events: a host op's row (aten::mm,
     an autograd Function) carries the device time of the kernels it
-    launched, which the kernels' rows already hold."""
+    launched, which the kernels' rows already hold, and a recorder span's
+    `record_function` range is an annotation over them, not a kernel."""
     from torch.autograd import DeviceType
 
     rows = [(e.key, e.count, e.self_device_time_total / 1e3)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
             and e.self_device_time_total > 0]
     return sorted(rows, key=lambda r: -r[2])
 
@@ -1616,22 +1704,29 @@ def phase_train_profile(top: int = 25) -> None:
 
 
 # ------------------------------------------------------------------ phase 9
-def _fedavg_cfg(device: str, **train):
-    """The flagship config through `fedml_tpu_torch.init` (`train`
-    overrides train_args keys; an "extra" dict goes to train_args.extra),
-    its data cache a directory of the checkout that holds no data, so the
-    loader takes the synthetic CIFAR-10 path."""
+def _flagship_dict(**train) -> dict:
+    """The flagship config as a dict (`train` overrides train_args keys;
+    an "extra" dict goes to train_args.extra), its data cache a directory
+    of the checkout that holds no data, so the loader takes the synthetic
+    CIFAR-10 path."""
     import copy
     import os
-
-    import fedml_tpu_torch
 
     d = copy.deepcopy(FEDAVG_CONFIG)
     d["train_args"].update(train)
     d["data_args"]["data_cache_dir"] = os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "chiprun_out", "no_data")
     d["data_args"]["synthetic_samples_per_client"] = FEDAVG_SAMPLES
-    return fedml_tpu_torch.init(config=d, device=device)
+    return d
+
+
+def _fedavg_cfg(device: str, **train):
+    """The flagship config (`_flagship_dict`) through
+    `fedml_tpu_torch.init`."""
+    import fedml_tpu_torch
+
+    return fedml_tpu_torch.init(config=_flagship_dict(**train),
+                                device=device)
 
 
 def _conv_matmul_flops(model, params, input_shape) -> int:
@@ -2698,7 +2793,7 @@ def _cs_flagship(ds) -> dict:
              for i in range(ds.num_clients)]
     cfg = _cs_cfg(DEV, "cs-flagship", 1 + CS_ROUNDS)
     recorder.spans.clear()
-    dropped0 = recorder.dropped
+    dropped0 = sum(recorder.dropped.values())
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2710,9 +2805,9 @@ def _cs_flagship(ds) -> dict:
     # the start-up handshake alone records ~4 x silos^2 status spans (every
     # CONNECTION_IS_READY before the first round re-checks every silo, as
     # in the JAX server); the counts below need the whole run in the ring
-    check(recorder.dropped == dropped0,
-          f"the span ring evicted {recorder.dropped - dropped0} of the "
-          f"run's {len(spans)} spans")
+    evicted = sum(recorder.dropped.values()) - dropped0
+    check(evicted == 0,
+          f"the span ring evicted {evicted} of the run's {len(spans)} spans")
     rounds = sorted((s for s in spans if s.name == "round"),
                     key=lambda s: s.meta["round"])
     check(len(rounds) == 1 + CS_ROUNDS,
@@ -3032,12 +3127,12 @@ def _run_spans(run, *a, **kw):
     from fedml_tpu_torch.utils.events import recorder
 
     recorder.spans.clear()
-    dropped0 = recorder.dropped
+    dropped0 = sum(recorder.dropped.values())
     out = run(*a, **kw)
     spans = list(recorder.spans)
-    check(recorder.dropped == dropped0,
-          f"the span ring evicted {recorder.dropped - dropped0} of the "
-          f"run's {len(spans)} spans")
+    evicted = sum(recorder.dropped.values()) - dropped0
+    check(evicted == 0,
+          f"the span ring evicted {evicted} of the run's {len(spans)} spans")
     return out, spans
 
 
@@ -3509,6 +3604,7 @@ def _step_launches(fn, steps: int) -> float:
         torch.cuda.synchronize()
     n = sum(e.count for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
             and not e.key.startswith(("Memcpy", "Memset")))
     return n / steps
 
@@ -3975,6 +4071,264 @@ def phase_standalone(fedsim=None) -> dict:
     return res
 
 
+def _cli(*args, timeout: float = 300) -> subprocess.CompletedProcess:
+    """`python -m fedml_tpu_torch <args>` from the checkout's root."""
+    return _clis([args], timeout)[0]
+
+
+def _clis(argvs, timeout: float = 300) -> list:
+    """Several `python -m fedml_tpu_torch` commands started together (each
+    spends seconds importing torch), their CompletedProcesses in order."""
+    import os
+
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "fedml_tpu_torch", *a],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__))) for a in argvs]
+    out = []
+    for a, p in zip(argvs, procs):
+        try:
+            so, se = p.communicate(timeout=timeout)
+        finally:
+            p.kill()
+        out.append(subprocess.CompletedProcess(a, p.returncode, so, se))
+    return out
+
+
+def _entry_cfg(log_dir, tracking: bool) -> dict:
+    """The flagship config (G = 10, ENTRY_ROUNDS rounds) as a dict; with
+    `tracking`, tracked into `log_dir` with its artifact store and
+    /metrics."""
+    import os
+
+    d = _flagship_dict(comm_round=ENTRY_ROUNDS,
+                       extra={"clients_per_device_parallel": 10})
+    if tracking:
+        d["tracking_args"] = {
+            "enable_tracking": True, "log_file_dir": str(log_dir),
+            "run_name": "entry",
+            "extra": {"artifact_dir": os.path.join(str(log_dir), "arts"),
+                      "sysperf_interval": ENTRY_SYSPERF_S}}
+        d["common_args"] = {"extra": {"metrics_port": 0}}
+    return d
+
+
+def _round_ms(first_span: int) -> dict:
+    """{round: ms} of the `train` spans recorded since `first_span`."""
+    from fedml_tpu_torch.utils.events import recorder
+
+    return {s.meta["round"]: s.duration * 1e3
+            for s in list(recorder.spans)[first_span:]
+            if s.name == "train" and "round" in s.meta}
+
+
+def _entry_tracked(d) -> dict:
+    """(a): init -> mlops.init -> the Simulator's run (what run_simulation
+    runs) -> mlops.finish, tracked; then the untracked run's round beside
+    it, and (d) predictor_from_artifact behind the HTTP runner."""
+    import os
+
+    import torch
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch import mlops, serving
+    from fedml_tpu_torch.simulation.simulator import Simulator
+    from fedml_tpu_torch.utils.artifacts import aggregated_name
+    from fedml_tpu_torch.utils.events import recorder
+    from fedml_tpu_torch.utils.postmortem import load_postmortem
+
+    out = {}
+    # untracked first: the same rounds with no sink, sampler or store
+    n0 = len(recorder.spans)
+    sim = Simulator(fedml_tpu_torch.init(config=_entry_cfg(d, False),
+                                         device=DEV))
+    sim.run()
+    out["untracked_round_ms"] = _round_ms(n0)
+    del sim
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = fedml_tpu_torch.init(config=_entry_cfg(d, True), device=DEV)
+    mlops.init(cfg)
+    store = mlops.artifact_store()
+    put_ms = []
+    put = store.put
+
+    def timed_put(name, tree):
+        t0 = time.perf_counter()
+        r = put(name, tree)
+        put_ms.append((time.perf_counter() - t0) * 1e3)
+        return r
+
+    store.put = timed_put
+    n0 = len(recorder.spans)
+    try:
+        sim = Simulator(cfg)
+        sim.run()
+    finally:
+        mlops.finish()
+    out["tracked_round_ms"] = _round_ms(n0)
+    out["publish_ms"] = put_ms
+    final = {k: v.detach().cpu().numpy()
+             for k, v in sim.server_state.params.items()}
+    rows = [json.loads(x) for x in
+            open(os.path.join(d, "entry.events.jsonl"))]
+    trains = sorted(r.get("round") for r in rows
+                    if r.get("kind") == "span" and r.get("name") == "train")
+    check(trains == list(range(ENTRY_ROUNDS)),
+          f"events: train spans for rounds {trains}")
+    perf = [r["sysperf"] for r in rows if "sysperf" in r]
+    check(perf and max(p.get("dev0_bytes_in_use", 0) for p in perf) > 0,
+          f"events: {len(perf)} sysperf rows, none with dev0 bytes in use")
+    check(any("report" in r for r in rows), "events: no end-of-run report")
+    with open(os.path.join(d, "entry.trace.json")) as f:
+        trace = json.load(f)["traceEvents"]
+    check(any(e.get("cat") == "round" for e in trace),
+          "the Chrome trace has no round track event")
+    pm = load_postmortem(d)
+    check(pm is not None and pm["reason"] == "finish",
+          f"postmortem reason {pm and pm.get('reason')}")
+    names = store.list()
+    check({aggregated_name(r) for r in range(ENTRY_ROUNDS)} <= set(names),
+          f"artifacts {names}")
+    last = store.get(aggregated_name(ENTRY_ROUNDS - 1))
+    check(set(last) == set(final) and all(
+        np.array_equal(np.asarray(last[k]), final[k]) for k in final),
+        "the last round's artifact is not bitwise the final parameters")
+    out.update(
+        sysperf_rows=len(perf),
+        dev0_bytes_in_use_max=max(p.get("dev0_bytes_in_use", 0)
+                                  for p in perf),
+        artifact_bytes=os.path.getsize(os.path.join(
+            d, "arts", aggregated_name(ENTRY_ROUNDS - 1) + ".bin")),
+        events_rows=len(rows), postmortem=pm["reason"])
+
+    # (d) the round's model served from the store over HTTP
+    from fedml_tpu_torch.serving.inference_runner import FedMLInferenceRunner
+
+    x = np.asarray(sim.dataset.x_test[:32], np.float32)
+    pred = serving.predictor_from_artifact(store, ENTRY_ROUNDS - 1,
+                                           sim.apply_fn, device=DEV)
+    runner = FedMLInferenceRunner(pred, port=0).start()
+    try:
+        code, raw = _post(runner.port, {"inputs": x.tolist()})
+    finally:
+        runner.stop()
+    check(code == 200, f"/predict from the artifact answered {code}")
+    got = json.loads(raw)
+    with torch.no_grad():
+        logits = sim.apply_fn(sim.server_state.params,
+                              torch.from_numpy(x).to(DEV))
+        want_labels = logits.argmax(-1).cpu().numpy().tolist()
+        want_probs = (torch.softmax(logits.float(), -1).cpu().numpy()
+                      .round(6).tolist())
+    check(got["predictions"] == want_labels
+          and got["probabilities"] == want_probs,
+          "/predict from the artifact differs from apply_fn of the final "
+          "parameters on the same batch")
+    out["d_predict"] = {"images": len(x), "bitwise": True}
+    del sim, pred, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_entry(surface=None) -> dict:
+    """Phase 15 (module docstring): the single-process entry surface at the
+    flagship. `surface`, phase serve_surface's results when it ran in this
+    call, carries (e), the /swap leg on its runner."""
+    import os
+    import tempfile
+
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.ops import paged_attention as pa
+
+    fa.launch_count.update(dict.fromkeys(fa.launch_count, 0))
+    pa.launch_count = 0
+    t0 = time.perf_counter()
+    res = {}
+    with tempfile.TemporaryDirectory() as d:
+        t1 = time.perf_counter()
+        res["a_tracked"] = _entry_tracked(d)
+        res["a_tracked"]["seconds"] = time.perf_counter() - t1
+        launches = {**fa.launch_count, "paged": pa.launch_count}
+        res["a_tracked"]["k1_k4_launches"] = launches
+        emit({"phase": "entry", "part": "a_d_tracked_run",
+              **res["a_tracked"]})
+        check(not any(launches.values()),
+              f"the flagship run launched a flash or paged kernel: "
+              f"{launches}")
+        # (b) the CLI on the run dir, (c) `run` on the same config
+        # written as JSON (one round, its own run dir) and (f)'s `env`,
+        # started together: (b) and `env` read files and names only
+        t1 = time.perf_counter()
+        cfg_path = os.path.join(d, "fedml_config.json")
+        with open(cfg_path, "w") as f:
+            json.dump(_entry_cfg(os.path.join(d, "cli_run"), True), f)
+        rep, top, logs, env, run = _clis([
+            ("report", "--log-dir", d, "--format", "json"),
+            ("top", "--once", "--log-dir", d),
+            ("logs", "--list", "--log-dir", d), ("env",),
+            ("run", "--cf", cfg_path, "--rounds", "1")], timeout=600)
+        check(rep.returncode == 0, f"report rc {rep.returncode}: "
+              f"{rep.stderr[-500:]}")
+        doc = json.loads(rep.stdout)
+        rounds = doc["budget"]["rounds"]
+        check(doc["spans"]["train"]["count"] == ENTRY_ROUNDS
+              and len(rounds) == ENTRY_ROUNDS
+              and all(r["compute_s"] > 0 for r in rounds),
+              f"report: train {doc['spans'].get('train')}, rounds {rounds}")
+        check(top.returncode == 0 and "rounds_total" in top.stdout,
+              f"top rc {top.returncode}: {top.stderr[-300:]}")
+        runs = json.loads(logs.stdout)["runs"] if logs.returncode == 0 \
+            else []
+        check({"entry.events.jsonl", "entry.log", "entry.trace.json",
+               "postmortem.json"} <= set(runs), f"logs --list {runs}")
+        res["b_cli"] = {"report_train_spans": doc["spans"]["train"],
+                        "round_compute_s": [r["compute_s"] for r in rounds],
+                        "round_share_compute": [
+                            r["compute_s"] / r["wall_s"] for r in rounds],
+                        "top_lines": len(top.stdout.splitlines()),
+                        "runs": runs}
+        emit({"phase": "entry", "part": "b_cli", **res["b_cli"]})
+        last = run.stdout.strip().splitlines()[-1] if run.stdout.strip() \
+            else ""
+        check(run.returncode == 0 and json.loads(last).get("round") == 0,
+              f"run rc {run.returncode}, last line {last!r}: "
+              f"{run.stderr[-500:]}")
+        res["c_run"] = {"last_row": json.loads(last),
+                        "b_c_seconds": time.perf_counter() - t1}
+        emit({"phase": "entry", "part": "c_run", **res["c_run"]})
+    # (e) /swap from the store, on phase serve_surface's runner
+    res["e_swap"] = (surface or {}).get("swap") or \
+        "not run: phase serve_surface did not run in this call"
+    emit({"phase": "entry", "part": "e_swap", "swap": res["e_swap"]})
+    # (f) the diagnosis battery, and `env` (run in (b)), as subprocesses
+    t1 = time.perf_counter()
+    check(env.returncode == 0, f"env rc {env.returncode}")
+    card = json.loads(env.stdout)["devices"][0]
+    smi_name = nvidia_smi_line().split(",")[0].strip()
+    check(card == smi_name, f"env names {card!r}, nvidia-smi {smi_name!r}")
+    diag = _cli("diagnosis", timeout=600)
+    report = json.loads(diag.stdout) if diag.stdout.strip() else {}
+    checks = report.get("checks", {})
+    from fedml_tpu_torch.diagnosis import REQUIRED
+
+    failed = [k for k in REQUIRED if not checks.get(k, {}).get("ok")]
+    check(diag.returncode == 0 and not failed,
+          f"diagnosis rc {diag.returncode}, failed {failed}: "
+          f"{ {k: checks.get(k) for k in failed} } {diag.stderr[-500:]}")
+    res["f_diagnosis"] = {
+        "env_device": card,
+        "probe_seconds": {k: v.get("seconds") for k, v in checks.items()},
+        "probe_ok": {k: v.get("ok") for k, v in checks.items()},
+        "kernels": checks.get("kernels"),
+        "seconds": time.perf_counter() - t1}
+    emit({"phase": "entry", "part": "f_diagnosis", **res["f_diagnosis"]})
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
 def kernel_rows(kern: dict, runs: dict, flash: dict, train: dict,
                 surface: dict, every_phase: bool) -> list:
     """The `kernels` line's rows from the phases' results; with
@@ -4151,6 +4505,7 @@ def main() -> int:
         cross_silo.get("flagship"),
         cross_silo.get("bars", {}).get("card_params"))
     run("standalone", phase_standalone, fedsim.get("flagship"))
+    run("entry", phase_entry, surface)
 
     kernels = kernel_rows(kern, runs, flash, train, surface,
                           every_phase=set(PHASES) <= set(args.only))

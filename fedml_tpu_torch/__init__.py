@@ -13,22 +13,28 @@ training (`llm.federated_lora` under `parallel.round.build_round_fn`) with
 causal attention through hand-written CUDA flash-attention kernels
 (`ops.flash_attention`: forward, dQ, dK/dV); and cross-silo FedAvg over
 the message layer (`FedMLRunner` with `training_type: cross_silo`:
-`comm/`, `cross_silo/`). Kernel sources are in `csrc/`.
+`comm/`, `cross_silo/`); and the single-process entry surface
+(`python -m fedml_tpu_torch`, `mlops`, the telemetry sinks, the
+model-artifact store). Kernel sources are in `csrc/`.
 
 Entry points default to `device="cuda"` and raise when no GPU is
 visible; pass `device="cpu"` to run the plain PyTorch versions.
 """
 from __future__ import annotations
 
+import logging
 import random
+from pathlib import Path
 
 import numpy as np
 
 from ._device import resolve_device
 from .config import Config, load_config
 
+__version__ = "0.1.0"
+
 __all__ = ["Config", "load_config", "init", "run_simulation",
-           "resolve_device", "FedMLRunner"]
+           "resolve_device", "FedMLRunner", "__version__"]
 
 
 def __getattr__(name):
@@ -42,14 +48,15 @@ def __getattr__(name):
 
 def init(config_path: str | None = None, config: Config | dict | None = None,
          device=None, **overrides) -> Config:
-    """Load and validate the config, seed Python's and numpy's global
-    generators from `common_args.random_seed` (torch draws come only from
-    explicit generators), and record the run's device (None: CUDA, which
-    raises without a GPU) in `device_args.extra["device"]` for
-    `run_simulation` and `FedMLRunner`. Tracking sinks, the model-artifact
-    store (`tracking_args.artifact_store` / `artifact_dir`) and per-client
-    silo overrides are not ported yet and raise (ROADMAP 'Port queue'
-    item 5)."""
+    """Load and validate the config, merge a client rank's
+    `data_silo_config` override file (resolved against the config file's
+    directory), seed Python's and numpy's global generators from
+    `common_args.random_seed` (torch draws come only from explicit
+    generators), set up logging, attach the tracking sinks
+    `tracking_args` asks for (`utils/sinks.attach_from_config`), and
+    record the run's device (None: CUDA, which raises without a GPU) in
+    `device_args.extra["device"]` for `run_simulation` and
+    `FedMLRunner`."""
     if config_path is not None:
         cfg = load_config(config_path)
     elif isinstance(config, Config):
@@ -60,22 +67,15 @@ def init(config_path: str | None = None, config: Config | dict | None = None,
         cfg = Config()
     for k, v in overrides.items():
         setattr(cfg, k, v)
-    t = cfg.tracking_args
-    if t.enable_tracking or t.enable_wandb or t.extra.get("log_upload_broker"):
-        raise NotImplementedError(
-            "tracking sinks (tracking_args) are not ported yet (ROADMAP "
-            "'Port queue' item 5)")
-    from .runner import refuse_artifact_store
-
-    refuse_artifact_store(cfg)
-    if cfg.rank > 0 and (cfg.client_specific_args.get("data_silo_config")
-                         or cfg.train_args.extra.get("data_silo_config")):
-        raise NotImplementedError(
-            "per-client silo overrides (data_silo_config) are not ported "
-            "yet (ROADMAP 'Port queue' item 5)")
+    cfg.apply_data_silo_config(
+        Path(config_path).expanduser().parent if config_path else None)
     cfg.device_args.extra["device"] = str(resolve_device(device))
     random.seed(cfg.common_args.random_seed)
     np.random.seed(cfg.common_args.random_seed)
+    logging.basicConfig(level=logging.INFO)
+    from .utils.sinks import attach_from_config
+
+    attach_from_config(cfg)
     return cfg
 
 

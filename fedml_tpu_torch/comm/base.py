@@ -10,9 +10,10 @@ counters, the `serialize_s` / `deserialize_s` histograms and the per-link
 `comm.link.<src>.<dst>.bytes`. The wire codec plane (`comm/codec.py`)
 hooks in here too: with a policy set (`set_codec`), `_encode_frame`
 compresses a message's training payloads before framing, and
-`_decode_frame` reverses any codec header a frame carries. The JAX
-package's flight-recorder frame ring (its `utils/postmortem.py`) is not
-ported (ROADMAP 'Port queue' item 5).
+`_decode_frame` reverses any codec header a frame carries. Both note
+each frame's header (type, sender, receiver, bytes) in the crash flight
+recorder's frame ring (`utils/postmortem.py`). Messages carry no trace
+headers in the port, so the ring's `headers` stay empty.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import logging
 import time
 
 from ..utils import metrics as _mx
+from ..utils import postmortem as _pm
 from .message import Message
 
 _log = logging.getLogger(__name__)
@@ -104,6 +106,8 @@ class BaseTransport(abc.ABC):
         _mx.inc(f"{pre}.msgs_sent")
         _mx.inc(f"comm.link.{msg.sender_id}.{msg.receiver_id}.bytes",
                 len(frame))
+        _pm.note_frame("send", msg.type, msg.sender_id, msg.receiver_id,
+                       len(frame))
         return frame
 
     def _decode_frame(self, frame: bytes) -> Message:
@@ -119,6 +123,8 @@ class BaseTransport(abc.ABC):
         _mx.observe(f"{pre}.deserialize_s", time.perf_counter() - t0)
         _mx.inc(f"{pre}.bytes_recv", len(frame))
         _mx.inc(f"{pre}.msgs_recv")
+        _pm.note_frame("recv", msg.type, msg.sender_id, msg.receiver_id,
+                       len(frame))
         return msg
 
     @abc.abstractmethod

@@ -39,6 +39,7 @@ class InMemoryBroker:
     def __init__(self):
         self._topics: dict[str, deque] = defaultdict(deque)
         self._blobs: dict[str, bytes] = {}
+        self._retained: dict[str, bytes] = {}
         self._cv = threading.Condition()
 
     # --- topic plane (MQTT)
@@ -46,6 +47,21 @@ class InMemoryBroker:
         with self._cv:
             self._topics[topic].append(frame)
             self._cv.notify_all()
+
+    # --- retained frames (MQTT's retain flag): the last frame a topic got,
+    # read without removing it by any later reader; the artifact store's
+    # name index (utils/artifacts.py) lives here
+    def retain(self, topic: str, frame: bytes) -> None:
+        with self._cv:
+            self._retained[topic] = frame
+
+    def retained(self, topic: str) -> Optional[bytes]:
+        with self._cv:
+            return self._retained.get(topic)
+
+    def unretain(self, topic: str) -> None:
+        with self._cv:
+            self._retained.pop(topic, None)
 
     def poll(self, topic: str, timeout: float = 0.2) -> Optional[bytes]:
         with self._cv:
@@ -66,10 +82,10 @@ class InMemoryBroker:
             self._blobs[key] = data
         return key
 
-    def get_blob(self, key: str) -> bytes:
-        """The blob under `key`, removed: each blob has one reader."""
+    def get_blob(self, key: str, delete: bool = True) -> bytes:
+        """The blob under `key`, removed unless `delete` is False."""
         with self._cv:
-            return self._blobs.pop(key)
+            return self._blobs.pop(key) if delete else self._blobs[key]
 
 
 class ContentAddressedBroker(InMemoryBroker):
@@ -99,15 +115,16 @@ class ContentAddressedBroker(InMemoryBroker):
                 self._refs[key] = 1
         return key
 
-    def get_blob(self, key: str) -> bytes:
-        """The blob under `key`, verified; the last of its readers removes
-        it."""
+    def get_blob(self, key: str, delete: bool = True) -> bytes:
+        """The blob under `key`, verified; with `delete`, the last of its
+        readers removes it."""
         with self._cv:
             data = self._blobs[key]
-            self._refs[key] -= 1
-            if self._refs[key] <= 0:
-                del self._blobs[key]
-                del self._refs[key]
+            if delete:
+                self._refs[key] -= 1
+                if self._refs[key] <= 0:
+                    del self._blobs[key]
+                    del self._refs[key]
         if hashlib.sha256(data).hexdigest() != key:
             raise ValueError(
                 f"content-addressed blob {key[:12]}… failed hash "

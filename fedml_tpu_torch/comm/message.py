@@ -1,8 +1,8 @@
 """Message envelope for the cross-silo comm layer (port of
 `fedml_tpu/comm/message.py`): a typed dict envelope with sender and
 receiver ranks, framed by `serialization.encode`. The JAX package's trace
-headers (`stamp_trace`) are not ported: the port's span recorder keeps no
-trace ids."""
+headers (`stamp_trace`) are not ported yet (ROADMAP 'Port queue' entry 8):
+a receiver's spans start a trace of their own."""
 from __future__ import annotations
 
 import dataclasses

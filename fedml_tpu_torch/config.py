@@ -5,12 +5,15 @@ model_args, train_args, validation_args, device_args, comm_args,
 tracking_args, security_args, dp_args, serve_args), validated into
 dataclasses at load time; keys a section does not declare go to its
 `extra` dict. `validate` holds the rules of the knobs the ported
-simulation path reads. `yaml` is imported inside `load_config` only: a
-machine without it can still build a `Config` from a dict.
+simulation path reads. `load_config` reads a file that is valid JSON with
+`json` and imports `yaml` only for other files: a machine without PyYAML
+still loads a JSON config, or builds a `Config` from a dict.
+`apply_data_silo_config` merges a client rank's override file.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Optional
@@ -207,10 +210,7 @@ class Config:
 
     @classmethod
     def from_yaml(cls, path: str | Path) -> "Config":
-        import yaml
-
-        with open(Path(path).expanduser()) as f:
-            return cls.from_dict(yaml.safe_load(f) or {})
+        return cls.from_dict(read_config_file(path))
 
     def to_dict(self) -> dict:
         out = {}
@@ -236,6 +236,29 @@ class Config:
                 _apply(getattr(self, _FLAT_KEY_SECTION.get(k, "train_args")),
                        {k: v})
         self.validate()
+
+    def apply_data_silo_config(self, base_dir: Optional[Path] = None) -> None:
+        """Per-client config overrides (reference: python/fedml/__init__.py
+        :188-214 `_update_client_specific_args`): when
+        `client_specific_args.data_silo_config` (or the flat
+        `train_args.data_silo_config`) lists override files and this
+        config's rank is a client rank (> 0), merge file [rank - 1] over
+        the config. A relative path resolves against `base_dir` (the main
+        config file's directory) when the file is there, else against the
+        working directory."""
+        silo_cfgs = (self.client_specific_args.get("data_silo_config")
+                     or self.train_args.extra.get("data_silo_config"))
+        if not silo_cfgs or self.rank <= 0:
+            return
+        if self.rank > len(silo_cfgs):
+            raise ValueError(
+                f"rank {self.rank} has no data_silo_config entry "
+                f"({len(silo_cfgs)} files listed)")
+        p = Path(str(silo_cfgs[self.rank - 1])).expanduser()
+        if not p.is_absolute() and base_dir is not None \
+                and (Path(base_dir) / p).exists():
+            p = Path(base_dir) / p
+        self.merge_overrides(read_config_file(p))
 
     def validate(self) -> None:
         t = self.train_args
@@ -442,6 +465,21 @@ for _section in ("dp_args", "security_args", "tracking_args", "comm_args",
     for _f in dataclasses.fields(Config.SECTION_TYPES[_section]):
         if _f.name != "extra":
             _FLAT_KEY_SECTION[_f.name] = _section
+
+
+def read_config_file(path: str | Path) -> dict:
+    """A config file's dict: `json` parses a file that is valid JSON (the
+    dict `yaml.safe_load` gives for it), and only other files import
+    PyYAML, which the card's machine may not have."""
+    with open(Path(path).expanduser()) as f:
+        text = f.read()
+    try:
+        d = json.loads(text)
+    except json.JSONDecodeError:
+        import yaml
+
+        d = yaml.safe_load(text)
+    return d or {}
 
 
 def load_config(path: str | Path) -> Config:

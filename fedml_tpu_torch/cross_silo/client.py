@@ -17,9 +17,8 @@ Durability, as in the JAX package:
 - `dp_upload` (`dp.make_upload_dp`) clips and noises the update before the
   upload leaves the client.
 
-The JAX client also publishes its model to the mlops artifact store
-(`mlops.log_client_model_info`); the port has no artifact store (ROADMAP
-'Port queue' item 5).
+- Each trained model is published to the artifact store `mlops.init`
+  configured (`mlops.log_client_model_info`; a no-op without one).
 """
 from __future__ import annotations
 
@@ -104,6 +103,12 @@ class FedClientManager:
             self._training = False
         if self.dp_upload is not None:
             new_params = self.dp_upload.apply(new_params, params, round_idx)
+        # the client's trained model to the artifact store (reference:
+        # core/mlops/__init__.py:475 log_client_model_info); a no-op
+        # without a store
+        from .. import mlops
+
+        mlops.log_client_model_info(round_idx, self.client_id, new_params)
         out = Message(md.C2S_SEND_MODEL, self.client_id, self.server_id)
         out.add(md.KEY_MODEL_PARAMS, new_params)
         out.add(md.KEY_NUM_SAMPLES, n)

@@ -37,10 +37,9 @@ Beyond the reference, as in the JAX package:
 - Liveness eviction: a client silent for `liveness_timeout_s` leaves the
   selection pool until it is heard from again.
 
-The JAX server also publishes each round's model to the mlops artifact
-store (`mlops.log_aggregated_model_info`); the port has no artifact store
-(ROADMAP 'Port queue' item 5), and `init` and `FedMLRunner` refuse its
-config keys (`tracking_args.artifact_store` / `artifact_dir`).
+Each round's aggregated model is published to the artifact store
+`mlops.init` configured (`mlops.log_aggregated_model_info`; a no-op
+without one).
 """
 from __future__ import annotations
 
@@ -491,6 +490,12 @@ class FedServerManager:
         self.params = self.aggregator.aggregate()
         if self.postprocess_agg_fn is not None:
             self.params = self.postprocess_agg_fn(self.params, self.round_idx)
+        # the round's aggregated model to the artifact store (reference:
+        # the aggregator calls mlops.log_aggregated_model_info every round,
+        # core/mlops/__init__.py:388); a no-op without a store
+        from .. import mlops
+
+        mlops.log_aggregated_model_info(self.round_idx, self.params)
         row = {"round": self.round_idx,
                "n_received": len(self.aggregator.results)}
         if self.eval_fn is not None:

@@ -31,3 +31,10 @@ def rowwise_rel_err(got, want) -> float:
     diff = ((g - w).abs() - ulp).clamp(min=0).amax(-1)
     mag = w.abs().amax(-1)
     return (diff / mag.clamp(min=1e-2)).max().item()
+
+
+# the bars each kernel is held to under `rowwise_rel_err` (the same numbers
+# as chip_smoke.py's TOL and FLASH_TOL, where the readings behind them are
+# given): K4 by pool kind, K1-K3 by dtype
+PAGED_TOL = {"f32": 1e-5, "bf16": 1e-2, "int8": 1e-2}
+FLASH_TOL = {"f32": 1e-4, "bf16": 1e-2}

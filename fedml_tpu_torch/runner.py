@@ -34,11 +34,15 @@ comes from `dp_args` (`dp.make_upload_dp`). Every role runs on `device`
 (default: the device `init` recorded, else CUDA); the SecAgg server's
 unmask is host work.
 
+Every role publishes its models to the artifact store `mlops.init`
+configured (`tracking_args.extra.artifact_store` / `artifact_dir`): the
+Simulator and the server the aggregated model each round, a client its
+trained model.
+
 Not ported, each refused with a NotImplementedError naming its ROADMAP
 'Port queue' item: async simulation and `fa_task` (item 5); the
 hierarchical scenario, a silo `mesh` and the centralized trainer's
-model-parallel mesh (item 4); the model-artifact store
-(`tracking_args.extra.artifact_store` / `artifact_dir`, item 5).
+model-parallel mesh (item 4).
 """
 from __future__ import annotations
 
@@ -59,15 +63,6 @@ def _later(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported yet (ROADMAP 'Port queue' item {item})")
 
 
-def refuse_artifact_store(cfg: Config) -> None:
-    """The JAX package publishes models to an artifact store named by these
-    keys; the port has none, so it refuses them rather than ignore them."""
-    tr = cfg.tracking_args.extra
-    if tr.get("artifact_store") or tr.get("artifact_dir"):
-        raise _later("the model-artifact store (tracking_args."
-                     "artifact_store / artifact_dir)", "5")
-
-
 class FedMLRunner:
     """(reference: runner.py:19) config -> runtime with .run()."""
 
@@ -75,7 +70,6 @@ class FedMLRunner:
                  role: str = "server", rank: int = 0,
                  transport: Optional[str] = None, **kw):
         self.cfg = cfg
-        refuse_artifact_store(cfg)
         tt = cfg.common_args.training_type
         if cfg.train_args.extra.get("fa_task"):
             raise _later("federated analytics (train_args.fa_task)", "5")

@@ -3,8 +3,9 @@ HTTP inference runner (port of `fedml_tpu/serving/__init__.py`).
 
 `lm_predictor_from_config` builds the LM predictor from a Config's
 `serve_args` (validated at load against `serving/knobs.py`);
-`serve_simulator` serves a Simulator's global model over HTTP and
-`predictor_from_checkpoint` a checkpoint it saved. Importing this package
+`serve_simulator` serves a Simulator's global model over HTTP,
+`predictor_from_checkpoint` a checkpoint it saved and
+`predictor_from_artifact` a round's model from the artifact store. Importing this package
 stays light: the heavy symbols import on first attribute access (PEP
 562), so `config.py` can read the knob registry at load time.
 """
@@ -55,13 +56,19 @@ def lm_predictor_from_config(cfg, model, adapters=None, detokenize=None,
         detokenize=detokenize, device=device)
 
 
-def predictor_from_artifact(store, round_idx: int, apply_fn: Callable):
-    """Serving the round-N model from the artifact store waits for the
-    store itself."""
-    raise NotImplementedError(
-        "predictor_from_artifact needs the model-artifact store "
-        "(utils/artifacts), not ported yet (ROADMAP.md, 'Port queue', "
-        "item 5)")
+def predictor_from_artifact(store, round_idx: int, apply_fn: Callable,
+                            device=None):
+    """The round-N aggregated model from an artifact store
+    (`utils/artifacts.py`; what `mlops.log_aggregated_model_info`
+    published) wrapped as a `TorchPredictor` on `device` (CUDA unless the
+    caller names "cpu")."""
+    from .._device import resolve_device
+    from ..utils.artifacts import aggregated_name
+    from .predictor import TorchPredictor, params_to_torch
+
+    dev = resolve_device(device)
+    params = params_to_torch(store.get(aggregated_name(round_idx)))
+    return TorchPredictor(apply_fn, params, device=dev)
 
 
 def predictor_from_checkpoint(ckpt_dir: str, apply_fn: Callable,

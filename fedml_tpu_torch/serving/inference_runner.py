@@ -22,10 +22,15 @@
 - `stop()` drains the predictor's engine first.
 
 GET /metrics answers the process registry in the Prometheus text format
-(`utils/prometheus.py`). Not ported yet, answered with 501 naming its
-ROADMAP item: POST /swap (adapters fetched from the model-artifact store,
-`utils/artifacts`); a hot swap from Python is
-`GreedyLMPredictor.swap_adapters`.
+(`utils/prometheus.py`). POST /swap hot-swaps adapters from the
+model-artifact store: the body `{"store": store_spec(store), "name":
+adapter_name(r), "version": optional}` names the store
+(`utils/artifacts.py`) and the artifact, the replica fetches the tensors
+itself, moves them to the served adapters' device and dtype, and swaps
+them into the live predictor (`GreedyLMPredictor.swap_adapters`, under a
+`serving.swap.http` span). It answers 200 `{"model_version": N}`; 400 for
+a body that is not a JSON object, a predictor with no adapters, an
+unknown store or artifact, or a refused swap; 500 when the replica fails.
 """
 from __future__ import annotations
 
@@ -43,7 +48,6 @@ from .predictor import Predictor
 
 log = logging.getLogger(__name__)
 DEFAULT_PORT = 2345  # the reference runner's port
-_ITEM_5 = "is not ported yet (ROADMAP.md, 'Port queue', item 5: {})"
 
 
 class FedMLInferenceRunner:
@@ -166,10 +170,7 @@ class FedMLInferenceRunner:
                     self.close_connection = True
                     return      # severed: no response, socket closes
                 if self.path == "/swap":
-                    self._send(501, {"error": "/swap " + _ITEM_5.format(
-                        "the model-artifact store, utils/artifacts") + "; "
-                        "swap from Python with "
-                        "GreedyLMPredictor.swap_adapters"})
+                    self._do_swap()
                     return
                 if self.path != "/predict":
                     self._send(404, {"error": f"no route {self.path}"})
@@ -229,6 +230,43 @@ class FedMLInferenceRunner:
                     runner._inflight.dec()
                     _mx.observe("serving.request_s",
                                 time.perf_counter() - t0)
+
+            def _do_swap(self) -> None:
+                """Hot adapter swap from the artifact store the request
+                names (module docstring)."""
+                try:
+                    n = int(self.headers.get("Content-Length", 0))
+                    body = json.loads(self.rfile.read(n) or b"{}")
+                    if not isinstance(body, dict):
+                        self._send(400, {"error": "swap body must be a "
+                                                  "JSON object"})
+                        return
+                    swap = getattr(runner.predictor, "swap_adapters", None)
+                    if swap is None:
+                        self._send(400, {
+                            "error": "this replica's predictor has no "
+                                     "adapter plane to swap"})
+                        return
+                    from ..utils.artifacts import store_from_spec
+                    from .predictor import adapters_like
+
+                    store = store_from_spec(dict(body.get("store") or {}))
+                    tree = adapters_like(
+                        store.get(body["name"]),
+                        getattr(runner.predictor, "adapters", None))
+                    ver = body.get("version")
+                    with recorder.span("serving.swap.http",
+                                       artifact=body.get("name")):
+                        new_ver = swap(
+                            tree, version=None if ver is None else int(ver))
+                    self._send(200, {"model_version": new_ver})
+                except (KeyError, ValueError, TypeError) as e:
+                    _mx.inc("serving.errors")
+                    self._send(400, {"error": f"{type(e).__name__}: {e}"})
+                except Exception as e:  # noqa: BLE001 — replica failing
+                    log.exception("swap failed")
+                    _mx.inc("serving.errors")
+                    self._send(500, {"error": f"{type(e).__name__}: {e}"})
 
             def _do_stream(self, input_json: dict, t0: float) -> None:
                 """SSE branch of /predict. The FIRST chunk is pulled

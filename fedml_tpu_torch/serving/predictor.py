@@ -125,6 +125,36 @@ def lm_predictor_from_serve_knobs(sv: dict, model, adapters=None,
         device=device)
 
 
+def _as_tensor(v) -> torch.Tensor:
+    return v if isinstance(v, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(v))
+
+
+def params_to_torch(tree: dict) -> dict:
+    """An artifact store's flat parameter tree (numpy leaves, a bf16 leaf
+    as a CPU tensor) as CPU torch tensors."""
+    return {k: _as_tensor(v) for k, v in tree.items()}
+
+
+def adapters_like(tree: dict, like: Optional[dict]) -> dict:
+    """An artifact store's adapter tree ({name: {"a", "b"}}) as torch
+    tensors on the device and in the dtype of the served adapters `like`
+    (where `like` names the same leaf), so a swap can merge them."""
+    out = {}
+    for name, ab in tree.items():
+        if not isinstance(ab, dict):
+            raise ValueError(f"adapter {name!r} must be a dict of 'a' and "
+                             "'b'")
+        cur = (like or {}).get(name) or {}
+        out[name] = {}
+        for k, v in ab.items():
+            t = _as_tensor(v)
+            ref = cur.get(k)
+            out[name][k] = t if ref is None else t.to(device=ref.device,
+                                                      dtype=ref.dtype)
+    return out
+
+
 def _bucket(n: int, pow2_cap: int = 1024) -> int:
     """Power-of-two buckets up to the cap, then multiples of the cap."""
     if n > pow2_cap:

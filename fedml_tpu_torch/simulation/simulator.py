@@ -40,12 +40,19 @@ rounds done); the resumed run is the uninterrupted one bit for bit. On a
 GPU the Simulator makes cuDNN deterministic (`_device.deterministic_cuda`),
 so the same round repeats bit for bit.
 
+With an artifact store configured (`mlops.init`, `tracking_args.extra`
+artifact_store / artifact_dir), every round's aggregated model is
+published (`mlops.log_aggregated_model_info`); in blocked mode one a
+block, its last round's, as in the JAX package. A failed publish is
+logged and the run goes on. At the end of a run the buffering sinks are
+flushed (`utils/sinks.flush_sinks`).
+
 This is the JAX package's `backend: sp` path, and its `backend: xla` path
 when one device is visible. Not ported yet, each refused with a
 NotImplementedError naming its ROADMAP port-queue item: a mesh or several
-GPUs, and the cost model that places clients across them (item 4); the
-artifact store (item 5). `common_args.extra.metrics_port` starts the
-process's /metrics endpoint (`utils/prometheus.py`).
+GPUs, and the cost model that places clients across them (item 4).
+`common_args.extra.metrics_port` starts the process's /metrics endpoint
+(`utils/prometheus.py`).
 """
 from __future__ import annotations
 
@@ -104,9 +111,6 @@ def _refuse_unported(cfg: Config, device: torch.device) -> None:
         raise _later("train_args.cost_model (the Parrot cost model and LPT "
                      "placement, which only place clients across devices)",
                      "4, multi-GPU")
-    tr = cfg.tracking_args.extra
-    if tr.get("artifact_store") or tr.get("artifact_dir"):
-        raise _later("the model-artifact store", "5")
 
 
 def _compose(*fns):
@@ -485,13 +489,27 @@ class Simulator:
         return checkpoint_dir is not None and bool(checkpoint_every) and (
             (r + 1) % checkpoint_every == 0 or r == rounds - 1)
 
+    def _publish_model(self, r: int, params) -> None:
+        """Publish round r's aggregated model to the artifact store (a
+        no-op without one). A failed write is logged and the run goes on,
+        as in the JAX package: a store hiccup must not end a long run."""
+        from .. import mlops
+
+        try:
+            mlops.log_aggregated_model_info(r, params)
+        except Exception as e:  # noqa: BLE001
+            log.warning("round-%d model-artifact publish failed "
+                        "(continuing): %s: %s", r, type(e).__name__, e)
+
     def _run_one(self, r: int, rounds: int, batch_idx=None) -> None:
-        """One host-synchronous round: train, eval on cadence, log."""
+        """One host-synchronous round: train, eval on cadence, log,
+        publish."""
         row = {"round": r, **self.run_round(r, batch_idx)}
         if self._eval_due(r, rounds):
             row.update(self.evaluate())
         recorder.log(row)
         self.history.append(row)
+        self._publish_model(r, self.server_state.params)
 
     # ------------------------------------------------- round-block pipeline
     def _dispatch_block(self, blk: list, rounds: int,
@@ -528,26 +546,39 @@ class Simulator:
             metrics = out.metrics
         eval_out = (self._eval_dispatch()
                     if self._eval_due(blk[-1], rounds) else None)
-        return blk, ids, weights, metrics, eval_out, t0
+        # a block publishes once, its last round's parameters, copied here
+        # before the next block is queued
+        from .. import mlops
+
+        snap = ({k: v.clone() for k, v in self.server_state.params.items()}
+                if mlops.artifact_store() is not None else None)
+        return blk, ids, weights, metrics, eval_out, snap, t0
 
     def _drain_block(self, pending) -> None:
         """Materialise one queued block: ONE host transfer for its stacked
         [K] metrics, then per-round history rows as the per-round loop
-        writes them."""
-        blk, ids, weights, metrics, eval_out, t0 = pending
+        writes them. The block's `train` span covers queueing to
+        materialisation (`recorder.log_block_span`: one span, one sink row
+        a round)."""
+        blk, ids, weights, metrics, eval_out, snap, t0 = pending
         if isinstance(metrics, list):
             metrics = stack_metrics(metrics)
-        with recorder.span("train", rounds=list(blk), block=True):
-            m = fetch(metrics)
+        m = fetch(metrics)
         block_s = time.perf_counter() - t0
+        recorder.log_block_span("train", blk, block_s)
         for j, r in enumerate(blk):
             row = {"round": r, **self._observe(
                 r, ids[j], weights[j], tree_map(lambda v: v[j], m),
                 block_s / len(blk))}
             if eval_out is not None and r == blk[-1]:
+                te = time.perf_counter()
                 row.update(self._eval_finish(eval_out))
+                recorder.log_block_span("eval", [r],
+                                        time.perf_counter() - te)
             recorder.log(row)
             self.history.append(row)
+        if snap is not None:
+            self._publish_model(blk[-1], snap)
 
     def _run_blocked(self, start: int, rounds: int, block_size: int,
                      checkpoint_dir, checkpoint_every,
@@ -619,12 +650,16 @@ class Simulator:
         if block_size > 1:
             self._run_blocked(start, rounds, block_size, checkpoint_dir,
                               checkpoint_every, batch_schedule)
-            return self.history
-        for r in range(start, rounds):
-            self._run_one(r, rounds, None if batch_schedule is None
-                          else batch_schedule(r))
-            if self._ckpt_due(r, rounds, checkpoint_dir, checkpoint_every):
-                self.save(checkpoint_dir)
+        else:
+            for r in range(start, rounds):
+                self._run_one(r, rounds, None if batch_schedule is None
+                              else batch_schedule(r))
+                if self._ckpt_due(r, rounds, checkpoint_dir,
+                                  checkpoint_every):
+                    self.save(checkpoint_dir)
+        from ..utils.sinks import flush_sinks
+
+        flush_sinks()   # a BrokerLogSink's tail batch ships here
         return self.history
 
 

@@ -420,7 +420,10 @@ def test_runner_params_keyword_and_refusals(tmp_path):
               "data_args": {"dataset": "synthetic",
                             "data_cache_dir": str(tmp_path)}},
              lambda r: isinstance(r.runner, CentralizedTrainer)),
-            ({"tracking_args": {"artifact_dir": "/x"}}, "item 5")):
+            # the artifact store is ported: the server builds, and
+            # publishes to the store mlops.init set up
+            ({"tracking_args": {"artifact_dir": "/x"}},
+             lambda r: isinstance(r.runner, FedServerManager))):
         c = _runner_cfg(run)
         for sec, kv in over.items():
             for k, v in kv.items():
@@ -440,9 +443,20 @@ def test_runner_params_keyword_and_refusals(tmp_path):
         FedMLRunner(cfg, dataset=_silo_data("lr", 1),
                     model=hub.create("lr", 3, (8,), device="meta"),
                     role="client", rank=1, mesh=object())
-    with pytest.raises(NotImplementedError, match="artifact"):
-        fedml_tpu_torch.init(config={"tracking_args": {
-            "artifact_store": "file"}}, device="cpu")
+    from fedml_tpu_torch import mlops
+    from fedml_tpu_torch.utils.artifacts import FileArtifactStore
+
+    cfg = fedml_tpu_torch.init(config={"tracking_args": {
+        "log_file_dir": str(tmp_path), "run_name": "arts",
+        "artifact_store": "file"}}, device="cpu")
+    mlops.init(cfg)
+    try:
+        store = mlops.artifact_store()
+        assert isinstance(store, FileArtifactStore)
+        assert store.root == tmp_path / "arts_artifacts"
+    finally:
+        mlops.finish()
+    assert mlops.artifact_store() is None
     from fedml_tpu_torch.comm import release_broker
 
     release_router(run)
@@ -505,8 +519,11 @@ def test_span_ring_counts_what_it_evicts():
         with rec.span("s", i=i):
             pass
     rec.record(Span("r", 0.0, 1.0))
-    assert rec.dropped == 2
+    # the JAX recorder's truncation ledger: evictions by Chrome-trace
+    # track ("s" is on the "other" track)
+    assert rec.dropped == {"round": 0, "comm": 0, "serving": 0, "other": 2}
     assert [s.meta.get("i") for s in rec.spans] == [2, 3, None]
+    assert rec.summary()["s"]["count"] == 4
 
 
 # ------------------------------------------------------------ on the card

@@ -448,7 +448,9 @@ def test_simulator_runs_with_its_own_draws():
 REFUSED = [
     ({"device_args": {"mesh_shape": {"clients": 2}}}, "item 4"),
     ({"train_args": {"cost_model": True}}, "item 4"),
-    ({"tracking_args": {"artifact_dir": "/nonexistent"}}, "item 5"),
+    # ported since the artifact store: the Simulator builds, and publishes
+    # only to a store mlops.init set up (item None: no refusal)
+    ({"tracking_args": {"artifact_dir": "/nonexistent"}}, None),
     ({"train_args": {"task": "nwp"}}, "item 5"),
     ({"data_args": {"dataset": "shakespeare"}}, "item 5"),
     ({"data_args": {"dataset": "pascal_voc"}}, "item 5"),
@@ -466,6 +468,12 @@ def test_unported_knobs_raise(override, item, tmp_path):
     for sec, kv in override.items():
         d[sec] = {**d.get(sec, {}), **kv}
     cfg = Config.from_dict(d)
+    if item is None:
+        from fedml_tpu_torch import mlops
+
+        assert mlops.artifact_store() is None
+        assert Simulator(cfg, device="cpu").round_fn is not None
+        return
     with pytest.raises(NotImplementedError, match=item):
         Simulator(cfg, device="cpu")
 
@@ -492,18 +500,31 @@ def test_plugin_knobs_build(override, tmp_path):
     assert sim.round_fn is not None
 
 
-def test_unported_round_options_raise():
+def test_unported_round_options_raise(tmp_path):
     """The round's hooks and chaos faults build (item 3e is ported); a
-    mesh and the tracking sinks still raise with their items."""
+    mesh still raises with its item. The tracking sinks are ported: init
+    attaches the run's JSONL sink, once however often it is called."""
     alg = build_algorithm("FedAvg", lambda p, x: x, TrainArgs())
     build_round_fn(alg, postprocess_update=lambda u, r: u)
     build_round_fn(alg, client_dropout=0.1)
     with pytest.raises(NotImplementedError, match="item 4"):
         build_round_fn(alg, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 5"):
-        fedml_tpu_torch.init(config={"tracking_args":
-                                     {"enable_tracking": True}},
-                             device="cpu")
+    from fedml_tpu_torch.utils.events import recorder
+    from fedml_tpu_torch.utils.sinks import JsonlSink
+
+    n0 = len(recorder.sinks)
+    d = {"tracking_args": {"enable_tracking": True,
+                           "log_file_dir": str(tmp_path), "run_name": "t"}}
+    try:
+        for _ in range(2):
+            fedml_tpu_torch.init(config=d, device="cpu")
+        added = recorder.sinks[n0:]
+        assert len(added) == 1 and isinstance(added[0], JsonlSink)
+        assert added[0].path == str(tmp_path / "t.events.jsonl")
+    finally:
+        for sink in recorder.sinks[n0:]:
+            sink.close()
+        del recorder.sinks[n0:]
 
 
 def test_no_gpu_no_fallback():

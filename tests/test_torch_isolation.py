@@ -111,7 +111,10 @@ NATIVE = sorted((ROOT / "fedml_tpu_torch" / "native").glob("*.cpp"))
 def test_every_subpackage_is_checked():
     """The import and path checks above cover every module of the port,
     the SecAgg, cross-cloud, cross-device, contribution and centralized
-    subpackages and the gRPC, FLOP and Prometheus modules included."""
+    subpackages, the gRPC, FLOP and Prometheus modules, and the entry
+    surface (the CLI, the mlops facade, the diagnosis battery, the
+    recorder, sinks, sysperf, artifact store, attribution and flight
+    recorder) included."""
     checked = {p.relative_to(ROOT).parts[1] for p in FILES
                if p.parent != ROOT and p.parent.name != "fedml_tpu_torch"}
     for sub in ("mpc", "cross_cloud", "cross_device", "cross_silo", "comm",
@@ -119,7 +122,10 @@ def test_every_subpackage_is_checked():
         assert sub in checked, sub
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for mod in ("utils/flops.py", "utils/prometheus.py",
-                "comm/grpc_transport.py"):
+                "comm/grpc_transport.py", "__main__.py", "mlops.py",
+                "diagnosis.py", "utils/events.py", "utils/sinks.py",
+                "utils/sysperf.py", "utils/artifacts.py",
+                "utils/attribution.py", "utils/postmortem.py"):
         assert f"fedml_tpu_torch/{mod}" in names, mod
     assert {p.name for p in NATIVE} >= {"crc32c.cpp", "finite_field.cpp",
                                         "edge_trainer.cpp"}

@@ -344,7 +344,8 @@ def test_http_concurrent_predicts_match_direct_and_jax(setup, jax_ref,
     assert results[0][2]["X-Prefix-Digest"]
 
 
-def test_http_sse_ready_info_and_error_mapping(served):
+def test_http_sse_ready_info_and_error_mapping(served, setup, jax_ref,
+                                               tmp_path):
     pred, runner = served
     body = {"tokens": PROMPTS[2], "max_new_tokens": BUDGETS[2]}
     code, payload, _ = _http(runner.port, "POST", "/predict", body)
@@ -374,14 +375,37 @@ def test_http_sse_ready_info_and_error_mapping(served):
     assert _http(runner.port, "POST", "/predict", raw=b"{oops")[0] == 400
     assert _http(runner.port, "POST", "/predict", raw=b"[1]")[0] == 400
     # /metrics serves the process registry as Prometheus text (the
-    # requests above were counted); /swap waits for the artifact store
+    # requests above were counted)
     code, payload, headers = _http(runner.port, "GET", "/metrics")
     assert code == 200 and headers["Content-Type"].startswith("text/plain")
     from fedml_tpu_torch.utils.prometheus import parse_prometheus
 
     assert parse_prometheus(payload)["histograms"]
-    code, payload, _ = _http(runner.port, "POST", "/swap", {})
-    assert code == 501 and "item 5" in payload
+    # /swap fetches adapters from the artifact store the body names: 400
+    # for a body that names no store or no artifact, 200 and the new
+    # version for a2, which then serves the JAX predictor's a2 streams
+    from fedml_tpu_torch.utils.artifacts import (
+        FileArtifactStore, adapter_name, store_spec,
+    )
+
+    store = FileArtifactStore(str(tmp_path / "arts"))
+    a2 = adapters_from_jax(_jax_adapters(2), device="cpu")
+    store.put(adapter_name(2), a2)
+    spec = store_spec(store)
+    for bad in ({}, {"store": spec}, {"store": spec, "name": "nope"},
+                {"store": {"kind": "s3"}, "name": adapter_name(2)}):
+        assert _http(runner.port, "POST", "/swap", bad)[0] == 400, bad
+    assert _http(runner.port, "POST", "/swap", raw=b"[1]")[0] == 400
+    code, payload, _ = _http(runner.port, "POST", "/swap",
+                             {"store": spec, "name": adapter_name(2)})
+    assert code == 200 and json.loads(payload) == {"model_version": 1}
+    assert pred.model_version == 1
+    assert all(torch.equal(pred.adapters[n][k], a2[n][k])
+               for n in a2 for k in ("a", "b"))
+    got = [json.loads(_http(runner.port, "POST", "/predict",
+                            {"tokens": p_, "max_new_tokens": b_})[1])
+           ["generated_tokens"] for p_, b_ in zip(PROMPTS, BUDGETS)]
+    _near_tie_identical(setup, jax_ref["a2"], got, _jax_adapters(2))
     assert _http(runner.port, "GET", "/nope")[0] == 404
 
     class Broken:
@@ -539,8 +563,19 @@ def test_serve_simulator_and_checkpoint(tmp_path):
         str(tmp_path / "ckpt"), sim.apply_fn, sim._server_dict(),
         device="cpu")
     assert pred.predict({"inputs": x.tolist()})["predictions"] == want
-    with pytest.raises(NotImplementedError, match="item 5"):
-        serving.predictor_from_artifact(None, 0, sim.apply_fn)
+    # the round's model published to the artifact store serves the same
+    from fedml_tpu_torch.utils.artifacts import (
+        FileArtifactStore, aggregated_name,
+    )
+
+    store = FileArtifactStore(str(tmp_path / "arts"))
+    store.put(aggregated_name(0), sim.server_state.params)
+    pred = serving.predictor_from_artifact(store, 0, sim.apply_fn,
+                                           device="cpu")
+    assert pred.predict({"inputs": x.tolist()})["predictions"] == want
+    with pytest.raises(KeyError):
+        serving.predictor_from_artifact(store, 1, sim.apply_fn,
+                                        device="cpu")
 
 
 def test_entry_points_default_to_cuda(setup, monkeypatch, tmp_path):
@@ -558,6 +593,7 @@ def test_entry_points_default_to_cuda(setup, monkeypatch, tmp_path):
              lambda: TorchPredictor(lambda p, x: x, {}),
              lambda: serving.lm_predictor_from_config(cfg, model),
              lambda: serving.serve_simulator(Sim(), port=0),
+             lambda: serving.predictor_from_artifact(None, 0, None),
              lambda: serving.predictor_from_checkpoint(str(tmp_path),
                                                        None, {})]
     for call in calls:
