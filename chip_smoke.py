@@ -91,8 +91,8 @@ exits non-zero; nothing is caught and carried past):
              (sha256 of parameters and metrics; G = 4 twice too); one
              local step of that round on the card within 1e-3 of the
              CPU's largest update, and at G = 4 within 1e-3 of G = 1;
-             the flagship at G = 1 (one timed round, after a warm one
-             unless phase fedavg ran the same round in this process),
+             the flagship at G = 1 (one timed round after a warm one;
+             phase fedavg's timed round when it ran in this process),
              G = 4 (the determinism setting on and off, a round each)
              and G = 10 (a warm round and a timed one): ms a round and a
              group step, rounds/s, peak memory, the loss falling;
@@ -109,8 +109,8 @@ exits non-zero; nothing is caught and carried past):
              attack on 10 clients, (b) wise_median under chaos dropout 0.1
              and straggler 0.05, (c) FoolsGold with its [100, D] history,
              (d) LDP Gaussian (clip 1.0) after top-k 0.05, (e) EF-TopK
-             0.05: a warm round and PLUGIN_ROUNDS timed ones each, ms a
-             round, the plugin's own ms (its hooks between CUDA events),
+             0.05: PLUGIN_ROUNDS timed rounds each (after a warm one for
+             the plain round only), ms a round, the plugin's own ms (its hooks between CUDA events),
              peak memory, the losses finite. Then a 4-client f32 round of
              one local step with krum, dp_clip and top-k on the card and
              on the CPU from one parameter draw and schedule (TF32 off):
@@ -246,6 +246,31 @@ exits non-zero; nothing is caught and carried past):
              exits 0 with every required probe passed; each probe's
              seconds.
 
+16. tasks  - the simulator's other tasks, datasets and models through
+             `fedml_tpu_torch.init` and the Simulator (vmap's per-example
+             fallback an error): (a) the token task, synthetic
+             shakespeare (vocab 81, T 80) with CharRNN at its defaults
+             (embed 8, two LSTM layers of 256, 818,137 parameters), task
+             nwp, bf16, TASKS_CLIENTS IID clients, TASKS_PER_ROUND a
+             round, batch TASKS_BATCH, 1 epoch: a warm and a timed round
+             at G = 1 and at G = TASKS_G, ms a round and a local step,
+             launches a local (group) step and the idle share from
+             TASKS_PROFILE_STEPS profiled local steps (G = 1) and one
+             profiled round (G = TASKS_G); one f32 local step on the card
+             within 1e-3 of the CPU's largest update (TF32 off); the two
+             LSTM layers against cuDNN's nn.LSTM on the same f32 weights
+             (within TASKS_LSTM_TOL), both timed forward + backward, and
+             whether vmap batches nn.LSTM's gradient (printed). (b)
+             synthetic pascal_voc (32x32x3, 21 classes) with UNetLite,
+             task segmentation, G = TASKS_G: a warm and a timed round,
+             the eval row with test_miou; the trained parameters'
+             confusion matrix on TASKS_SEG_CHECK test images on the card
+             and the CPU (f32, TF32 off) within twice the CPU's near-tie
+             pixels. (c) stackoverflow_lr at its published width (10000
+             words, 500 tags, as so_vocab_size / so_tag_size through
+             `loader.load`; the synthetic bags of words) with lr, task
+             multilabel: one round and an eval. No K1-K4 launch.
+
 Then the `kernels` line, the raw `nvidia-smi` name/power-limit line, and as
 the last line {"ok": true, "device": {...}}. Imports nothing of JAX or of
 the JAX package; without a CUDA device it exits non-zero and prints no
@@ -268,7 +293,7 @@ import numpy as np
 
 PHASES = ("device", "build", "kernel", "engine", "serve", "serve_surface",
           "flash", "train", "fedavg", "fedsim", "plugins", "cross_silo",
-          "cross_silo_secure", "standalone", "entry")
+          "cross_silo_secure", "standalone", "entry", "tasks")
 # run only when named in --only
 OPTIONAL = ("profile", "train_profile", "fedavg_profile")
 DEV = "cuda"
@@ -353,7 +378,10 @@ ENTRY_ROUNDS, ENTRY_SYSPERF_S = 2, 1.0
 # the noised flagship keeps a finite loss over its rounds; the noise's
 # arithmetic is the same at any scale.
 # timed rounds a configuration: one each ((a) and (b) took two until phase
-# cross_silo_secure joined the script)
+# cross_silo_secure joined the script); only "plain" warms first: the
+# configurations after it find the flagship's shapes warm (each one's
+# warm round read 0.97-1.08x its timed round on the H100 before phase
+# tasks joined the script and cut them)
 PLUGIN_G = 10
 PLUGIN_ROUNDS = dict.fromkeys(
     ("plain", "a_multikrum_vs_byzantine", "b_median_chaos", "c_foolsgold",
@@ -412,10 +440,12 @@ CD_TIMEOUT = 6.0
 # over ST_CONTRIB_M trained clients (LOO, GTG), MR over the first ST_MR_M
 # (2^8 - 1 = 255 subsets), utilities on ST_TEST_ROWS test images (1024
 # until the H100 read 135 ms a subset there, 151 s for the part: GTG took
-# 890 of the 1023 subsets), ST_CHUNK subsets a vmapped call,
+# 890 of the 1023 subsets; 256 until phase tasks joined the script, 41 s
+# for the part), ST_CHUNK subsets a vmapped call,
 # ST_SINGLE_CHECKS subsets one at a time within ST_SUBSET_TOL of the
 # batch (f32, TF32 off: the same products, only the vmapped kernels'
-# batch sizes differ); (c) ST_INVERT_STEPS attack steps; DLG on the card
+# batch sizes differ); (c) ST_INVERT_STEPS attack steps (50 until phase
+# tasks joined the script); DLG on the card
 # and the CPU from one start (TF32 off): the match loss at the start
 # within ST_INVERT_LOSS_TOL, and after one step at least ST_INVERT_SHARE
 # of the input's coordinates within ST_INVERT_X_TOL. Adam's first step is
@@ -429,12 +459,32 @@ CD_TIMEOUT = 6.0
 # plain CNN has no normalisation; at the flagship's 0.05 its loss on the
 # synthetic images, std 1.8, runs to 11-14 in the first epoch)
 ST_BAR_ROWS, ST_BAR_MOMENTUM = 32, 0.9
-ST_CONTRIB_M, ST_MR_M, ST_TEST_ROWS, ST_CHUNK = 10, 8, 256, 16
+ST_CONTRIB_M, ST_MR_M, ST_TEST_ROWS, ST_CHUNK = 10, 8, 128, 16
 ST_SINGLE_CHECKS, ST_SUBSET_TOL = 8, 1e-4
-ST_INVERT_STEPS, ST_INVERT_CHECK = 50, 3
+ST_INVERT_STEPS, ST_INVERT_CHECK = 20, 3
 ST_INVERT_X_TOL, ST_INVERT_LOSS_TOL, ST_INVERT_SHARE = 1e-3, 1e-4, 0.99
 ST_EDGES, ST_EDGE_ROWS, ST_EDGE_LR = 10, 96, 0.01
-# vmap's per-example fallback warns; phase fedsim makes it an error
+# phase tasks: (a) the token task at the shakespeare shape (vocab 81, T
+# 80) with CharRNN at its defaults: TASKS_CLIENTS clients of
+# TASKS_SAMPLES synthetic sequences (IID; 4 local steps a client: at 120
+# the H100 read 10.6-19.8 s a G = 1 round, the host-bound step at 89-165
+# ms, and the script 987.6 s), TASKS_PER_ROUND a round, batch
+# TASKS_BATCH (McMahan et al.'s shakespeare batch), lr TASKS_LR, 1 epoch,
+# a warm and a timed round at G = 1 and at G = TASKS_G; launches and the
+# idle share from TASKS_PROFILE_STEPS profiled local steps at G = 1 and
+# one profiled round at G = TASKS_G; the port's two LSTM layers against
+# cuDNN's nn.LSTM within TASKS_LSTM_TOL of the output (f32, TF32 off:
+# the same products summed in another order over 80 steps). (b)
+# pascal_voc with UNetLite at G = TASKS_G, the confusion matrix on
+# TASKS_SEG_CHECK test images. (c) stackoverflow_lr at its published
+# width (TASKS_SO_WIDTH words, TASKS_SO_TAGS tags), TASKS_SO_SAMPLES
+# samples a client
+TASKS_CLIENTS, TASKS_PER_ROUND, TASKS_BATCH, TASKS_SAMPLES = 100, 10, 10, 40
+TASKS_LR, TASKS_G, TASKS_PROFILE_STEPS = 0.5, 10, 3
+TASKS_LSTM_TOL, TASKS_SEG_CHECK = 1e-4, 128
+TASKS_SO_WIDTH, TASKS_SO_TAGS, TASKS_SO_SAMPLES = 10000, 500, 64
+# vmap's per-example fallback warns; phases fedsim and tasks make it an
+# error
 VMAP_FALLBACK = ("There is a performance drop because we have not yet "
                  "implemented the batching rule")
 
@@ -2104,17 +2154,17 @@ def _timed_rounds(sim, first: int, n: int, modes=None) -> list:
     return rows
 
 
-def _flagship_groups(ds, g1_warm: bool = True) -> dict:
-    """The flagship at G = 1 (one timed round, the determinism setting on;
-    after a warm round unless `g1_warm` is false, when phase fedavg has
-    just run the same round in this process), at G = 4 (the determinism
-    setting on and off, a round each: its cost; a warm round read within
-    their spread on the H100, so there is none) and
-    at G = 10 (a warm round, then FEDSIM_ROUNDS timed): ms a round,
-    rounds/s, ms a group step, peak memory, the losses. (The profiled
-    rounds of two groups went when phase cross_silo_secure joined the
-    script: PERF.md keeps their readings, and `--only fedavg_profile`
-    profiles the flagship round.)"""
+def _flagship_groups(ds, fedavg=None) -> dict:
+    """The flagship at G = 1 (a warm round and one timed, the determinism
+    setting on; when phase fedavg ran in this process, `fedavg`, its timed
+    round of the same G = 1 configuration stands for this one, which
+    phase tasks' room cut), at G = 4 (the determinism setting on and off,
+    a round each: its cost; a warm round read within their spread on the
+    H100, so there is none) and at G = 10 (a warm round, then
+    FEDSIM_ROUNDS timed): ms a round, rounds/s, ms a group step, peak
+    memory, the losses. (The profiled rounds of two groups went when
+    phase cross_silo_secure joined the script: PERF.md keeps their
+    readings, and `--only fedavg_profile` profiles the flagship round.)"""
     import torch
 
     from fedml_tpu_torch.parallel.round import group_width
@@ -2122,14 +2172,24 @@ def _flagship_groups(ds, g1_warm: bool = True) -> dict:
 
     steps = ds.shard_size // FEDAVG_CONFIG["train_args"]["batch_size"]
     res = {}
-    for g in (1,) + FEDSIM_GROUPS:
+    if fedavg is not None:
+        med = fedavg["ms_per_round_median"]
+        res[1] = {"group_size": 1, "groups_per_round": ds.num_clients,
+                  "rounds": fedavg["rounds"], "ms_per_round_median": med,
+                  "rounds_per_s": 1e3 / med,
+                  "ms_per_group_step": med / (ds.num_clients * steps),
+                  "ms_per_client_step": med / (ds.num_clients * steps),
+                  "max_memory_allocated_bytes":
+                      fedavg["max_memory_allocated_bytes"],
+                  "from_phase": "fedavg", "seconds": 0.0}
+        emit({"phase": "fedsim", "flagship": res[1]})
+    for g in ((1,) if fedavg is None else ()) + FEDSIM_GROUPS:
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         sim = Simulator(_fedavg_cfg(
             DEV, extra={"clients_per_device_parallel": g}), ds)
         gw = group_width(ds.num_clients, g)
-        warm = (_timed_rounds(sim, 0, 1)
-                if {1: g1_warm, 4: False}.get(g, True) else [])
+        warm = _timed_rounds(sim, 0, 1) if g != 4 else []
         extra = {}
         if g == 4:
             modes = ("on", "off")
@@ -2289,10 +2349,10 @@ def _bitwise_bars() -> dict:
     return res
 
 
-def phase_fedsim(fedavg_ran: bool = False) -> dict:
-    """Phase 10 (module docstring). `fedavg_ran`: phase fedavg ran the
-    flagship's G = 1 round in this process, so G = 1 needs no warm
-    round here."""
+def phase_fedsim(fedavg=None) -> dict:
+    """Phase 10 (module docstring). `fedavg`, phase fedavg's results when
+    it ran in this process: its timed G = 1 round stands for the
+    flagship's G = 1 here."""
     import os
     import subprocess
     import warnings
@@ -2330,7 +2390,7 @@ def phase_fedsim(fedavg_ran: bool = False) -> dict:
     res = {"f32_round_repeats": c1}
     for part, fn in (
             ("one_step_f32", lambda: _one_step_rounds(ds)),
-            ("flagship", lambda: _flagship_groups(ds, not fedavg_ran)),
+            ("flagship", lambda: _flagship_groups(ds, fedavg)),
             ("stateful", lambda: _stateful_at_flagship(ds)),
             ("bitwise", _bitwise_bars)):
         t1 = time.perf_counter()
@@ -2436,8 +2496,9 @@ def _plugins_at_flagship(ds) -> dict:
         t0 = time.perf_counter()
         sim = Simulator(_plugin_cfg(DEV, sections), ds)
         timer = _timed_hooks(sim)
+        warm = int(name == "plain")
         rows = []
-        for r in range(1 + PLUGIN_ROUNDS[name]):   # round 0 is the warm one
+        for r in range(warm + PLUGIN_ROUNDS[name]):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             m = sim.run_round(r)
@@ -2448,7 +2509,7 @@ def _plugins_at_flagship(ds) -> dict:
                          "hook_calls": calls, "train_loss": m["train_loss"],
                          **({"dp_epsilon": m["dp_epsilon"]}
                             if "dp_epsilon" in m else {})})
-        timed = rows[1:]
+        timed = rows[warm:]
         hook = sim.hook_state
         res[name] = {
             "rounds": rows,
@@ -3592,21 +3653,33 @@ def _http_metrics(port: int) -> dict:
     return parse_prometheus(body)
 
 
-def _step_launches(fn, steps: int) -> float:
-    """Kernel launches per step of `fn()` (which runs `steps` steps), from
-    torch.profiler's device rows."""
+def _profiled(fn) -> dict:
+    """Wall ms, device-busy ms, idle share and kernel launches of one call
+    of `fn` under torch.profiler (the device's kernel rows only)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-    n = sum(e.count for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)
-            and not e.key.startswith(("Memcpy", "Memset")))
-    return n / steps
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(r[2] for r in _kernel_rows(prof))
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and not e.key.startswith(("Memcpy", "Memset")))
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms,
+            "launches": launches}
+
+
+def _step_launches(fn, steps: int) -> float:
+    """Kernel launches per step of `fn()` (which runs `steps` steps), from
+    torch.profiler's device rows."""
+    return _profiled(fn)["launches"] / steps
 
 
 def _small_pool(ds, clients: int, rows: int):
@@ -4329,6 +4402,304 @@ def phase_entry(surface=None) -> dict:
     return res
 
 
+# ----------------------------------------------------------------- phase 16
+def _tasks_cfg(dataset: str, model: str, task: str, group: int = 1,
+               dtype: str = "bfloat16", samples: int = TASKS_SAMPLES,
+               lr: float = TASKS_LR, **data_extra):
+    """A phase-tasks config through `fedml_tpu_torch.init`: TASKS_CLIENTS
+    clients, IID, TASKS_PER_ROUND a round, batch TASKS_BATCH, 1 epoch, the
+    data cache the flagship's, a directory that holds no data (the
+    synthetic tasks); `data_extra` more data_args keys."""
+    import fedml_tpu_torch
+
+    d = {"data_args": {"dataset": dataset, "partition_method": "homo",
+                       "synthetic_samples_per_client": samples,
+                       **data_extra,
+                       "data_cache_dir": _flagship_dict()["data_args"][
+                           "data_cache_dir"]},
+         "model_args": {"model": model},
+         "train_args": {"federated_optimizer": "FedAvg",
+                        "client_num_in_total": TASKS_CLIENTS,
+                        "client_num_per_round": TASKS_PER_ROUND,
+                        "comm_round": 2, "epochs": 1,
+                        "batch_size": TASKS_BATCH, "learning_rate": lr,
+                        "compute_dtype": dtype,
+                        "extra": {"task": task,
+                                  "clients_per_device_parallel": group}},
+         "validation_args": {"frequency_of_the_test": 0},
+         "comm_args": {"backend": "sp"}}
+    return fedml_tpu_torch.init(config=d, device=DEV)
+
+
+def _lstm_library(vocab: int, params: dict, x) -> dict:
+    """CharRNN's two LSTM layers (the port's cell) against cuDNN's
+    `nn.LSTM` on the same f32 weights and inputs (TF32 off): outputs
+    within TASKS_LSTM_TOL of their largest, then forward + backward
+    timed for each (CUDA events). Whether vmap batches `nn.LSTM`'s
+    gradient on the card, or falls back to a loop, is printed."""
+    import warnings
+
+    import torch
+
+    from fedml_tpu_torch.models import hub
+
+    dev = x.device
+    cell = hub.create("rnn", vocab, (x.shape[1],), device=dev)
+    for n, t in cell.named_parameters():
+        t.data.copy_(params[n].float())
+        t.requires_grad_(True)
+    cells = [cell.OptimizedLSTMCell_0, cell.OptimizedLSTMCell_1]
+    weights = [t for c in cells for t in c.parameters()]
+    lstm = torch.nn.LSTM(x.shape[-1], cells[0].hidden, num_layers=2,
+                         batch_first=True).to(dev)
+    with torch.no_grad():
+        for i, c in enumerate(cells):
+            cat = lambda pre, leaf: torch.cat(
+                [getattr(getattr(c, pre + g), leaf) for g in "ifgo"], -1)
+            getattr(lstm, f"weight_ih_l{i}").copy_(cat("i", "kernel").T)
+            getattr(lstm, f"weight_hh_l{i}").copy_(cat("h", "kernel").T)
+            getattr(lstm, f"bias_hh_l{i}").copy_(cat("h", "bias"))
+            getattr(lstm, f"bias_ih_l{i}").zero_()
+
+    def port():
+        out = cells[1](cells[0](x, torch.float32), torch.float32)
+        torch.autograd.grad(out.square().sum(), weights)
+        return out
+
+    def cudnn():
+        out = lstm(x)[0]
+        torch.autograd.grad(out.square().sum(), list(lstm.parameters()))
+        return out
+
+    with _tf32_off():
+        a, b = port().detach(), cudnn().detach()
+        err = float((a - b).abs().max() / b.abs().max())
+        res = {"shape": list(x.shape) + [cells[0].hidden],
+               "max_rel_err": err, "port_ms": time_ms(port, n=20),
+               "cudnn_lstm_ms": time_ms(cudnn, n=20)}
+    res["port_over_cudnn"] = res["port_ms"] / res["cudnn_lstm_ms"]
+    check(err <= TASKS_LSTM_TOL, f"the port's LSTM is {err:.3g} of its "
+          f"output from cuDNN's (bar {TASKS_LSTM_TOL})")
+    # does torch.func batch cuDNN's LSTM gradient (printed, not gated)?
+    xs = x.reshape(2, -1, *x.shape[1:])
+    p = {k: v.detach() for k, v in lstm.named_parameters()}
+    g = torch.func.vmap(torch.func.grad(
+        lambda pp, xb: torch.func.functional_call(lstm, pp, (xb,))[0].sum()),
+        in_dims=(None, 0))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            g(p, xs)
+            res["cudnn_lstm_under_vmap"] = (
+                "loop fallback" if any(VMAP_FALLBACK in str(w.message)
+                                       for w in caught) else "batched")
+        except RuntimeError as e:          # printed, not gated
+            res["cudnn_lstm_under_vmap"] = f"refused: {str(e)[:200]}"
+    return res
+
+
+def _tasks_token() -> dict:
+    """(a): the token task, CharRNN at its defaults, nwp, bf16."""
+    import torch
+
+    from fedml_tpu_torch.core.algorithm import (
+        local_sgd, make_client_optimizer, make_objective,
+    )
+    from fedml_tpu_torch.data import loader
+    from fedml_tpu_torch.models import hub
+    from fedml_tpu_torch.simulation.simulator import Simulator
+
+    ds = loader.load(_tasks_cfg("shakespeare", "rnn", "nwp"))
+    check(ds.synthetic and ds.num_classes == 81
+          and ds.x_train.shape[2:] == (80,),
+          "the token data is not the synthetic shakespeare shape")
+    steps = ds.shard_size // TASKS_BATCH
+    res = {"clients": ds.num_clients, "shard_size": ds.shard_size,
+           "local_steps_per_client": steps}
+    obj = make_objective("nwp")
+    for g in (1, TASKS_G):
+        t0 = time.perf_counter()
+        sim = Simulator(_tasks_cfg("shakespeare", "rnn", "nwp", group=g), ds)
+        res.setdefault("parameters", sum(
+            v.numel() for v in sim.params.values()))
+        rows = _timed_rounds(sim, 0, 2)              # warm, timed
+        if g == 1:
+            shard = {k: v[0] for k, v in sim.data.items()}
+            idx = torch.arange(TASKS_PROFILE_STEPS * TASKS_BATCH,
+                               device=shard["x"].device).reshape(
+                -1, TASKS_BATCH)
+            opt = make_client_optimizer("sgd", TASKS_LR)
+            prof = _profiled(lambda: local_sgd(
+                sim.apply_fn, sim.server_state.params, shard, idx, opt,
+                objective=obj))
+            per = TASKS_PROFILE_STEPS
+        else:
+            prof = _profiled(lambda: sim.run_round(2))
+            per = steps * (TASKS_PER_ROUND // g)     # group steps
+        res[f"g{g}"] = {
+            "rounds": rows, "ms_per_round": rows[1]["ms"],
+            "local_steps_per_round": steps * TASKS_PER_ROUND,
+            "ms_per_local_step": rows[1]["ms"] / (steps * TASKS_PER_ROUND),
+            "profiled": {**prof, "steps": per,
+                         "launches_per_step": prof["launches"] / per},
+            "seconds": time.perf_counter() - t0}
+        emit({"phase": "tasks", "part": f"a_token_g{g}", **res[f"g{g}"]})
+        check(all(np.isfinite(r["train_loss"]) for r in rows),
+              f"G = {g}: a token round's loss is not finite")
+        del sim
+        gc.collect()
+        torch.cuda.empty_cache()
+    # one f32 local step on the card against the CPU (TF32 off), from one
+    # CPU parameter draw and client 0's first batch
+    model = hub.create("rnn", 81, (80,), device="meta")
+    init = hub.init_params(model, torch.Generator().manual_seed(0))
+    opt = make_client_optimizer("sgd", TASKS_LR)
+    out = {}
+    with _tf32_off():
+        for dev in (DEV, "cpu"):
+            sh = {k: torch.from_numpy(np.ascontiguousarray(
+                getattr(ds, f"{k}_train")[0, :TASKS_BATCH])).to(dev)
+                for k in ("x", "y", "mask")}
+            p = {k: v.to(dev) for k, v in init.items()}
+            out[dev] = {k: v.float().cpu() for k, v in local_sgd(
+                hub.apply_fn(model), p, sh,
+                torch.arange(TASKS_BATCH, device=dev)[None], opt,
+                objective=obj)[0].items()}
+    upd = max(float((out["cpu"][k] - init[k]).abs().max()) for k in init)
+    err = max(float((out[DEV][k] - out["cpu"][k]).abs().max())
+              for k in init)
+    res["f32_step_card_vs_cpu"] = {"max_abs_err": err, "max_update": upd,
+                                   "rel": err / upd}
+    emb = init["Embed_0.embedding"].to(DEV)
+    tokens = torch.from_numpy(ds.x_train[0, :TASKS_BATCH]).to(DEV)
+    res["lstm_vs_cudnn"] = _lstm_library(
+        ds.num_classes, init, torch.nn.functional.embedding(tokens, emb))
+    emit({"phase": "tasks", "part": "a_token_checks",
+          "f32_step_card_vs_cpu": res["f32_step_card_vs_cpu"],
+          "lstm_vs_cudnn": res["lstm_vs_cudnn"]})
+    check(err <= PARITY_TOL * upd, f"the f32 token step is {err / upd:.3g} "
+          f"of its update from the CPU's (bar {PARITY_TOL})")
+    return res
+
+
+def _tasks_seg() -> dict:
+    """(b): pascal_voc with UNetLite at G = TASKS_G; the eval row's
+    test_miou; the card's confusion matrix against the CPU's."""
+    import torch
+
+    from fedml_tpu_torch.core.algorithm import _seg_confusion
+    from fedml_tpu_torch.data import loader
+    from fedml_tpu_torch.models import hub
+    from fedml_tpu_torch.simulation.simulator import Simulator
+
+    cfg = _tasks_cfg("pascal_voc", "unet", "segmentation", group=TASKS_G)
+    ds = loader.load(cfg)
+    check(ds.synthetic and ds.num_classes == 21
+          and ds.y_train.shape[2:] == (32, 32),
+          "the segmentation data is not the synthetic pascal_voc shape")
+    t0 = time.perf_counter()
+    sim = Simulator(cfg, ds)
+    rows = _timed_rounds(sim, 0, 2)
+    ev = sim.evaluate()
+    res = {"shard_size": ds.shard_size, "rounds": rows,
+           "ms_per_round": rows[1]["ms"], **ev}
+    # the confusion matrix of the trained parameters on a fixed set, f32
+    # (TF32 off), card against CPU: only near-tie pixels (top-2 margin
+    # under NEAR_TIE on the CPU) may flip, each moving 2 counts
+    params = {k: v.float().cpu() for k, v in sim.server_state.params.items()}
+    n = TASKS_SEG_CHECK
+    conf, near = {}, 0
+    with _tf32_off(), torch.no_grad():
+        for dev in (DEV, "cpu"):
+            x = torch.from_numpy(ds.x_test[:n]).to(dev)
+            y = torch.from_numpy(ds.y_test[:n]).to(dev)
+            logits = hub.apply_fn(sim.model)(
+                {k: v.to(dev) for k, v in params.items()}, x)
+            conf[dev] = _seg_confusion(logits, y, 21, None, 255).cpu()
+            if dev == "cpu":
+                top2 = logits.topk(2, dim=-1).values
+                near = int(((top2[..., 0] - top2[..., 1]) < NEAR_TIE).sum())
+    diff = int((conf[DEV] - conf["cpu"]).abs().sum())
+    res["confusion_card_vs_cpu"] = {
+        "images": n, "pixels": int(conf["cpu"].sum()), "abs_diff": diff,
+        "near_tie_pixels": near, "bar": 2 * near}
+    res["seconds"] = time.perf_counter() - t0
+    emit({"phase": "tasks", "part": "b_segmentation", **res})
+    check(all(np.isfinite(r["train_loss"]) for r in rows),
+          "a segmentation round's loss is not finite")
+    check("test_miou" in ev and 0.0 <= ev["test_miou"] <= 1.0,
+          f"the segmentation eval row has no valid test_miou: {ev}")
+    check(diff <= 2 * near, f"the card's confusion matrix is {diff} counts "
+          f"from the CPU's (bar {2 * near}: twice the near-tie pixels)")
+    del sim
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _tasks_multilabel() -> dict:
+    """(c): stackoverflow_lr at its published width (TASKS_SO_WIDTH words,
+    TASKS_SO_TAGS tags, given as the h5 reader's so_vocab_size and
+    so_tag_size, which size the loader's synthetic bags of words when no
+    h5 file is there) with lr, task multilabel: one round and an eval."""
+    import torch
+
+    from fedml_tpu_torch.data import loader
+    from fedml_tpu_torch.simulation.simulator import Simulator
+
+    cfg = _tasks_cfg("stackoverflow_lr", "lr", "multilabel",
+                     dtype="float32", samples=TASKS_SO_SAMPLES,
+                     so_vocab_size=TASKS_SO_WIDTH, so_tag_size=TASKS_SO_TAGS)
+    ds = loader.load(cfg)
+    check(ds.synthetic and ds.x_train.shape[2:] == (TASKS_SO_WIDTH,)
+          and ds.y_train.shape[2:] == (TASKS_SO_TAGS,),
+          "the multilabel data is not the synthetic stackoverflow_lr at "
+          "its published width")
+    t0 = time.perf_counter()
+    sim = Simulator(cfg, ds)
+    rows = _timed_rounds(sim, 0, 1)
+    ev = sim.evaluate()
+    res = {"x_shape": list(ds.x_train.shape), "y_shape":
+           list(ds.y_train.shape), "rounds": rows,
+           "ms_per_round": rows[0]["ms"], **ev,
+           "seconds": time.perf_counter() - t0}
+    emit({"phase": "tasks", "part": "c_multilabel", **res})
+    check(np.isfinite(rows[0]["train_loss"]) and np.isfinite(
+        ev["test_loss"]), "the multilabel round or eval is not finite")
+    del sim
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_tasks() -> dict:
+    """Phase 16 (module docstring)."""
+    import warnings
+
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.ops import paged_attention as pa
+
+    warnings.filterwarnings("error", message=VMAP_FALLBACK)
+    fa.launch_count.update(dict.fromkeys(fa.launch_count, 0))
+    pa.launch_count = 0
+    t0 = time.perf_counter()
+    res = {}
+    for part, fn in (("a_token", _tasks_token), ("b_segmentation", _tasks_seg),
+                     ("c_multilabel", _tasks_multilabel)):
+        t1 = time.perf_counter()
+        res[part] = fn()
+        emit({"phase": "tasks", "part": part,
+              "seconds": time.perf_counter() - t1})
+    launches = {**fa.launch_count, "paged": pa.launch_count}
+    res["k1_k4_launches"] = launches
+    emit({"phase": "tasks", "k1_k4_launches": launches,
+          "nvidia_smi": nvidia_smi_line(),
+          "seconds": time.perf_counter() - t0})
+    check(not any(launches.values()),
+          f"the tasks launched a flash or paged kernel: {launches}")
+    return res
+
+
 def kernel_rows(kern: dict, runs: dict, flash: dict, train: dict,
                 surface: dict, every_phase: bool) -> list:
     """The `kernels` line's rows from the phases' results; with
@@ -4495,9 +4866,9 @@ def main() -> int:
     flash = run("flash", phase_flash, bw, default={})
     train = run("train", phase_train, default={"launches": {}})
     run("train_profile", phase_train_profile)
-    run("fedavg", phase_fedavg)
+    fedavg = run("fedavg", phase_fedavg)
     run("fedavg_profile", phase_fedavg_profile)
-    fedsim = run("fedsim", phase_fedsim, "fedavg" in args.only, default={})
+    fedsim = run("fedsim", phase_fedsim, fedavg, default={})
     run("plugins", phase_plugins)
     cross_silo = run("cross_silo", phase_cross_silo,
                      fedsim.get("flagship", {}).get(1), default={})
@@ -4506,6 +4877,7 @@ def main() -> int:
         cross_silo.get("bars", {}).get("card_params"))
     run("standalone", phase_standalone, fedsim.get("flagship"))
     run("entry", phase_entry, surface)
+    run("tasks", phase_tasks)
 
     kernels = kernel_rows(kern, runs, flash, train, surface,
                           every_phase=set(PHASES) <= set(args.only))

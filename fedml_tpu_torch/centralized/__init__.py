@@ -26,8 +26,8 @@ import torch
 from .._device import deterministic_cuda, resolve_device
 from ..config import Config
 from ..core.algorithm import (
-    local_sgd, make_batch_indices, make_client_optimizer, make_eval_fn,
-    make_objective,
+    eval_row, local_sgd, make_batch_indices, make_client_optimizer,
+    make_eval_fn, make_objective, pad_test_batches, eval_labels,
 )
 from ..data.fed_dataset import FedDataset
 from ..models import hub as model_hub
@@ -39,10 +39,13 @@ from ..utils.prometheus import maybe_start_metrics_server
 
 def pool_clients(dataset: FedDataset) -> dict:
     """The stacked [N, S, ...] client shards as one pooled shard, padding
-    rows (mask 0) dropped."""
+    rows (mask 0) dropped. Per-sample targets keep their trailing axes
+    (token [T] and pixel [H, W] labels), where the JAX function flattens
+    them and then cannot index them by the [N * S] mask."""
     x = np.asarray(dataset.x_train).reshape(
         (-1,) + dataset.x_train.shape[2:])
-    y = np.asarray(dataset.y_train).reshape(-1)
+    y = np.asarray(dataset.y_train).reshape(
+        (-1,) + dataset.y_train.shape[2:])
     m = np.asarray(dataset.mask_train).reshape(-1)
     keep = m > 0
     return {"x": x[keep], "y": y[keep],
@@ -92,21 +95,19 @@ class CentralizedTrainer:
         self.pooled = {
             "x": torch.from_numpy(np.ascontiguousarray(pooled["x"])).to(
                 self.device),
-            "y": torch.from_numpy(pooled["y"].astype(np.int64)).to(
-                self.device),
+            "y": torch.from_numpy(pooled["y"]).to(self.device),
             "mask": torch.from_numpy(pooled["mask"]).to(self.device)}
         self.opt = make_client_optimizer(
             t.client_optimizer, t.learning_rate, t.momentum, t.weight_decay)
         # (optimizer state, steps taken): persists across epochs
         self.opt_state = None
         self.objective = make_objective(t.extra.get("task"))
-        from ..simulation.simulator import _pad_test_batches
-
-        xb, yb, mb = _pad_test_batches(
+        xb, yb, mb = pad_test_batches(
             self.dataset.x_test, self.dataset.y_test, max(t.batch_size, 64))
         self._test = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(
-            self.device) for a in (xb, yb.astype(np.int64), mb))
-        self._eval = make_eval_fn(self.apply_fn, t.extra.get("task"))
+            self.device) for a in (xb, eval_labels(yb), mb))
+        self._eval = make_eval_fn(self.apply_fn, t.extra.get("task"),
+                                  self.dataset.num_classes)
         self.history: list[dict] = []
 
     def _schedule(self, epoch: int) -> torch.Tensor:
@@ -127,8 +128,7 @@ class CentralizedTrainer:
         return metrics.loss_sum, metrics.correct, metrics.count
 
     def evaluate(self) -> dict:
-        m = self._eval(self.params, *self._test)
-        return {"test_loss": float(m["loss"]), "test_acc": float(m["acc"])}
+        return eval_row(self._eval(self.params, *self._test))
 
     def run(self, epochs: Optional[int] = None,
             batch_idx=None) -> list[dict]:

@@ -17,9 +17,12 @@ simulation path runs).
   params) -> grads` rewrites each step's gradient before the optimizer
   sees it (FedProx's proximal pull, SCAFFOLD's control variates,
   FedDyn's linear term, Mime's frozen momentum).
-- Objectives: classification only; the other task heads (nwp,
-  regression, multilabel, segmentation) are in ROADMAP's port queue
-  (item 5).
+- Objectives (`OBJECTIVES`, picked by `train_args.extra.task`):
+  classification, nwp (pad id 0 excluded), regression, multilabel and
+  segmentation (ignore id 255). Each maps (model output, y, the [B]
+  sample mask) -> (loss mean, correct, count). Segmentation's eval also
+  accumulates a whole-set confusion matrix for the mIoU
+  (`seg_eval_fn`).
 """
 from __future__ import annotations
 
@@ -67,19 +70,126 @@ def masked_softmax_ce(logits: torch.Tensor, y: torch.Tensor,
     return loss, correct, mask.sum()
 
 
-OBJECTIVES = {"classification": masked_softmax_ce}
-_LATER_TASKS = ("nwp", "regression", "multilabel", "segmentation")
+NWP_PAD_ID = 0   # the reference's nn.CrossEntropyLoss(ignore_index=0)
+
+
+def nwp_softmax_ce(logits: torch.Tensor, y: torch.Tensor,
+                   mask: torch.Tensor):
+    """Next-word prediction: per-token cross-entropy over [B, T, V]
+    logits and [B, T] targets. A token counts in loss and accuracy when
+    its sample is real (mask 1) and its target is not the pad id 0."""
+    tok = (mask[:, None] * (y != NWP_PAD_ID)).to(logits.dtype).reshape(-1)
+    logits = logits.reshape(-1, logits.shape[-1])
+    y = y.reshape(-1)
+    ce = F.cross_entropy(logits, y.long(), reduction="none")
+    loss = (ce * tok).sum() / torch.clamp(tok.sum(), min=1.0)
+    correct = ((logits.argmax(-1) == y) * tok).sum()
+    return loss, correct, tok.sum()
+
+
+def masked_mse(pred: torch.Tensor, y: torch.Tensor, mask: torch.Tensor):
+    """Regression: mean squared error over the real rows; `correct`
+    counts predictions within 0.5 of the target. A [B, 1] output is read
+    as [B]."""
+    if pred.dim() == 2 and pred.shape[-1] == 1:
+        pred = pred[:, 0]
+    err = (pred - y.to(pred.dtype)) ** 2
+    loss = (err * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    close = (((pred - y).abs() < 0.5) * mask).sum()
+    return loss, close, mask.sum()
+
+
+def masked_bce_multilabel(logits: torch.Tensor, y: torch.Tensor,
+                          mask: torch.Tensor):
+    """Multi-label tags: y a [B, L] multi-hot matrix, the loss the mean
+    sigmoid cross-entropy over the L labels, `correct` the share of
+    labels predicted right (logit > 0 against y > 0.5) summed over the
+    real rows."""
+    yf = y.to(logits.dtype)
+    bce = F.binary_cross_entropy_with_logits(logits, yf,
+                                             reduction="none").mean(-1)
+    loss = (bce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    hits = (((logits > 0) == (yf > 0.5)).to(logits.dtype).mean(-1)
+            * mask).sum()
+    return loss, hits, mask.sum()
+
+
+SEG_IGNORE_ID = 255   # the reference's segmentation losses' ignore_index
+
+
+def seg_softmax_ce(logits: torch.Tensor, y: torch.Tensor,
+                   mask: torch.Tensor):
+    """Segmentation: per-pixel cross-entropy over [B, H, W, C] logits and
+    [B, H, W] labels. A pixel counts when its sample is real and its
+    label is not the ignore id 255 (which is read as class 0 for the
+    argmax and the loss, both then masked out)."""
+    valid = y != SEG_IGNORE_ID
+    pix = (mask[:, None, None] * valid).to(torch.float32)
+    y_safe = torch.where(valid, y, torch.zeros_like(y))
+    ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                         y_safe.reshape(-1).long(), reduction="none")
+    loss = (ce.reshape(pix.shape) * pix).sum() / torch.clamp(pix.sum(),
+                                                              min=1.0)
+    correct = ((logits.argmax(-1) == y_safe) * pix).sum()
+    return loss, correct, pix.sum()
+
+
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """f32 one-hot rows of a flat index vector; an index outside [0, n)
+    gives a row of zeros (as jax.nn.one_hot does)."""
+    return (idx[:, None] == torch.arange(n, device=idx.device)).to(
+        torch.float32)
+
+
+def _seg_confusion(logits: torch.Tensor, y: torch.Tensor, num_classes: int,
+                   mask: Optional[torch.Tensor], ignore_id: int):
+    """The [true, pred] pixel confusion matrix (f32 counts) over the valid
+    pixels (ignore label and padded samples excluded), as one one-hot
+    product. Additive across batches."""
+    pred = logits.argmax(-1)
+    valid = y != ignore_id
+    if mask is not None:
+        valid = valid & (mask[:, None, None] > 0)
+    vf = valid.reshape(-1).to(torch.float32)[:, None]
+    py = _one_hot(y.reshape(-1), num_classes) * vf
+    pp = _one_hot(pred.reshape(-1), num_classes) * vf
+    return py.T @ pp
+
+
+def _iou_from_confusion(confusion: torch.Tensor):
+    """(miou, per-class IoU); a class absent from both prediction and
+    target is left out of the mean."""
+    inter = confusion.diagonal()
+    union = confusion.sum(0) + confusion.sum(1) - inter
+    present = union > 0
+    iou = torch.where(present, inter / torch.clamp(union, min=1.0),
+                      torch.zeros_like(inter))
+    return iou.sum() / torch.clamp(present.sum(), min=1), iou
+
+
+def miou_from_logits(logits: torch.Tensor, y: torch.Tensor,
+                     num_classes: int, mask: Optional[torch.Tensor] = None,
+                     ignore_id: int = SEG_IGNORE_ID):
+    """Mean intersection-over-union of one batch from its confusion
+    matrix -> (miou, per-class IoU)."""
+    return _iou_from_confusion(
+        _seg_confusion(logits, y, num_classes, mask, ignore_id))
+
+
+OBJECTIVES = {
+    "classification": masked_softmax_ce,
+    "nwp": nwp_softmax_ce,
+    "regression": masked_mse,
+    "multilabel": masked_bce_multilabel,
+    "segmentation": seg_softmax_ce,
+}
 
 
 def make_objective(task: Optional[str]) -> Callable:
     t = (task or "classification").lower()
-    if t in _LATER_TASKS:
-        raise NotImplementedError(
-            f"task {t!r} is not ported yet (ROADMAP 'Port queue' item 5, "
-            "the remaining task heads)")
     if t not in OBJECTIVES:
         raise ValueError(f"unknown task {t!r}; choose from "
-                         f"{sorted([*OBJECTIVES, *_LATER_TASKS])}")
+                         f"{sorted(OBJECTIVES)}")
     return OBJECTIVES[t]
 
 
@@ -283,7 +393,71 @@ def eval_step_fn(apply_fn: Callable, objective: Optional[Callable] = None):
     return eval_batches
 
 
-def make_eval_fn(apply_fn: Callable, task: Optional[str] = None):
-    """The eval function for `task` (classification; segmentation's
-    confusion-matrix eval is in ROADMAP's port queue, item 5)."""
+def seg_eval_fn(apply_fn: Callable, num_classes: int,
+                ignore_id: int = SEG_IGNORE_ID):
+    """Segmentation eval over the batched test set: loss, pixel accuracy
+    and the mIoU of the confusion matrix summed over every batch (the
+    whole set's, not a mean of per-batch IoUs)."""
+
+    @torch.no_grad()
+    def eval_batches(params, x, y, mask):
+        conf = None
+        losses, corrects, counts = [], [], []
+        for xb, yb, mb in zip(x, y, mask):
+            logits = apply_fn(params, xb)
+            loss, c, n = seg_softmax_ce(logits, yb, mb)
+            part = _seg_confusion(logits, yb, num_classes, mb, ignore_id)
+            conf = part if conf is None else conf + part
+            losses.append(loss * n)
+            corrects.append(c)
+            counts.append(n)
+        miou, iou = _iou_from_confusion(conf)
+        n_tot = torch.stack(counts).sum()
+        denom = torch.clamp(n_tot, min=1.0)
+        return {"loss": torch.stack(losses).sum() / denom,
+                "acc": torch.stack(corrects).sum() / denom,
+                "miou": miou, "per_class_iou": iou, "n": n_tot}
+
+    return eval_batches
+
+
+def make_eval_fn(apply_fn: Callable, task: Optional[str] = None,
+                 num_classes: Optional[int] = None):
+    """The eval function for `task`, one dispatch for every engine:
+    segmentation gets the whole-set confusion-matrix eval (its mIoU rides
+    the eval row), every other task `eval_step_fn` with its objective."""
+    if (task or "").lower() == "segmentation":
+        if num_classes is None:
+            raise ValueError("segmentation eval needs num_classes (the "
+                             "confusion matrix's shape)")
+        return seg_eval_fn(apply_fn, num_classes)
     return eval_step_fn(apply_fn, make_objective(task))
+
+
+def pad_test_batches(x: np.ndarray, y: np.ndarray, batch_size: int):
+    """The test set as [nb, B, ...] batches, the last one zero-padded,
+    with its [nb, B] sample mask."""
+    n = x.shape[0]
+    nb = (n + batch_size - 1) // batch_size
+    pad = nb * batch_size - n
+    xp = np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)]) if pad else x
+    yp = np.concatenate([y, np.zeros((pad,) + y.shape[1:], y.dtype)]) if pad else y
+    mask = np.concatenate([np.ones(n, np.float32), np.zeros(pad, np.float32)])
+    rs = lambda a: a.reshape((nb, batch_size) + a.shape[1:])
+    return rs(xp), rs(yp), rs(mask)
+
+
+def eval_labels(y: np.ndarray) -> np.ndarray:
+    """Test labels as the device takes them: integer labels int64,
+    floating targets (regression) f32, as the JAX package keeps a float
+    y_test (no cast to an integer)."""
+    return (y.astype(np.float32) if np.issubdtype(y.dtype, np.floating)
+            else y.astype(np.int64))
+
+
+def eval_row(m: dict) -> dict:
+    """An eval's device values -> the history row's test metrics, in one
+    transfer; a segmentation eval adds `test_miou`."""
+    keys_ = ("loss", "acc", "miou") if "miou" in m else ("loss", "acc")
+    vals = torch.stack([m[k].float() for k in keys_]).cpu().tolist()
+    return {"test_" + k: v for k, v in zip(keys_, vals)}

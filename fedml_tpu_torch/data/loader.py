@@ -1,19 +1,20 @@
 """Dataset hub: name -> FedDataset (port of `fedml_tpu/data/loader.py`).
 
-Real data is read from `data_args.data_cache_dir` when it is there (the
-CIFAR python pickle batches, a pre-exported `<name>.npz`), sklearn's
-bundled digits set is real data available offline, and any other
-classification set falls back to a shape-faithful synthetic Gaussian
-mixture. numpy only: shards, partitions and labels are bitwise those of
-the JAX module for the same config.
-
-Not ported yet (ROADMAP 'Port queue' item 5): the LEAF JSON, TFF h5 and
-folder / CSV readers, and the token, segmentation and multi-label
-synthetic tasks. Asking for a dataset that only they serve, or whose LEAF
-files are on disk, raises NotImplementedError.
+Real data is read from `data_args.data_cache_dir` when it is there: the
+LEAF JSON directories (MNIST, femnist, shakespeare), the CIFAR python
+pickle batches, the TFF h5 sets (`tff_h5.py`), the folder-image, landmarks
+CSV and tabular CSV sets (`folder_csv.py`) and a pre-exported
+`<name>.npz`; sklearn's bundled digits set is real data available
+offline. Any other set falls back to a shape-faithful synthetic task: a
+Gaussian mixture for classification, next-token sequences for the token
+tasks, one class-coloured square an image for segmentation, and sparse
+bags of words for stackoverflow_lr's tags. numpy only: shards,
+partitions, labels and vocabularies are bitwise those of the JAX module
+for the same config.
 """
 from __future__ import annotations
 
+import json
 import logging
 import os
 from pathlib import Path
@@ -53,30 +54,14 @@ DATASET_SHAPES = {
     "coco_seg": ((32, 32, 3), 81),
 }
 
-_LATER = ("is not ported yet (ROADMAP 'Port queue' item 5, the remaining "
-          "data readers and tasks)")
-# datasets only an unported reader or an unported synthetic task serves
-_UNPORTED = {
-    "shakespeare": "the LEAF shakespeare reader and the token tasks",
-    "fed_shakespeare": "the TFF h5 reader and the token tasks",
-    "stackoverflow_nwp": "the TFF h5 reader and the token tasks",
-    "stackoverflow_lr": "the TFF h5 reader and the multi-label task",
-    "fed_cifar100": "the TFF h5 reader",
-    "ILSVRC2012": "the folder-image reader",
-    "imagenet": "the folder-image reader",
-    "cinic10": "the folder-image reader",
-    "gld23k": "the landmarks CSV reader",
-    "gld160k": "the landmarks CSV reader",
-    "SUSY": "the tabular CSV reader",
-    "room_occupancy": "the tabular CSV reader",
-    "lending_club": "the tabular CSV reader",
-    "nus_wide": "the tabular CSV reader",
-    "pascal_voc": "the segmentation task",
-    "cityscapes": "the segmentation task",
-    "coco_seg": "the segmentation task",
-}
-# LEAF JSON directories the JAX loader reads before its fallbacks
-_LEAF_DIRS = {"mnist": "MNIST", "femnist": "femnist"}
+# datasets served by the folder-image / landmarks-CSV / tabular-CSV
+# readers (data/folder_csv.py)
+_FOLDER_IMAGE = {"ILSVRC2012", "imagenet", "cinic10"}
+_LANDMARKS = {"gld23k", "gld160k"}
+_TABULAR = {"SUSY", "room_occupancy", "lending_club", "nus_wide"}
+# token (next-token prediction) and dense-prediction synthetic tasks
+_TOKEN_TASKS = {"shakespeare", "fed_shakespeare", "stackoverflow_nwp"}
+_SEG_TASKS = {"pascal_voc", "cityscapes", "coco_seg"}
 
 
 def synthetic_classification(
@@ -99,12 +84,14 @@ def synthetic_classification(
     return (x[n_test:], y[n_test:]), (x[:n_test], y[:n_test])
 
 
-def _build_from_arrays(x, y, x_test, y_test, num_classes,
-                       cfg: Config) -> FedDataset:
+def _build_from_arrays(x, y, x_test, y_test, num_classes, cfg: Config,
+                       part_labels=None) -> FedDataset:
     t, d = cfg.train_args, cfg.data_args
     # the Dirichlet partitioner needs one class label per sample: sequence
-    # targets [N, T] partition by their last position
-    part_labels = y if np.ndim(y) == 1 else np.asarray(y)[:, -1]
+    # targets [N, T] partition by their last position; dense targets
+    # ([N, H, W] masks) pass `part_labels`
+    if part_labels is None:
+        part_labels = y if np.ndim(y) == 1 else np.asarray(y)[:, -1]
     parts = partition(
         part_labels, t.client_num_in_total, d.partition_method,
         d.partition_alpha, seed=cfg.common_args.random_seed,
@@ -117,12 +104,56 @@ def _build_from_arrays(x, y, x_test, y_test, num_classes,
 
 
 def _synthetic_for(name: str, cfg: Config) -> FedDataset:
-    if name in _UNPORTED:
-        raise NotImplementedError(f"dataset {name!r} ({_UNPORTED[name]}) "
-                                  f"{_LATER}")
     shape, num_classes = DATASET_SHAPES.get(name, DATASET_SHAPES["synthetic"])
     per_client = int(cfg.data_args.extra.get("synthetic_samples_per_client", 120))
     n = max(cfg.train_args.client_num_in_total * per_client, 500)
+    if name == "stackoverflow_lr":
+        from .tff_h5 import synthetic_multilabel
+
+        # the h5 reader's width keys, when given, size the fallback too
+        # (the JAX fallback is always 128 words / 16 tags; ROADMAP C.11)
+        extra = cfg.data_args.extra
+        return synthetic_multilabel(cfg, int(extra.get("so_vocab_size", 128)),
+                                    int(extra.get("so_tag_size", 16)))
+    if name in _TOKEN_TASKS:
+        # next token = the wrap-around successor, targets per position;
+        # tokens live in [1, V): id 0 is the pad the nwp objective
+        # excludes
+        rng = np.random.RandomState(cfg.common_args.random_seed)
+        total = int(n * 1.25)
+        starts = rng.randint(1, num_classes, size=(total, 1))
+        x = (starts - 1 + np.arange(shape[0])) % (num_classes - 1) + 1
+        y = x % (num_classes - 1) + 1
+        n_test = int(total * 0.2)
+        ds = _build_from_arrays(
+            x[n_test:].astype(np.int64), y[n_test:].astype(np.int64),
+            x[:n_test].astype(np.int64), y[:n_test].astype(np.int64),
+            num_classes, cfg)
+        ds.synthetic = True
+        return ds
+    if name in _SEG_TASKS:
+        # one class-coloured square an image (its class readable from its
+        # brightness) on background class 0; a sample partitions by its
+        # square's class
+        rng = np.random.RandomState(cfg.common_args.random_seed)
+        total = int(n * 1.25)
+        H, W, C = shape
+        x = 0.1 * rng.randn(total, H, W, C).astype(np.float32)
+        y = np.zeros((total, H, W), np.int64)
+        cls = rng.randint(1, num_classes, size=total)
+        h0 = rng.randint(1, H // 2, size=total)
+        w0 = rng.randint(1, W // 2, size=total)
+        sz = rng.randint(H // 4, H // 2, size=total)
+        for i in range(total):
+            hs, ws = slice(h0[i], h0[i] + sz[i]), slice(w0[i], w0[i] + sz[i])
+            x[i, hs, ws, :] += 0.5 + 1.5 * cls[i] / num_classes
+            y[i, hs, ws] = cls[i]
+        n_test = int(total * 0.2)
+        ds = _build_from_arrays(
+            x[n_test:], y[n_test:], x[:n_test], y[:n_test], num_classes,
+            cfg, part_labels=cls[n_test:])
+        ds.synthetic = True
+        return ds
     (x, y), (xt, yt) = synthetic_classification(
         int(n * 1.25), shape, num_classes, seed=cfg.common_args.random_seed
     )
@@ -183,13 +214,141 @@ def _cifar_batches(name: str, cache_dir: Path, cfg: Config) -> FedDataset | None
                               10 if name == "cifar10" else 100, cfg)
 
 
+def _read_leaf_dir(d: Path):
+    """The LEAF JSON files of one split: *.json with {"users": [...],
+    "user_data": {user: {"x": ..., "y": ...}}}, merged in file order."""
+    users, data = [], {}
+    for f in sorted(d.glob("*.json")):
+        blob = json.loads(f.read_text())
+        users.extend(blob["users"])
+        data.update(blob["user_data"])
+    return users, data
+
+
+def _leaf_json_generic(dirname: str, shape: tuple, num_classes: int,
+                       cache_dir: Path, cfg: Config) -> FedDataset | None:
+    """LEAF per-client JSON (MNIST, femnist): `<cache>/<dirname>/
+    {train,test}/*.json`, the first client_num_in_total users present in
+    both splits as the clients. For MNIST the JAX reader takes the first
+    users of the train split unfiltered and raises a KeyError on one
+    missing from the test split; LEAF's splits hold the same users, and
+    there the two agree."""
+    train_dir = cache_dir / dirname / "train"
+    test_dir = cache_dir / dirname / "test"
+    if not train_dir.is_dir() or not test_dir.is_dir():
+        return None
+
+    users, train_data = _read_leaf_dir(train_dir)
+    _, test_data = _read_leaf_dir(test_dir)
+    users = [u for u in users if u in test_data][
+        : cfg.train_args.client_num_in_total]
+    if not users:
+        return None
+    xs, ys, parts, off = [], [], [], 0
+    for u in users:
+        ux = np.asarray(train_data[u]["x"], np.float32).reshape(
+            (-1,) + tuple(shape))
+        uy = np.asarray(train_data[u]["y"], np.int64)
+        xs.append(ux)
+        ys.append(uy)
+        parts.append(np.arange(off, off + len(uy)))
+        off += len(uy)
+    x, y = np.concatenate(xs), np.concatenate(ys)
+    xt = np.concatenate([
+        np.asarray(test_data[u]["x"], np.float32).reshape((-1,) + tuple(shape))
+        for u in users])
+    yt = np.concatenate([np.asarray(test_data[u]["y"], np.int64)
+                         for u in users])
+    return pack_client_shards(x, y, parts, xt, yt, num_classes,
+                              pad_multiple=cfg.train_args.batch_size)
+
+
+# the shakespeare character vocabulary, shifted by +1 so that id 0 is the
+# pad the nwp objective excludes (no real character encodes to 0)
+_SHAKES_VOCAB = (
+    "\n !\"&'(),-.0123456789:;>?ABCDEFGHIJKLMNOPQRSTUVWXYZ"
+    "[]abcdefghijklmnopqrstuvwxyz}"
+)
+_SHAKES_CHAR = {c: i + 1 for i, c in enumerate(_SHAKES_VOCAB)}
+_SHAKES_UNK = _SHAKES_CHAR[" "]
+
+
+def _encode_chars(s: str) -> np.ndarray:
+    return np.asarray([_SHAKES_CHAR.get(c, _SHAKES_UNK) for c in s], np.int64)
+
+
+def _leaf_shakespeare(cache_dir: Path, cfg: Config) -> FedDataset | None:
+    """LEAF shakespeare (`<cache>/shakespeare/{train,test}/*.json`: x the
+    80-character contexts, y the next character) as a next-token task:
+    x [*, 80] token ids, y the context shifted left with the next
+    character appended; shorter contexts pad to 80 with id 0."""
+    train_dir = cache_dir / "shakespeare" / "train"
+    test_dir = cache_dir / "shakespeare" / "test"
+    if not train_dir.is_dir() or not test_dir.is_dir():
+        return None
+
+    users, train_data = _read_leaf_dir(train_dir)
+    _, test_data = _read_leaf_dir(test_dir)
+    users = [u for u in users if u in test_data][
+        : cfg.train_args.client_num_in_total]
+    if not users:
+        return None
+    L = DATASET_SHAPES["shakespeare"][0][0]
+
+    def seqs(data, u):
+        xs = [_encode_chars(s) for s in data[u]["x"]]
+        ys = [_encode_chars(c)[0] for c in data[u]["y"]]
+        out = np.zeros((len(xs), L), np.int64)
+        tgt = np.zeros((len(xs), L), np.int64)
+        for i, (s, nxt) in enumerate(zip(xs, ys)):
+            out[i, : min(len(s), L)] = s[:L]
+            shifted = np.concatenate([s[1:], [nxt]])
+            tgt[i, : min(len(shifted), L)] = shifted[:L]
+        return out, tgt
+
+    xs, ys, parts, off = [], [], [], 0
+    for u in users:
+        ux, uy = seqs(train_data, u)
+        xs.append(ux)
+        ys.append(uy)
+        parts.append(np.arange(off, off + len(uy)))
+        off += len(uy)
+    x, y = np.concatenate(xs), np.concatenate(ys)
+    xt_list = [seqs(test_data, u) for u in users]
+    xt = np.concatenate([a for a, _ in xt_list])
+    yt = np.concatenate([b for _, b in xt_list])
+    # ids run 1..len(vocab) ('}' is len(vocab)), so the head needs
+    # len(vocab) + 1 classes; the JAX reader passes len(vocab) (ROADMAP
+    # C.9)
+    return pack_client_shards(x, y, parts, xt, yt, len(_SHAKES_VOCAB) + 1,
+                              pad_multiple=cfg.train_args.batch_size)
+
+
+# Token-dataset cache format version. Version 2 is the +1 vocabulary
+# shift that reserves id 0 for the pad: an older cache encodes a real
+# character as 0, which the nwp objective would silently exclude, so an
+# unversioned or older token cache is refused, not reinterpreted.
+_TOKEN_CACHE_VERSION = 2
+
+
 def _npz_dataset(name: str, cache_dir: Path, cfg: Config) -> FedDataset | None:
     """A pre-exported `<name>.npz` with x_train/y_train/x_test/y_test
-    (uint8 images are scaled to [0, 1])."""
+    (uint8 images are scaled to [0, 1]). A token dataset's archive must
+    also hold `vocab_version == _TOKEN_CACHE_VERSION`."""
     f = cache_dir / f"{name}.npz"
     if not f.is_file():
         return None
     blob = np.load(f)
+    if name in _TOKEN_TASKS:
+        ver = int(blob["vocab_version"]) if "vocab_version" in blob else None
+        if ver != _TOKEN_CACHE_VERSION:
+            raise ValueError(
+                f"{f} was exported with token-vocab version {ver} but this "
+                f"build expects {_TOKEN_CACHE_VERSION} (id 0 is now a "
+                "reserved pad excluded from NWP loss; old caches encode a "
+                "real character as 0). Re-export the dataset with "
+                f"vocab_version={_TOKEN_CACHE_VERSION} in the npz instead "
+                "of silently reinterpreting old ids.")
     shape, num_classes = DATASET_SHAPES.get(name, (None, int(blob["y_train"].max()) + 1))
 
     def as_x(a):
@@ -209,17 +368,36 @@ def _make_named_loader(name: str):
         cache = Path(os.path.expanduser(cfg.data_args.data_cache_dir))
         if name == "digits":
             return _digits(cfg)
-        if name in _UNPORTED:
-            raise NotImplementedError(
-                f"dataset {name!r} ({_UNPORTED[name]}) {_LATER}")
-        if name in _LEAF_DIRS:
-            leaf = cache / _LEAF_DIRS[name]
-            if (leaf / "train").is_dir() and (leaf / "test").is_dir():
-                raise NotImplementedError(
-                    f"the LEAF JSON reader for {name!r} (files under "
-                    f"{leaf}) {_LATER}")
+        if name == "mnist":
+            ds = _leaf_json_generic("MNIST", (28, 28, 1), 10, cache, cfg)
+            if ds is not None:
+                return ds
         if name in ("cifar10", "cifar100"):
             ds = _cifar_batches(name, cache, cfg)
+            if ds is not None:
+                return ds
+        if name == "femnist":
+            ds = _leaf_json_generic("femnist", (28, 28, 1), 62, cache, cfg)
+            if ds is not None:
+                return ds
+        if name == "shakespeare":
+            ds = _leaf_shakespeare(cache, cfg)
+            if ds is not None:
+                return ds
+        if name in ("fed_cifar100", "fed_shakespeare", "stackoverflow_nwp",
+                    "stackoverflow_lr"):
+            from . import tff_h5
+
+            ds = getattr(tff_h5, name)(cache, cfg)
+            if ds is not None:
+                return ds
+        if name in _FOLDER_IMAGE or name in _LANDMARKS or name in _TABULAR:
+            from . import folder_csv
+
+            fn = (folder_csv.folder_image if name in _FOLDER_IMAGE else
+                  folder_csv.landmarks_csv if name in _LANDMARKS else
+                  folder_csv.tabular_csv)
+            ds = fn(name, cache, cfg)
             if ds is not None:
                 return ds
         ds = _npz_dataset(name, cache, cfg)

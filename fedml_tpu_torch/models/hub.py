@@ -1,29 +1,36 @@
 """Model hub: (model name, input shape) -> nn.Module (port of
 `fedml_tpu/models/hub.py`).
 
-The vision models of the FedAvg path: LogisticRegression, MLP, the
-FedAvg-paper CNN and ResNet-v1 with GroupNorm (resnet18 / resnet18_gn,
-resnet20, resnet56). The federated round trains their parameters as a
-dict of tensors and applies a module through `apply_fn` (one
-`torch.func.functional_call`), so the module itself is only structure: it
-may live on the "meta" device.
+The models of the simulator: LogisticRegression, MLP, the FedAvg-paper
+CNN, ResNet-v1 with GroupNorm (resnet18 / resnet18_gn, resnet20,
+resnet56), CharRNN (rnn) and, through the LLM package, `transformer_lm`;
+the CV families of `models/cv.py` (mobilenet, mobilenet_v3, efficientnet,
+vgg11, vgg16), UNetLite (unet, `models/seg.py`) and the DARTS supernet
+(darts, `models/darts.py`). The GAN pair waits for FedGAN (ROADMAP
+'Port queue' entry 4). The federated round trains a model's parameters
+as a dict of tensors and applies the module through `apply_fn` (one
+`torch.func.functional_call`), so the module itself is only structure:
+it may live on the "meta" device.
 
 Layout: parameters keep flax's names (`Conv_0.kernel`,
-`ResNetBlock_3.GroupNorm_1.scale`, `Dense_0.bias`, ...). Dense kernels
-stay flax's `[in, out]` and are applied as `x @ W + b`; conv kernels are
-OIHW (`params_from_flax` transposes flax's HWIO). Inputs are the
-dataset's NHWC images; a conv model views them as NCHW with
-`x.permute(0, 3, 1, 2)` (the strides of `torch.channels_last`, no copy)
-and flattens in NHWC order, as flax does. Three details of flax are kept:
-"SAME" padding is flax's (an even input at stride 2 pads (0, 1), not
-(1, 1)), GroupNorm's eps is 1e-6 with statistics in f32 for a bf16 input
-(PyTorch's group_norm kernels accumulate in f32), and every weight is
-cast to the compute dtype at use, so the trained parameters stay f32.
+`ResNetBlock_3.GroupNorm_1.scale`, `OptimizedLSTMCell_0.hi.kernel`,
+`Dense_0.bias`, ...). Dense kernels stay flax's `[in, out]` and are
+applied as `x @ W + b`; conv kernels are OIHW (`params_from_flax`
+transposes flax's HWIO; a depthwise `[kh, kw, 1, C]` becomes
+`[C, 1, kh, kw]`). Inputs are the dataset's NHWC images or int token
+ids; a conv model views images as NCHW with `x.permute(0, 3, 1, 2)` (the
+strides of `torch.channels_last`, no copy) and flattens in NHWC order,
+as flax does. Three details of flax are kept: "SAME" padding is flax's
+(an even input at stride 2 pads (0, 1), not (1, 1)), GroupNorm's eps is
+1e-6 with statistics in f32 for a bf16 input (PyTorch's group_norm
+kernels accumulate in f32), and every weight is cast to the compute
+dtype at use, so the trained parameters stay f32.
 """
 from __future__ import annotations
 
 import copy
 import math
+import re
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -51,26 +58,33 @@ def _same_pad(size: int, k: int, s: int) -> tuple[int, int]:
 
 
 class Dense(nn.Module):
-    """flax Dense: `kernel` [in, out], `bias` [out]."""
+    """flax Dense: `kernel` [in, out], optional `bias` [out]. `recurrent`
+    marks an LSTM's hidden-to-hidden kernel, which `init_params` draws
+    orthogonal (flax's `recurrent_kernel_init`)."""
 
-    def __init__(self, d_in: int, d_out: int, dtype, device):
+    def __init__(self, d_in: int, d_out: int, dtype, device,
+                 use_bias: bool = True, recurrent: bool = False):
         super().__init__()
+        self.recurrent = recurrent
         self.kernel = _param((d_in, d_out), dtype, device)
-        self.bias = _param((d_out,), dtype, device)
+        self.bias = _param((d_out,), dtype, device) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
+        if self.bias is None:
+            return x @ self.kernel.to(dt)
         return torch.addmm(self.bias.to(dt), x, self.kernel.to(dt))
 
 
 class Conv(nn.Module):
-    """flax Conv with "SAME" padding: `kernel` OIHW, optional `bias`."""
+    """flax Conv with "SAME" padding: `kernel` OIHW (`[c_out, c_in /
+    groups, k, k]`; flax's `feature_group_count`), optional `bias`."""
 
     def __init__(self, c_in: int, c_out: int, k: int, stride: int,
-                 use_bias: bool, dtype, device):
+                 use_bias: bool, dtype, device, groups: int = 1):
         super().__init__()
-        self.k, self.stride = k, stride
-        self.kernel = _param((c_out, c_in, k, k), dtype, device)
+        self.k, self.stride, self.groups = k, stride, groups
+        self.kernel = _param((c_out, c_in // groups, k, k), dtype, device)
         self.bias = _param((c_out,), dtype, device) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -82,7 +96,19 @@ class Conv(nn.Module):
         else:
             pad = (h0, w0)
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.conv2d(x, self.kernel.to(dt), bias, self.stride, pad)
+        return F.conv2d(x, self.kernel.to(dt), bias, self.stride, pad,
+                        groups=self.groups)
+
+
+class Embed(nn.Module):
+    """flax Embed: `embedding` [vocab, features]."""
+
+    def __init__(self, vocab: int, features: int, dtype, device):
+        super().__init__()
+        self.embedding = _param((vocab, features), dtype, device)
+
+    def forward(self, tokens: torch.Tensor, dt) -> torch.Tensor:
+        return F.embedding(tokens, self.embedding.to(dt))
 
 
 class GroupNorm(nn.Module):
@@ -231,6 +257,79 @@ class ResNet(nn.Module):
         return self.Dense_0(x.mean(dim=(2, 3)))
 
 
+_LSTM_GATES = "ifgo"
+
+
+class OptimizedLSTMCell(nn.Module):
+    """One LSTM layer, the cell as flax's `OptimizedLSTMCell` computes it:
+    gates i, f, g, o from `x @ [ii|if|ig|io]` (no bias) plus
+    `h @ [hi|hf|hg|ho] + b`, i, f, o sigmoid and g tanh; c' = f c + i g,
+    h' = o tanh(c'); the carry starts at zero. Run over [B, T, I] inputs
+    as plain tensor ops (so `torch.func.vmap` batches it): the input
+    product of every step at once, then one recurrent product a step.
+    The carry is f32 (flax's carry dtype), and each product runs in the
+    wider dtype of its two operands, as flax promotes: under bf16 compute
+    the first layer's input product is bf16 and the rest f32 math on
+    bf16-rounded weights."""
+
+    def __init__(self, d_in: int, hidden: int, dtype, device):
+        super().__init__()
+        self.hidden = hidden
+        for g in _LSTM_GATES:
+            setattr(self, "i" + g, Dense(d_in, hidden, dtype, device,
+                                         use_bias=False))
+            setattr(self, "h" + g, Dense(hidden, hidden, dtype, device,
+                                         recurrent=True))
+
+    def forward(self, x: torch.Tensor, dt) -> torch.Tensor:
+        wi = torch.cat([getattr(self, "i" + g).kernel for g in _LSTM_GATES],
+                       -1).to(dt)
+        wh = torch.cat([getattr(self, "h" + g).kernel for g in _LSTM_GATES],
+                       -1).to(dt)
+        bh = torch.cat([getattr(self, "h" + g).bias for g in _LSTM_GATES],
+                       -1).to(dt)
+        pt = torch.promote_types(x.dtype, dt)
+        xw = x.to(pt) @ wi.to(pt)                            # [B, T, 4H]
+        f32 = torch.float32
+        wh, bh = wh.to(f32), bh.to(f32)
+        c = torch.zeros(x.shape[0], self.hidden, dtype=f32, device=x.device)
+        h = c
+        out = []
+        for t in range(x.shape[1]):
+            z = torch.addmm(bh, h, wh) + xw[:, t]
+            i, f, g, o = z.chunk(4, dim=-1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+            out.append(h)
+        return torch.stack(out, dim=1)
+
+
+class CharRNN(nn.Module):
+    """The next-token LSTM LM of the shakespeare tasks: `Embed(vocab,
+    embed_dim)`, two `OptimizedLSTMCell` layers of `hidden`, then
+    `Dense(vocab)`. int tokens [B, T] -> logits [B, T, vocab]."""
+
+    def __init__(self, vocab_size: int, input_shape=None, embed_dim: int = 8,
+                 hidden: int = 256, *, dtype=torch.float32, device=None):
+        super().__init__()
+        dev = _device(device)
+        self.Embed_0 = Embed(vocab_size, embed_dim, dtype, dev)
+        self.OptimizedLSTMCell_0 = OptimizedLSTMCell(embed_dim, hidden, dtype,
+                                                     dev)
+        self.OptimizedLSTMCell_1 = OptimizedLSTMCell(hidden, hidden, dtype,
+                                                     dev)
+        self.Dense_0 = Dense(hidden, vocab_size, dtype, dev)
+
+    def forward(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
+        dt = _compute_dtype(self, dtype)
+        h = self.Embed_0(x, dt)
+        h = self.OptimizedLSTMCell_0(h, dt)
+        h = self.OptimizedLSTMCell_1(h, dt)              # f32 [B, T, H]
+        head = self.Dense_0
+        return h @ head.kernel.to(dt).to(h.dtype) + head.bias.to(dt).to(
+            h.dtype)
+
+
 def _device(device):
     return (torch.device("meta") if str(device) == "meta"
             else resolve_device(device))
@@ -261,18 +360,80 @@ MODELS.register("resnet56")(
         dtype=dtype, device=device))
 
 
+# the families below take their own knobs from model_args.extra, as the
+# JAX factories pass them on (an unknown key is a TypeError there too)
+MODELS.register("rnn")(
+    lambda num_classes, input_shape, dtype, device, **kw: CharRNN(
+        num_classes, input_shape, dtype=dtype, device=device, **kw))
+
+
+def _transformer_lm(num_classes, input_shape, dtype, device, d_model=128,
+                    n_layers=2, n_heads=4, d_ff=256):
+    """The FedLLM base model (`llm/transformer.py`, dense attention), its
+    vocabulary the dataset's classes and its size from model_args.extra
+    (the JAX TransformerLM's defaults)."""
+    from ..llm.transformer import ModelDims, TransformerLM
+
+    return TransformerLM(ModelDims(num_classes, d_model, n_layers, n_heads,
+                                   d_ff), dtype=dtype, device=device)
+
+
+MODELS.register("transformer_lm")(_transformer_lm)
+
+
+def _cv(name):
+    def build(num_classes, input_shape, dtype, device, **kw):
+        from . import cv
+
+        cls, fixed = {"mobilenet": (cv.MobileNetV1, {}),
+                      "mobilenet_v3": (cv.MobileNetV3Small, {}),
+                      "efficientnet": (cv.EfficientNetLite, {}),
+                      "vgg11": (cv.VGG, {}),
+                      "vgg16": (cv.VGG, {"stages": cv.VGG16_STAGES})}[name]
+        return cls(num_classes, input_shape, dtype=dtype, device=device,
+                   **fixed, **kw)
+
+    return build
+
+
+for _name in ("mobilenet", "mobilenet_v3", "efficientnet", "vgg11", "vgg16"):
+    MODELS.register(_name)(_cv(_name))
+
+
+def _darts(num_classes, input_shape, dtype, device, **kw):
+    from .darts import DartsNet
+
+    return DartsNet(num_classes, input_shape, dtype=dtype, device=device,
+                    **kw)
+
+
+# FedAvg over this model's parameters (weights and the `alpha` leaves)
+# is FedNAS
+MODELS.register("darts")(_darts)
+
+
+def _unet(num_classes, input_shape, dtype, device, **kw):
+    from .seg import UNetLite
+
+    return UNetLite(num_classes, input_shape, dtype=dtype, device=device,
+                    **kw)
+
+
+# pairs with the "segmentation" objective (core/algorithm.py)
+MODELS.register("unet")(_unet)
+
+
 def create(model_name: str, num_classes: int, input_shape: Sequence[int],
            *, dtype=torch.float32, device=None, **kwargs) -> nn.Module:
-    """A registered model for inputs of `input_shape` (one sample, NHWC
-    for images), its parameters allocated uninitialised on `device` (CUDA
-    unless the caller names "cpu"; "meta" allocates nothing). CharRNN
-    waits for the token tasks (ROADMAP 'Port queue' item 3b), the other
-    model families are item 5."""
-    if model_name.lower() not in MODELS:
-        item = "3b" if model_name.lower() == "rnn" else "5"
+    """A registered model for inputs of `input_shape` (one sample: NHWC
+    for images, [T] for token ids), its parameters allocated
+    uninitialised on `device` (CUDA unless the caller names "cpu"; "meta"
+    allocates nothing). `gan` waits for FedGAN (ROADMAP 'Port queue'
+    entry 4)."""
+    if model_name.lower() == "gan":
         raise NotImplementedError(
-            f"model {model_name!r} is not ported yet (ROADMAP 'Port queue' "
-            f"item {item}; ported: {MODELS.names()})")
+            "model 'gan' is not ported yet (ROADMAP 'Port queue' entry 4, "
+            "with algorithms/fedgan.py)")
     return MODELS.get(model_name)(num_classes, tuple(input_shape),
                                   dtype=dtype, device=device, **kwargs)
 
@@ -282,23 +443,31 @@ def init_params(module: nn.Module, generator: torch.Generator,
     """Random parameters for `module`, drawn on the generator's device from
     `generator`, at flax's initialisers: kernels lecun-normal (normal
     truncated at two standard deviations, std 1/sqrt(fan_in) after
-    truncation; fan_in = in for a dense [in, out], in x kh x kw for a conv
-    OIHW), biases zero, GroupNorm scales one."""
+    truncation; fan_in = in for a dense [in, out], in / groups x kh x kw
+    for a conv OIHW), an LSTM's recurrent kernels orthogonal, embeddings
+    normal with std 1/sqrt(features) (variance scaling 1.0 over the fan
+    in), norm scales one, biases and DARTS's `alpha` zero."""
     dev = generator.device
+    owners = dict(module.named_modules())
     out: dict[str, torch.Tensor] = {}
     for name, p in module.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf == "kernel":
+        owner, _, leaf = name.rpartition(".")
+        w = torch.empty(p.shape, dtype=torch.float32, device=dev)
+        if leaf == "kernel" and getattr(owners[owner], "recurrent", False):
+            nn.init.orthogonal_(w, generator=generator)
+        elif leaf == "kernel":
             fan_in = p.shape[0] if p.dim() == 2 else math.prod(p.shape[1:])
             std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
-            w = torch.empty(p.shape, dtype=torch.float32, device=dev)
             nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
                                   generator=generator)
-            out[name] = w.to(dtype)
+        elif leaf == "embedding":
+            nn.init.normal_(w, 0.0, 1.0 / math.sqrt(p.shape[-1]),
+                            generator=generator)
         elif leaf == "scale":
-            out[name] = torch.ones(p.shape, dtype=dtype, device=dev)
+            w.fill_(1.0)
         else:
-            out[name] = torch.zeros(p.shape, dtype=dtype, device=dev)
+            w.zero_()
+        out[name] = w.to(dtype)
     return out
 
 
@@ -307,7 +476,8 @@ def params_from_flax(params, dtype=torch.float32,
     """A flax parameter tree of this hub's models (nested dicts of arrays,
     with or without the top-level "params") -> this module's parameter
     dict: names joined with ".", conv kernels HWIO -> OIHW, dense kernels
-    kept [in, out]."""
+    kept [in, out]; TransformerLM's `block_<i>` scopes become
+    `blocks.<i>`."""
     dev = resolve_device(device)
     if isinstance(params, Mapping) and set(params) == {"params"}:
         params = params["params"]
@@ -316,7 +486,10 @@ def params_from_flax(params, dtype=torch.float32,
     def walk(prefix, node):
         if isinstance(node, Mapping):
             for k, v in node.items():
-                walk(prefix + (str(k),), v)
+                k = str(k)
+                if not prefix and re.fullmatch(r"block_\d+", k):
+                    k = "blocks." + k[len("block_"):]
+                walk(prefix + (k,), v)
             return
         arr = np.array(node, np.float32)
         if arr.ndim == 4:

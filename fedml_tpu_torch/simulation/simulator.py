@@ -73,7 +73,9 @@ from ..compression import (
     make_compression_transform, wrap_algorithm_with_eftopk,
 )
 from ..config import BACKEND_XLA, Config
-from ..core.algorithm import ServerState, make_eval_fn
+from ..core.algorithm import (
+    ServerState, eval_row, make_eval_fn, pad_test_batches, eval_labels,
+)
 from ..data import loader as data_loader
 from ..data.fed_dataset import FedDataset
 from ..models import hub as model_hub
@@ -126,17 +128,6 @@ def _compose(*fns):
         return upd
 
     return chained
-
-
-def _pad_test_batches(x: np.ndarray, y: np.ndarray, batch_size: int):
-    n = x.shape[0]
-    nb = (n + batch_size - 1) // batch_size
-    pad = nb * batch_size - n
-    xp = np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)]) if pad else x
-    yp = np.concatenate([y, np.zeros((pad,) + y.shape[1:], y.dtype)]) if pad else y
-    mask = np.concatenate([np.ones(n, np.float32), np.zeros(pad, np.float32)])
-    rs = lambda a: a.reshape((nb, batch_size) + a.shape[1:])
-    return rs(xp), rs(yp), rs(mask)
 
 
 def fetch(tree) -> dict:
@@ -291,11 +282,12 @@ class Simulator:
             self.data = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
                 self.device) for k, v in raw.items()}
         self.counts = np.asarray(ds.counts, np.float32)
-        xb, yb, mb = _pad_test_batches(ds.x_test, ds.y_test,
-                                       max(t.batch_size, 64))
+        xb, yb, mb = pad_test_batches(ds.x_test, ds.y_test,
+                                      max(t.batch_size, 64))
         self._test = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(
-            self.device) for a in (xb, yb.astype(np.int64), mb))
-        self._eval = make_eval_fn(self.apply_fn, t.extra.get("task"))
+            self.device) for a in (xb, eval_labels(yb), mb))
+        self._eval = make_eval_fn(self.apply_fn, t.extra.get("task"),
+                                  self.num_classes)
         self.history: list[dict] = []
 
     # sampling seeded by round index: a local RandomState(round) draws the
@@ -436,8 +428,7 @@ class Simulator:
 
     @staticmethod
     def _eval_finish(m) -> dict:
-        m = fetch({"loss": m["loss"], "acc": m["acc"]})
-        return {"test_loss": float(m["loss"]), "test_acc": float(m["acc"])}
+        return eval_row(m)
 
     def evaluate(self) -> dict:
         with recorder.span("eval"):

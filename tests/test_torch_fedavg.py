@@ -445,34 +445,48 @@ def test_simulator_runs_with_its_own_draws():
 
 
 # ----------------------------------------------------------------- refusals
+# (override, the ROADMAP item its refusal names or None where the knob is
+# ported and the Simulator builds, sections the case adds outside its id)
 REFUSED = [
-    ({"device_args": {"mesh_shape": {"clients": 2}}}, "item 4"),
-    ({"train_args": {"cost_model": True}}, "item 4"),
+    ({"device_args": {"mesh_shape": {"clients": 2}}}, "item 4", {}),
+    ({"train_args": {"cost_model": True}}, "item 4", {}),
     # ported since the artifact store: the Simulator builds, and publishes
-    # only to a store mlops.init set up (item None: no refusal)
-    ({"tracking_args": {"artifact_dir": "/nonexistent"}}, None),
-    ({"train_args": {"task": "nwp"}}, "item 5"),
-    ({"data_args": {"dataset": "shakespeare"}}, "item 5"),
-    ({"data_args": {"dataset": "pascal_voc"}}, "item 5"),
-    ({"model_args": {"model": "rnn"}}, "item 3b"),
-    ({"model_args": {"model": "vgg11"}}, "item 5"),
+    # only to a store mlops.init set up
+    ({"tracking_args": {"artifact_dir": "/nonexistent"}}, None, {}),
+    # ported since the task heads, readers and model families
+    ({"train_args": {"task": "nwp"}}, None,
+     {"data_args": {"dataset": "shakespeare"}}),
+    ({"data_args": {"dataset": "shakespeare"}}, None,
+     {"model_args": {"model": "rnn"}, "train_args": {"task": "nwp"}}),
+    ({"data_args": {"dataset": "pascal_voc"}}, None,
+     {"model_args": {"model": "unet"},
+      "train_args": {"task": "segmentation"}}),
+    ({"model_args": {"model": "rnn"}}, None,
+     {"data_args": {"dataset": "shakespeare"}}),
+    ({"model_args": {"model": "vgg11"}}, None,
+     {"data_args": {"dataset": "cifar10"}}),
 ]
 
 
-@pytest.mark.parametrize("override,item", REFUSED,
-                         ids=[str(o) for o, _ in REFUSED])
-def test_unported_knobs_raise(override, item, tmp_path):
+@pytest.mark.parametrize("override,item,more", REFUSED,
+                         ids=[str(o) for o, _, _ in REFUSED])
+def test_unported_knobs_raise(override, item, more, tmp_path):
     d = {"data_args": {"dataset": "synthetic",
                        "data_cache_dir": str(tmp_path)},
          "train_args": {"client_num_in_total": 2}}
-    for sec, kv in override.items():
+    for sec, kv in (*override.items(), *more.items()):
         d[sec] = {**d.get(sec, {}), **kv}
     cfg = Config.from_dict(d)
     if item is None:
         from fedml_tpu_torch import mlops
 
         assert mlops.artifact_store() is None
-        assert Simulator(cfg, device="cpu").round_fn is not None
+        sim = Simulator(cfg, device="cpu")
+        assert sim.round_fn is not None
+        want = d.get("model_args", {}).get("model", "lr")
+        assert type(sim.model) is type(hub.create(
+            want, sim.num_classes, sim.dataset.x_train.shape[2:],
+            device="meta"))
         return
     with pytest.raises(NotImplementedError, match=item):
         Simulator(cfg, device="cpu")

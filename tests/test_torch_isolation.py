@@ -114,7 +114,8 @@ def test_every_subpackage_is_checked():
     subpackages, the gRPC, FLOP and Prometheus modules, and the entry
     surface (the CLI, the mlops facade, the diagnosis battery, the
     recorder, sinks, sysperf, artifact store, attribution and flight
-    recorder) included."""
+    recorder) and the readers and model families of the simulator's
+    other tasks included."""
     checked = {p.relative_to(ROOT).parts[1] for p in FILES
                if p.parent != ROOT and p.parent.name != "fedml_tpu_torch"}
     for sub in ("mpc", "cross_cloud", "cross_device", "cross_silo", "comm",
@@ -125,7 +126,9 @@ def test_every_subpackage_is_checked():
                 "comm/grpc_transport.py", "__main__.py", "mlops.py",
                 "diagnosis.py", "utils/events.py", "utils/sinks.py",
                 "utils/sysperf.py", "utils/artifacts.py",
-                "utils/attribution.py", "utils/postmortem.py"):
+                "utils/attribution.py", "utils/postmortem.py",
+                "data/tff_h5.py", "data/folder_csv.py", "models/cv.py",
+                "models/seg.py", "models/darts.py"):
         assert f"fedml_tpu_torch/{mod}" in names, mod
     assert {p.name for p in NATIVE} >= {"crc32c.cpp", "finite_field.cpp",
                                         "edge_trainer.cpp"}
