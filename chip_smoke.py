@@ -271,6 +271,44 @@ exits non-zero; nothing is caught and carried past):
              `loader.load`; the synthetic bags of words) with lr, task
              multilabel: one round and an eval. No K1-K4 launch.
 
+17. runtimes - the remaining runtimes and models through the port's entry
+             points on the card: (a) `FedMLRunner` with train_args.async
+             at the flagship (RT_ASYNC_PER_ROUND x RT_ASYNC_ROUNDS merged
+             updates, RT_ASYNC_CONCURRENCY in flight, chaos client_dropout
+             RT_ASYNC_DROPOUT): ms a merged update, the largest
+             staleness, the eval rows, every event trained from the
+             parameters of the version it was launched at (bitwise,
+             though merges ran while it was pending), and one f32 local
+             step on the card within 1e-3 of the CPU's largest update
+             (TF32 off). (b) DSGD (neighbor_num 2) and PushSum (in 2,
+             out 1) over RT_NODES flagship nodes from scattered starts,
+             minibatches of RT_DEC_BATCH, a warm and RT_DEC_ITERS timed
+             iterations: ms an iteration, the gossip's ms alone, the
+             consensus distance before and after; the first iteration in
+             f32 over the first FEDAVG_PARITY_CLIENTS nodes from one
+             replicated CPU draw on the card and the CPU (the same
+             indices) within 1e-3. (c) FedGKT at its default
+             nets over the first RT_GKT_CLIENTS flagship clients (S 224):
+             a warm round, then the client and server phase ms; the
+             client phase in f32 on the card and the CPU (the same batch
+             orders) within 1e-3. (d) FedGAN at the hub defaults (img 28,
+             1 channel, width 64, latent 64) over the mnist fallback's
+             shards, RT_GAN_CLIENTS a round at G = RT_GAN_G through
+             `build_round_fn`: a warm and a timed round; the first 2
+             clients' one-step f32 update on the card and the CPU (the
+             same draws) within 1e-3, or with at least ST_INVERT_SHARE
+             of its coordinates within it (Adam's first step is a sign
+             step, as DLG's in phase standalone). Each f32 check also
+             runs the CPU in f64, and where f32 itself departs further
+             holds the card to phase fedavg's clause. (e) HierFL (2
+             groups x 2 sub-rounds over the first RT_HIER_CLIENTS, G =
+             RT_HIER_G), SplitNN (the GKT nets as bottom and top),
+             vertical FL (3 parties) and a flow-DSL FedAvg over loopback:
+             each one's seconds and whether its loss fell (printed, not
+             gated). (f) RT_TORCH_SILOS `TorchSiloTrainer` silos over the
+             hub CNN on the card through `FedServerManager` over
+             loopback for RT_TORCH_ROUNDS rounds. No K1-K4 launch.
+
 Then the `kernels` line, the raw `nvidia-smi` name/power-limit line, and as
 the last line {"ok": true, "device": {...}}. Imports nothing of JAX or of
 the JAX package; without a CUDA device it exits non-zero and prints no
@@ -293,7 +331,7 @@ import numpy as np
 
 PHASES = ("device", "build", "kernel", "engine", "serve", "serve_surface",
           "flash", "train", "fedavg", "fedsim", "plugins", "cross_silo",
-          "cross_silo_secure", "standalone", "entry", "tasks")
+          "cross_silo_secure", "standalone", "entry", "tasks", "runtimes")
 # run only when named in --only
 OPTIONAL = ("profile", "train_profile", "fedavg_profile")
 DEV = "cuda"
@@ -483,6 +521,30 @@ TASKS_CLIENTS, TASKS_PER_ROUND, TASKS_BATCH, TASKS_SAMPLES = 100, 10, 10, 40
 TASKS_LR, TASKS_G, TASKS_PROFILE_STEPS = 0.5, 10, 3
 TASKS_LSTM_TOL, TASKS_SEG_CHECK = 1e-4, 128
 TASKS_SO_WIDTH, TASKS_SO_TAGS, TASKS_SO_SAMPLES = 10000, 500, 64
+# phase runtimes: (a) async at the flagship, RT_ASYNC_PER_ROUND x
+# RT_ASYNC_ROUNDS merged updates, RT_ASYNC_CONCURRENCY clients in flight,
+# chaos client_dropout RT_ASYNC_DROPOUT; (b) DSGD and PushSum over the
+# first RT_NODES flagship shards, minibatches of RT_DEC_BATCH, one warm
+# and RT_DEC_ITERS timed iterations; (c) FedGKT over the first
+# RT_GKT_CLIENTS; (d) FedGAN at the hub defaults, RT_GAN_CLIENTS a round
+# at G = RT_GAN_G, batch RT_GAN_BATCH, Adam lr RT_GAN_LR (the DCGAN
+# rate); (e) HierFL over the first RT_HIER_CLIENTS at G = RT_HIER_G,
+# SplitNN over RT_SPLIT_CLIENTS, vertical FL over RT_VFL_ROWS rows of
+# RT_VFL_DIMS features, the flow-DSL FedAvg for RT_FLOW_ROUNDS rounds;
+# (f) RT_TORCH_SILOS torch silos for RT_TORCH_ROUNDS rounds at lr
+# RT_TORCH_LR (phase standalone's rate for the plain CNN)
+RT_ASYNC_PER_ROUND, RT_ASYNC_ROUNDS, RT_ASYNC_CONCURRENCY = 10, 2, 4
+RT_ASYNC_DROPOUT = 0.1
+RT_NODES, RT_DEC_BATCH, RT_DEC_ITERS = 16, 8, 5
+RT_GKT_CLIENTS = 10
+RT_GAN_CLIENTS, RT_GAN_G, RT_GAN_BATCH, RT_GAN_LR = 10, 10, 32, 2e-4
+RT_HIER_CLIENTS, RT_HIER_G, RT_SPLIT_CLIENTS = 20, 10, 4
+# the group assignment seed that splits the 20 clients 10 / 10, so each
+# sub-round is one group of G = 10 (seed 0 splits 9 / 11, and 11 clients,
+# a prime, run one at a time)
+RT_HIER_SEED = 3
+RT_VFL_DIMS, RT_VFL_ROWS, RT_FLOW_ROUNDS = (5, 4, 3), 4096, 2
+RT_TORCH_SILOS, RT_TORCH_ROUNDS, RT_TORCH_LR = 4, 2, 0.01
 # vmap's per-example fallback warns; phases fedsim and tasks make it an
 # error
 VMAP_FALLBACK = ("There is a performance drop because we have not yet "
@@ -712,7 +774,7 @@ def phase_kernel(bw: float) -> dict:
             nbytes, flops = _case_cost(q, k, pages, pos, ks is not None)
             row = {"ms": ms, "library_ms": lib_ms,
                    "plain_ms": time_ms(lambda: pa.paged_attention_ref(*case),
-                                       n=50, warmup=2),
+                                       n=10, warmup=1),
                    **_bound(nbytes, flops, q.dtype, bw)}
             if not serve:
                 out[kind] = row
@@ -4700,6 +4762,649 @@ def phase_tasks() -> dict:
     return res
 
 
+# ----------------------------------------------------------------- phase 17
+def _rt_sync() -> float:
+    """perf_counter after the card's queue drains (plain on the CPU)."""
+    import torch
+
+    if str(DEV).startswith("cuda"):
+        torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def _rel_diff(a: dict, b: dict, start: dict) -> dict:
+    """max |a - b| over the largest |b - start|, leaf by leaf over dicts of
+    tensors (nested one level for FedGAN's {"g", "d"}), and the share of
+    coordinates within PARITY_TOL of that update."""
+    def flat(t):
+        out = {}
+        for k, v in t.items():
+            if isinstance(v, dict):
+                out.update({f"{k}.{kk}": vv for kk, vv in v.items()})
+            else:
+                out[k] = v
+        return {k: v.detach().double().cpu() for k, v in out.items()}
+
+    a, b, s = flat(a), flat(b), flat(start)
+    update = max(float((b[k] - s[k].expand_as(b[k])).abs().max()) for k in s)
+    err = max(float((a[k] - b[k]).abs().max()) for k in s)
+    close = sum(int(((a[k] - b[k]).abs() <= PARITY_TOL * update).sum())
+                for k in s)
+    return {"max_abs_err": err, "max_update": update,
+            "rel": err / update if update else float("inf"),
+            "share_within_tol": close / sum(a[k].numel() for k in s)}
+
+
+def _card_vs_cpu(part: str, run, start: dict,
+                 sign_steps: bool = False) -> dict:
+    """`run(device, dtype)` -> parameters, on the CPU in f64 and f32 and on
+    the card in f32 (TF32 off). The card is held to the repo's rule for
+    rounds, 1e-3 of the CPU f32 run's largest update, or, where f32
+    itself departs further from the f64 run, to phase fedavg's clause:
+    as close to the f64 run as the CPU's f32 run, within 2x (the f64 run
+    is made only where the first rule fails). With `sign_steps` (Adam's
+    first steps, lr g / (|g| + eps): a coordinate whose gradient is
+    within rounding of 0 moves +-lr on either side), the second clause
+    is phase standalone's DLG rule instead: at least ST_INVERT_SHARE of
+    the coordinates within 1e-3 of the update."""
+    import torch
+
+    with _tf32_off():
+        cpu, card = (run(dev, torch.float32) for dev in ("cpu", DEV))
+        rel = _rel_diff(card, cpu, start)
+        rel["tol"] = PARITY_TOL
+        second, why = True, ""
+        if rel["rel"] > PARITY_TOL and sign_steps:
+            second = rel["share_within_tol"] >= ST_INVERT_SHARE
+            why = (f"{rel['share_within_tol']:.4f} of the coordinates "
+                   f"within the bar (at least {ST_INVERT_SHARE})")
+        elif rel["rel"] > PARITY_TOL:
+            f64 = run("cpu", torch.float64)
+            e_cpu = _rel_diff(cpu, f64, start)["max_abs_err"]
+            e_card = _rel_diff(card, f64, start)["max_abs_err"]
+            rel.update(cpu_f32_vs_f64_ratio=e_cpu / rel["max_update"],
+                       card_f32_vs_f64_ratio=e_card / rel["max_update"])
+            second = e_card <= 2 * e_cpu
+            why = (f"{e_card:.3g} from the f64 run against the CPU f32 "
+                   f"run's {e_cpu:.3g}")
+    emit({"phase": "runtimes", "part": part, **rel})
+    check(rel["max_update"] > 0 and second,
+          f"{part}: the card's f32 run is {rel['rel']:.3g} of its update "
+          f"from the CPU's (bar {PARITY_TOL}); {why}")
+    return rel
+
+
+def _on(tree: dict, dev, dt) -> dict:
+    """A parameter dict (or FedGAN's {"g", "d"}) on `dev` in `dt`."""
+    return {k: _on(v, dev, dt) if isinstance(v, dict) else v.to(dev, dt)
+            for k, v in tree.items()}
+
+
+def _shards(ds, rows, dev, dt) -> dict:
+    """The clients `rows` of a FedDataset as tensors on `dev`, x and mask
+    in `dt`."""
+    import torch
+
+    return {"x": torch.from_numpy(np.ascontiguousarray(
+        ds.x_train[rows])).to(dev, dt),
+        "y": torch.from_numpy(np.ascontiguousarray(ds.y_train[rows])).to(
+            dev),
+        "mask": torch.from_numpy(np.ascontiguousarray(
+            ds.mask_train[rows])).to(dev, dt)}
+
+
+def _rt_async(ds) -> dict:
+    """(a): `FedMLRunner` with train_args.async at the flagship."""
+    import torch
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch.core.algorithm import (
+        local_sgd, make_client_optimizer,
+    )
+    from fedml_tpu_torch.models import hub
+    from fedml_tpu_torch.runner import FedMLRunner
+    from fedml_tpu_torch.simulation import async_simulator as amod
+    from fedml_tpu_torch.utils import metrics as mx
+
+    d = _flagship_dict(client_num_per_round=RT_ASYNC_PER_ROUND,
+                       comm_round=RT_ASYNC_ROUNDS,
+                       extra={"async": True,
+                              "async_concurrency": RT_ASYNC_CONCURRENCY})
+    d["common_args"] = {"chaos": {"client_dropout": RT_ASYNC_DROPOUT}}
+    cfg = fedml_tpu_torch.init(config=d, device=DEV)
+    runner = FedMLRunner(cfg, dataset=ds)
+    sim = runner.runner
+    check(isinstance(sim, amod.AsyncSimulator),
+          "FedMLRunner with train_args.async did not build the async "
+          "simulator")
+    # every version's parameters, and each event's snapshot against the
+    # version it was launched at
+    versions = [{k: v.clone() for k, v in sim.params.items()}]
+    seen, taus = [], []
+    merge, train = sim._merge, sim._train_one
+
+    def spy_merge(g, c, a):
+        out = merge(g, c, a)
+        versions.append({k: v.clone() for k, v in out.items()})
+        return out
+
+    train_ms, eval_ms = [], []
+
+    def spy_train(snap, cid, idx):
+        seen.append((snap, sim.version))
+        t1 = _rt_sync()
+        out = train(snap, cid, idx)
+        train_ms.append((_rt_sync() - t1) * 1e3)
+        return out
+
+    evaluate = sim.evaluate
+
+    def spy_eval():
+        t1 = _rt_sync()
+        out = evaluate()
+        eval_ms.append((_rt_sync() - t1) * 1e3)
+        return out
+
+    sim._merge, sim._train_one, sim.evaluate = spy_merge, spy_train, \
+        spy_eval
+    record = amod.record_staleness
+
+    def spy_staleness(tau):
+        taus.append(tau)
+        record(tau)
+
+    amod.record_staleness = spy_staleness
+    drops0 = mx.snapshot()["counters"].get("fed.chaos.client_dropouts", 0)
+    try:
+        t0 = _rt_sync()
+        hist = runner.run()
+        run_s = _rt_sync() - t0
+    finally:
+        amod.record_staleness = record
+    merged = len(taus)
+    snap_ok = all(all(torch.equal(a, versions[v - int(tau)][k])
+                      for k, a in s.items())
+                  for (s, v), tau in zip(seen, taus))
+    stale_events = sum(1 for t in taus if t > 0)
+    res = {"merged": merged, "ms_per_merged_update": run_s * 1e3 / merged,
+           "run_s": run_s, "train_ms_first": train_ms[0],
+           "train_ms_median_after_first": statistics.median(train_ms[1:]),
+           "eval_ms": eval_ms, "max_staleness": max(taus),
+           "stale_events": stale_events,
+           "dropouts": mx.snapshot()["counters"].get(
+               "fed.chaos.client_dropouts", 0) - drops0,
+           "eval_rows": hist, "snapshots_unchanged_by_merges": snap_ok}
+    emit({"phase": "runtimes", "part": "a_async", **res})
+    check(merged == RT_ASYNC_PER_ROUND * RT_ASYNC_ROUNDS,
+          f"the async run merged {merged} updates")
+    check(snap_ok and stale_events > 0,
+          "an event did not train from the parameters it was launched with "
+          "(or no event was stale)")
+    check(all(np.isfinite(r["train_loss"]) and np.isfinite(r["test_loss"])
+              for r in hist), "an async eval row is not finite")
+    del versions, seen
+    # one f32 local step on the card against the CPU, client 0's first
+    # batch, from one CPU parameter draw (TF32 off)
+    model = hub.create("resnet18_gn", ds.num_classes, ds.x_train.shape[2:],
+                       device="meta")
+    init = _parity_params()
+    bs = cfg.train_args.batch_size
+    opt = make_client_optimizer("sgd", cfg.train_args.learning_rate)
+
+    def step(dev, dt):
+        sh = {k: v[:bs] for k, v in _shards(ds, 0, dev, dt).items()}
+        return local_sgd(hub.apply_fn(model), _on(init, dev, dt), sh,
+                         torch.arange(bs, device=dev)[None], opt)[0]
+
+    res["f32_step_card_vs_cpu"] = _card_vs_cpu("a_async_f32_step", step,
+                                               init)
+    del sim, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _rt_decentralized(ds) -> dict:
+    """(b): DSGD and PushSum over RT_NODES flagship nodes."""
+    import torch
+
+    from fedml_tpu_torch.comm import SymmetricTopologyManager
+    from fedml_tpu_torch.models import hub
+    from fedml_tpu_torch.simulation import decentralized as dec
+
+    n = RT_NODES
+    data = {k: torch.from_numpy(np.ascontiguousarray(
+        getattr(ds, f"{k}_train")[:n])).to(DEV) for k in ("x", "y", "mask")}
+    model = hub.create("resnet18_gn", ds.num_classes, ds.x_train.shape[2:],
+                       device="meta")
+    apply_bf16 = hub.apply_fn(model, "bfloat16")
+    # scattered starts: consensus has to come from the gossip
+    draws = [hub.init_params(model,
+                             torch.Generator(device=DEV).manual_seed(i))
+             for i in range(n)]
+    stacked0 = {k: torch.stack([p[k] for p in draws]) for k in draws[0]}
+    del draws
+    idx = dec.draw_indices(0, 1 + RT_DEC_ITERS, n, ds.shard_size,
+                           RT_DEC_BATCH)
+    lr = FEDAVG_CONFIG["train_args"]["learning_rate"]
+    res = {"nodes": n, "batch": RT_DEC_BATCH,
+           "consensus_before": dec.consensus_distance(stacked0)}
+    runs = (("dsgd", dec.run_dsgd, {"neighbor_num": 2}),
+            ("pushsum", dec.run_pushsum, {"in_num": 2, "out_num": 1}))
+    for name, run, kw in runs:
+        run(apply_bf16, stacked0, data, iters=1, idx=idx[:1], lr=lr,
+            batch_size=RT_DEC_BATCH, device=DEV, **kw)          # warm
+        t0 = _rt_sync()
+        final, losses = run(apply_bf16, stacked0, data, iters=RT_DEC_ITERS,
+                            idx=idx[1:], lr=lr, batch_size=RT_DEC_BATCH,
+                            device=DEV, **kw)
+        ms = (_rt_sync() - t0) * 1e3 / RT_DEC_ITERS
+        res[name] = {"ms_per_iteration": ms,
+                     "losses": losses.float().cpu().tolist(),
+                     "consensus_after": dec.consensus_distance(final)}
+        del final
+        check(all(np.isfinite(res[name]["losses"])),
+              f"{name}: a loss is not finite")
+        check(res[name]["consensus_after"] < res["consensus_before"],
+              f"{name}: gossip did not move the nodes toward consensus")
+    W = torch.tensor(SymmetricTopologyManager(n, 2).topology,
+                     dtype=torch.float32, device=DEV)
+    res["gossip_ms"] = time_ms(lambda: dec._gossip(stacked0, W), n=20,
+                               warmup=3)
+    emit({"phase": "runtimes", "part": "b_decentralized", **res})
+    del stacked0
+    # the first iteration in f32 on the card and the CPU from one
+    # (replicated) CPU parameter draw and the same indices, TF32 off
+    # over the first FEDAVG_PARITY_CLIENTS nodes (the CPU's f64 and f32
+    # iterations of 16 nodes read ~35 s)
+    init = _parity_params()
+    del data
+    m = FEDAVG_PARITY_CLIENTS
+    for name, run, kw in runs:
+        res[name]["f32_first_iteration_card_vs_cpu"] = _card_vs_cpu(
+            f"b_{name}_f32", lambda dev, dt, run=run, kw=kw: run(
+                hub.apply_fn(model), _on(init, dev, dt),
+                _shards(ds, slice(0, m), dev, dt), iters=1,
+                idx=idx[:1, :m], lr=lr, batch_size=RT_DEC_BATCH,
+                device=dev, **kw)[0], init)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _rt_fedgkt(ds) -> dict:
+    """(c): FedGKT at its default nets over the first RT_GKT_CLIENTS
+    flagship clients."""
+    import torch
+
+    from fedml_tpu_torch.simulation.fedgkt import FedGKTRunner
+
+    n = RT_GKT_CLIENTS
+    data = {k: np.ascontiguousarray(getattr(ds, f"{k}_train")[:n])
+            for k in ("x", "y", "mask")}
+    r = FedGKTRunner(data, ds.num_classes, device=DEV)
+    t0 = _rt_sync()
+    warm = r.run_round(0)
+    warm_s = _rt_sync() - t0
+    ci, si = (a.to(DEV) for a in r.draw_orders(1))
+    t0 = _rt_sync()
+    feats, logits, cm = r._client_phase(ci)
+    t1 = _rt_sync()
+    sm = r._server_phase(feats, logits, si)
+    t2 = _rt_sync()
+    res = {"clients": n, "shard": ds.shard_size, "warm_round_s": warm_s,
+           "warm_row": warm, "client_phase_ms": (t1 - t0) * 1e3,
+           "server_phase_ms": (t2 - t1) * 1e3,
+           "client_steps": int(ci.shape[1]), "server_steps": int(si.shape[0]),
+           "round1_client_loss": float(cm[0] / cm[2]),
+           "round1_server_loss": float(sm[0] / sm[2])}
+    emit({"phase": "runtimes", "part": "c_fedgkt", **res})
+    check(all(np.isfinite([res["round1_client_loss"],
+                           res["round1_server_loss"]])),
+          "a FedGKT loss is not finite")
+    del r, feats, logits
+    # the client phase on the card and the CPU, one parameter draw (the
+    # runners' default, from a CPU generator), the same orders
+    start = FedGKTRunner(data, ds.num_classes, device="cpu").client_params
+
+    def client_phase(dev, dt):
+        rr = FedGKTRunner(data, ds.num_classes, device=dev)
+        rr.client_params = _on(start, dev, dt)
+        rr.data = _shards(ds, slice(0, n), dev, dt)
+        rr.server_logits = rr.server_logits.to(dt)
+        rr._client_phase(ci.to(dev))
+        return rr.client_params
+
+    res["f32_client_phase_card_vs_cpu"] = _card_vs_cpu(
+        "c_fedgkt_f32", client_phase, start)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _rt_fedgan() -> dict:
+    """(d): FedGAN at the hub defaults over the mnist fallback's shards."""
+    import torch
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch.algorithms.fedgan import init_gan_params, make_fedgan
+    from fedml_tpu_torch.data import loader
+    from fedml_tpu_torch.models import hub
+    from fedml_tpu_torch.parallel.round import build_round_fn, draw_schedules
+
+    d = _flagship_dict(batch_size=RT_GAN_BATCH,
+                       learning_rate=RT_GAN_LR)
+    d["data_args"]["dataset"] = "mnist"
+    cfg = fedml_tpu_torch.init(config=d, device=DEV)
+    ds = loader.load(cfg)
+    check(ds.synthetic and ds.x_train.shape[2:] == (28, 28, 1),
+          "the FedGAN data is not the synthetic mnist shape")
+    models = hub.create("gan", 0, device="meta")
+    t = cfg.train_args
+    alg = make_fedgan(models, t)
+    params = init_gan_params(models, (28, 28, 1),
+                             torch.Generator(device=DEV).manual_seed(0))
+    data = {k: torch.from_numpy(np.ascontiguousarray(v)).to(DEV)
+            for k, v in (("x", ds.x_train), ("y", ds.y_train),
+                         ("mask", ds.mask_train))}
+    round_fn = build_round_fn(alg, group_size=RT_GAN_G)
+    st = alg.server_init(params)
+    rows = []
+    for r in range(2):                       # warm, timed
+        ids = np.arange(r * RT_GAN_CLIENTS, (r + 1) * RT_GAN_CLIENTS)
+        t0 = _rt_sync()
+        o = round_fn(st, None, data, ids, ds.counts[ids].astype(np.float32),
+                     seed=(0, r))
+        st = o.server_state
+        loss = float(o.metrics["train_loss"])
+        rows.append({"round": r, "ms": (_rt_sync() - t0) * 1e3,
+                     "train_loss": loss})
+    res = {"clients_per_round": RT_GAN_CLIENTS, "group": RT_GAN_G,
+           "batch": t.batch_size, "local_steps": int(
+               alg.schedule(torch.Generator(), ds.shard_size)["idx"].shape[0]),
+           "rounds": rows, "ms_per_round": rows[1]["ms"]}
+    emit({"phase": "runtimes", "part": "d_fedgan", **res})
+    check(all(np.isfinite(r["train_loss"]) for r in rows),
+          "a FedGAN round's loss is not finite")
+    # the round's first 2 clients, one local step each, f32 on the card
+    # and the CPU from one CPU parameter draw and one set of draws
+    ids = np.arange(2)
+    sched = {k: v[:, :1] for k, v in draw_schedules(
+        alg, (0, 0), ids, ds.shard_size).items()}
+    p0 = init_gan_params(models, (28, 28, 1), torch.Generator().manual_seed(0))
+    del data
+
+    def two_clients(dev, dt):
+        return build_round_fn(alg)(
+            alg.server_init(_on(p0, dev, dt)), None,
+            _shards(ds, slice(0, 2), dev, dt), ids,
+            ds.counts[ids].astype(np.float32), seed=0,
+            batch_idx={k: v.to(dt) if v.is_floating_point() else v
+                       for k, v in sched.items()}).server_state.params
+
+    res["f32_two_clients_card_vs_cpu"] = _card_vs_cpu(
+        "d_fedgan_f32", two_clients, p0, sign_steps=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _rt_small(ds) -> dict:
+    """(e): HierFL, SplitNN, vertical FL and a flow-DSL FedAvg."""
+    import uuid
+
+    import torch
+
+    from fedml_tpu_torch.algorithms.builtin import make_fedavg
+    from fedml_tpu_torch.comm import FedCommManager
+    from fedml_tpu_torch.comm.loopback import (
+        LoopbackTransport, release_router,
+    )
+    from fedml_tpu_torch.config import TrainArgs
+    from fedml_tpu_torch.core import flow
+    from fedml_tpu_torch.cross_silo import SiloTrainer
+    from fedml_tpu_torch.models import hub
+    from fedml_tpu_torch.simulation.fedgkt import GKTClientNet, GKTServerNet
+    from fedml_tpu_torch.simulation.hierarchical_fl import HierFLRunner
+    from fedml_tpu_torch.simulation.split_nn import SplitNNRunner
+    from fedml_tpu_torch.simulation.vertical import VerticalFL
+
+    res = {}
+    ft = FEDAVG_CONFIG["train_args"]
+    t = TrainArgs(epochs=1, batch_size=ft["batch_size"],
+                  learning_rate=ft["learning_rate"],
+                  compute_dtype=ft["compute_dtype"])
+    model = hub.create("resnet18_gn", ds.num_classes, ds.x_train.shape[2:],
+                       device="meta")
+    init = hub.init_params(model, torch.Generator(device=DEV).manual_seed(0))
+    n = RT_HIER_CLIENTS
+    data = {k: np.ascontiguousarray(getattr(ds, f"{k}_train")[:n])
+            for k in ("x", "y", "mask")}
+    t0 = _rt_sync()
+    hier = HierFLRunner(make_fedavg(hub.apply_fn(model, t.compute_dtype), t),
+                        init, data, ds.counts[:n], n_groups=2,
+                        group_comm_round=2, seed=RT_HIER_SEED,
+                        group_size=RT_HIER_G, device=DEV)
+    sub, round_fn = [], hier.round_fn
+
+    def spy_round(*a, **kw):
+        out = round_fn(*a, **kw)
+        sub.append(float(out.metrics["train_loss"]))
+        return out
+
+    hier.round_fn = spy_round
+    h = hier.run(1)
+    # sub-rounds run group by group: each group's second against its first
+    res["hierfl"] = {"seconds": _rt_sync() - t0, "clients": n,
+                     "groups": [len(g) for g in hier.groups], "history": h,
+                     "sub_round_losses": sub,
+                     "loss_fell": all(b < a for a, b in zip(sub[::2],
+                                                            sub[1::2]))}
+    del hier
+
+    class Bottom(torch.nn.Module):
+        """The GKT client net's extractor as SplitNN's bottom."""
+
+        def __init__(self, net):
+            super().__init__()
+            self.net = net
+
+        def forward(self, x, dtype=None):
+            return self.net(x, part="extract")
+
+    k = RT_SPLIT_CLIENTS
+    t0 = _rt_sync()
+    split = SplitNNRunner(
+        Bottom(GKTClientNet(ds.num_classes, device="meta")),
+        GKTServerNet(ds.num_classes, device="meta"),
+        {key: v[:k] for key, v in data.items()}, lr=0.02, batch_size=32,
+        epochs=1, device=DEV)
+    sh = split.run(2)
+    res["splitnn"] = {"seconds": _rt_sync() - t0, "clients": k,
+                      "losses": [r["loss"] for r in sh],
+                      "loss_fell": bool(
+                          np.mean([r["loss"] for r in sh[k:]])
+                          < np.mean([r["loss"] for r in sh[:k]]))}
+    del split
+
+    rs = np.random.RandomState(1)
+    dims = RT_VFL_DIMS
+    xs = [rs.randn(RT_VFL_ROWS, dd).astype(np.float32) for dd in dims]
+    y = (sum(x @ rs.randn(dd) for x, dd in zip(xs, dims)) > 0).astype(
+        np.float32)
+    t0 = _rt_sync()
+    vfl = VerticalFL(dims, lr=0.5, device=DEV)
+    vfl.fit(xs, y, epochs=5, batch_size=256)
+    res["vertical"] = {"seconds": _rt_sync() - t0, "parties": len(dims),
+                       "first_loss": vfl.loss_trace[0],
+                       "last_loss": vfl.loss_trace[-1],
+                       "acc": float((vfl.predict(xs) == y).mean()),
+                       "loss_fell": vfl.loss_trace[-1] < vfl.loss_trace[0]}
+
+    run_id = f"rt-flow-{uuid.uuid4().hex[:6]}"
+    trainers = {c: SiloTrainer(model, t, ds.x_train[c - 1][
+        ds.mask_train[c - 1] > 0], ds.y_train[c - 1][
+        ds.mask_train[c - 1] > 0], seed=c, device=DEV) for c in (1, 2)}
+    p0 = {key: v.cpu().numpy() for key, v in init.items()}
+    losses = []
+
+    def local_training(params):
+        cid = params["client_id"]
+        new_p, m, metrics = trainers[cid].train(params["model"],
+                                                int(params["round"]))
+        losses.append(metrics["train_loss"])
+        return {"model": new_p, "n": m, "round": params["round"]}
+
+    def aggregate(params):
+        rr = params["client_results"]
+        w = np.asarray([r["n"] for r in rr], np.float64)
+        w /= w.sum()
+        return {"model": {key: sum(wi * r["model"][key] for wi, r in zip(
+            w, rr)).astype(np.float32) for key in rr[0]["model"]},
+            "round": int(rr[0]["round"]) + 1}
+
+    flows = []
+    t0 = _rt_sync()
+    for rank, role in ((0, flow.ROLE_SERVER), (1, flow.ROLE_CLIENT),
+                       (2, flow.ROLE_CLIENT)):
+        f = flow.FedMLAlgorithmFlow(
+            FedCommManager(LoopbackTransport(rank, run_id), rank), rank,
+            role, client_ids=[1, 2])
+        f.add_flow("init", lambda p: {"model": p0, "round": 0})
+        f.add_flow("local_training", local_training, flow.ROLE_CLIENT)
+        f.add_flow("aggregate", aggregate)
+        f.build(loop_start="local_training", rounds=RT_FLOW_ROUNDS)
+        flows.append(f)
+    try:
+        for f in flows[1:]:
+            f.run(background=True)
+        flows[0].run(background=True)
+        check(flows[0].done.wait(timeout=300), "the flow did not finish")
+    finally:
+        release_router(run_id)
+    res["flow_fedavg"] = {"seconds": _rt_sync() - t0, "silos": 2,
+                          "rounds": flows[0].final_params["round"],
+                          "losses": losses,
+                          "loss_fell": bool(np.mean(losses[2:])
+                                            < np.mean(losses[:2]))}
+    emit({"phase": "runtimes", "part": "e_small_runtimes",
+          **{k: {kk: vv for kk, vv in v.items() if kk != "history"}
+             for k, v in res.items()}})
+    check(flows[0].final_params["round"] == RT_FLOW_ROUNDS,
+          "the flow did not run its rounds")
+    for k, v in res.items():
+        check(all(np.isfinite(x) for x in v.get("losses", [0.0])),
+              f"{k}: a loss is not finite")
+    return res
+
+
+def _rt_torch_silos(ds) -> dict:
+    """(f): four TorchSiloTrainer silos over the hub CNN on the card,
+    federating through the port's FedServerManager over loopback."""
+    import uuid
+
+    import torch
+
+    from fedml_tpu_torch.comm import FedCommManager
+    from fedml_tpu_torch.comm.loopback import (
+        LoopbackTransport, release_router,
+    )
+    from fedml_tpu_torch.cross_silo import FedClientManager, FedServerManager
+    from fedml_tpu_torch.engines import TorchSiloTrainer
+    from fedml_tpu_torch.models import hub
+
+    def cnn():
+        m = hub.create("cnn", ds.num_classes, ds.x_train.shape[2:],
+                       device=DEV)
+        init = hub.init_params(m, torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            for name, p in m.named_parameters():
+                p.copy_(init[name])
+                p.requires_grad_(True)
+        return m
+
+    ids = list(range(1, RT_TORCH_SILOS + 1))
+    silos = {}
+    for c in ids:
+        keep = ds.mask_train[c - 1] > 0
+        silos[c] = TorchSiloTrainer(
+            cnn(), ds.x_train[c - 1][keep], ds.y_train[c - 1][keep],
+            lr=RT_TORCH_LR, batch_size=FEDAVG_CONFIG["train_args"][
+                "batch_size"], seed=c, device=DEV)
+    losses = {c: [] for c in ids}
+    for c, tr in silos.items():
+        def wrapped(params, r, _c=c, _train=tr.train):
+            out = _train(params, r)
+            losses[_c].append(out[2]["train_loss"])
+            return out
+
+        tr.train = wrapped
+    run_id = f"rt-torch-{uuid.uuid4().hex[:6]}"
+    server = FedServerManager(
+        FedCommManager(LoopbackTransport(0, run_id), 0), client_ids=ids,
+        init_params=silos[1].get_params(), num_rounds=RT_TORCH_ROUNDS,
+        device=DEV)
+    clients = [FedClientManager(
+        FedCommManager(LoopbackTransport(c, run_id), c), c, silos[c])
+        for c in ids]
+    t0 = _rt_sync()
+    try:
+        server.run(background=True)
+        for cl in clients:
+            cl.run(background=True)
+            cl.announce_ready()
+        check(server.done.wait(timeout=300), "the torch federation hung")
+    finally:
+        release_router(run_id)
+    res = {"silos": len(ids), "rounds": RT_TORCH_ROUNDS,
+           "seconds": _rt_sync() - t0,
+           "device": str(silos[1].device),
+           "losses": losses,
+           "loss_fell": all(v[-1] < v[0] for v in losses.values())}
+    emit({"phase": "runtimes", "part": "f_torch_silos", **res})
+    check(all(len(v) == RT_TORCH_ROUNDS for v in losses.values()),
+          "a torch silo missed a round")
+    check(all(np.isfinite(np.asarray(v)).all()
+              for v in server.params.values()),
+          "the torch federation's parameters are not finite")
+    return res
+
+
+def phase_runtimes() -> dict:
+    """Phase 17 (module docstring)."""
+    import warnings
+
+    from fedml_tpu_torch.data import loader
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.ops import paged_attention as pa
+
+    warnings.filterwarnings("error", message=VMAP_FALLBACK)
+    ds = loader.load(_fedavg_cfg(DEV))
+    check(ds.synthetic, "the flagship data is not the synthetic CIFAR-10")
+    fa.launch_count.update(dict.fromkeys(fa.launch_count, 0))
+    pa.launch_count = 0
+    t0 = time.perf_counter()
+    res = {}
+    for part, fn, args in (("a_async", _rt_async, (ds,)),
+                           ("b_decentralized", _rt_decentralized, (ds,)),
+                           ("c_fedgkt", _rt_fedgkt, (ds,)),
+                           ("d_fedgan", _rt_fedgan, ()),
+                           ("e_small", _rt_small, (ds,)),
+                           ("f_torch_silos", _rt_torch_silos, (ds,))):
+        t1 = time.perf_counter()
+        res[part] = fn(*args)
+        emit({"phase": "runtimes", "part": part,
+              "seconds": time.perf_counter() - t1})
+    launches = {**fa.launch_count, "paged": pa.launch_count}
+    res["k1_k4_launches"] = launches
+    emit({"phase": "runtimes", "k1_k4_launches": launches,
+          "nvidia_smi": nvidia_smi_line(),
+          "seconds": time.perf_counter() - t0})
+    check(not any(launches.values()),
+          f"the runtimes launched a flash or paged kernel: {launches}")
+    return res
+
+
 def kernel_rows(kern: dict, runs: dict, flash: dict, train: dict,
                 surface: dict, every_phase: bool) -> list:
     """The `kernels` line's rows from the phases' results; with
@@ -4878,6 +5583,7 @@ def main() -> int:
     run("standalone", phase_standalone, fedsim.get("flagship"))
     run("entry", phase_entry, surface)
     run("tasks", phase_tasks)
+    run("runtimes", phase_runtimes)
 
     kernels = kernel_rows(kern, runs, flash, train, surface,
                           every_phase=set(PHASES) <= set(args.only))

@@ -337,7 +337,10 @@ def build_algorithm(name: str, apply_fn: Callable, t: TrainArgs,
     if key in ("mime", "mimelite"):
         return make_mime(apply_fn, t)
     if key == "fedgan":
-        raise NotImplementedError(
-            "federated_optimizer 'FedGAN' is not ported yet (ROADMAP 'Port "
-            "queue' item 5, the remaining models)")
+        raise ValueError(
+            "FedGAN trains a (generator, discriminator) pair, not a single "
+            "apply_fn — construct it directly: "
+            "algorithms.fedgan.make_fedgan(hub.create('gan', 0, ...), t) "
+            "with params from fedgan.init_gan_params, then drive "
+            "parallel.round.build_round_fn with image shards")
     raise ValueError(f"unknown federated_optimizer {name!r}")

@@ -1,8 +1,8 @@
 """The cross-silo message layer (port of `fedml_tpu/comm/`): the wire
 format, the loopback, gRPC and broker transports, the comm manager,
-reliable delivery, the chaos plane and the wire codec. The gRPC transport
-(`comm.grpc_transport`) is not imported here: it imports the `grpc`
-package, which a host may lack."""
+reliable delivery, the chaos plane, the wire codec and the gossip
+topologies. The gRPC transport (`comm.grpc_transport`) is not imported
+here: it imports the `grpc` package, which a host may lack."""
 from .base import BaseTransport, Observer
 from .broker import (
     BrokerTransport, ContentAddressedBroker, InMemoryBroker, get_broker,
@@ -15,6 +15,7 @@ from .manager import FedCommManager, create_transport
 from .message import Message
 from .reliable import DeliveryError, ReliableTransport, RetryPolicy
 from .serialization import decode, encode
+from .topology import AsymmetricTopologyManager, SymmetricTopologyManager
 
 __all__ = [
     "BaseTransport", "Observer", "Message", "FedCommManager",
@@ -23,4 +24,5 @@ __all__ = [
     "RetryPolicy", "DeliveryError", "BrokerTransport", "InMemoryBroker",
     "ContentAddressedBroker", "get_broker", "get_cas_broker",
     "release_broker", "CodecPolicy", "validate_comm_codec",
+    "SymmetricTopologyManager", "AsymmetricTopologyManager",
 ]

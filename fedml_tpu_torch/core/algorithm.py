@@ -215,15 +215,17 @@ class ClientOptimizer(NamedTuple):
 
 
 def make_client_optimizer(name: str, lr: float, momentum: float = 0.0,
-                          weight_decay: float = 0.0) -> ClientOptimizer:
+                          weight_decay: float = 0.0,
+                          b1: float = 0.9) -> ClientOptimizer:
     """What the JAX package's optax chain computes, in optax's order: sgd
     (weight decay adds wd * p to g first; trace = g + mu * trace; p +=
     trace * -lr), adam (the same decay, then Adam's bias-corrected
-    moments) and adamw (Adam, then the decoupled wd * p)."""
+    moments, first-moment decay `b1`) and adamw (Adam, then the decoupled
+    wd * p)."""
     name = name.lower()
     if name not in ("sgd", "adam", "adamw"):
         raise ValueError(f"unknown client_optimizer {name!r}")
-    b1, b2, eps = 0.9, 0.999, 1e-8
+    b2, eps = 0.999, 1e-8
 
     def decay(params, grads):
         return tree_map(lambda g, p: g + weight_decay * p, grads, params)

@@ -6,11 +6,11 @@ CNN, ResNet-v1 with GroupNorm (resnet18 / resnet18_gn, resnet20,
 resnet56), CharRNN (rnn) and, through the LLM package, `transformer_lm`;
 the CV families of `models/cv.py` (mobilenet, mobilenet_v3, efficientnet,
 vgg11, vgg16), UNetLite (unet, `models/seg.py`) and the DARTS supernet
-(darts, `models/darts.py`). The GAN pair waits for FedGAN (ROADMAP
-'Port queue' entry 4). The federated round trains a model's parameters
-as a dict of tensors and applies the module through `apply_fn` (one
-`torch.func.functional_call`), so the module itself is only structure:
-it may live on the "meta" device.
+(darts, `models/darts.py`), and FedGAN's generator / discriminator
+pair (gan, `models/gan.py`). The federated round trains a model's
+parameters as a dict of tensors and applies the module through
+`apply_fn` (one `torch.func.functional_call`), so the module itself is
+only structure: it may live on the "meta" device.
 
 Layout: parameters keep flax's names (`Conv_0.kernel`,
 `ResNetBlock_3.GroupNorm_1.scale`, `OptimizedLSTMCell_0.hi.kernel`,
@@ -423,19 +423,29 @@ def _unet(num_classes, input_shape, dtype, device, **kw):
 MODELS.register("unet")(_unet)
 
 
-def create(model_name: str, num_classes: int, input_shape: Sequence[int],
-           *, dtype=torch.float32, device=None, **kwargs) -> nn.Module:
+def _gan(num_classes, input_shape, dtype, device, **kw):
+    from .gan import gan_pair
+
+    return gan_pair(num_classes, input_shape, dtype=dtype, device=device,
+                    **kw)
+
+
+# reference: model_hub.py:74-77 ("GAN" for mnist): the (G, D) pair that
+# algorithms/fedgan.py trains
+MODELS.register("gan")(_gan)
+
+
+def create(model_name: str, num_classes: int,
+           input_shape: Sequence[int] = None, *, dtype=torch.float32,
+           device=None, **kwargs):
     """A registered model for inputs of `input_shape` (one sample: NHWC
     for images, [T] for token ids), its parameters allocated
     uninitialised on `device` (CUDA unless the caller names "cpu"; "meta"
-    allocates nothing). `gan` waits for FedGAN (ROADMAP 'Port queue'
-    entry 4)."""
-    if model_name.lower() == "gan":
-        raise NotImplementedError(
-            "model 'gan' is not ported yet (ROADMAP 'Port queue' entry 4, "
-            "with algorithms/fedgan.py)")
-    return MODELS.get(model_name)(num_classes, tuple(input_shape),
-                                  dtype=dtype, device=device, **kwargs)
+    allocates nothing). `gan` returns the {"generator", "discriminator"}
+    pair of FedGAN (`models/gan.py`), sized by its own knobs."""
+    return MODELS.get(model_name)(
+        num_classes, None if input_shape is None else tuple(input_shape),
+        dtype=dtype, device=device, **kwargs)
 
 
 def init_params(module: nn.Module, generator: torch.Generator,

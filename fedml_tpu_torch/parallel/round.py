@@ -19,7 +19,9 @@ num / max(den, 1e-12) goes to `alg.server_update`. Client i's batch order
 is `batch_idx[i]` ([steps, B]) when given, else `alg.schedule` of a
 `torch.Generator` seeded from (seed..., ids[i]) (`seed` an int or a tuple
 of ints, such as the Simulator's (random_seed, round)); it is drawn on the
-host, outside vmap. Metrics: train_loss, train_acc and n_samples over the
+host, outside vmap. A schedule may be a dict of [m, ...] tensors (FedGAN's
+real-row indices and its two noise batches), sliced and vmapped leaf by
+leaf. Metrics: train_loss, train_acc and n_samples over the
 clients with weight > 0; with `health_stats`, also metrics["health"] =
 {"update_norm", "cosine", "loss_delta"}, [m] f32 each (`_client_health`).
 Health keeps every client's update, stacked per leaf ([m, ...]), until
@@ -100,9 +102,11 @@ def client_generator(seed, client_id: int) -> torch.Generator:
 
 def draw_schedules(alg: FedAlgorithm, seed, ids, shard_size: int):
     """[m, steps, B] int64 on the host: each client's batch order drawn
-    from `client_generator(seed, id)`."""
-    return torch.stack([alg.schedule(client_generator(seed, c), shard_size)
-                        for c in np.asarray(ids).tolist()])
+    from `client_generator(seed, id)`. A schedule that is a dict of
+    tensors (FedGAN's rows and noise) is stacked leaf by leaf."""
+    return tree_map(lambda *a: torch.stack(a), *[
+        alg.schedule(client_generator(seed, c), shard_size)
+        for c in np.asarray(ids).tolist()])
 
 
 def fault_masks(seed, ids, client_dropout: float, client_straggler: float):
@@ -259,7 +263,7 @@ def make_round_parts(alg: FedAlgorithm, group_size: int = 1,
             first = (lambda t: tree_map(lambda a: a[0], t))
             out = tree_map(lambda a: a.unsqueeze(0), one_client(
                 bcast, first(shards), first(cstates) if has_cstate else None,
-                batch_idx[0]))
+                first(batch_idx)))
         else:
             out = torch.func.vmap(
                 one_client, in_dims=(None, 0, 0 if has_cstate else None, 0),
@@ -322,9 +326,9 @@ def make_round_parts(alg: FedAlgorithm, group_size: int = 1,
         w_all = to_device(weights, dev)
         if batch_idx is None:
             batch_idx = draw_schedules(alg, seed, ids, data["y"].shape[1])
-        elif not isinstance(batch_idx, torch.Tensor):
+        elif not isinstance(batch_idx, (torch.Tensor, dict)):
             batch_idx = torch.stack([torch.as_tensor(b) for b in batch_idx])
-        batch_idx = to_device(batch_idx, dev)
+        batch_idx = tree_map(lambda a: to_device(a, dev), batch_idx)
         rows = np.asarray(rows, np.int64)
         rows_dev = None if g == 1 else to_device(rows, dev)
         bufs = carry["bufs"]
@@ -338,8 +342,8 @@ def make_round_parts(alg: FedAlgorithm, group_size: int = 1,
                           for k, v in data.items()}
             cs = (tree_map(lambda a: a[off + lo:off + hi], bufs["cs"])
                   if has_cstate else None)
-            upd, mets, ns = run_group(bcast, shards, cs,
-                                      batch_idx[lo:hi], g)
+            upd, mets, ns = run_group(
+                bcast, shards, cs, tree_map(lambda a: a[lo:hi], batch_idx), g)
             if per_client:
                 upd, ns = _per_client(upd, ns, seed, ids[lo:hi],
                                       alg.finish_update, postprocess_update)

@@ -3,6 +3,11 @@ of `fedml_tpu/runner.py`; reference: python/fedml/runner.py:19-181).
 
 Ported modes:
 - simulation:            `simulation.simulator.Simulator` on one GPU
+- simulation + async:    `simulation.async_simulator.AsyncSimulator`
+                         (`train_args.extra.async` or `async_mode`); it
+                         takes `device=` and refuses any other keyword
+- fa (train_args.extra.fa_task): `fa.FASimulator` over `dataset`, a list
+                         of per-client value collections (host only)
 - cross_silo, server:    `cross_silo.FedServerManager` (with
                          `train_args.extra.secagg`: `SecAggServerManager`),
                          its initial parameters from `hub.init_params` with
@@ -40,9 +45,8 @@ Simulator and the server the aggregated model each round, a client its
 trained model.
 
 Not ported, each refused with a NotImplementedError naming its ROADMAP
-'Port queue' item: async simulation and `fa_task` (item 5); the
-hierarchical scenario, a silo `mesh` and the centralized trainer's
-model-parallel mesh (item 4).
+'Port queue' item: the hierarchical scenario, a silo `mesh` and the
+centralized trainer's model-parallel mesh (item 4).
 """
 from __future__ import annotations
 
@@ -71,9 +75,10 @@ class FedMLRunner:
                  transport: Optional[str] = None, **kw):
         self.cfg = cfg
         tt = cfg.common_args.training_type
-        if cfg.train_args.extra.get("fa_task"):
-            raise _later("federated analytics (train_args.fa_task)", "5")
-        if tt == TRAINING_TYPE_SIMULATION:
+        fa_task = cfg.train_args.extra.get("fa_task")
+        if fa_task:
+            self.runner = self._init_fa(fa_task, dataset, **kw)
+        elif tt == TRAINING_TYPE_SIMULATION:
             self.runner = self._init_simulation(dataset, model, **kw)
         elif tt == TRAINING_TYPE_CROSS_SILO:
             self.runner = self._init_cross_silo(
@@ -100,10 +105,28 @@ class FedMLRunner:
     def _init_simulation(self, dataset, model, **kw):
         t = self.cfg.train_args
         if t.extra.get("async") or t.extra.get("async_mode"):
-            raise _later("the async simulator (train_args.async)", "5")
+            device = kw.pop("device", None)
+            if kw:
+                raise ValueError(
+                    f"async simulation does not accept {sorted(kw)} (the "
+                    "event loop is host-driven, single-device)")
+            from .simulation.async_simulator import AsyncSimulator
+
+            return AsyncSimulator(self.cfg, dataset, model, device=device)
         from .simulation.simulator import Simulator
 
         return Simulator(self.cfg, dataset, model, **kw)
+
+    def _init_fa(self, fa_task, dataset, **kw):
+        from .fa import FASimulator
+
+        if dataset is None:
+            raise ValueError("FA mode needs `dataset`: a list of per-client "
+                             "value collections")
+        return FASimulator(
+            fa_task, dataset,
+            client_num_per_round=self.cfg.train_args.client_num_per_round,
+            num_rounds=self.cfg.train_args.comm_round, **kw)
 
     def _comm(self, backend, rank: int, default_run_id: str, **codec):
         """A FedCommManager over `backend` (or comm_args.extra.transport),

@@ -101,7 +101,6 @@ def _later(what: str, item: str) -> NotImplementedError:
 
 def _refuse_unported(cfg: Config, device: torch.device) -> None:
     """Raise for every knob of the JAX Simulator this port does not run."""
-    x = cfg.train_args.extra
     if cfg.device_args.mesh_shape or cfg.device_args.extra.get(
             "mesh_mapping_file"):
         raise _later("a device mesh", "4, multi-GPU")
@@ -109,7 +108,13 @@ def _refuse_unported(cfg: Config, device: torch.device) -> None:
             and torch.cuda.device_count() > 1):
         raise _later("backend 'xla' over more than one GPU (a mesh)",
                      "4, multi-GPU")
-    if x.get("cost_model"):
+    refuse_cost_model(cfg)
+
+
+def refuse_cost_model(cfg: Config) -> None:
+    """`train_args.cost_model` waits for multi-GPU (the async simulator
+    refuses it the same way)."""
+    if cfg.train_args.extra.get("cost_model"):
         raise _later("train_args.cost_model (the Parrot cost model and LPT "
                      "placement, which only place clients across devices)",
                      "4, multi-GPU")

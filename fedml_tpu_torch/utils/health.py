@@ -10,6 +10,8 @@ update norms, cosines to the aggregate and loss deltas with its metrics;
   first `warmup_rounds` rounds;
 - participation: a `fed.participation.c<id>` counter per real
   (weight > 0) cohort appearance;
+- staleness: `record_staleness` feeds the async simulator's
+  `fed.staleness` histogram;
 - stragglers: the same test over round wall times bumps
   `fed.health.straggler_rounds`;
 - injected faults: the chaos plane's masks (`faults`, the round's
@@ -36,11 +38,20 @@ from .events import recorder as _default_recorder
 
 # MAD -> sigma for a normal distribution, so mad_threshold reads as a z
 MAD_SCALE = 1.4826
+# staleness is counted in merge versions, not seconds
+STALENESS_BUCKETS = (0, 1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128)
 
 
 def record_participation(client_id: int) -> None:
     """One real cohort appearance for `client_id`."""
     mx.inc(f"fed.participation.c{int(client_id)}")
+
+
+def record_staleness(tau: float) -> None:
+    """One async update merged at staleness `tau` (server versions between
+    its snapshot and its merge), into the `fed.staleness` histogram."""
+    mx.registry.histogram("fed.staleness", STALENESS_BUCKETS).observe(
+        float(tau))
 
 
 def robust_z(values: np.ndarray, pool: np.ndarray) -> np.ndarray:

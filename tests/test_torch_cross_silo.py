@@ -357,7 +357,8 @@ def test_runner_wires_both_roles():
 
 def test_runner_simulation_branch(tmp_path):
     """`training_type: simulation` runs the Simulator: the runner's history
-    is a direct `run_simulation`'s; async simulation is refused."""
+    is a direct `run_simulation`'s; with `train_args.async` it runs the
+    async simulator, its history a direct `AsyncSimulator` run's."""
     d = {"data_args": {"dataset": "synthetic",
                        "data_cache_dir": str(tmp_path),
                        "extra": {"synthetic_samples_per_client": 16}},
@@ -370,8 +371,12 @@ def test_runner_simulation_branch(tmp_path):
     assert r.run() == fedml_tpu_torch.run_simulation(
         fedml_tpu_torch.init(config=d, device="cpu"))
     d["train_args"]["async"] = True
-    with pytest.raises(NotImplementedError, match="item 5"):
-        FedMLRunner(fedml_tpu_torch.init(config=d, device="cpu"))
+    from fedml_tpu_torch.simulation.async_simulator import AsyncSimulator
+
+    r = FedMLRunner(fedml_tpu_torch.init(config=d, device="cpu"))
+    assert isinstance(r.runner, AsyncSimulator)
+    assert r.run() == AsyncSimulator(
+        fedml_tpu_torch.init(config=d, device="cpu")).run()
 
 
 def test_runner_params_keyword_and_refusals(tmp_path):
@@ -413,7 +418,6 @@ def test_runner_params_keyword_and_refusals(tmp_path):
              and transport(r).port == free),
             ({"comm_args": {"transport": "broker"}},
              lambda r: isinstance(transport(r), BrokerTransport)),
-            ({"train_args": {"fa_task": "avg"}}, "item 5"),
             ({"common_args": {"training_type": "cross_device"}},
              lambda r: isinstance(r.runner, CrossDeviceServer)),
             ({"common_args": {"training_type": "centralized"},
@@ -443,6 +447,15 @@ def test_runner_params_keyword_and_refusals(tmp_path):
         FedMLRunner(cfg, dataset=_silo_data("lr", 1),
                     model=hub.create("lr", 3, (8,), device="meta"),
                     role="client", rank=1, mesh=object())
+    # federated analytics is ported: it runs over a list of client values
+    from fedml_tpu_torch.fa import FASimulator
+
+    c = _runner_cfg(run)
+    c.train_args.extra["fa_task"] = "avg"
+    with pytest.raises(ValueError, match="needs `dataset`"):
+        FedMLRunner(c, role="server", params=p)
+    fa = FedMLRunner(c, dataset=[[1.0, 2.0], [3.0]])
+    assert isinstance(fa.runner, FASimulator) and fa.run() == 2.0
     from fedml_tpu_torch import mlops
     from fedml_tpu_torch.utils.artifacts import FileArtifactStore
 

@@ -114,12 +114,15 @@ def test_every_subpackage_is_checked():
     subpackages, the gRPC, FLOP and Prometheus modules, and the entry
     surface (the CLI, the mlops facade, the diagnosis battery, the
     recorder, sinks, sysperf, artifact store, attribution and flight
-    recorder) and the readers and model families of the simulator's
-    other tasks included."""
+    recorder), the readers and model families of the simulator's other
+    tasks, and the remaining runtimes and models (async simulation,
+    DSGD / PushSum with their topologies, HierFL, SplitNN, vertical FL,
+    FedGKT, FedGAN with its GAN pair, federated analytics, the flow DSL,
+    the engine adapters) included."""
     checked = {p.relative_to(ROOT).parts[1] for p in FILES
                if p.parent != ROOT and p.parent.name != "fedml_tpu_torch"}
     for sub in ("mpc", "cross_cloud", "cross_device", "cross_silo", "comm",
-                "native", "contribution", "centralized"):
+                "native", "contribution", "centralized", "fa"):
         assert sub in checked, sub
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for mod in ("utils/flops.py", "utils/prometheus.py",
@@ -128,7 +131,12 @@ def test_every_subpackage_is_checked():
                 "utils/sysperf.py", "utils/artifacts.py",
                 "utils/attribution.py", "utils/postmortem.py",
                 "data/tff_h5.py", "data/folder_csv.py", "models/cv.py",
-                "models/seg.py", "models/darts.py"):
+                "models/seg.py", "models/darts.py", "engines.py",
+                "core/flow.py", "comm/topology.py", "models/gan.py",
+                "algorithms/fedgan.py", "simulation/async_simulator.py",
+                "simulation/decentralized.py", "simulation/fedgkt.py",
+                "simulation/hierarchical_fl.py", "simulation/split_nn.py",
+                "simulation/vertical.py", "fa/tasks.py", "fa/runner.py"):
         assert f"fedml_tpu_torch/{mod}" in names, mod
     assert {p.name for p in NATIVE} >= {"crc32c.cpp", "finite_field.cpp",
                                         "edge_trainer.cpp"}

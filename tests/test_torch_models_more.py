@@ -153,7 +153,7 @@ def test_unet_refuses_undivisible_input():
 def test_hub_builds_every_family_and_refuses_gan():
     """Each registered name builds on the meta device with flax's
     parameter names and shapes (vgg16 at full width: its structure only);
-    `gan` raises naming its ROADMAP entry."""
+    `gan` builds FedGAN's generator / discriminator pair the same way."""
     cases = {**{k: v[:4] for k, v in MODELS.items()},
              "vgg16": ("vgg16", 10, (32, 32, 3), {}),
              "efficientnet_d": ("efficientnet", 7, (32, 32, 3),
@@ -167,8 +167,17 @@ def test_hub_builds_every_family_and_refuses_gan():
             device="cpu").items()}
         assert {k: tuple(v.shape) for k, v in m.named_parameters()} == \
             want, name
-    with pytest.raises(NotImplementedError, match="entry 4"):
-        hub.create("gan", 10, (28, 28, 1), device="meta")
+    from fedml_tpu.algorithms.fedgan import init_gan_params
+
+    pair = hub.create("gan", 10, (28, 28, 1), device="meta")
+    flax = jax.eval_shape(lambda: init_gan_params(
+        jax_hub.create("gan", 10), (28, 28, 1), jax.random.key(0)))
+    for part, net in (("g", "generator"), ("d", "discriminator")):
+        want = {k: tuple(v.shape) for k, v in hub.params_from_flax(
+            jax.tree.map(lambda s: np.zeros(s.shape, np.float32),
+                         flax[part]), device="cpu").items()}
+        assert {k: tuple(v.shape) for k, v in
+                pair[net].named_parameters()} == want, net
     with pytest.raises(TypeError):          # as the JAX factory's
         hub.create("vgg16", 10, (32, 32, 3), device="meta",
                    stages=((8,),))
