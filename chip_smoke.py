@@ -73,8 +73,10 @@ exits non-zero; nothing is caught and carried past):
              (`_flagship_config`: 100 clients of synthetic CIFAR-10, 96
              samples each, Dirichlet alpha 0.5, all 100 per round, batch
              32, 1 epoch, lr 0.05, resnet18_gn, bf16 compute, health stats
-             on): first one f32 round of 4 clients on the card and on the
-             CPU from the same parameters and batch schedule (TF32 off),
+             on): first one f32 round of FEDAVG_CPU_CLIENTS clients on
+             the card and on the CPU from the same parameters and batch
+             schedule (TF32 off; the CPU's rounds in a child process
+             started with the script),
              within 1e-3 of the CPU round's largest update or, where f32
              itself departs further from the f64 round, as close to the
              f64 round as the CPU's f32 round (`_fedavg_parity`); then,
@@ -92,8 +94,7 @@ exits non-zero; nothing is caught and carried past):
              local step of that round on the card within 1e-3 of the
              CPU's largest update, and at G = 4 within 1e-3 of G = 1;
              the flagship at G = 1 (one timed round after a warm one;
-             phase fedavg's timed round when it ran in this process),
-             G = 4 (the determinism setting on and off, a round each)
+             phase fedavg's timed round when it ran in this process)
              and G = 10 (a warm round and a timed one): ms a round and a
              group step, rounds/s, peak memory, the loss falling;
              SCAFFOLD, FedDyn and Mime one round each at the flagship
@@ -121,15 +122,16 @@ exits non-zero; nothing is caught and carried past):
              single-shot run. No K1-K4 launch.
 12. cross_silo - cross-silo FedAvg over the message layer through
              `FedMLRunner(training_type: cross_silo)`: (a) the flagship
-             shape as one server and 100 client runners over loopback in
-             this process (100 silos of the non-IID synthetic CIFAR-10
-             shards, all 100 a round, ResNet-18-GN, batch 32, 1 epoch, lr
-             0.05, bf16), a warm round and CS_ROUNDS timed: ms a round
-             (the median), the clients' `train` spans (sum and largest),
-             the wire's serialise / deserialise seconds, bytes and frames
-             a round, the aggregate's ms (CUDA events), peak memory,
-             every round receiving 100 results; then the port
-             Simulator's G = 1 round at the same shape for comparison.
+             shape as one server and CS_FLAGSHIP_SILOS client runners over
+             loopback in this process (the first CS_FLAGSHIP_SILOS of the
+             100 non-IID synthetic CIFAR-10 shards, all of them a round,
+             ResNet-18-GN, batch 32, 1 epoch, lr 0.05, bf16), a warm round
+             and CS_ROUNDS timed: ms a round (the median), the clients'
+             `train` spans (sum and largest), the wire's serialise /
+             deserialise seconds, bytes and frames a round, the
+             aggregate's ms (CUDA events), peak memory, every round
+             receiving every silo's result; then the port Simulator's
+             G = 1 round of the 100 clients, compared per client.
              (b) A 4-silo f32 federation (silos of 32, 48, 64 and 96
              N(0, 1) images at the same shape, so that the aggregate's
              weights differ; 2 rounds of one local step of 32, one CPU
@@ -164,12 +166,13 @@ exits non-zero; nothing is caught and carried past):
              round over the survivors; silo 4 stopped and silo 3 mute on
              the unmask request fail the run loudly; the server severed
              after round 0 and resumed from its checkpoint, bitwise an
-             uninterrupted run. (c) The flagship as 100 silos with
-             bench.py's codec (sparse_topk 0.12, val_bits 16, error
-             feedback), a warm round and a timed one (as (a)): bytes raw
-             and on the wire, the reduction (the codec's arithmetic
-             exactly, 5.59x here), encode / decode ms p50, the round's
-             ms beside phase cross_silo's dense round, 100 results and no frame
+             uninterrupted run. (c) The flagship's first CODEC_SILOS
+             silos with bench.py's codec (sparse_topk 0.12, val_bits 16,
+             error feedback), a warm round and a timed one (as (a)):
+             bytes raw and on the wire, the reduction (the codec's
+             arithmetic exactly, 5.59x here), encode / decode ms p50, the
+             round's ms a silo beside phase cross_silo's dense round's,
+             every silo's result and no frame
              dropped. (d) The 4-silo federation over broker and web3,
              `run_cross_cloud` with a late join and cross-device dense,
              each bitwise the loopback run; cross-device with
@@ -308,6 +311,40 @@ exits non-zero; nothing is caught and carried past):
              gated). (f) RT_TORCH_SILOS `TorchSiloTrainer` silos over the
              hub CNN on the card through `FedServerManager` over
              loopback for RT_TORCH_ROUNDS rounds. No K1-K4 launch.
+18. fleet  - the serving fleet, the scheduler tier and the live loop.
+             (a) at LLaMA-2-7B width and depth in bf16: two replicas from
+             `start_replica` (the `serve` cell's knobs: 8 slots,
+             engine_max_len 1024, 16-token pages, prefill chunks of 256,
+             paged_kernel) sharing one copy of the weights, rank-8 v1
+             adapters, adopted into a `Deployment` behind the load-aware,
+             shedding `InferenceGateway` (affinity on); a `LoadGenerator`
+             wave of FLEET_LOAD_S (Zipf prefixes, half the requests
+             streamed, one burst) takes a rolling update to v2 adapters
+             through a `FileArtifactStore` mid-wave: no non-2xx but 429
+             sheds, both replicas at version 2, K4 launched 32 x the two
+             engines' decode steps (counts zeroed before the wave, read
+             after), no K1-K3; four probe prompts through the gateway
+             against one engine on v2 driven directly (near-tie rule);
+             then a `replica_kill` at a streamed greedy request's 8th
+             token: the stream ends in a terminal event with every index
+             once, its replay matched or continued. (b) the platform tier
+             at the flagship ResNet-18-GN: `api.cluster_start(2)` ->
+             `model_create` -> `model_deploy(n_replicas=2)` (replicas come
+             up through MasterAgent -> WorkerAgent -> `start_replica`, the
+             params on the loopback wire) -> `model_gateway`: 64 synthetic
+             CIFAR images equal a `TorchPredictor`'s answer; a replica's
+             runner stopped: failover with no non-2xx and `reap_and_heal`
+             brings a replacement to READY; a `python` job through
+             `launch_job` and `python -m fedml_tpu_torch launch`; then one
+             master-dispatched LM serve job at 7B width and FLEET_LM_LAYERS
+             layers (its bf16 params on the wire) answering 4 greedy
+             requests with K4 launched FLEET_LM_LAYERS x its decode
+             steps. (c) `LiveLoopHarness` at its own defaults, 4 rounds, 2
+             silos, 2 replicas, one FaultSpec killing the trainer server,
+             a trainer client and a replica: no non-2xx but sheds, the
+             fleet at the last round's version, the SLOs held (the JAX
+             soak test's bounds), and the final adapters bitwise an
+             unkilled run's on the card.
 
 Then the `kernels` line, the raw `nvidia-smi` name/power-limit line, and as
 the last line {"ok": true, "device": {...}}. Imports nothing of JAX or of
@@ -331,7 +368,8 @@ import numpy as np
 
 PHASES = ("device", "build", "kernel", "engine", "serve", "serve_surface",
           "flash", "train", "fedavg", "fedsim", "plugins", "cross_silo",
-          "cross_silo_secure", "standalone", "entry", "tasks", "runtimes")
+          "cross_silo_secure", "standalone", "entry", "tasks", "runtimes",
+          "fleet")
 # run only when named in --only
 OPTIONAL = ("profile", "train_profile", "fedavg_profile")
 DEV = "cuda"
@@ -387,8 +425,8 @@ PARITY_TOL = 1e-3
 # rounds (bench.py's MEASURE_ROUNDS is 5: cut to 3, as phase fedsim times
 # the same G = 1 round three more times, then to 2 when phase
 # serve_surface joined the script, to 1 when phase cross_silo_secure did,
-# to keep the script near 75% of its time limit);
-# the f32 card-vs-CPU round takes the first FEDAVG_PARITY_CLIENTS clients
+# to keep the script near 75% of its time limit); the parity rounds of
+# phases fedsim and plugins take its first FEDAVG_PARITY_CLIENTS clients
 FEDAVG_CONFIG = {
     "data_args": {"dataset": "cifar10"},
     "model_args": {"model": "resnet18_gn"},
@@ -400,13 +438,20 @@ FEDAVG_CONFIG = {
     "comm_args": {"backend": "sp"},
 }
 FEDAVG_SAMPLES, FEDAVG_ROUNDS, FEDAVG_PARITY_CLIENTS = 96, 1, 4
+# phase fedavg's card-vs-CPU round (f64 and f32 on the CPU, f32 on the
+# card) over its first clients, and the threads of the child process that
+# runs the CPU's two rounds beside phases kernel to train (inline they
+# read 46-76 s of the host; 2 clients while phase fleet first joined the
+# script)
+FEDAVG_CPU_CLIENTS, CPU_PARITY_THREADS = 4, 6
 # phase fedsim: the client-group widths timed at the flagship beside
 # G = 1, G = 10's timed rounds after its warm one (3 since phase plugins
 # joined the script, 2 since phase serve_surface did, 1 since phase
 # cross_silo_secure did, to keep the script near 75% of its time limit;
-# G = 1 times one round, G = 4 two, with the determinism setting on and
-# off), and the reduced cohort of the bitwise bars
-FEDSIM_GROUPS, FEDSIM_ROUNDS, FEDSIM_SMALL = (4, 10), 1, 8
+# G = 1 times one round; G = 4's two rounds, with the determinism setting
+# on and off, went when phase fleet joined the script: PERF.md keeps their
+# reading), and the reduced cohort of the bitwise bars
+FEDSIM_GROUPS, FEDSIM_ROUNDS, FEDSIM_SMALL = (10,), 1, 8
 # phase entry: rounds of each flagship run (the first warms), and the
 # sysperf sampler's period in the tracked run
 ENTRY_ROUNDS, ENTRY_SYSPERF_S = 2, 1.0
@@ -448,13 +493,15 @@ PLUGIN_CONFIGS = {
     "e_eftopk": {
         "train_args": {"compression": "eftopk", "compression_ratio": 0.05}},
 }
-# phase cross_silo: timed flagship rounds after the warm one (2 until
-# phase cross_silo_secure joined the script); the f32
+# phase cross_silo: the flagship's silos (its first 50 of 100 since phase
+# fleet joined the script: a round is the server's serial wire work, so
+# its ms a silo is the reading), timed flagship rounds after the warm one
+# (2 until phase cross_silo_secure joined the script); the f32
 # federation of its bars (silos of CS_SHARDS samples, so that the
 # aggregate's weights differ, each taking one local step of CS_BATCH a
 # round for CS_SMALL_ROUNDS rounds), its chaos plan (with the retry budget
 # that makes it deliver), and its tolerance against the Simulator's rounds
-CS_ROUNDS = 1
+CS_FLAGSHIP_SILOS, CS_ROUNDS = 50, 1
 CS_SHARDS, CS_BATCH, CS_SMALL_ROUNDS = (32, 48, 64, 96), 32, 2
 CS_SILOS = len(CS_SHARDS)
 CS_CHAOS = {"seed": 3, "drop": 0.1, "duplicate": 0.1, "reorder": 0.1}
@@ -465,8 +512,11 @@ CS_SIM_TOL = 1e-5
 # D = 11.17 M field elements a round, so the host's work grows with
 # SA_SILOS^2; 100 silos would draw ~1.1e11 a round); (b)'s round timeouts
 # (dropout recovery, then the loud quorum failure); (c) the wire codec of
-# bench.py:bench_comm_codec at the flagship; (d)'s flaky device's timeout
+# bench.py:bench_comm_codec at the flagship, over its first CODEC_SILOS
+# silos (100 until phase fleet joined the script: a round read 63 s); (d)'s
+# flaky device's timeout
 SA_SILOS, SA_TIMEOUT, SA_FAIL_TIMEOUT = 10, 6.0, 4.0
+CODEC_SILOS = 30
 SA_CODEC = {"kind": "dense"}       # field_pack rides c2s_sa_masked
 CODEC = {"kind": "sparse_topk", "ratio": 0.12, "val_bits": 16,
          "error_feedback": True}
@@ -545,6 +595,34 @@ RT_HIER_CLIENTS, RT_HIER_G, RT_SPLIT_CLIENTS = 20, 10, 4
 RT_HIER_SEED = 3
 RT_VFL_DIMS, RT_VFL_ROWS, RT_FLOW_ROUNDS = (5, 4, 3), 4096, 2
 RT_TORCH_SILOS, RT_TORCH_ROUNDS, RT_TORCH_LR = 4, 2, 0.01
+# phase fleet: (a) the serve cell's knobs on both replicas, the loadgen
+# wave's seconds and base rate (one burst at FLEET_BURST x the rate for
+# its first FLEET_BURST_S seconds; prompt + output <= 560 of the 1024
+# tokens; outputs of median 16 and at most 48, cut from 32 and 128 when
+# the script read 1207.9 s, so the wave drains in seconds; at 1 rps the
+# H100 read 1.8 slots a decode step of 8, so 2.5 rps keeps ~4-5 of each
+# replica's 8 busy), the second of the wave the rolling update starts at,
+# the shed watermark (in flight per ready replica: its decode slots, so a
+# replica sheds only what it could not batch at once), the greedy
+# streams' budget and the probe prompts; (b) the LM serve job's depth at
+# 7B width, the flagship images; (c) the live loop's rounds
+FLEET_SERVE = {"decode_slots": N_SLOTS, "engine_max_len": MAX_LEN,
+               "kv_page_size": PS, "prefill_chunk": PREFILL_CHUNK,
+               "paged_kernel": True}
+FLEET_LOAD_S, FLEET_RATE, FLEET_SWAP_AT_S = 20.0, 2.5, 8.0
+FLEET_SHED = float(N_SLOTS)
+FLEET_BURST, FLEET_BURST_S = 3.0, 2.0
+FLEET_TRAFFIC = dict(prefix_pool=16, prefix_len=256, zipf_s=1.2,
+                     suffix_len_med=64.0, suffix_len_sigma=0.8,
+                     suffix_len_max=256, out_len_med=16.0,
+                     out_len_sigma=0.6, out_len_max=48, stream_frac=0.5)
+FLEET_STREAM_NEW, FLEET_PROBES, FLEET_PROBE_NEW = 24, 4, 16
+FLEET_LM_LAYERS, FLEET_IMAGES, FLEET_LOOP_ROUNDS = 2, 64, 4
+# (c)'s SLO bounds: the JAX soak test's (tests/test_live_loop.py's fixture,
+# whose bars its tests 70-127 assert); the harness's default 2000 ms TTFT
+# p99 read 2074.3 ms on a slow host, the 2 s bar a CPU default
+FLEET_LOOP_SLO = {"shed_frac_max": 0.4, "ttft_p99_slo_ms": 5000.0,
+                  "lag_rounds_max": 2}
 # vmap's per-example fallback warns; phases fedsim and tasks make it an
 # error
 VMAP_FALLBACK = ("There is a performance drop because we have not yet "
@@ -670,21 +748,25 @@ def _kernel_case(rng, c: int, kind: str, serve: bool = False):
         pos[7] = 0                     # one live row
         pos[3] = 20                    # 64 pages reserved, 2 live: skips 62
     shape = (P_CHECK, PS, H, DH)
+    # the pools (2 x 72 M entries) are drawn on the card, from a seed the
+    # case's generator draws: set-up, not the check, and slow on the host
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(2 ** 62)))
     if kind == "int8":
-        k = torch.from_numpy(rng.integers(-127, 128, shape, np.int8))
-        v = torch.from_numpy(rng.integers(-127, 128, shape, np.int8))
+        k, v = (torch.randint(-127, 128, shape, generator=gen, device=dev,
+                              dtype=torch.int8) for _ in range(2))
         ks = torch.from_numpy(rng.uniform(0.005, 0.02, (P_CHECK, H))
                               .astype(np.float32))
         vs = torch.from_numpy(rng.uniform(0.005, 0.02, (P_CHECK, H))
                               .astype(np.float32))
         scales = (ks.to(dev), vs.to(dev))
     else:
-        k = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(qdt)
-        v = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(qdt)
+        k, v = (torch.randn(shape, generator=gen, device=dev).to(qdt)
+                for _ in range(2))
         scales = (None, None)
     q = torch.from_numpy(
         rng.standard_normal((S_CHECK, c, H, DH), np.float32)).to(qdt)
-    return (q.to(dev), k.to(dev), v.to(dev), torch.from_numpy(pages).to(dev),
+    return (q.to(dev), k, v, torch.from_numpy(pages).to(dev),
             torch.from_numpy(pos).to(dev)) + scales
 
 
@@ -1868,7 +1950,86 @@ def _conv_matmul_flops(model, params, input_shape) -> int:
     return total[0]
 
 
-def _fedavg_parity(ds) -> dict:
+def _parity_round(ds, dev: str, dt) -> tuple:
+    """One FedAvg round of the flagship's first FEDAVG_CPU_CLIENTS clients
+    at full ResNet-18-GN width on `dev` in `dt`, from one init_params draw
+    and one batch schedule: (its parameters as f64 on the CPU, its loss,
+    its seconds)."""
+    import torch
+
+    from fedml_tpu_torch.algorithms.builtin import build_algorithm
+    from fedml_tpu_torch.config import TrainArgs
+    from fedml_tpu_torch.core.algorithm import make_batch_indices
+    from fedml_tpu_torch.models import hub
+    from fedml_tpu_torch.parallel.round import (
+        build_round_fn, client_generator,
+    )
+
+    n = FEDAVG_CPU_CLIENTS
+    cfg_t = FEDAVG_CONFIG["train_args"]
+    t = TrainArgs(epochs=1, batch_size=cfg_t["batch_size"],
+                  learning_rate=cfg_t["learning_rate"])
+    model = hub.create("resnet18_gn", ds.num_classes, ds.x_train.shape[2:],
+                       device="meta")
+    params0 = hub.init_params(model, torch.Generator().manual_seed(0))
+    sched = torch.stack([make_batch_indices(
+        client_generator(0, c), ds.shard_size, t.batch_size, 1)
+        for c in range(n)])
+    ids, weights = np.arange(n), ds.counts[:n].astype(np.float32)
+    t0 = time.perf_counter()
+    alg = build_algorithm("FedAvg", hub.apply_fn(model), t)
+    data = {"x": torch.from_numpy(ds.x_train[:n]).to(dev, dt),
+            "y": torch.from_numpy(ds.y_train[:n]).to(dev),
+            "mask": torch.from_numpy(ds.mask_train[:n]).to(dev, dt)}
+    o = build_round_fn(alg, health_stats=True)(
+        alg.server_init({k: v.to(dev, dt) for k, v in params0.items()}),
+        None, data, ids, weights, seed=0, batch_idx=sched)
+    return ({k: v.cpu().double() for k, v in o.server_state.params.items()},
+            o.metrics["train_loss"].item(), time.perf_counter() - t0)
+
+
+def fedavg_cpu_rounds(path: str) -> None:
+    """Phase fedavg's two CPU rounds (f64, then f32) into `path`. `main`
+    runs this in a child process beside phases kernel to train (niced,
+    CPU_PARITY_THREADS threads, no card visible): inline they read 76 s of
+    the host at 4 clients."""
+    import os
+
+    import torch
+
+    from fedml_tpu_torch.data import loader
+
+    os.nice(10)
+    torch.set_num_threads(CPU_PARITY_THREADS)
+    ds = loader.load(_fedavg_cfg("cpu"))
+    t0 = time.perf_counter()
+    out = {name: _parity_round(ds, "cpu", dt) for name, dt in (
+        ("cpu_f64", torch.float64), ("cpu", torch.float32))}
+    out["wall_s"] = time.perf_counter() - t0
+    torch.save(out, path)
+
+
+def start_cpu_rounds() -> tuple:
+    """Start `fedavg_cpu_rounds` in a child process: (the process, the
+    file it writes). The child is killed when this process exits."""
+    import atexit
+    import os
+    import tempfile
+
+    fd, path = tempfile.mkstemp(prefix="fedavg-cpu-", suffix=".pt")
+    os.close(fd)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.fedavg_cpu_rounds(sys.argv[1])", path],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    atexit.register(proc.kill)
+    atexit.register(lambda: os.path.exists(path) and os.remove(path))
+    return proc, path
+
+
+def _fedavg_parity(ds, cpu_rounds=None) -> dict:
     """One f32 FedAvg round of the first clients at full ResNet-18-GN
     width on the card and on the CPU, from one init_params draw and one
     batch schedule, with cuDNN's and cuBLAS's TF32 off; and the same round
@@ -1884,71 +2045,50 @@ def _fedavg_parity(ds) -> dict:
     round is, within 2x: a wrong convolution, padding or norm on the card
     departs by the size of the update. The card runs with the port's
     determinism (`_device.deterministic_cuda`, which the Simulator sets),
-    so the round reads the same in every call."""
+    so the round reads the same in every call. `cpu_rounds`, the child
+    process `start_cpu_rounds` started, holds the CPU's rounds (started
+    here when None)."""
+    import os
+
     import torch
 
     from fedml_tpu_torch._device import deterministic_cuda
-    from fedml_tpu_torch.algorithms.builtin import build_algorithm
-    from fedml_tpu_torch.config import TrainArgs
-    from fedml_tpu_torch.core.algorithm import make_batch_indices
-    from fedml_tpu_torch.models import hub
-    from fedml_tpu_torch.parallel.round import (
-        build_round_fn, client_generator,
-    )
 
-    n = FEDAVG_PARITY_CLIENTS
-    cfg_t = FEDAVG_CONFIG["train_args"]
-    t = TrainArgs(epochs=1, batch_size=cfg_t["batch_size"],
-                  learning_rate=cfg_t["learning_rate"])
-    model = hub.create("resnet18_gn", ds.num_classes, ds.x_train.shape[2:],
-                       device="meta")
-    params0 = hub.init_params(model, torch.Generator().manual_seed(0))
-    sched = torch.stack([make_batch_indices(
-        client_generator(0, c), ds.shard_size, t.batch_size, 1)
-        for c in range(n)])
-    ids, weights = np.arange(n), ds.counts[:n].astype(np.float32)
+    proc, path = cpu_rounds or start_cpu_rounds()
     deterministic_cuda(torch.device(DEV))
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    out = {}
+    with _tf32_off():
+        out = {"card": _parity_round(ds, DEV, torch.float32)}
+    t0 = time.perf_counter()
     try:
-        for name, dev, dt in (("cpu_f64", "cpu", torch.float64),
-                              ("cpu", "cpu", torch.float32),
-                              ("card", DEV, torch.float32)):
-            t0 = time.perf_counter()
-            alg = build_algorithm("FedAvg", hub.apply_fn(model), t)
-            data = {"x": torch.from_numpy(ds.x_train[:n]).to(dev, dt),
-                    "y": torch.from_numpy(ds.y_train[:n]).to(dev),
-                    "mask": torch.from_numpy(ds.mask_train[:n]).to(dev, dt)}
-            o = build_round_fn(alg, health_stats=True)(
-                alg.server_init({k: v.to(dev, dt)
-                                 for k, v in params0.items()}),
-                None, data, ids, weights, seed=0, batch_idx=sched)
-            out[name] = ({k: v.cpu().double()
-                          for k, v in o.server_state.params.items()},
-                         o.metrics["train_loss"].item(),
-                         time.perf_counter() - t0)
+        _so, se = proc.communicate(timeout=1200)
     finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = tf32
+        proc.kill()
+    waited_s = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"the CPU rounds' child process failed: {se[-2000:]}")
+    cpu = torch.load(path)
+    os.remove(path)
+    out.update(cpu_f64=cpu["cpu_f64"], cpu=cpu["cpu"])
+    params0 = _parity_params()
 
     def dist(a, b):
         return max((out[a][0][k] - out[b][0][k]).abs().max().item()
                    for k in params0)
 
-    update = max((out["cpu"][0][k] - params0[k]).abs().max().item()
+    update = max((out["cpu"][0][k] - params0[k].double()).abs().max().item()
                  for k in params0)
     diff, e_cpu, e_card = dist("card", "cpu"), dist("cpu", "cpu_f64"), \
         dist("card", "cpu_f64")
-    res = {"clients": n, "local_steps": n * (ds.shard_size // t.batch_size),
+    steps = ds.shard_size // FEDAVG_CONFIG["train_args"]["batch_size"]
+    res = {"clients": FEDAVG_CPU_CLIENTS,
+           "local_steps": FEDAVG_CPU_CLIENTS * steps,
            "max_abs_update": update, "max_abs_param_diff": diff,
            "ratio": diff / update, "tol": PARITY_TOL,
            "cpu_f32_vs_f64_ratio": e_cpu / update,
            "card_f32_vs_f64_ratio": e_card / update,
            "losses": {k: v[1] for k, v in out.items()},
-           "seconds": {k: v[2] for k, v in out.items()}}
+           "seconds": {k: v[2] for k, v in out.items()},
+           "cpu_child_wall_s": cpu["wall_s"], "cpu_child_waited_s": waited_s}
     emit({"phase": "fedavg", "f32_card_vs_cpu": res})
     check(update > 0 and (diff <= PARITY_TOL * update
                           or e_card <= 2 * e_cpu),
@@ -1958,8 +2098,9 @@ def _fedavg_parity(ds) -> dict:
     return res
 
 
-def phase_fedavg() -> dict:
-    """Phase 8 (module docstring)."""
+def phase_fedavg(cpu_rounds=None) -> dict:
+    """Phase 8 (module docstring). `cpu_rounds`: `start_cpu_rounds`'s
+    child, started when the script began."""
     import torch
 
     from fedml_tpu_torch.data import loader
@@ -1972,7 +2113,7 @@ def phase_fedavg() -> dict:
     ds = loader.load(cfg)
     check(ds.synthetic, "the flagship data is not the synthetic CIFAR-10")
     data_s = time.perf_counter() - t0
-    parity = _fedavg_parity(ds)
+    parity = _fedavg_parity(ds, cpu_rounds)
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -2196,23 +2337,19 @@ def _one_step_rounds(ds) -> dict:
     return res
 
 
-def _timed_rounds(sim, first: int, n: int, modes=None) -> list:
-    """`n` synchronised rounds from round `first`: ms each and the loss;
-    `modes[i]`, when given, sets cuDNN's deterministic flag for round i."""
+def _timed_rounds(sim, first: int, n: int) -> list:
+    """`n` synchronised rounds from round `first`: ms each and the loss."""
     import torch
 
     rows = []
     for i in range(n):
-        if modes is not None:
-            torch.backends.cudnn.deterministic = modes[i] == "on"
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         m = sim.run_round(first + i)
         torch.cuda.synchronize()
         rows.append({"round": first + i,
                      "ms": (time.perf_counter() - t0) * 1e3,
-                     "train_loss": m["train_loss"],
-                     **({"determinism": modes[i]} if modes else {})})
+                     "train_loss": m["train_loss"]})
     return rows
 
 
@@ -2220,9 +2357,7 @@ def _flagship_groups(ds, fedavg=None) -> dict:
     """The flagship at G = 1 (a warm round and one timed, the determinism
     setting on; when phase fedavg ran in this process, `fedavg`, its timed
     round of the same G = 1 configuration stands for this one, which
-    phase tasks' room cut), at G = 4 (the determinism setting on and off,
-    a round each: its cost; a warm round read within their spread on the
-    H100, so there is none) and at G = 10 (a warm round, then
+    phase tasks' room cut) and at G = 10 (a warm round, then
     FEDSIM_ROUNDS timed): ms a round, rounds/s, ms a group step, peak
     memory, the losses. (The profiled rounds of two groups went when
     phase cross_silo_secure joined the script: PERF.md keeps their
@@ -2251,20 +2386,9 @@ def _flagship_groups(ds, fedavg=None) -> dict:
         sim = Simulator(_fedavg_cfg(
             DEV, extra={"clients_per_device_parallel": g}), ds)
         gw = group_width(ds.num_clients, g)
-        warm = _timed_rounds(sim, 0, 1) if g != 4 else []
-        extra = {}
-        if g == 4:
-            modes = ("on", "off")
-            timed = _timed_rounds(sim, 0, len(modes), modes)
-            torch.backends.cudnn.deterministic = True
-            on = [r["ms"] for r in timed if r["determinism"] == "on"]
-            off = [r["ms"] for r in timed if r["determinism"] == "off"]
-            extra = {"determinism_on_ms": on, "determinism_off_ms": off,
-                     "determinism_cost": statistics.mean(on)
-                     / statistics.mean(off) - 1}
-        else:
-            timed = _timed_rounds(sim, len(warm),
-                                  1 if g == 1 else FEDSIM_ROUNDS)
+        warm = _timed_rounds(sim, 0, 1)
+        timed = _timed_rounds(sim, len(warm),
+                              1 if g == 1 else FEDSIM_ROUNDS)
         med = statistics.median(r["ms"] for r in timed)
         peak = torch.cuda.max_memory_allocated()
         groups = ds.num_clients // gw
@@ -2273,7 +2397,7 @@ def _flagship_groups(ds, fedavg=None) -> dict:
                   "rounds_per_s": 1e3 / med,
                   "ms_per_group_step": med / (groups * steps),
                   "ms_per_client_step": med / (ds.num_clients * steps),
-                  "max_memory_allocated_bytes": peak, **extra,
+                  "max_memory_allocated_bytes": peak,
                   "seconds": time.perf_counter() - t0}
         emit({"phase": "fedsim", "flagship": res[g]})
         losses = [r["train_loss"] for r in res[g]["rounds"]]
@@ -2430,16 +2554,22 @@ def phase_fedsim(fedavg=None) -> dict:
     pa.launch_count = 0
     t0 = time.perf_counter()
     # C.1: the same f32 round twice here and once in a child process
-    here = [f32_round_digest(), f32_round_digest()]
-    child = subprocess.run(
+    # (started first: it spends seconds importing torch beside the rounds
+    # here)
+    child = subprocess.Popen(
         [sys.executable, "-c",
          "import chip_smoke; print(chip_smoke.f32_round_digest())"],
-        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
-        text=True, timeout=600)
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        here = [f32_round_digest(), f32_round_digest()]
+        g4 = [f32_round_digest(4), f32_round_digest(4)]
+        so, se = child.communicate(timeout=600)
+    finally:
+        child.kill()
     check(child.returncode == 0,
-          f"the digest's child process failed: {child.stderr[-2000:]}")
-    there = child.stdout.strip().splitlines()[-1]
-    g4 = [f32_round_digest(4), f32_round_digest(4)]
+          f"the digest's child process failed: {se[-2000:]}")
+    there = so.strip().splitlines()[-1]
     c1 = {"digests": here + [there], "g4_digests": g4,
           "repeats_in_process": here[0] == here[1],
           "repeats_across_processes": here[0] == there,
@@ -2906,15 +3036,18 @@ def _wire_alone(params: dict, n: int = 5) -> dict:
 
 
 def _cs_flagship(ds) -> dict:
-    """(a): the flagship as 100 silos, a warm round and CS_ROUNDS timed."""
+    """(a): the flagship's first CS_FLAGSHIP_SILOS silos, a warm round and
+    CS_ROUNDS timed."""
     import torch
 
     from fedml_tpu_torch.utils.events import recorder
 
     silos = [(ds.x_train[i][:int(ds.counts[i])],
               ds.y_train[i][:int(ds.counts[i])])
-             for i in range(ds.num_clients)]
-    cfg = _cs_cfg(DEV, "cs-flagship", 1 + CS_ROUNDS)
+             for i in range(min(CS_FLAGSHIP_SILOS, ds.num_clients))]
+    cfg = _cs_cfg(DEV, "cs-flagship", 1 + CS_ROUNDS,
+                  client_num_in_total=len(silos),
+                  client_num_per_round=len(silos))
     recorder.spans.clear()
     dropped0 = sum(recorder.dropped.values())
     gc.collect()
@@ -3195,10 +3328,11 @@ def phase_cross_silo(fedsim_g1=None) -> dict:
     res["simulator_g1_round"] = _cs_sim_round(ds) if fedsim_g1 is None \
         else {"ms": fedsim_g1["ms_per_round_median"],
               "from": "phase fedsim, G = 1, this call"}
+    # per client: the federation's silos against the Simulator's 100
     emit({"phase": "cross_silo", "simulator_g1_round":
-          res["simulator_g1_round"], "cross_silo_vs_simulator":
-          res["flagship"]["ms_per_round_median"]
-          / res["simulator_g1_round"]["ms"],
+          res["simulator_g1_round"], "cross_silo_vs_simulator_per_client":
+          (res["flagship"]["ms_per_round_median"] / res["flagship"]["silos"])
+          / (res["simulator_g1_round"]["ms"] / ds.num_clients),
           "nvidia_smi": nvidia_smi_line()})
     res["bars"] = _cs_bars()
     emit({"phase": "cross_silo", "k1_k4_launches": launches,
@@ -3496,17 +3630,20 @@ def _leaf_wire_bytes(params: dict, ratio: float, val_bytes: int) -> int:
     return total
 
 
-def _codec_flagship(ds, rounds: int, dense_round=None) -> dict:
-    """(c): the flagship as 100 silos with CODEC on the uploads, `rounds`
-    rounds (the last one timed)."""
+def _codec_flagship(ds, rounds: int, dense_ms_per_silo=None) -> dict:
+    """(c): the flagship's first CODEC_SILOS silos with CODEC on the
+    uploads, `rounds` rounds (the last one timed); `dense_ms_per_silo`,
+    phase cross_silo's dense round a silo, is set beside it."""
     import torch
 
     from fedml_tpu_torch.utils import metrics as mx
 
     silos = [(ds.x_train[i][:int(ds.counts[i])],
               ds.y_train[i][:int(ds.counts[i])])
-             for i in range(ds.num_clients)]
+             for i in range(min(CODEC_SILOS, ds.num_clients))]
     cfg = _cs_cfg(DEV, "codec-flagship", rounds,
+                  client_num_in_total=len(silos),
+                  client_num_per_round=len(silos),
                   comm_extra={"comm_codec": CODEC})
     errs0 = mx.snapshot()["counters"].get("comm.loopback.decode_errors", 0)
     gc.collect()
@@ -3534,7 +3671,8 @@ def _codec_flagship(ds, rounds: int, dense_round=None) -> dict:
            "digits_bench_bar_x": 8.0,
            "max_memory_allocated_bytes": peak,
            "loss_min": min(losses), "loss_max": max(losses),
-           "dense_round_ms": dense_round}
+           "ms_per_silo": rows[-1]["ms"] / len(silos),
+           "dense_ms_per_silo": dense_ms_per_silo}
     emit({"phase": "cross_silo_secure", "c_codec_flagship": res,
           "nvidia_smi": nvidia_smi_line()})
     n = len(silos)
@@ -3679,7 +3817,8 @@ def phase_cross_silo_secure(cs_flagship=None, loopback_params=None) -> dict:
             ("b_secagg_bars", _sa_bars),
             ("c_codec_flagship", lambda: _codec_flagship(
                 ds, rounds, None if cs_flagship is None
-                else cs_flagship["ms_per_round_median"])),
+                else cs_flagship["ms_per_round_median"]
+                / cs_flagship["silos"])),
             ("d_transports_and_edges",
              lambda: _transports_and_edges(loopback_params))):
         t1 = time.perf_counter()
@@ -4211,23 +4350,31 @@ def _cli(*args, timeout: float = 300) -> subprocess.CompletedProcess:
     return _clis([args], timeout)[0]
 
 
+def _cli_start(*args) -> subprocess.Popen:
+    """`python -m fedml_tpu_torch <args>` from the checkout's root, started
+    (`_cli_wait` collects it)."""
+    import os
+
+    return subprocess.Popen(
+        [sys.executable, "-m", "fedml_tpu_torch", *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def _cli_wait(p: subprocess.Popen, timeout: float = 300
+              ) -> subprocess.CompletedProcess:
+    try:
+        so, se = p.communicate(timeout=timeout)
+    finally:
+        p.kill()
+    return subprocess.CompletedProcess(p.args, p.returncode, so, se)
+
+
 def _clis(argvs, timeout: float = 300) -> list:
     """Several `python -m fedml_tpu_torch` commands started together (each
     spends seconds importing torch), their CompletedProcesses in order."""
-    import os
-
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "fedml_tpu_torch", *a],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        cwd=os.path.dirname(os.path.abspath(__file__))) for a in argvs]
-    out = []
-    for a, p in zip(argvs, procs):
-        try:
-            so, se = p.communicate(timeout=timeout)
-        finally:
-            p.kill()
-        out.append(subprocess.CompletedProcess(a, p.returncode, so, se))
-    return out
+    procs = [_cli_start(*a) for a in argvs]
+    return [_cli_wait(p, timeout) for p in procs]
 
 
 def _entry_cfg(log_dir, tracking: bool) -> dict:
@@ -4438,7 +4585,8 @@ def phase_entry(surface=None) -> dict:
     res["e_swap"] = (surface or {}).get("swap") or \
         "not run: phase serve_surface did not run in this call"
     emit({"phase": "entry", "part": "e_swap", "swap": res["e_swap"]})
-    # (f) the diagnosis battery, and `env` (run in (b)), as subprocesses
+    # (f) the diagnosis battery, alone on the card (its live_loop_smoke
+    # holds a wall-clock budget), and `env` (run in (b)), as subprocesses
     t1 = time.perf_counter()
     check(env.returncode == 0, f"env rc {env.returncode}")
     card = json.loads(env.stdout)["devices"][0]
@@ -5405,11 +5553,520 @@ def phase_runtimes() -> dict:
     return res
 
 
+# ------------------------------------------------------------- phase 18
+def _sse_timed(port: int, body: dict) -> tuple[list, list]:
+    """One streamed POST: (events, their arrival times)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request("POST", "/predict", body=json.dumps(body).encode(),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    check(resp.status == 200, f"stream answered {resp.status}")
+    events, times = [], []
+    for raw in resp:
+        line = raw.strip()
+        if line.startswith(b"data:"):
+            events.append(json.loads(line[5:]))
+            times.append(time.perf_counter())
+    conn.close()
+    return events, times
+
+
+def _fleet_counters() -> dict:
+    from fedml_tpu_torch.utils import metrics as mx
+
+    c = mx.snapshot()["counters"]
+    return {k: c.get(k, 0) for k in (
+        "serving.shed_total", "serving.stream_failovers",
+        "serving.stream_replay_divergences", "serving.stream_continuations",
+        "serving.gateway_failovers", "serving.affinity.hits",
+        "serving.prefix_hits", "fed.chaos.replica_kills")}
+
+
+def _fleet_headline() -> dict:
+    """(a): two 7B replicas behind the gateway under a loadgen wave with a
+    rolling update to v2 mid-wave, the probes against a direct v2 engine,
+    then a mid-stream replica kill."""
+    import tempfile
+    import threading
+
+    import torch
+
+    from fedml_tpu_torch.comm.chaos import FaultSpec
+    from fedml_tpu_torch.llm.transformer import (
+        LLAMA2_7B, TransformerLM, init_params,
+    )
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.ops import paged_attention as pa
+    from fedml_tpu_torch.serving.scheduler import (
+        Deployment, InferenceGateway, start_replica,
+    )
+    from fedml_tpu_torch.soak.loadgen import LoadGenerator, TrafficSpec
+    from fedml_tpu_torch.utils.artifacts import FileArtifactStore, adapter_name
+
+    smi = nvidia_smi_line()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dims = LLAMA2_7B
+    state = init_params(dims, seed=0, dtype=torch.bfloat16, device=DEV)
+    base_bytes = sum(t.numel() * t.element_size() for t in state.values())
+    base = TransformerLM.from_state(dims, state)
+    v1, v2 = _adapters(base, seed=1), _adapters(base, seed=2)
+    del base
+    spec = {"model_kind": "lm", "device": DEV,
+            "lm": {"vocab_size": dims.vocab_size, "d_model": dims.d_model,
+                   "n_layers": dims.n_layers, "n_heads": dims.n_heads,
+                   "d_ff": dims.d_ff, "max_len": MAX_LEN},
+            "params": state, "adapters": v1, "serve": dict(FLEET_SERVE)}
+    runners = [start_replica(dict(spec))[1] for _ in range(2)]
+    engines = [r.predictor.engine for r in runners]
+    # one copy of the weights: an unadapted kernel of both replicas' served
+    # models IS the base tensor; the adapted kernels are merged per replica
+    probe = "blocks.0.w_up.kernel"
+    shared = all(e.serving_model.state_dict()[probe].data_ptr()
+                 == state[probe].data_ptr() for e in engines)
+    check(shared, "the replicas hold their own copies of the base weights")
+    merged_bytes = sum(t.numel() * t.element_size() for n, t in
+                       engines[0].serving_model.state_dict().items()
+                       if n in v1)
+    dep = Deployment.adopt([f"http://127.0.0.1:{r.port}" for r in runners],
+                           probation_deadline_s=5.0)
+    gw = InferenceGateway(dep, scale_interval=30, shed_watermark=FLEET_SHED,
+                          retry_after_s=1.0, affinity=True).start()
+    url = f"http://127.0.0.1:{gw.port}/predict"
+    store_dir = tempfile.mkdtemp(prefix="fleet-store-")
+    out = {"nvidia_smi": smi, "setup_s": time.perf_counter() - t0,
+           "base_weights_gb": base_bytes / 1e9,
+           "merged_kernel_gb_per_replica": merged_bytes / 1e9,
+           "weights_shared": shared}
+    try:
+        # warm both replicas (first-call costs off the wave)
+        for r in runners:
+            code, _b = _post(r.port, {"tokens": list(range(1, 300)),
+                                      "max_new_tokens": 4})
+            check(code == 200, f"warm-up answered {code}")
+        traffic = TrafficSpec(seed=0, vocab=dims.vocab_size,
+                              rate_rps=FLEET_RATE, duration_s=FLEET_LOAD_S,
+                              burst_every_s=2 * FLEET_LOAD_S,
+                              burst_factor=FLEET_BURST,
+                              burst_len_s=FLEET_BURST_S, **FLEET_TRAFFIC)
+        check(traffic.max_total_len() <= MAX_LEN,
+              f"traffic needs {traffic.max_total_len()} > {MAX_LEN} tokens")
+        store = FileArtifactStore(store_dir)
+        store.put(adapter_name(2), v2)
+        c0 = _fleet_counters()
+        steps0 = [e.decode_steps for e in engines]
+        slots0 = [e.decode_slot_steps for e in engines]
+        fa.launch_count.update(dict.fromkeys(fa.launch_count, 0))
+        pa.launch_count = 0
+        pa.launches_by_c.clear()
+        gen = LoadGenerator(traffic, url, max_workers=16,
+                            request_timeout_s=300)
+        swap = {}
+
+        def roll():
+            time.sleep(FLEET_SWAP_AT_S)
+            t1 = time.perf_counter()
+            try:
+                swap["updated"] = dep.rolling_update(
+                    store, adapter_name(2), version=2, timeout=120)
+            except Exception as e:  # noqa: BLE001 — checked below
+                swap["error"] = f"{type(e).__name__}: {e}"
+            swap["seconds"] = time.perf_counter() - t1
+
+        t_wave = time.perf_counter()
+        gen.start()
+        roller = threading.Thread(target=roll)
+        roller.start()
+        gen.done.wait(FLEET_LOAD_S + 60)
+        roller.join(timeout=300)
+        results = gen.stop(timeout=300)
+        wave_s = time.perf_counter() - t_wave
+        torch.cuda.synchronize()
+        launches = {"all": pa.launch_count, "by_c": dict(pa.launches_by_c)}
+        steps = [e.decode_steps - s for e, s in zip(engines, steps0)]
+        slot_steps = [e.decode_slot_steps - s
+                      for e, s in zip(engines, slots0)]
+        flash = dict(fa.launch_count)
+        c1 = _fleet_counters()
+        check("error" not in swap, f"rolling update failed: {swap}")
+        versions = dep.versions()
+        codes = sorted({r.status for r in results})
+        bad = [r.status for r in results if r.klass == "error"]
+        ok = [r for r in results if r.klass == "ok"]
+        shed = sum(r.klass == "shed" for r in results)
+        ttft = sorted(r.ttft_s for r in ok if r.ttft_s is not None)
+        tbt = sorted(g for r in ok for g in r.tbt_s)
+        out["a_wave"] = {
+            "requests": len(results), "ok": len(ok), "shed_429": shed,
+            "non2xx_excl_shed": len(bad), "codes": codes,
+            "rate_rps": FLEET_RATE, "burst_x": FLEET_BURST,
+            "wave_s": wave_s,
+            "ttft_p50_s": ttft[len(ttft) // 2] if ttft else None,
+            "ttft_p99_s": ttft[min(len(ttft) - 1, int(0.99 * (len(ttft) - 1)))]
+            if ttft else None,
+            "output_tokens_per_s": sum(r.tokens_out for r in ok) / wave_s,
+            "stream_decode_tokens_per_s": 1.0 / tbt[len(tbt) // 2]
+            if tbt else None,
+            "ttft_samples": len(ttft),
+            "swap_s": swap.get("seconds"), "versions": versions,
+            "decode_steps": steps,
+            "mean_live_slots_per_step": [n / max(k, 1) for n, k in
+                                         zip(slot_steps, steps)],
+            "decode_slots": N_SLOTS, "k4_launches": launches,
+            "k1_k3_launches": flash,
+            "counters": {k: c1[k] - c0[k] for k in c0},
+            "nvidia_smi": smi}
+        emit({"phase": "fleet", "part": "a_wave", **out["a_wave"]})
+        check(not bad, f"the wave answered non-2xx other than 429: {bad}")
+        check(len(ok) > 0, "no request of the wave was answered")
+        check(sorted(versions.values()) == [2, 2],
+              f"the fleet is not at version 2: {versions}")
+        check(launches["all"] == dims.n_layers * sum(steps) > 0
+              and launches["by_c"] == {1: launches["all"]},
+              f"K4 launches {launches} != {dims.n_layers} x decode steps "
+              f"{steps}")
+        check(not any(flash.values()), f"a flash kernel ran: {flash}")
+        # probes through the gateway, one at a time, against one engine on
+        # v2 driven directly
+        rs = np.random.RandomState(7)
+        probes = [(rs.randint(1, dims.vocab_size,
+                              int(rs.randint(64, 400))).tolist(),
+                   FLEET_PROBE_NEW) for _ in range(FLEET_PROBES)]
+        got = []
+        for p, n in probes:
+            code, raw = _post(gw.port, {"tokens": p, "max_new_tokens": n})
+            check(code == 200, f"probe answered {code}")
+            got.append(json.loads(raw)["generated_tokens"])
+        eng = _engine(TransformerLM.from_state(dims, state), adapters=v2,
+                      paged_kernel=True)
+        try:
+            want = [eng.submit(p, n).result(timeout=600) for p, n in probes]
+            ties = _near_tie_identical(eng.serving_model, probes, want, got,
+                                       phase="fleet")
+        finally:
+            eng.stop()
+        del eng
+        out["a_probes"] = {**ties, "exact": sum(a == b for a, b in
+                                                 zip(want, got))}
+        # the kill: a greedy stream's 8th token on replica 0
+        body = {"tokens": probes[0][0], "max_new_tokens": FLEET_STREAM_NEW,
+                "stream": True}
+        ref_ev, _t = _sse_timed(gw.port, body)
+        ref = [e["token"] for e in ref_ev if "token" in e]
+        check(ref_ev[-1].get("done") is True, "the unkilled stream did not end")
+        # the replica affinity routes this prompt to (it served the
+        # unkilled stream, so it holds the prompt's first page) is the one
+        # armed to die
+        prefer = gw._affinity_prefer(body, b"")
+        doomed_i = next((i for i, rep in enumerate(dep.replicas)
+                         if rep.replica_id in (prefer or ())), 0)
+        doomed = runners[doomed_i]
+        doomed.arm_chaos(FaultSpec(replica_kill={0: 8}), 0)
+        k0 = _fleet_counters()
+        kill = None
+        for _ in range(4):
+            t1 = time.perf_counter()
+            ev, times = _sse_timed(gw.port, body)
+            wall = time.perf_counter() - t1
+            k1 = _fleet_counters()
+            if k1["fed.chaos.replica_kills"] > k0["fed.chaos.replica_kills"]:
+                kill = (ev, times, wall, k1)
+                break
+        check(kill is not None, "the replica_kill never fired")
+        ev, times, wall, k1 = kill
+        toks = [e["token"] for e in ev if "token" in e]
+        idx = [e["index"] for e in ev if "token" in e]
+        check(idx == list(range(len(idx))) and len(idx) == FLEET_STREAM_NEW,
+              f"the killed stream's indices {idx}")
+        check(ev[-1].get("done") is True,
+              f"the killed stream ended in {ev[-1]}")
+        tok_t = [t for e, t in zip(ev, times) if "token" in e]
+        cont = (k1["serving.stream_continuations"]
+                - k0["serving.stream_continuations"])
+        out["a_kill"] = {
+            "path": ("continuation" if cont else
+                     "replay_matched" if toks == ref else
+                     "replay_verified_then_differed"),
+            "stream_s": wall,
+            "failover_s": max(b - a for a, b in zip(tok_t, tok_t[1:])),
+            "stream_failovers": (k1["serving.stream_failovers"]
+                                 - k0["serving.stream_failovers"]),
+            "doomed_state": dep.replicas[doomed_i].state, "nvidia_smi": smi}
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["launches"] = launches["all"]
+        emit({"phase": "fleet", "part": "a_probes_kill",
+              "probes": out["a_probes"], "kill": out["a_kill"],
+              "peak_gb": out["peak_gb"], "nvidia_smi": smi})
+    finally:
+        gw.stop()
+        for r in runners:
+            r.stop()
+        import shutil
+
+        shutil.rmtree(store_dir, ignore_errors=True)
+    del runners, engines, dep, gw, state, v1, v2, spec
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def python_job(args):
+    """The python job phase fleet (b) launches ("chip_smoke:python_job")."""
+    return {"sum": int(args["a"]) + int(args["b"])}
+
+
+def _fleet_platform() -> dict:
+    """(b): the platform tier at the flagship ResNet-18-GN, then a
+    master-dispatched LM serve job at 7B width."""
+    import os
+    import tempfile
+
+    import torch
+
+    import fedml_tpu_torch.api as api
+    from fedml_tpu_torch.llm.transformer import (
+        LLAMA2_7B, ModelDims, init_params,
+    )
+    from fedml_tpu_torch.models import hub
+    from fedml_tpu_torch.ops import paged_attention as pa
+    from fedml_tpu_torch.serving.predictor import TorchPredictor
+    from fedml_tpu_torch.serving.scheduler import Deployment
+
+    smi = nvidia_smi_line()
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="fleet-platform-")
+    # the registry and the profile under the run's temp dir, not HOME
+    api._REGISTRY = os.path.join(tmp, "models")
+    api._PROFILE = os.path.join(tmp, "profile.json")
+    out = {"nvidia_smi": smi}
+    model = hub.create("resnet18_gn", 10, (32, 32, 3), device="meta")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    params = hub.init_params(hub.create("resnet18_gn", 10, (32, 32, 3),
+                                        device=DEV), gen)
+    n_params = sum(t.numel() for t in params.values())
+    # the CLI's `launch` of a python job, started here: its process spends
+    # seconds importing torch while the flagship deploys
+    path = os.path.join(tmp, "job.yaml")
+    with open(path, "w") as f:   # JSON is YAML, and needs no PyYAML
+        json.dump({"type": "python", "entry": "chip_smoke:python_job",
+                   "args": {"a": 1, "b": 2}}, f)
+    launch = _cli_start("launch", path, "--timeout", "120")
+    cluster = api.cluster_start(2)
+    served = []
+    try:
+        api.model_create("flagship", model="resnet18_gn", params=params,
+                         num_classes=10, input_shape=(32, 32, 3))
+        t1 = time.perf_counter()
+        dep = api.model_deploy("flagship", cluster, n_replicas=2,
+                               timeout=300, config={
+                                   "probation_deadline_s": 3.0,
+                                   "probe_backoff_s": 0.05})
+        deploy_s = time.perf_counter() - t1
+        check(len(dep.ready_replicas()) == 2,
+              f"{len(dep.ready_replicas())} of 2 flagship replicas READY")
+        gw = api.model_gateway(dep, scale_interval=30)
+        try:
+            x = np.random.RandomState(0).randn(
+                FLEET_IMAGES, 32, 32, 3).astype(np.float32).tolist()
+            want = TorchPredictor(hub.apply_fn(model), params,
+                                  device=DEV).predict({"inputs": x})
+            t1 = time.perf_counter()
+            code, raw = _post(gw.port, {"inputs": x})
+            predict_s = time.perf_counter() - t1
+            check(code == 200, f"the gateway answered {code}")
+            got = json.loads(raw)
+            check(got["predictions"] == want["predictions"]
+                  and got["probabilities"] == want["probabilities"],
+                  "the deployed flagship disagrees with a TorchPredictor")
+            # heal: stop one replica's runner under the gateway
+            victim = next(rid for w in cluster.workers
+                          for rid in list(w.active_servers))
+            for w in cluster.workers:
+                if victim in w.active_servers:
+                    w.active_servers[victim].stop()
+            t1 = time.perf_counter()
+            codes = [_post(gw.port, {"inputs": x[:8]})[0] for _ in range(6)]
+            check(codes == [200] * 6, f"failover answered {codes}")
+            deadline = time.monotonic() + 120
+            while not (any(r.replica_id == victim and r.state == "DEAD"
+                           for r in dep.replicas)
+                       and len(dep.ready_replicas()) >= 2):
+                check(time.monotonic() < deadline,
+                      "no replacement replica came up")
+                time.sleep(0.05)
+            heal_s = time.perf_counter() - t1
+            check(json.loads(_post(gw.port, {"inputs": x})[1]) == got,
+                  "the healed fleet answers differently")
+        finally:
+            gw.stop()
+        # jobs: one through launch_job (its entry registered on the
+        # cluster's workers: a worker never imports a name off the wire),
+        # one through the CLI (which imports the job file's entry itself)
+        for w in cluster.workers:
+            w.register_python_job("chip_smoke:python_job", python_job)
+        job = api.launch_job({"type": "python",
+                              "entry": "chip_smoke:python_job",
+                              "args": {"a": 2, "b": 40}},
+                             cluster=cluster, wait=True, timeout=120)
+        check(job["status"] == "FINISHED" and job["result"] == {"sum": 42},
+              f"launch_job: {job}")
+        cli = _cli_wait(launch)
+        check(cli.returncode == 0, f"launch exited {cli.returncode}: "
+              f"{cli.stderr[-2000:]}")
+        check(json.loads(cli.stdout.strip().splitlines()[-1])["result"]
+              == {"sum": 3}, f"launch printed {cli.stdout[-500:]}")
+        out["b_flagship"] = {
+            "params": n_params, "deploy_s": deploy_s,
+            "predict_64_s": predict_s, "heal_s": heal_s,
+            "launch_job": job["status"], "cli_launch_rc": cli.returncode,
+            "nvidia_smi": smi}
+        emit({"phase": "fleet", "part": "b_flagship", **out["b_flagship"]})
+        for w in cluster.workers:
+            for rid in list(w.active_servers):
+                w.active_servers.pop(rid).stop()
+        # an LM serve job with its params on the wire
+        dims = ModelDims(LLAMA2_7B.vocab_size, LLAMA2_7B.d_model,
+                         FLEET_LM_LAYERS, LLAMA2_7B.n_heads, LLAMA2_7B.d_ff)
+        state = init_params(dims, seed=0, dtype=torch.bfloat16, device=DEV)
+        wire_gb = sum(t.numel() * t.element_size()
+                      for t in state.values()) / 1e9
+        spec = {"model_kind": "lm", "lm": {
+            "vocab_size": dims.vocab_size, "d_model": dims.d_model,
+            "n_layers": dims.n_layers, "n_heads": dims.n_heads,
+            "d_ff": dims.d_ff, "max_len": MAX_LEN},
+            "params": state, "serve": dict(FLEET_SERVE),
+            "requirements": {}}
+        t1 = time.perf_counter()
+        lm_dep = Deployment(cluster.master, spec, min_replicas=1,
+                            max_replicas=1).deploy(1, timeout=600)
+        lm_deploy_s = time.perf_counter() - t1
+        check(len(lm_dep.ready_replicas()) == 1, "the LM replica never READY")
+        rep = lm_dep.ready_replicas()[0]
+        runner = next(w.active_servers[rep.replica_id]
+                      for w in cluster.workers
+                      if rep.replica_id in w.active_servers)
+        served.append(runner)
+        eng = runner.predictor.engine
+        check(eng is not None and eng._kernel_on,
+              "the LM replica does not run the K4 engine")
+        port = int(rep.endpoint.rsplit(":", 1)[1])
+        _post(port, {"tokens": list(range(1, 40)), "max_new_tokens": 2})
+        rs = np.random.RandomState(3)
+        steps0 = eng.decode_steps
+        pa.launch_count = 0
+        pa.launches_by_c.clear()
+        outs = []
+        for _ in range(4):
+            p = rs.randint(1, dims.vocab_size, 48).tolist()
+            code, raw = _post(port, {"tokens": p, "max_new_tokens": 16})
+            check(code == 200, f"the LM replica answered {code}")
+            outs.append(json.loads(raw)["generated_tokens"])
+        launches, steps = pa.launch_count, eng.decode_steps - steps0
+        check(all(len(o) == 16 for o in outs), "an LM answer is short")
+        check(launches == FLEET_LM_LAYERS * steps > 0,
+              f"LM job: K4 launches {launches} != {FLEET_LM_LAYERS} x "
+              f"{steps} steps")
+        out["b_lm_job"] = {"wire_gb": wire_gb, "deploy_s": lm_deploy_s,
+                           "decode_steps": steps, "k4_launches": launches,
+                           "nvidia_smi": smi}
+        emit({"phase": "fleet", "part": "b_lm_job", **out["b_lm_job"]})
+        del state, spec
+    finally:
+        launch.kill()
+        for r in served:
+            r.stop()
+        for w in cluster.workers:
+            for rid in list(w.active_servers):
+                w.active_servers.pop(rid).stop()
+        api.cluster_stop(cluster)
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _fleet_loop() -> dict:
+    """(c): the live loop at its own defaults, chaos on both tiers, against
+    an unkilled run."""
+    import tempfile
+
+    from fedml_tpu_torch.comm.chaos import FaultSpec
+    from fedml_tpu_torch.soak.loop import LiveLoopHarness
+
+    smi = nvidia_smi_line()
+    runs = {}
+    for name, spec in (("chaos", FaultSpec(silo_kill={0: 1, 2: 2},
+                                           replica_kill={0: 8})),
+                       ("unkilled", None)):
+        t1 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as store, \
+                tempfile.TemporaryDirectory() as ckpt:
+            h = LiveLoopHarness(rounds=FLEET_LOOP_ROUNDS, store_dir=store,
+                                checkpoint_dir=ckpt, fault_spec=spec,
+                                slo=FLEET_LOOP_SLO, device=DEV)
+            try:
+                rep = h.run(timeout=300, tail_s=1.0)
+                params = {k: {j: v.copy() for j, v in ab.items()}
+                          for k, ab in h.silo.server.params.items()}
+            finally:
+                h.close()
+        runs[name] = (rep, params, time.perf_counter() - t1)
+    rep, params, wall = runs["chaos"]
+    rep0, params0, wall0 = runs["unkilled"]
+    bitwise = sorted(params) == sorted(params0) and all(
+        np.array_equal(np.asarray(params[k][j]), np.asarray(params0[k][j]))
+        for k in params for j in ("a", "b"))
+    res = {"requests": rep["requests"], "ok": rep["ok"],
+           "shed_429": rep["shed_429s"],
+           "non2xx_excl_shed": rep["non2xx_excl_shed"],
+           "fleet_version": rep["fleet_version"],
+           "fleet_versions": rep["fleet_versions"],
+           "kills": rep["kills_executed"], "slo_ok": rep["slo_ok"],
+           "checks": rep["checks"], "ttft_p99_ms": rep["ttft_p99_ms"],
+           "round_to_serve_p50_ms": rep["round_to_serve_p50_ms"],
+           "lag_max": rep["lag_max_seen"], "bitwise_unkilled": bitwise,
+           "chaos_s": wall, "unkilled_s": wall0,
+           "unkilled_loop_ok": rep0["loop_ok"], "nvidia_smi": smi}
+    emit({"phase": "fleet", "part": "c_live_loop", **res})
+    check(rep["non2xx_excl_shed"] == 0,
+          f"the live loop answered non-2xx: {rep['error_codes']}")
+    check(rep["fleet_version"] == FLEET_LOOP_ROUNDS and rep["converged"]
+          and all(v == FLEET_LOOP_ROUNDS
+                  for v in rep["fleet_versions"].values()),
+          f"the fleet did not track the last round: {rep['fleet_versions']}")
+    check(rep["kills_executed"] == [(0, 1), (2, 2)],
+          f"the trainer kills: {rep['kills_executed']}")
+    check(rep["slo_ok"] and rep["loop_ok"], f"SLOs: {rep['checks']}")
+    check(rep0["loop_ok"], f"the unkilled loop: {rep0['checks']}")
+    check(bitwise, "the chaos run's final adapters differ from an unkilled "
+          "run's")
+    return res
+
+
+def phase_fleet() -> dict:
+    """Phase 18 (module docstring)."""
+    t0 = time.perf_counter()
+    res = {"a": _fleet_headline(), "b": _fleet_platform(),
+           "c": _fleet_loop()}
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
 def kernel_rows(kern: dict, runs: dict, flash: dict, train: dict,
-                surface: dict, every_phase: bool) -> list:
+                surface: dict, every_phase: bool, fleet=None) -> list:
     """The `kernels` line's rows from the phases' results; with
     `every_phase`, also checks that each kernel was launched where it
-    should have been."""
+    should have been. The bf16 K4 row carries phase fleet's main-path
+    launches (its loadgen wave over two replicas) as `fleet_launches`."""
     kernels = []
     for kind, k in kern.items():
         if kind == "bf16" and "serve_c5" in k:
@@ -5441,6 +6098,9 @@ def kernel_rows(kern: dict, runs: dict, flash: dict, train: dict,
             "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"], "serve_shape": k["serve_shape"]})
+        if kind == "bf16":
+            kernels[-1]["fleet_launches"] = (fleet or {}).get(
+                "a", {}).get("launches", 0)
     # the flash kernels at the main path's dtype (bf16: the tensor-core
     # kernels) and at f32 (the three-pass TF32 kernels). `launches` is each
     # kernel's count from phase train's main path; `parity_launches` its
@@ -5513,6 +6173,9 @@ def kernel_rows(kern: dict, runs: dict, flash: dict, train: dict,
               "an f32 flash kernel was never launched by the f32 round")
         check(all(k["d40"]["check_launches"] > 0 for k in flash_rows),
               "a flash kernel was never launched by the D 40 case")
+        check(all(k["fleet_launches"] > 0 for k in kernels
+                  if "fleet_launches" in k),
+              "K4 was never launched by phase fleet's main path")
     return kernels
 
 
@@ -5549,6 +6212,9 @@ def main() -> int:
     check(sass["HMMA"] + sass["HGMMA"] > 0,
           "the flash library holds no tensor-core instruction")
 
+    # phase fedavg's CPU rounds run in a child process from here on
+    cpu_rounds = start_cpu_rounds() if "fedavg" in args.only else None
+
     def run(name, fn, *a, default=None):
         """Phase `name` when selected, its wall seconds on a line of its
         own; `default` otherwise."""
@@ -5571,7 +6237,7 @@ def main() -> int:
     flash = run("flash", phase_flash, bw, default={})
     train = run("train", phase_train, default={"launches": {}})
     run("train_profile", phase_train_profile)
-    fedavg = run("fedavg", phase_fedavg)
+    fedavg = run("fedavg", phase_fedavg, cpu_rounds)
     run("fedavg_profile", phase_fedavg_profile)
     fedsim = run("fedsim", phase_fedsim, fedavg, default={})
     run("plugins", phase_plugins)
@@ -5584,9 +6250,11 @@ def main() -> int:
     run("entry", phase_entry, surface)
     run("tasks", phase_tasks)
     run("runtimes", phase_runtimes)
+    fleet = run("fleet", phase_fleet, default={})
 
     kernels = kernel_rows(kern, runs, flash, train, surface,
-                          every_phase=set(PHASES) <= set(args.only))
+                          every_phase=set(PHASES) <= set(args.only),
+                          fleet=fleet)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

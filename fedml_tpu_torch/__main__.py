@@ -8,6 +8,11 @@ version / env / run / build / logs / diagnosis / ...`.)
   run        a simulation or centralized config (`--cf`, `--rounds`,
              `--device`: CUDA unless `--device cpu`; it raises without a
              GPU, as every entry point does)
+  launch     a scheduler job spec (YAML or JSON: {"type": "simulation" |
+             "python" | "serve", ..., "requirements": {...}}) through a
+             local MasterAgent and one WorkerAgent (`--store` for a durable
+             sqlite queue, `--timeout`, `--device`); prints {"job_id",
+             "status", "result"} and exits 0 iff the job FINISHED
   build      a job directory as a tarball with a sha256 manifest
   logs       the per-run logs and events the mlops facade wrote
   report     a tracked run's telemetry (text, or `--format json`)
@@ -16,8 +21,8 @@ version / env / run / build / logs / diagnosis / ...`.)
              their plain versions, the transports, the codec and the
              serving engine (`--only`, `--device`)
 
-`bench`, `launch`, `lint`, `report --merge / --fleet` and `top --fleet`
-are not ported yet: each exits 2 naming the ROADMAP entry that brings it.
+`bench`, `lint`, `report --merge / --fleet` and `top --fleet` are not
+ported yet: each exits 2 naming the ROADMAP entry that brings it.
 Output formats, schemas and exit codes are the JAX package's.
 """
 from __future__ import annotations
@@ -29,7 +34,6 @@ import sys
 _LATER = {
     "bench": "a benchmark of the port (there is none yet; bench.py at the "
              "repository root is the JAX package's)",
-    "launch": "ROADMAP 'Port queue' entry 5 (the scheduler)",
     "lint": "ROADMAP 'Port queue' entry 8 (analysis/)",
     "report --merge": "ROADMAP 'Port queue' entry 8 (utils/obsfleet.py)",
     "report --fleet": "ROADMAP 'Port queue' entry 8 (utils/obsfleet.py)",
@@ -118,6 +122,58 @@ def cmd_run(args) -> int:
           "(fedml_tpu_torch.FedMLRunner with model/dataset); the CLI "
           "runs simulation and centralized configs", file=sys.stderr)
     return 2
+
+
+def cmd_launch(args) -> int:
+    """Submit a job spec through the scheduler tier (reference: `fedml
+    launch job.yaml` submits to the Launch platform; here the MasterAgent
+    is local-first — loopback, and durable when --store is given). The
+    worker runs simulation and serve jobs on --device (CUDA unless "cpu";
+    without a GPU the default raises before anything starts). A python
+    job's "package.module:function" entry is imported here, from the job
+    file the user handed over, and registered on this command's own
+    worker; a worker never imports an entry that reaches it on the wire."""
+    import importlib
+    import uuid
+
+    from ._device import resolve_device
+    from .comm import FedCommManager
+    from .comm.loopback import LoopbackTransport, release_router
+    from .config import read_config_file
+    from .scheduler import MasterAgent, WorkerAgent
+
+    dev = resolve_device(args.device)
+    spec = read_config_file(args.job)
+    run_id = f"launch-{uuid.uuid4().hex[:6]}"
+    master = MasterAgent(FedCommManager(LoopbackTransport(0, run_id), 0),
+                         store_path=args.store)
+    worker = WorkerAgent(FedCommManager(LoopbackTransport(1, run_id), 1), 1,
+                         device=dev)
+    entry = spec.get("entry") if spec.get("type") == "python" else None
+    if isinstance(entry, str) and ":" in entry:
+        mod, _, name = entry.partition(":")
+        fn = getattr(importlib.import_module(mod), name, None)
+        if fn is not None:
+            worker.register_python_job(entry, fn)
+    master.run()
+    worker.run()
+    worker.announce()
+    jid = master.submit(spec)
+    job = master.wait(jid, timeout=args.timeout)
+    print(json.dumps({"job_id": jid, "status": job.status,
+                      "result": _jsonable(job.result)}))
+    master.stop()
+    worker.stop()
+    release_router(run_id)
+    return 0 if job.status == "FINISHED" else 1
+
+
+def _jsonable(x):
+    try:
+        json.dumps(x)
+        return x
+    except (TypeError, ValueError):
+        return repr(x)
 
 
 def cmd_build(args) -> int:
@@ -744,8 +800,13 @@ def main(argv=None) -> int:
     runp.add_argument("--device", default=None,
                       help="cuda (the default; raises without a GPU) or cpu")
     sub.add_parser("bench", help="not ported yet (exits 2)")
-    lp = sub.add_parser("launch", help="not ported yet (exits 2)")
-    lp.add_argument("job", nargs="?")
+    lp = sub.add_parser("launch", help="submit a job spec to the scheduler")
+    lp.add_argument("job", help="job spec yaml/json (scheduler spec)")
+    lp.add_argument("--store", default=None,
+                    help="sqlite path for a durable job queue")
+    lp.add_argument("--timeout", type=float, default=600.0)
+    lp.add_argument("--device", default=None,
+                    help="cuda (the default; raises without a GPU) or cpu")
     bp = sub.add_parser("build", help="package a job dir into a tarball")
     bp.add_argument("--source", required=True, help="job directory")
     bp.add_argument("--entry", default=None, help="entry file inside source")
@@ -802,7 +863,7 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     return {"version": cmd_version, "env": cmd_env, "run": cmd_run,
             "bench": lambda a: _later("bench"),
-            "launch": lambda a: _later("launch"), "build": cmd_build,
+            "launch": cmd_launch, "build": cmd_build,
             "logs": cmd_logs, "diagnosis": cmd_diagnosis,
             "lint": lambda a: _later("lint"),
             "report": cmd_report, "top": cmd_top}[args.cmd](args)

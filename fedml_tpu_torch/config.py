@@ -409,6 +409,14 @@ class Config:
             from .comm.reliable import RetryPolicy
 
             RetryPolicy.from_dict(cr)
+        # the live loop's soak knobs (soak/knobs.py, the JAX registry's
+        # keys and messages): unknown keys, bad kinds and gated knobs
+        # without their prerequisite fail here, at load
+        sk = self.common_args.extra.get("soak")
+        if sk is not None:
+            from .soak.knobs import validate_soak
+
+            validate_soak(sk)
         # the serving knobs fail at load too (serving/knobs.py, the
         # registry the predictor's knob mapping reads)
         from .serving.knobs import validate_serve_args

@@ -16,10 +16,10 @@ features and 3 classes, 64 seeded samples a client, 2 epochs of batch 16
 at lr 0.3. Its initial parameters are drawn by `hub.init_params` from a
 `torch.Generator` seeded with `seed` (not JAX's key), so the final params
 compare bitwise within the port, not with the JAX harness's. Every role
-runs on `device` (None: CUDA, raising without a GPU). The JAX harness's
-`init_params` / `trainer_factory` / `train_args`, which swap in another
-model, are not ported: their one caller is the JAX soak loop
-(`fedml_tpu/soak/loop.py`), not ported either.
+runs on `device` (None: CUDA, raising without a GPU). `init_params` +
+`trainer_factory` (+ `train_args`) swap in another federation, as in the
+JAX harness: the live loop (`soak/loop.py`) trains the serving model's
+LoRA adapter dict here.
 """
 from __future__ import annotations
 
@@ -81,7 +81,9 @@ class SiloSoakHarness:
                  run_id: Optional[str] = None,
                  server_kw: Optional[dict] = None,
                  client_kw: Optional[dict] = None,
-                 comm_codec: Optional[dict] = None, device=None):
+                 comm_codec: Optional[dict] = None,
+                 init_params=None, trainer_factory=None,
+                 train_args: Optional[TrainArgs] = None, device=None):
         self.n_clients = n_clients
         self.rounds = rounds
         self.checkpoint_dir = checkpoint_dir
@@ -93,15 +95,28 @@ class SiloSoakHarness:
         # broadcast re-anchors and stale delta frames are loud-dropped
         self.comm_codec = comm_codec
         self.device = resolve_device(device)
-        self.targs = TrainArgs(
+        # the live loop's override points: the federation can be ANY
+        # (init_params, per-client trainer) pairing; the defaults keep the
+        # lr federation of the durability soaks
+        self._trainer_factory = trainer_factory
+        self.targs = train_args or TrainArgs(
             epochs=2, batch_size=16, learning_rate=0.3,
             client_num_in_total=n_clients, client_num_per_round=n_clients,
             comm_round=rounds)
-        self.model = hub.create("lr", 3, (8,), device=self.device)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        self.init_params = {k: v.cpu().numpy() for k, v in
-                            hub.init_params(self.model, gen).items()}
+        if init_params is not None:
+            if trainer_factory is None:
+                raise ValueError(
+                    "SiloSoakHarness(init_params=...) requires "
+                    "trainer_factory — the default lr trainers would "
+                    "train a model those params do not fit")
+            self.model = None
+            self.init_params = init_params
+        else:
+            self.model = hub.create("lr", 3, (8,), device=self.device)
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(seed)
+            self.init_params = {k: v.cpu().numpy() for k, v in
+                                hub.init_params(self.model, gen).items()}
         self.server: Optional[FedServerManager] = None
         self.clients: dict[int, FedClientManager] = {}
         self._dead = []          # killed managers, kept so threads can drain
@@ -116,6 +131,8 @@ class SiloSoakHarness:
         return FedCommManager(t, rank)
 
     def _trainer(self, cid: int) -> SiloTrainer:
+        if self._trainer_factory is not None:
+            return self._trainer_factory(cid)
         x, y = _client_data(cid)
         return SiloTrainer(self.model, self.targs, x, y, seed=cid,
                            device=self.device)

@@ -68,15 +68,21 @@ def to_host(tree, extra: torch.Tensor) -> tuple:
 
 
 class SiloTrainer:
-    """Local trainer over one silo's shard on the card. `model` is a
-    module of `models/hub.py` (its parameters may live anywhere, "meta"
-    included): the trainer applies a structure-only copy of its own
-    (`hub.structure_copy`), since silos in one process train concurrently,
-    at `t.compute_dtype`. `device=None` means CUDA, and raises without a
-    GPU. The JAX trainer takes `model.apply` here."""
+    """Local trainer over one silo's shard on the card. `model` is either
+    a module of `models/hub.py` (its parameters may live anywhere, "meta"
+    included), which the trainer applies through a structure-only copy of
+    its own (`hub.structure_copy`, since silos in one process train
+    concurrently) at `t.compute_dtype`, federating all its parameters; or
+    a `(params, x) -> logits` callable, the JAX trainer's `apply_fn`,
+    federating whatever tree `params` is. The live loop hands over
+    `llm.lora.lora_apply_fn` of one shared `TransformerLM`: the federated
+    tree is the adapter dict, which reaches the forward as an argument,
+    so silo threads share the frozen base without swapping tensors into
+    it. `device=None` means CUDA, and raises without a GPU."""
 
-    def __init__(self, model: nn.Module, t: TrainArgs, x: np.ndarray,
-                 y: np.ndarray, mesh=None, seed: int = 0, device=None,
+    def __init__(self, model: nn.Module | Callable, t: TrainArgs,
+                 x: np.ndarray, y: np.ndarray, mesh=None, seed: int = 0,
+                 device=None,
                  batch_schedule: Optional[Callable] = None):
         if mesh is not None:
             raise NotImplementedError(
@@ -84,8 +90,9 @@ class SiloTrainer:
                 "queue' item 4, multi-GPU)")
         self.device = resolve_device(device)
         deterministic_cuda(self.device)
-        self.apply_fn = hub.apply_fn(hub.structure_copy(model),
-                                     t.compute_dtype)
+        self.apply_fn = (hub.apply_fn(hub.structure_copy(model),
+                                      t.compute_dtype)
+                         if isinstance(model, nn.Module) else model)
         self.t = t
         self.x = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
         self.y = torch.from_numpy(np.ascontiguousarray(y)).to(self.device)

@@ -21,8 +21,14 @@ Required:
   identical to plain decoding, drafts accepted, K4 at C > 1),
   `serving_density_smoke` (int8 pages match, >= 2x density, batched
   admission invisible in the tokens);
+- `fleet_rolling_update_smoke`: a 2-replica engine fleet takes a v1 -> v2
+  rolling adapter update under load with zero non-2xx, both replicas at
+  version 2, and a streamed request completes;
 - `cross_silo_durability_smoke`: a server killed and resumed gives the
   uninterrupted run's parameters bit for bit;
+- `live_loop_smoke`: a 3-round live loop (train -> publish -> hot-swap ->
+  serve under load, one trainer kill) converges on version 3 with zero
+  non-2xx, inside 20 s;
 - `attribution_smoke`: the round-time budget over a round span and
   loopback traffic, with a transport share > 0.
 
@@ -50,7 +56,8 @@ from ._device import resolve_device
 REQUIRED = ("cuda", "kernels", "wire_codec", "loopback_transport",
             "chaos_smoke", "codec_smoke", "serving_engine_smoke",
             "serving_paged_smoke", "serving_spec_smoke",
-            "serving_density_smoke", "cross_silo_durability_smoke",
+            "serving_density_smoke", "fleet_rolling_update_smoke",
+            "cross_silo_durability_smoke", "live_loop_smoke",
             "attribution_smoke")
 
 
@@ -591,6 +598,54 @@ def probe_cross_silo_durability_smoke(dev):
             "generation": out["generation"]}
 
 
+def probe_fleet_rolling_update_smoke(dev):
+    """A 2-replica engine-backed LM deployment under sustained concurrent
+    load takes a v1 -> v2 adapter hot swap through the rolling updater:
+    zero non-2xx responses (no shedding armed, so none are deliberate),
+    both replicas report model_version 2 on /info afterwards, and a
+    streamed request completes and records a first-token time."""
+    import json as _json
+    import urllib.request as _ur
+
+    from .serving.fleet_harness import FleetHarness
+    from .utils import metrics as mx
+
+    fleet = FleetHarness(device=dev)   # the probe-lean dims are its defaults
+    try:
+        gw = fleet.gateway()
+        url = f"http://127.0.0.1:{gw.port}/predict"
+        results, stop_load = fleet.sustained_load(
+            url, 3, {"tokens": fleet.prompt, "max_new_tokens": 4})
+        updated, _swap_s = fleet.publish_and_roll(version=2, timeout=30)
+        # one streamed request through the gateway records TTFT
+        req = _ur.Request(url, data=_json.dumps(
+            {"tokens": fleet.prompt, "max_new_tokens": 4,
+             "stream": True}).encode(),
+            headers={"Content-Type": "application/json"})
+        with _ur.urlopen(req, timeout=60) as r:
+            body = r.read().decode()
+        stop_load(timeout=10)
+        versions = fleet.dep.versions()
+    finally:
+        fleet.close()
+    codes = [cd for cd, _lat in results]
+    bad = [cd for cd in codes if cd != 200]
+    if bad:
+        raise ValueError(
+            f"rolling update dropped requests: {len(bad)}/{len(codes)} "
+            f"non-2xx (codes {sorted(set(bad))})")
+    if len(updated) != 2 or any(v != 2 for v in versions.values()):
+        raise ValueError(f"fleet did not converge on v2: {versions}")
+    if '"done": true' not in body:
+        raise ValueError("streamed response never completed")
+    snap = mx.snapshot()
+    if not snap["histograms"].get("serving.stream_ttft", {}).get("count"):
+        raise ValueError("serving.stream_ttft never recorded")
+    return {"requests_under_swap": len(codes), "non_2xx": 0,
+            "versions": versions,
+            "swaps": int(snap["counters"].get("serving.engine.swaps", 0))}
+
+
 def probe_attribution_smoke(dev):
     """The round-time budget: a round-tagged `train` span around device
     work and loopback traffic; the table renders with a transport share
@@ -630,6 +685,67 @@ def probe_attribution_smoke(dev):
     return {"transport_share": share, "rounds": len(att["rounds"])}
 
 
+def probe_live_loop_smoke(dev):
+    """A 3-round miniature live loop: 1 silo client federated-training
+    LoRA adapters, 1 paged-engine replica serving them behind the
+    gateway, loadgen at a low rate and one trainer kill (the server is
+    severed after round 1 and resumes from its checkpoint). It must end
+    with the fleet hot-swapped to the final round's version and zero
+    non-2xx responses (shed 429s excluded), inside 20 s."""
+    import tempfile
+
+    from .comm.chaos import FaultSpec
+    from .soak.loadgen import TrafficSpec
+    from .soak.loop import LiveLoopHarness
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as store, \
+            tempfile.TemporaryDirectory() as ckpt:
+        h = LiveLoopHarness(
+            rounds=3, n_clients=1, n_replicas=1, seed=0,
+            store_dir=store, checkpoint_dir=ckpt,
+            max_len=32, prefill_chunk=4,
+            fault_spec=FaultSpec(silo_kill={0: 1}),
+            traffic=TrafficSpec(
+                seed=0, vocab=32, rate_rps=8.0, duration_s=20.0,
+                stream_frac=0.3, prefix_len=6, suffix_len_max=8,
+                out_len_max=6), device=dev)
+        try:
+            # a 2 s post-convergence traffic tail: the zero-non-2xx bar
+            # covers steady-state serving too, not 3 requests
+            rep = h.run(timeout=60, tail_s=2.0)
+        finally:
+            h.close()
+    dt = time.perf_counter() - t0
+    if rep["non2xx_excl_shed"]:
+        raise ValueError(
+            f"live loop dropped requests: {rep['non2xx_excl_shed']} "
+            f"non-2xx (codes {rep['error_codes']}) — shed 429s "
+            "excluded, so these are real failures")
+    if not rep["train_done"] or rep["train_error"]:
+        raise RuntimeError(
+            f"training did not complete: {rep['train_error']}")
+    if rep["fleet_version"] != 3 or not rep["converged"]:
+        raise ValueError(
+            f"fleet never reached the final round's adapters: "
+            f"fleet_version {rep['fleet_version']} (want 3), "
+            f"versions {rep['fleet_versions']}")
+    if len(rep["kills_executed"]) != 1:
+        raise ValueError(
+            f"trainer kill never fired: {rep['kills_executed']}")
+    if dt > 20:
+        raise RuntimeError(
+            f"live loop smoke took {dt:.1f}s (budget 20s) — the "
+            "probe is too slow for the diagnosis battery")
+    return {"rounds": rep["rounds_done"],
+            "requests": rep["requests"], "ok_requests": rep["ok"],
+            "shed_429s": rep["shed_429s"], "non_2xx": 0,
+            "fleet_version": rep["fleet_version"],
+            "lag_max": rep["lag_max_seen"],
+            "kills": rep["kills_executed"],
+            "elapsed_s": round(dt, 1)}
+
+
 PROBES = {
     "cuda": probe_cuda,
     "kernels": probe_kernels,
@@ -644,7 +760,9 @@ PROBES = {
     "serving_paged_smoke": probe_serving_paged_smoke,
     "serving_spec_smoke": probe_serving_spec_smoke,
     "serving_density_smoke": probe_serving_density_smoke,
+    "fleet_rolling_update_smoke": probe_fleet_rolling_update_smoke,
     "cross_silo_durability_smoke": probe_cross_silo_durability_smoke,
+    "live_loop_smoke": probe_live_loop_smoke,
     "attribution_smoke": probe_attribution_smoke,
 }
 

@@ -34,11 +34,14 @@ to the JAX kernel. `launch_count` counts `paged_attention` calls that
 launched the kernels (one per call, though each launches two), and
 nothing else, so a run can show its path went through the kernel;
 `launches_by_c` counts the same launches by the query count C (1 for a
-decode step, spec_k + 1 for a speculative verify window).
+decode step, spec_k + 1 for a speculative verify window). Both update
+under one lock, since engines on several threads (a fleet of replicas in
+one process) launch concurrently.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -51,20 +54,25 @@ _KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 launch_count = 0
 launches_by_c: dict[int, int] = {}
+_count_lock = threading.Lock()
 
 _lib = None
+_lib_lock = threading.Lock()   # one build / load, whichever thread asks first
 
 
 def _kernel_lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = _build.load("paged_attention")
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.fedml_paged_attention.argtypes = [vp] * 11 + [i] * 9 + [vp]
-        lib.fedml_paged_attention.restype = i
-        lib.fedml_cuda_error_string.argtypes = [i]
-        lib.fedml_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        with _lib_lock:
+            if _lib is None:
+                lib = _build.load("paged_attention")
+                vp, i = ctypes.c_void_p, ctypes.c_int
+                lib.fedml_paged_attention.argtypes = ([vp] * 11 + [i] * 9
+                                                      + [vp])
+                lib.fedml_paged_attention.restype = i
+                lib.fedml_cuda_error_string.argtypes = [i]
+                lib.fedml_cuda_error_string.restype = ctypes.c_char_p
+                _lib = lib
     return _lib
 
 
@@ -162,8 +170,9 @@ def paged_attention(q, k_pool, v_pool, pages, pos, k_scales=None,
         raise RuntimeError(
             "paged_attention kernel launch failed: CUDA error "
             f"{err} ({lib.fedml_cuda_error_string(err).decode()})")
-    launch_count += 1
-    launches_by_c[c] = launches_by_c.get(c, 0) + 1
+    with _count_lock:
+        launch_count += 1
+        launches_by_c[c] = launches_by_c.get(c, 0) + 1
     return out
 
 

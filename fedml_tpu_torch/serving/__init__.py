@@ -4,8 +4,11 @@ HTTP inference runner (port of `fedml_tpu/serving/__init__.py`).
 `lm_predictor_from_config` builds the LM predictor from a Config's
 `serve_args` (validated at load against `serving/knobs.py`);
 `serve_simulator` serves a Simulator's global model over HTTP,
-`predictor_from_checkpoint` a checkpoint it saved and
-`predictor_from_artifact` a round's model from the artifact store. Importing this package
+`predictor_from_checkpoint` a checkpoint it saved,
+`predictor_from_artifact` a round's model from the artifact store and
+`predictor_from_export` a framework-neutral export (`export_model`,
+`load_export`; `serving/export.py`). The fleet (deploy FSM, gateway,
+autoscaler) is `serving/scheduler.py`. Importing this package
 stays light: the heavy symbols import on first attribute access (PEP
 562), so `config.py` can read the knob registry at load time.
 """
@@ -19,10 +22,13 @@ __all__ = [
     "StaleVersion", "DecodeEngine", "Ticket", "lm_predictor_from_config",
     "FedMLInferenceRunner", "DEFAULT_PORT", "serve_simulator",
     "predictor_from_checkpoint", "predictor_from_artifact",
+    "export_model", "load_export", "predictor_from_export",
 ]
 
 _LAZY = {
     "DecodeEngine": "engine", "Ticket": "engine",
+    "export_model": "export", "load_export": "export",
+    "predictor_from_export": "export",
     "DEFAULT_PORT": "inference_runner",
     "FedMLInferenceRunner": "inference_runner",
     "GreedyLMPredictor": "predictor", "TorchPredictor": "predictor",

@@ -380,6 +380,12 @@ class DecodeEngine:
                 "paged_kernel fuses attention over the PAGED KV pool — set "
                 "page_size > 0 (in contiguous mode the knob would be "
                 "silently ignored)")
+        if self._kernel_on and self.device.type == "cuda":
+            # build / load K4 here: an engine that asks for the kernel and
+            # cannot have it fails to start, not at its first decode
+            from ..ops.paged_attention import _kernel_lib
+
+            _kernel_lib()
         if spec_decode not in ("off", "ngram"):
             raise ValueError(
                 f"spec_decode must be 'off' or 'ngram'; got {spec_decode!r}")
@@ -461,6 +467,9 @@ class DecodeEngine:
         self._host_pos = [0] * S
         self._gens = [torch.Generator(device=dev) for _ in range(S)]
         self.decode_steps = 0
+        # slots each decode step advanced, summed: over decode_steps, the
+        # mean batch the engine decoded
+        self.decode_slot_steps = 0
         self._admissions: deque[_Admission] = deque()
 
         self._cond = threading.Condition()
@@ -843,6 +852,7 @@ class DecodeEngine:
                             pending.append(("step", self._d2h(toks),
                                             self._d2h(mask)))
                         self.decode_steps += 1
+                        self.decode_slot_steps += len(stepping)
                     # keep `fetch_chunk` frames in flight; drain eagerly
                     # when requests starve for a slot or nothing decodes
                     with self._cond:

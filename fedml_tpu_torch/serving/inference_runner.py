@@ -335,6 +335,15 @@ class FedMLInferenceRunner:
         self._killed = False
         self._inflight = _mx.AtomicCounter(gauge="serving.queue_depth")
 
+    def arm_chaos(self, chaos, chaos_rank: int = 0) -> None:
+        """(Re)arm the `replica_kill` schedule on a running replica: `chaos`
+        (a FaultSpec, or None to disarm) counts from the next streamed
+        token as rank `chaos_rank`."""
+        with self._chaos_lock:
+            self._chaos = chaos
+            self._chaos_rank = int(chaos_rank)
+            self._chaos_tokens = 0
+
     def _chaos_tick(self) -> None:
         """Count one streamed token against this replica's kill schedule;
         dying means: server down NOW, this connection severed (the raise

@@ -3,10 +3,10 @@
 One table for every `serve_args` knob: its kind and bounds, its gating
 prerequisite, and the surface that consumes it. "predictor" knobs are
 mapped by `predictor.lm_predictor_from_serve_knobs` (the route
-`serving.lm_predictor_from_config` rides); "fleet" knobs belong to the
-fleet gateway (`serving/scheduler.py` in the JAX package), which the port
-has not taken yet (ROADMAP.md, 'Port queue', item 5): they are validated
-here so a config accepted by one package is accepted by the other.
+`serving.lm_predictor_from_config` rides); "fleet" knobs are mapped by
+`serving/scheduler.py:fleet_knobs` into the `Deployment` (probation) and
+`InferenceGateway` (shedding, affinity) keyword arguments, the route
+`api.model_deploy` and `api.model_gateway` ride.
 `config.Config.validate` calls `validate_serve_args` at load; the key
 set, the kinds and the messages are the JAX package's.
 """
@@ -16,8 +16,8 @@ from __future__ import annotations
 # "choice" (choices). "requires" names the gating knob whose absence makes
 # this one silently dead (refused at config load). "consumer" names the
 # mapping that must read the knob: "predictor" =
-# predictor.lm_predictor_from_serve_knobs, "fleet" = the fleet gateway
-# (not ported yet).
+# predictor.lm_predictor_from_serve_knobs, "fleet" =
+# serving/scheduler.py:fleet_knobs.
 KNOBS = {
     "decode_slots":       {"kind": "int", "min": 0,
                            "consumer": "predictor"},

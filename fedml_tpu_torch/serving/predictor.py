@@ -92,16 +92,19 @@ class _InstrumentedPredictor:
 
 
 def lm_predictor_from_serve_knobs(sv: dict, model, adapters=None,
-                                  detokenize=None,
-                                  device=None) -> "GreedyLMPredictor":
+                                  detokenize=None, device=None,
+                                  default_max_len: int = 256
+                                  ) -> "GreedyLMPredictor":
     """THE serve-knob -> GreedyLMPredictor mapping for every knob
-    `serving/knobs.py` tags `consumer: predictor` (the config route,
-    `serving.lm_predictor_from_config`, rides it)."""
+    `serving/knobs.py` tags `consumer: predictor`. The config route
+    (`serving.lm_predictor_from_config`) and the deploy route
+    (`serving/scheduler.py:start_replica`, with the spec's `lm.max_len`
+    as `default_max_len`) both ride it, so the two cannot drift."""
     eos = sv.get("engine_eos_id")
     n_pages = sv.get("kv_n_pages")
     return GreedyLMPredictor(
         model, adapters=adapters, detokenize=detokenize,
-        max_len=int(sv.get("engine_max_len", 256)),
+        max_len=int(sv.get("engine_max_len", default_max_len)),
         kv_cache=bool(sv.get("kv_cache", True)),
         decode_slots=int(sv.get("decode_slots", 0)),
         eos_id=None if eos is None else int(eos),

@@ -230,7 +230,6 @@ def test_diagnosis_host_probes_on_the_cpu(capsys):
 
 @pytest.mark.parametrize("argv,entry", [
     (["bench"], "benchmark of the port"),
-    (["launch", "job.yaml"], "entry 5"),
     (["lint"], "entry 8"),
     (["report", "--merge", "a", "b"], "entry 8"),
     (["report", "--fleet", "http://x"], "entry 8"),

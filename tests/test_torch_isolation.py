@@ -118,11 +118,15 @@ def test_every_subpackage_is_checked():
     tasks, and the remaining runtimes and models (async simulation,
     DSGD / PushSum with their topologies, HierFL, SplitNN, vertical FL,
     FedGKT, FedGAN with its GAN pair, federated analytics, the flow DSL,
-    the engine adapters) included."""
+    the engine adapters), and the serving fleet, the scheduler tier, soak
+    and the platform API (the deploy FSM and gateway, the fleet harness,
+    the export, the agents and their job store, the live loop, loadgen,
+    the SLO modules, `api.py`) included."""
     checked = {p.relative_to(ROOT).parts[1] for p in FILES
                if p.parent != ROOT and p.parent.name != "fedml_tpu_torch"}
     for sub in ("mpc", "cross_cloud", "cross_device", "cross_silo", "comm",
-                "native", "contribution", "centralized", "fa"):
+                "native", "contribution", "centralized", "fa",
+                "scheduler", "soak"):
         assert sub in checked, sub
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for mod in ("utils/flops.py", "utils/prometheus.py",
@@ -136,7 +140,12 @@ def test_every_subpackage_is_checked():
                 "algorithms/fedgan.py", "simulation/async_simulator.py",
                 "simulation/decentralized.py", "simulation/fedgkt.py",
                 "simulation/hierarchical_fl.py", "simulation/split_nn.py",
-                "simulation/vertical.py", "fa/tasks.py", "fa/runner.py"):
+                "simulation/vertical.py", "fa/tasks.py", "fa/runner.py",
+                "serving/scheduler.py", "serving/fleet_harness.py",
+                "serving/export.py", "scheduler/__init__.py",
+                "scheduler/store.py", "soak/__init__.py", "soak/knobs.py",
+                "soak/loadgen.py", "soak/loop.py", "soak/slo.py",
+                "utils/slo.py", "api.py"):
         assert f"fedml_tpu_torch/{mod}" in names, mod
     assert {p.name for p in NATIVE} >= {"crc32c.cpp", "finite_field.cpp",
                                         "edge_trainer.cpp"}
