@@ -345,6 +345,30 @@ exits non-zero; nothing is caught and carried past):
              fleet at the last round's version, the SLOs held (the JAX
              soak test's bounds), and the final adapters bitwise an
              unkilled run's on the card.
+19. mesh   - rounds over a device mesh and hierarchical cross-silo at the
+             flagship ResNet-18-GN width (bench.py's batch and shapes;
+             the cut is depth: MESH_CLIENTS of a 10-client synthetic
+             CIFAR-10 partitioned hetero, MESH_SAMPLES samples a client,
+             not 100 x 96). (a) one bf16 round of the first 8 clients
+             over a one-rank NCCL `clients` mesh (this process as a
+             one-rank world): the aggregate and every metric bitwise the
+             unmeshed round's, with the same batch_idx. (b) one f32 round
+             (TF32 off) of 9 clients through the Simulator in two gloo
+             ranks sharing the card, started by `parallel/launch.RankPool`
+             with device_args.mesh_shape {clients: 2}: the cohort padded
+             to 10 with one zero-weight duplicate, the varied counts
+             placed by balanced LPT (both rows printed), within 1e-3 of
+             the largest update of the unmeshed f32 Simulator round.
+             (c) `run_hierarchical`: 2 silos x intra 2 (gloo ranks on the
+             card, TF32 off), one f32 round over loopback, within 1e-3 of
+             flat FedAvg over the same trainers without a mesh, or where
+             f32 itself departs further, phase fedavg's clause against
+             the flat run in f64; each rank's inner all-reduce count a
+             step and its exit code printed.
+             K1-K4 launch 0 times in the phase (this process and the
+             ranks); seconds per part and peak memory per rank. A rank
+             that fails fails the phase; one that hangs is stopped after
+             MESH_TIMEOUT_S and fails it.
 
 Then the `kernels` line, the raw `nvidia-smi` name/power-limit line, and as
 the last line {"ok": true, "device": {...}}. Imports nothing of JAX or of
@@ -369,7 +393,7 @@ import numpy as np
 PHASES = ("device", "build", "kernel", "engine", "serve", "serve_surface",
           "flash", "train", "fedavg", "fedsim", "plugins", "cross_silo",
           "cross_silo_secure", "standalone", "entry", "tasks", "runtimes",
-          "fleet")
+          "fleet", "mesh")
 # run only when named in --only
 OPTIONAL = ("profile", "train_profile", "fedavg_profile")
 DEV = "cuda"
@@ -625,6 +649,11 @@ FLEET_LOOP_SLO = {"shed_frac_max": 0.4, "ttft_p99_slo_ms": 5000.0,
                   "lag_rounds_max": 2}
 # vmap's per-example fallback warns; phases fedsim and tasks make it an
 # error
+# phase mesh: (b)'s odd cohort of a 10-client hetero partition (padded
+# to 10 over 2 ranks), samples a client before the partition, (c)'s rows
+# a silo (2 steps of 32), and the seconds after which a rank that has not
+# answered is stopped and fails the phase
+MESH_CLIENTS, MESH_SAMPLES, MESH_SILO_ROWS, MESH_TIMEOUT_S = 9, 64, 64, 240
 VMAP_FALLBACK = ("There is a performance drop because we have not yet "
                  "implemented the batching rule")
 
@@ -6061,6 +6090,329 @@ def phase_fleet() -> dict:
     return res
 
 
+# ------------------------------------------------------------- phase 19
+def _mesh_dict(**extra) -> dict:
+    """Phase mesh's config: the flagship's model, batch and shapes over 10
+    clients of MESH_SAMPLES synthetic CIFAR-10 images, partitioned hetero
+    (varied counts), MESH_CLIENTS a round, f32; `extra` sections on top."""
+    d = _flagship_dict(client_num_in_total=10,
+                       client_num_per_round=MESH_CLIENTS,
+                       compute_dtype="float32")
+    d["data_args"].update(partition_method="hetero", partition_alpha=0.5,
+                          synthetic_samples_per_client=MESH_SAMPLES)
+    for sec, kv in extra.items():
+        d[sec] = {**d.get(sec, {}), **kv}
+    return d
+
+
+def _k1_k4() -> int:
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.ops import paged_attention as pa
+
+    return sum(fa.launch_count.values()) + pa.launch_count
+
+
+def _rank_setup() -> None:
+    """Phase mesh's rank setup, run as each rank joins: cuBLAS's and
+    cuDNN's TF32 off in the rank's process (as `_tf32_off` does here, for
+    the f32 bars), cuDNN deterministic, and one f32 ResNet-18-GN local
+    step at the flagship batch and one at half of it (the batch of each
+    rank of a 2-rank silo), so that the process's first-step costs come
+    before its rounds ((b)'s ranks warm while part (a) runs); the peak
+    memory reading starts after it."""
+    import torch
+
+    from fedml_tpu_torch._device import deterministic_cuda
+    from fedml_tpu_torch.core.algorithm import (
+        local_sgd, make_client_optimizer,
+    )
+    from fedml_tpu_torch.models import hub
+    from fedml_tpu_torch.parallel.launch import current
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = current().device
+    deterministic_cuda(dev)
+    model = hub.create("resnet18_gn", 10, (32, 32, 3), device="meta")
+    params = {k: v.to(dev) for k, v in hub.init_params(
+        model, torch.Generator().manual_seed(0)).items()}
+    b = FEDAVG_CONFIG["train_args"]["batch_size"]
+    shard = {"x": torch.zeros((b, 32, 32, 3), device=dev),
+             "y": torch.zeros(b, dtype=torch.int64, device=dev),
+             "mask": torch.ones(b, device=dev)}
+    for rows in (b, b // 2):
+        local_sgd(hub.apply_fn(model), params, shard,
+                  torch.arange(rows, device=dev)[None],
+                  make_client_optimizer("sgd", 0.0))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _mesh_rank_b(cfg: dict, params: dict) -> dict:
+    """Phase mesh (b) in one gloo rank: the Simulator over the config's
+    mesh, one f32 round."""
+    import torch
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch.parallel.launch import current
+    from fedml_tpu_torch.simulation.simulator import Simulator
+
+    info = current()
+    cuda = info.device.type == "cuda"
+    sim = Simulator(fedml_tpu_torch.init(config=cfg, device=str(info.device)),
+                    params={k: torch.from_numpy(v) for k, v in params.items()})
+    ids, weights, _b, _f = sim._round_inputs(0)
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    row = sim.run_round(0)
+    if cuda:
+        torch.cuda.synchronize()
+    out = {"rank": info.rank, "backend": info.backend, "ranks": sim._d,
+           "ids": ids.tolist(), "weights": weights.tolist(), "row": row,
+           "seconds": time.perf_counter() - t0, "k1_k4": _k1_k4(),
+           "peak_bytes": (torch.cuda.max_memory_allocated(info.device)
+                          if cuda else 0)}
+    if info.rank == 0:
+        out["params"] = {k: v.cpu().numpy()
+                         for k, v in sim.server_state.params.items()}
+    return out
+
+
+def _mesh_a(ds, params0: dict) -> dict:
+    """Phase mesh (a): a bf16 round over a one-rank NCCL mesh against the
+    unmeshed round, bitwise."""
+    import torch
+
+    from fedml_tpu_torch.algorithms.builtin import build_algorithm
+    from fedml_tpu_torch.config import TrainArgs
+    from fedml_tpu_torch.models import hub
+    from fedml_tpu_torch.ops.tree import tree_leaves
+    from fedml_tpu_torch.parallel.launch import local_world
+    from fedml_tpu_torch.parallel.mesh import make_mesh
+    from fedml_tpu_torch.parallel.round import build_round_fn, draw_schedules
+
+    cfg_t = FEDAVG_CONFIG["train_args"]
+    t = TrainArgs(epochs=1, batch_size=cfg_t["batch_size"],
+                  learning_rate=cfg_t["learning_rate"])
+    model = hub.create("resnet18_gn", ds.num_classes, ds.x_train.shape[2:],
+                       device="meta")
+    alg = build_algorithm("FedAvg", hub.apply_fn(model, "bfloat16"), t)
+    ids = np.arange(8)
+    weights = ds.counts[:8].astype(np.float32)
+    data = {k: torch.from_numpy(np.ascontiguousarray(v[:8])).to(DEV)
+            for k, v in (("x", ds.x_train), ("y", ds.y_train),
+                         ("mask", ds.mask_train))}
+    sched = draw_schedules(alg, 0, ids, ds.shard_size)
+    res, outs = {}, {}
+    if str(DEV).startswith("cuda"):   # the part's own peak, not the script's
+        torch.cuda.reset_peak_memory_stats()
+    with local_world("nccl", DEV):
+        mesh = make_mesh({"clients": 1})
+        for tag, m in (("flat", None), ("mesh", mesh)):
+            fn = build_round_fn(alg, mesh=m, health_stats=True)
+            st = alg.server_init({k: v.to(DEV) for k, v in params0.items()})
+            _rt_sync()
+            t0 = time.perf_counter()
+            o = fn(st, None, data, ids, weights, seed=0, batch_idx=sched)
+            res[f"{tag}_seconds"] = _rt_sync() - t0
+            outs[tag] = (o.server_state.params, o.metrics)
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(outs["mesh"]), tree_leaves(outs["flat"])))
+    res.update(bitwise=same, backend="nccl", ranks=1,
+               train_loss=outs["mesh"][1]["train_loss"].item(),
+               peak_bytes=torch.cuda.max_memory_allocated())
+    emit({"phase": "mesh", "part": "a_one_rank_nccl", **res})
+    check(same, "mesh (a): the one-rank NCCL mesh round is not the "
+          "unmeshed round bit for bit")
+    return res
+
+
+def _mesh_rel(got: dict, want: dict, start: dict) -> dict:
+    err = max(float(np.abs(got[k] - want[k]).max()) for k in want)
+    upd = max(float(np.abs(want[k] - start[k]).max()) for k in want)
+    return {"max_abs_err": err, "max_update": upd,
+            "rel": err / upd if upd else float("inf"), "tol": PARITY_TOL}
+
+
+def _mesh_b(pool, params_np: dict) -> dict:
+    """Phase mesh (b): the Simulator over two gloo ranks on the card
+    against the unmeshed f32 Simulator round."""
+    import torch
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch.simulation.simulator import Simulator
+
+    cfg = _mesh_dict(comm_args={"backend": "xla"},
+                     device_args={"mesh_shape": {"clients": 2}})
+    t0 = time.perf_counter()
+    outs = pool.run(_mesh_rank_b, cfg, params_np, timeout_s=MESH_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    with _tf32_off():
+        ref = Simulator(fedml_tpu_torch.init(config=_mesh_dict(), device=DEV),
+                        params={k: torch.from_numpy(v)
+                                for k, v in params_np.items()})
+        sampled = ref.sample_clients(0).tolist()
+        _rt_sync()
+        t1 = time.perf_counter()
+        ref_row = ref.run_round(0)
+        ref_s = _rt_sync() - t1
+    want = {k: v.cpu().numpy() for k, v in ref.server_state.params.items()}
+    lead = outs[0]
+    rel = _mesh_rel(lead["params"], want, params_np)
+    pads = [w for w in lead["weights"] if w == 0]
+    res = {"backend": pool.backend, "ranks": lead["ranks"],
+           "sampled": sampled, "placed_ids": lead["ids"],
+           "placed_weights": lead["weights"], "padded": len(pads),
+           "lpt_applied": lead["ids"] != sorted(lead["ids"]),
+           "train_loss": lead["row"]["train_loss"],
+           "ref_train_loss": ref_row["train_loss"], **rel,
+           "rank_seconds": [o["seconds"] for o in outs],
+           "ranks_call_seconds": ranks_s, "unmeshed_seconds": ref_s,
+           "peak_bytes": [o["peak_bytes"] for o in outs],
+           "k1_k4": [o["k1_k4"] for o in outs]}
+    emit({"phase": "mesh", "part": "b_two_gloo_ranks", **res})
+    check(all(o["ids"] == lead["ids"] for o in outs),
+          "mesh (b): the ranks placed the cohort differently")
+    check(len(pads) == 1 and len(lead["ids"]) == MESH_CLIENTS + 1,
+          f"mesh (b): expected one zero-weight pad, got {lead['weights']}")
+    check(res["lpt_applied"], "mesh (b): LPT did not permute the cohort")
+    check(rel["max_update"] > 0 and rel["rel"] <= PARITY_TOL,
+          f"mesh (b): {rel['rel']:.3g} of the update from the unmeshed "
+          f"round (bar {PARITY_TOL})")
+    return res
+
+
+def _mesh_c(ds, params_np: dict) -> dict:
+    """Phase mesh (c): run_hierarchical (2 silos x intra 2, gloo ranks on
+    the card, each warmed by `_rank_setup` as it joins) against flat
+    FedAvg over the same trainers, f32 with TF32 off; where f32 itself
+    departs further, phase fedavg's clause against the flat run in f64:
+    as close to it as the flat f32 run, within 2x."""
+    import torch
+
+    from fedml_tpu_torch.config import TrainArgs
+    from fedml_tpu_torch.cross_silo import SiloTrainer
+    from fedml_tpu_torch.cross_silo.hierarchical import run_hierarchical
+    from fedml_tpu_torch.models import hub
+
+    real = [(ds.x_train[c][:int(n)], ds.y_train[c][:int(n)])
+            for c, n in enumerate(ds.counts)]
+    xs = np.concatenate([x for x, _ in real])
+    ys = np.concatenate([y for _, y in real])
+    r = MESH_SILO_ROWS
+    silos = [(xs[i * r:(i + 1) * r], ys[i * r:(i + 1) * r]) for i in (0, 1)]
+    t = TrainArgs(epochs=1, batch_size=FEDAVG_CONFIG["train_args"][
+        "batch_size"], learning_rate=FEDAVG_CONFIG["train_args"][
+        "learning_rate"])
+    model = hub.create("resnet18_gn", ds.num_classes, ds.x_train.shape[2:],
+                       device="meta")
+    t0 = time.perf_counter()
+    server = run_hierarchical(model, params_np, t, silos, num_rounds=1,
+                              devices=[DEV] * 4, device=DEV,
+                              timeout_s=MESH_TIMEOUT_S, setup=_rank_setup)
+    hier_s = time.perf_counter() - t0
+    got = {k: np.asarray(v) for k, v in server.params.items()}
+
+    def flat(dt):
+        """Flat FedAvg over the same trainers in `dt`, TF32 off."""
+        with _tf32_off():
+            outs = [SiloTrainer(model, t, x.astype(dt), y, seed=i,
+                                device=DEV).train(
+                {k: v.astype(dt) for k, v in params_np.items()}, 0)
+                for i, (x, y) in enumerate(silos)]
+        w = np.asarray([o[1] for o in outs], np.float64)
+        return {k: sum(wi * o[0][k].astype(np.float64)
+                       for wi, o in zip(w, outs)) / w.sum()
+                for k in params_np}
+
+    t1 = time.perf_counter()
+    want = flat(np.float32)
+    flat_s = time.perf_counter() - t1
+    rel = _mesh_rel(got, want, params_np)
+    second, why = True, ""
+    if rel["rel"] > PARITY_TOL:
+        f64 = flat(np.float64)
+        e_flat = max(float(np.abs(want[k] - f64[k]).max()) for k in f64)
+        e_hier = max(float(np.abs(got[k] - f64[k]).max()) for k in f64)
+        rel.update(flat_f32_vs_f64_ratio=e_flat / rel["max_update"],
+                   hier_f32_vs_f64_ratio=e_hier / rel["max_update"])
+        second = e_hier <= 2 * e_flat
+        why = (f"; {e_hier:.3g} from the f64 run against the flat f32 "
+               f"run's {e_flat:.3g}")
+    stats = server.silo_rank_stats
+    res = {"silos": 2, "intra": 2, **rel,
+           "allreduce_steps_per_rank": [[s["allreduce_steps"] for s in silo]
+                                        for silo in stats],
+           "steps_per_round": r // t.batch_size,
+           "peak_bytes": [[s["peak_bytes"] for s in silo] for silo in stats],
+           "k1_k4": [[s["kernel_launches"] for s in silo] for silo in stats],
+           "exitcodes": server.silo_exitcodes,
+           "hier_seconds": hier_s, "flat_seconds": flat_s}
+    emit({"phase": "mesh", "part": "c_run_hierarchical", **res})
+    check(server.silo_exitcodes == [[0, 0], [0, 0]],
+          f"mesh (c): rank exit codes {server.silo_exitcodes}")
+    check(res["allreduce_steps_per_rank"] == [[r // t.batch_size] * 2] * 2,
+          f"mesh (c): inner all-reduces {res['allreduce_steps_per_rank']}")
+    check(rel["max_update"] > 0 and second,
+          f"mesh (c): {rel['rel']:.3g} of the update from flat FedAvg "
+          f"(bar {PARITY_TOL}){why}")
+    return res
+
+
+def phase_mesh() -> dict:
+    """Phase 19 (module docstring)."""
+    import torch
+
+    from fedml_tpu_torch.data import loader
+    from fedml_tpu_torch.models import hub
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.ops import paged_attention as pa
+    from fedml_tpu_torch.parallel.launch import RankPool
+
+    t0 = time.perf_counter()
+    fa.launch_count.update(dict.fromkeys(fa.launch_count, 0))
+    pa.launch_count = 0
+    # (b)'s two ranks reach the card while (a) runs here; (c)'s four
+    # are started and stopped by run_hierarchical
+    pool = RankPool([DEV, DEV], timeout_s=MESH_TIMEOUT_S,
+                    setup=_rank_setup)
+    res = {}
+    try:
+        import fedml_tpu_torch
+
+        ds = loader.load(fedml_tpu_torch.init(config=_mesh_dict(),
+                                              device=DEV))
+        check(ds.synthetic and len(set(ds.counts.tolist())) > 1,
+              "phase mesh's data is not the varied synthetic CIFAR-10")
+        model = hub.create("resnet18_gn", ds.num_classes,
+                           ds.x_train.shape[2:], device="meta")
+        params0 = hub.init_params(model, torch.Generator().manual_seed(0))
+        params_np = {k: v.numpy() for k, v in params0.items()}
+        for part, fn, args in (("a", _mesh_a, (ds, params0)),
+                               ("b", _mesh_b, (pool, params_np)),
+                               ("c", _mesh_c, (ds, params_np))):
+            t1 = time.perf_counter()
+            res[part] = fn(*args)
+            res[part]["part_seconds"] = time.perf_counter() - t1
+            emit({"phase": "mesh", "part": part,
+                  "seconds": res[part]["part_seconds"]})
+    finally:
+        res["b_exitcodes"] = pool.close()
+    launches = _k1_k4() + sum(res["b"]["k1_k4"]) + sum(
+        sum(s) for s in res["c"]["k1_k4"])
+    res["k1_k4_launches"] = launches
+    res["seconds"] = time.perf_counter() - t0
+    emit({"phase": "mesh", "k1_k4_launches": launches,
+          "b_exitcodes": res["b_exitcodes"], "nvidia_smi": nvidia_smi_line(),
+          "seconds": res["seconds"]})
+    check(res["b_exitcodes"] == [0, 0],
+          f"mesh (b): rank exit codes {res['b_exitcodes']}")
+    check(launches == 0, f"phase mesh launched K1-K4 {launches} times")
+    return res
+
+
 def kernel_rows(kern: dict, runs: dict, flash: dict, train: dict,
                 surface: dict, every_phase: bool, fleet=None) -> list:
     """The `kernels` line's rows from the phases' results; with
@@ -6251,6 +6603,7 @@ def main() -> int:
     run("tasks", phase_tasks)
     run("runtimes", phase_runtimes)
     fleet = run("fleet", phase_fleet, default={})
+    run("mesh", phase_mesh)
 
     kernels = kernel_rows(kern, runs, flash, train, surface,
                           every_phase=set(PHASES) <= set(args.only),

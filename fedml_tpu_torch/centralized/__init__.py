@@ -14,7 +14,7 @@ Batches come from the port's generators (`ops/keys.py`, keyed by
 (random_seed, epoch)); `run(batch_idx=)` takes one [steps, B] schedule an
 epoch instead (the tests hand over the JAX package's). A device mesh with
 an `mp` axis (the model-parallel layout) is ROADMAP 'Port queue' item 4,
-multi-GPU, and is refused.
+entry 6b (tensor parallelism), and is refused.
 """
 from __future__ import annotations
 
@@ -69,7 +69,7 @@ class CentralizedTrainer:
             raise NotImplementedError(
                 "a model-parallel device mesh (device_args.mesh_shape with "
                 "an 'mp' axis) is not ported yet (ROADMAP 'Port queue' "
-                "item 4, multi-GPU)")
+                "item 4, entry 6b: multi-GPU tensor parallelism)")
         self.device = resolve_device(
             device if device is not None
             else cfg.device_args.extra.get("device"))

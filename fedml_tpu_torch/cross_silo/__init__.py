@@ -1,8 +1,8 @@
 """Cross-silo FL runtime (port of `fedml_tpu/cross_silo/`): the server
 and client managers over the comm layer, their SecAgg variants, the silo
-trainer on the card, and the kill–restart soak harness. The hierarchical
-scenario (an intra-silo device mesh) is not ported (ROADMAP 'Port queue'
-item 4)."""
+trainer on the card (data-parallel over an intra-silo mesh when given
+one), the hierarchical composition (`hierarchical.py`) and the
+kill–restart soak harness."""
 from .client import FedClientManager
 from .message_define import *  # noqa: F401,F403
 from .secagg_manager import SecAggClientManager, SecAggServerManager

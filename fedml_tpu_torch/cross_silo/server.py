@@ -7,9 +7,9 @@ Aggregation runs on the card: the received numpy trees, sorted by client
 id, are stacked there and merged by `ops/tree.py:tree_weighted_mean`, the
 weights being the clients' sample counts, and the result comes back to the
 host as a numpy tree. Sorting by id makes the aggregate independent of the
-order in which the clients' threads finish. The JAX aggregator's
-`aggregate_fn` is not ported: its one caller is the hierarchical scenario
-(ROADMAP 'Port queue' item 4).
+order in which the clients' threads finish. `aggregate_fn(stacked,
+weights) -> aggregate`, when given, replaces the weighted mean (on the
+same stacked tensors and weights).
 
 Each round leaves one `round` span in the span recorder, from its
 broadcast to its close (aggregate, eval and checkpoint included), with
@@ -83,13 +83,16 @@ def _wire_totals(backend: str) -> dict:
 
 class FedAggregator:
     """Result pool + merge (reference: server/fedml_aggregator.py:13-104),
-    the merge on `device`. `last_ms` is the last aggregate's time: CUDA
+    the merge on `device`: `aggregate_fn(stacked, weights)` when given,
+    else the weighted mean. `last_ms` is the last aggregate's time: CUDA
     events on the card, the host clock on the CPU."""
 
-    def __init__(self, device=None):
+    def __init__(self, device=None,
+                 aggregate_fn: Optional[Callable] = None):
         self.results: dict[int, tuple[Pytree, float]] = {}
         self.expected: set[int] = set()
         self.device = resolve_device(device)
+        self.aggregate_fn = aggregate_fn
         self.last_ms: Optional[float] = None
 
     def reset(self, client_ids) -> None:
@@ -117,7 +120,9 @@ class FedAggregator:
                             self.results[i][0]) for i in ids])
             weights = torch.tensor([self.results[i][1] for i in ids],
                                    dtype=torch.float32, device=self.device)
-            agg = tu.tree_weighted_mean(stacked, weights)
+            agg = (tu.tree_weighted_mean(stacked, weights)
+                   if self.aggregate_fn is None
+                   else self.aggregate_fn(stacked, weights))
             out, _ = to_host(agg, torch.zeros(0, device=self.device))
             if cuda:
                 end.record()
@@ -151,6 +156,8 @@ class FedServerManager:
     liveness_timeout_s — evict clients silent for this long from selection
     (arm it alongside client heartbeats shorter than the budget).
     device — where the aggregate runs (None: CUDA, raising without a GPU).
+    aggregate_fn — (stacked, weights) -> aggregate in place of the
+    weighted mean (`FedAggregator`).
     Parameters on the wire and in `params` are numpy trees.
     """
 
@@ -167,14 +174,15 @@ class FedServerManager:
                  checkpoint_keep: Optional[int] = 3,
                  resume: bool = False,
                  liveness_timeout_s: Optional[float] = None,
-                 max_rearms: int = 5, device=None):
+                 max_rearms: int = 5, device=None,
+                 aggregate_fn: Optional[Callable] = None):
         self.comm = comm
         self.client_ids = list(client_ids)
         self.m = client_num_per_round or len(self.client_ids)
         self.params = init_params
         self.num_rounds = num_rounds
         self.round_idx = 0
-        self.aggregator = FedAggregator(device)
+        self.aggregator = FedAggregator(device, aggregate_fn)
         self.eval_fn = eval_fn
         self.sample_seed = sample_seed
         self.round_timeout = round_timeout

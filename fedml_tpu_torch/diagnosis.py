@@ -30,7 +30,11 @@ Required:
   serve under load, one trainer kill) converges on version 3 with zero
   non-2xx, inside 20 s;
 - `attribution_smoke`: the round-time budget over a round span and
-  loopback traffic, with a transport share > 0.
+  loopback traffic, with a transport share > 0;
+- `cohort_sharded_smoke`: two spawned gloo ranks on the device (a
+  `clients` mesh of 2) run a chunk-streamed cohort round and the
+  single-shot round: history and parameters bitwise, every chunk
+  streamed, ingest overlapping compute.
 
 Reported, not required: `grpc_transport` (the card's machine has no
 grpc), `native_lib`, `metrics_endpoint`.
@@ -58,7 +62,7 @@ REQUIRED = ("cuda", "kernels", "wire_codec", "loopback_transport",
             "serving_paged_smoke", "serving_spec_smoke",
             "serving_density_smoke", "fleet_rolling_update_smoke",
             "cross_silo_durability_smoke", "live_loop_smoke",
-            "attribution_smoke")
+            "attribution_smoke", "cohort_sharded_smoke")
 
 
 class NotRun(Exception):
@@ -746,6 +750,77 @@ def probe_live_loop_smoke(dev):
             "elapsed_s": round(dt, 1)}
 
 
+def _cohort_sharded_rank(data_dir: str) -> dict:
+    """One rank's half of `cohort_sharded_smoke` (the JAX package's
+    `_cohort_sharded_check` over the world's ranks): a chunked, streamed
+    cohort over a `clients` mesh of every rank against the single-shot
+    round, two rounds each."""
+    import torch.distributed as dist
+
+    import fedml_tpu_torch
+    from .parallel.launch import current
+    from .simulation.simulator import Simulator
+    from .utils import metrics as mx
+
+    d = dist.get_world_size()
+    m = 2 * d
+
+    def sim(extra=None):
+        cfg = fedml_tpu_torch.init(config={
+            "common_args": {"training_type": "simulation", "random_seed": 0},
+            "data_args": {"dataset": "synthetic", "data_cache_dir": data_dir,
+                          "extra": {"synthetic_samples_per_client": 8}},
+            "model_args": {"model": "lr"},
+            "train_args": {"federated_optimizer": "FedAvg",
+                           "client_num_in_total": m,
+                           "client_num_per_round": m, "comm_round": 2,
+                           "epochs": 1, "batch_size": 8,
+                           "learning_rate": 0.1, "extra": extra or {}},
+            "validation_args": {"frequency_of_the_test": 0},
+            "comm_args": {"backend": "xla"}}, device=str(current().device))
+        return Simulator(cfg)
+
+    before = mx.snapshot()["counters"]
+    chk = sim({"cohort_chunk": d, "ingest_prefetch": 1})
+    if chk.mesh is None or chk._d != d:
+        raise RuntimeError("chunked sim did not build the client mesh")
+    chk.run()
+    after = mx.snapshot()["counters"]
+    ref = sim()
+    ref.run()
+    same = ref.history == chk.history and all(
+        torch.equal(ref.server_state.params[k], v)
+        for k, v in chk.server_state.params.items())
+    return {"same": same, "chunks": after.get("fed.ingest.chunks", 0)
+            - before.get("fed.ingest.chunks", 0),
+            "prefetched": after.get("fed.ingest.prefetched", 0)
+            - before.get("fed.ingest.prefetched", 0)}
+
+
+def probe_cohort_sharded_smoke(dev):
+    """A chunked, streamed cohort round over a 2-rank mesh (two spawned
+    gloo ranks on `dev`) equals the single-shot 2-rank round bitwise,
+    with every chunk streamed and ingest overlapping compute."""
+    import tempfile
+
+    from .parallel.launch import RankPool
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            RankPool([str(dev)] * 2, timeout_s=180.0) as pool:
+        outs = pool.run(_cohort_sharded_rank, tmp)
+    if not all(o["same"] for o in outs):
+        raise ValueError("chunked round history or params diverged from "
+                         "the single-shot round")
+    if any(o["chunks"] < 4 for o in outs):   # 2 rounds x 2 chunks a rank
+        raise ValueError(f"expected >= 4 streamed chunks a rank: {outs}")
+    if not any(o["prefetched"] >= 1 for o in outs):
+        raise ValueError("ingest never overlapped compute")
+    return {"ranks": 2, "backend": pool.backend,
+            "chunks": [o["chunks"] for o in outs],
+            "exitcodes": pool.exitcodes,
+            "mode": "2 spawned gloo ranks"}
+
+
 PROBES = {
     "cuda": probe_cuda,
     "kernels": probe_kernels,
@@ -764,6 +839,7 @@ PROBES = {
     "cross_silo_durability_smoke": probe_cross_silo_durability_smoke,
     "live_loop_smoke": probe_live_loop_smoke,
     "attribution_smoke": probe_attribution_smoke,
+    "cohort_sharded_smoke": probe_cohort_sharded_smoke,
 }
 
 

@@ -70,9 +70,27 @@ round's, and its persistent state keeps its pre-round value;
 metrics["faults"] = {"dropped", "straggled"} ([m] f32 0/1). The tests
 hand the JAX round's masks over as `faults=`.
 
-A mesh raises NotImplementedError naming its ROADMAP port-queue item
-(4), as does a group of clients that `torch.func.vmap` cannot batch
-(item 3d.1b).
+Over a device mesh (`mesh=`, a `DeviceMesh` of `parallel/mesh.py`, the
+federated axis `axis`, by default "clients") the round runs SPMD, the
+same call in every rank with the same full-cohort arguments. Each rank
+takes its contiguous block of the cohort (`mesh.client_share`, the split
+`shard_map` makes over `P(clients)`; m must divide, the Simulator pads),
+trains it in groups as above and folds it into its own carry; the chunk
+functions take a rank's own pieces. `finalize_body` then makes the
+cross-rank step once: LINEAR sums the weighted sums, the weights and the
+metric sums with one all-reduce (the JAX `psum`); FULL mode all-gathers
+the ranks' [m/d, D] update rows into the cohort's [m, D], in cohort
+order, before the hook; health stats are computed for each rank's
+clients against the reduced aggregate and gathered; the new client
+states are gathered before the one scatter. A mesh-padding duplicate
+draws what its source draws (every key is (seed..., id)). The sum is per
+rank, then across ranks, so a d-rank round equals the unmeshed round
+bitwise only for d = 1. Gloo collectives on CUDA tensors are staged
+through the host.
+
+A `mesh` that is not a DeviceMesh raises TypeError; a group of clients
+that `torch.func.vmap` cannot batch raises NotImplementedError naming
+its ROADMAP port-queue item (3d.1b).
 """
 from __future__ import annotations
 
@@ -84,6 +102,7 @@ import torch
 from ..core.algorithm import FedAlgorithm, ServerState
 from ..ops import keys
 from ..ops.tree import tree_leaves, tree_map, tree_vdot
+from . import mesh as mesh_mod
 
 
 class RoundOutput(NamedTuple):
@@ -221,10 +240,7 @@ class RoundParts(NamedTuple):
 
 
 def _refuse(alg: FedAlgorithm, mesh, group_size: int) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "round over a device mesh is not ported yet (ROADMAP 'Port "
-            "queue' item 4, multi-GPU)")
+    mesh_mod.check_mesh(mesh, "the round's mesh")
     if group_size > 1 and not alg.vmap_ok:
         raise NotImplementedError(
             "group_size > 1 for a client torch.func.vmap cannot batch (the "
@@ -233,8 +249,19 @@ def _refuse(alg: FedAlgorithm, mesh, group_size: int) -> None:
             "yet (ROADMAP 'Port queue' item 3d.1b)")
 
 
+def _rows(x, share: slice):
+    """Rows `share` of a per-client [m, ...] input (a tensor, an array, a
+    list, or a dict of them); None stays None."""
+    if x is None:
+        return None
+    if isinstance(x, dict):
+        return {k: _rows(v, share) for k, v in x.items()}
+    return x[share]
+
+
 def make_round_parts(alg: FedAlgorithm, group_size: int = 1,
-                     health_stats: bool = False, *,
+                     health_stats: bool = False, *, mesh=None,
+                     axis: str = "clients",
                      aggregate_full: Optional[Callable] = None,
                      postprocess_update: Optional[Callable] = None,
                      postprocess_agg: Optional[Callable] = None,
@@ -249,6 +276,11 @@ def make_round_parts(alg: FedAlgorithm, group_size: int = 1,
     chaos_on = client_dropout > 0.0 or client_straggler > 0.0
     per_client = alg.finish_update is not None \
         or postprocess_update is not None
+    _refuse(alg, mesh, group_size)
+
+    def share_of(m: int) -> slice:
+        return (slice(0, m) if mesh is None
+                else mesh_mod.client_share(mesh, m, axis))
 
     def one_client(bcast, shard, cstate, batch_idx):
         upd, new_state, met = alg.client_update(bcast, shard, cstate,
@@ -274,9 +306,13 @@ def make_round_parts(alg: FedAlgorithm, group_size: int = 1,
         """The carry at the start of a round: the weighted sums (allocated
         by the first group), the metric sums, the client-state plane (the
         cohort's states gathered here, at round start, and a buffer for
-        the new ones), the host's weights and fault masks."""
+        the new ones), the host's weights and fault masks. `ids` is the
+        whole cohort; under a mesh the carry holds this rank's share."""
+        share = share_of(len(ids))
+        ids = np.asarray(ids)[share]
         m = len(ids)
-        carry = {"m": m, "num": None, "msum": None, "seed": None,
+        carry = {"m": m, "share": share, "num": None, "msum": None,
+                 "seed": None,
                  "den": torch.zeros((), dtype=torch.float32, device=device),
                  "w": np.zeros(m, np.float32), "cstates": full_cstates,
                  "bufs": {}}
@@ -387,16 +423,38 @@ def make_round_parts(alg: FedAlgorithm, group_size: int = 1,
         buffered updates), its post-processing, the server step, the
         metrics row, and the one client-state scatter."""
         dev = carry["den"].device
-        m = carry["m"]
+        m = len(ids)
         ids_dev = to_device(np.asarray(ids, np.int64), dev)
+        bufs = carry["bufs"]
+        w = to_device(carry["w"], dev)
+        drop = strag = None
+        if chaos_on:
+            drop, strag = (to_device(carry["faults"][k].astype(np.float32),
+                                     dev) for k in ("dropped", "straggled"))
+        if mesh is not None:
+            # the cross-rank step: one all-reduce of the sums, the gathers
+            # FULL mode and the per-client rows need
+            mesh_mod.all_reduce_sum(
+                carry["msum"] + ([] if use_full else
+                                 tree_leaves(carry["num"]) + [carry["den"]]),
+                mesh, axis)
+            rows = [w] + ([drop, strag] if chaos_on else [])
+            rows = mesh_mod.all_gather_rows(torch.stack(rows, 1), mesh, axis)
+            w = rows[:, 0].contiguous()
+            if chaos_on:
+                drop, strag = rows[:, 1].contiguous(), rows[:, 2].contiguous()
+            if use_full:
+                bufs = {**bufs, "u": mesh_mod.all_gather_tree(
+                    bufs["u"], mesh, axis)}
+            if has_cstate:
+                bufs = {**bufs, "ns": mesh_mod.all_gather_tree(
+                    bufs["ns"], mesh, axis)}
         ctx = {"key": keys.fold(carry["seed"], keys.SERVER), "ids": ids_dev,
                "state": hook_state, "params": server_state.params}
         if chaos_on:
-            f = carry["faults"]
-            ctx["fault_keep"] = to_device(~(f["dropped"] | f["straggled"]),
-                                          dev)
+            ctx["fault_keep"] = (drop + strag) == 0
         if use_full:
-            u, w = carry["bufs"]["u"], to_device(carry["w"], dev)
+            u = bufs["u"]
             cx = ctx
             mr = num_real_clients
             if mr is not None and mr < m:
@@ -416,13 +474,17 @@ def make_round_parts(alg: FedAlgorithm, group_size: int = 1,
         metrics = {"train_loss": loss_sum / n, "train_acc": correct / n,
                    "n_samples": count}
         if health_stats:
-            metrics["health"] = _client_health(
-                carry["bufs"]["u"], agg, carry["bufs"]["loss"], loss_sum,
-                count)
+            # each rank's clients against the (reduced) aggregate
+            health = _client_health(carry["bufs"]["u"], agg,
+                                    carry["bufs"]["loss"], loss_sum, count)
+            if mesh is not None:
+                stat = mesh_mod.all_gather_rows(
+                    torch.stack(list(health.values()), 1), mesh, axis)
+                health = {k: stat[:, i].contiguous()
+                          for i, k in enumerate(health)}
+            metrics["health"] = health
         if chaos_on:
-            metrics["faults"] = {
-                k: to_device(v.astype(np.float32), dev)
-                for k, v in carry["faults"].items()}
+            metrics["faults"] = {"dropped": drop, "straggled": strag}
         if postprocess_agg is not None:
             agg = postprocess_agg(agg, ctx)
         new_server = alg.server_update(server_state, agg)
@@ -435,7 +497,7 @@ def make_round_parts(alg: FedAlgorithm, group_size: int = 1,
             dst, src = to_device(uniq, sdev), to_device(first, sdev)
             tree_map(lambda f, n: f.index_copy_(0, dst,
                                                 n.index_select(0, src)),
-                     full, carry["bufs"]["ns"])
+                     full, bufs["ns"])
         return RoundOutput(new_server, full, metrics, hook_state)
 
     def round_body(server_state: ServerState, client_states, data: dict,
@@ -443,8 +505,10 @@ def make_round_parts(alg: FedAlgorithm, group_size: int = 1,
                    faults=None) -> RoundOutput:
         ids = np.asarray(ids)
         carry = zero_carry(client_states, ids, data["y"].device)
-        carry = chunk_body(carry, server_state, data, ids, ids, weights, seed,
-                           0, batch_idx, faults)
+        sh = carry["share"]
+        carry = chunk_body(carry, server_state, data, ids[sh], ids[sh],
+                           _rows(np.asarray(weights), sh), seed, 0,
+                           _rows(batch_idx, sh), _rows(faults, sh))
         return finalize_body(server_state, carry, ids, hook_state)
 
     return RoundParts(zero_carry, chunk_body, finalize_body, round_body)
@@ -454,11 +518,12 @@ def build_round_fn(alg: FedAlgorithm, mesh=None, group_size: int = 1,
                    postprocess_update=None, postprocess_agg=None,
                    health_stats: bool = False, client_dropout: float = 0.0,
                    client_straggler: float = 0.0, aggregate_full=None,
-                   num_real_clients: Optional[int] = None) -> Callable:
+                   num_real_clients: Optional[int] = None,
+                   axis: str = "clients") -> Callable:
     """The single-round function (module docstring has its contract)."""
-    _refuse(alg, mesh, group_size)
     return make_round_parts(
-        alg, group_size, health_stats, aggregate_full=aggregate_full,
+        alg, group_size, health_stats, mesh=mesh, axis=axis,
+        aggregate_full=aggregate_full,
         postprocess_update=postprocess_update,
         postprocess_agg=postprocess_agg, num_real_clients=num_real_clients,
         client_dropout=client_dropout,
@@ -526,9 +591,11 @@ def build_chunk_fns(alg: FedAlgorithm, group_size: int = 1,
     The Simulator streams each chunk's client data onto the card
     (`simulation/ingest.py`) and passes rows = arange(chunk); the carry
     holds the partial sums (FULL mode: the update stack) and the cohort's
-    state buffers. Health stats do not ride chunks (the cosine with the
-    aggregate needs every update against the final aggregate, which
-    chunking exists not to keep)."""
+    state buffers. Under a mesh, `make_carry` and `finalize_fn` take the
+    whole cohort's ids, and `chunk_fn` a rank's own pieces, `offset`
+    their first row in the rank's share. Health stats do not ride chunks
+    (the cosine with the aggregate needs every update against the final
+    aggregate, which chunking exists not to keep)."""
     if health_stats:
         raise ValueError(
             "health_stats cannot ride chunked rounds: cosine-to-aggregate "
@@ -536,3 +603,28 @@ def build_chunk_fns(alg: FedAlgorithm, group_size: int = 1,
             "train_args.extra.health_stats")
     parts = make_round_parts(alg, group_size, health_stats, **plugins)
     return parts.chunk_body, parts.finalize_body, parts.zero_carry
+
+
+def shard_fed_data(data: dict, mesh=None, axis: str = "clients",
+                   device="cpu") -> dict:
+    """Stacked client arrays ({"x", "y", "mask"}, [N, ...]) as tensors on
+    `device`, laid out by the partition-rule registry
+    (`partition.fed_data_rules`): under a mesh, this rank's contiguous
+    block of the leading client axis (N must divide). An unexpected data
+    key is an `UnmatchedParamError`, not a silently replicated copy."""
+    def put(v):
+        return torch.from_numpy(np.ascontiguousarray(v)).to(device)
+
+    if mesh is None:
+        return {k: put(v) for k, v in data.items()}
+    from .partition import fed_data_rules, match_partition_rules
+
+    specs = match_partition_rules(fed_data_rules(axis), data)
+    out = {}
+    for k, v in data.items():
+        for dim, ax in enumerate(specs[k]):
+            if ax is not None:
+                sh = mesh_mod.client_share(mesh, v.shape[dim], ax)
+                v = np.take(v, np.arange(v.shape[dim])[sh], axis=dim)
+        out[k] = put(v)
+    return out

@@ -2,7 +2,12 @@
 of `fedml_tpu/runner.py`; reference: python/fedml/runner.py:19-181).
 
 Ported modes:
-- simulation:            `simulation.simulator.Simulator` on one GPU
+- simulation:            `simulation.simulator.Simulator`, on one GPU or,
+                         run in every rank of a `torch.distributed` world,
+                         over a mesh (`mesh=` or `device_args`): a
+                         (silos, intra) mesh runs the hierarchical round
+                         (the `scenario: hierarchical` shape), any other
+                         mesh, or none, the flat round
 - simulation + async:    `simulation.async_simulator.AsyncSimulator`
                          (`train_args.extra.async` or `async_mode`); it
                          takes `device=` and refuses any other keyword
@@ -17,7 +22,12 @@ Ported modes:
                          `SecAggClientManager`, its pre-mask sparsifier
                          from `comm_codec.secagg_premask_ratio`) over a
                          `SiloTrainer` (`dataset` = the silo's (x, y));
-                         `rank` is the client id, 1-based
+                         `rank` is the client id, 1-based; with
+                         `scenario: hierarchical` the trainer runs over an
+                         intra-silo mesh (`mesh=`, a `SiloMesh` or a
+                         `DeviceMesh`, else `silo_mesh` over every visible
+                         GPU when there are several), else flat on
+                         `device`
 - cross_device, server:  `cross_device.CrossDeviceServer` (`min_devices`,
                          `round_timeout` default 30 s, in train_args.extra)
 - cross_device, client:  `cross_device.EdgeClient` over a `SiloTrainer`
@@ -44,9 +54,10 @@ configured (`tracking_args.extra.artifact_store` / `artifact_dir`): the
 Simulator and the server the aggregated model each round, a client its
 trained model.
 
-Not ported, each refused with a NotImplementedError naming its ROADMAP
-'Port queue' item: the hierarchical scenario, a silo `mesh` and the
-centralized trainer's model-parallel mesh (item 4).
+The centralized trainer's model-parallel (`mp`) mesh is refused with a
+NotImplementedError naming its ROADMAP 'Port queue' item (4, entry 6b).
+The one-process composition of the hierarchical scenario is
+`cross_silo.hierarchical.run_hierarchical`, called directly.
 """
 from __future__ import annotations
 
@@ -60,11 +71,6 @@ from .config import (
     TRAINING_TYPE_CROSS_DEVICE, TRAINING_TYPE_CROSS_SILO,
     TRAINING_TYPE_SIMULATION,
 )
-
-
-def _later(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP 'Port queue' item {item})")
 
 
 class FedMLRunner:
@@ -167,11 +173,7 @@ class FedMLRunner:
     def _init_cross_silo(self, dataset, model, role, rank, transport, **kw):
         cfg = self.cfg
         t = cfg.train_args
-        if cfg.common_args.scenario == SCENARIO_HIERARCHICAL \
-                or kw.get("mesh") is not None:
-            raise _later("the hierarchical scenario (an intra-silo device "
-                         "mesh)", "4, multi-GPU")
-        kw.pop("mesh", None)
+        mesh = kw.pop("mesh", None)
         device = self._device(kw)
         # the wire codec rides comm_args.comm_codec on both roles: delta
         # frames decode against the receiving end's anchor state, so a
@@ -218,7 +220,14 @@ class FedMLRunner:
         from .cross_silo import SiloTrainer
 
         x, y = dataset
-        trainer = SiloTrainer(model, t, x, y, seed=rank, device=device,
+        if cfg.common_args.scenario == SCENARIO_HIERARCHICAL and mesh is None \
+                and device.type == "cuda" and torch.cuda.device_count() > 1:
+            from .cross_silo.hierarchical import silo_mesh
+
+            mesh = silo_mesh([f"cuda:{i}"
+                              for i in range(torch.cuda.device_count())])
+        trainer = SiloTrainer(model, t, x, y, mesh=mesh, seed=rank,
+                              device=device,
                               batch_schedule=kw.pop("batch_schedule", None))
         if secagg:
             from .cross_silo import SecAggClientManager

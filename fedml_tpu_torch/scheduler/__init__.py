@@ -24,10 +24,12 @@ Roles:
 The messages, the matcher, the job states and the store's blobs are the
 JAX package's. A worker's resource tags name the backend as the JAX
 package does (`["gpu"]` with a CUDA device, `["cpu"]` without), so a
-job's `requirements.tags` mean the same to both. A "python" job whose
-`entry` is not registered but has the form "package.module:function"
-imports that function (the JAX worker knows registered entries only), so
-`python -m fedml_tpu_torch launch` can run a python job from a file.
+job's `requirements.tags` mean the same to both. A worker runs a
+"python" job only when its `entry` is a name registered with
+`register_python_job`, as the JAX worker does; any other entry fails the
+job. `python -m fedml_tpu_torch launch` runs a job file's
+"package.module:function" entry by importing it and registering it on
+the worker it starts itself.
 """
 from __future__ import annotations
 

@@ -92,8 +92,8 @@ from .predictor import InvalidRequest, _bucket
 log = logging.getLogger(__name__)
 
 LORA_ALPHA = 16.0   # the JAX engine's (make_*_kv_decode's default alpha)
-MULTI_GPU = ("not ported yet (ROADMAP.md, 'Port queue', entry 6, item 4: "
-             "multi-GPU)")
+MULTI_GPU = ("not ported yet (ROADMAP.md, 'Port queue', entry 6b, item 4: "
+             "multi-GPU tensor parallelism)")
 
 
 def _page_key(parent: bytes, tokens) -> bytes:

@@ -25,6 +25,11 @@ times, staleness, dropouts and stragglers is bitwise the JAX package's.
 Event `seq`'s batch order comes from a generator keyed (seed, seq)
 (`ops/keys.py`), where JAX folds seq into its key; `run(batch_idx=)`
 takes the orders as a function of seq (the tests hand JAX's over).
+
+With `train_args.cost_model` each merged client's simulated duration
+feeds `schedule.CostModel` (per client, not amortised over a round), and
+its `fed.cost_model.*` gauges refresh on the eval cadence; the loop
+itself places nothing.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import schedule as lpt_sched
 from .._device import deterministic_cuda, resolve_device
 from ..comm.chaos import FaultSpec
 from ..config import Config
@@ -49,7 +55,6 @@ from ..utils import metrics as _mx
 from ..utils.events import recorder
 from ..utils.health import record_participation, record_staleness
 from ..utils.prometheus import maybe_start_metrics_server
-from .simulator import refuse_cost_model
 
 
 def staleness_weight(alpha: float, tau, a: float = 0.5,
@@ -87,7 +92,6 @@ class AsyncSimulator:
                     f"train_args.{knob} has no effect on the async "
                     "simulator (its event loop dispatches one client at a "
                     "time); remove it or run the sync simulator")
-        refuse_cost_model(cfg)
         self.device = resolve_device(
             device if device is not None
             else cfg.device_args.extra.get("device"))
@@ -118,6 +122,11 @@ class AsyncSimulator:
         rs = np.random.RandomState(cfg.common_args.random_seed)
         # each client's wall time per unit of work (lognormal heterogeneity)
         self.client_time = rs.lognormal(0.0, spread, ds.num_clients)
+        # the Parrot cost model: the event loop sees every client's own
+        # completion time, recorded per merged client
+        self.cost_model = lpt_sched.CostModel.from_config(
+            t.extra.get("cost_model"),
+            {i: int(c) for i, c in enumerate(np.asarray(ds.counts))})
 
         self.data = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
             self.device) for k, v in (("x", ds.x_train), ("y", ds.y_train),
@@ -196,7 +205,7 @@ class AsyncSimulator:
                 dur *= self.straggler_factor
                 _mx.inc("fed.chaos.client_stragglers")
             heapq.heappush(heap, (now + dur, seq, cid, self.version,
-                                  self.params))
+                                  self.params, dur))
             seq += 1
 
         for _ in range(min(self.concurrency, total)):
@@ -206,7 +215,7 @@ class AsyncSimulator:
         merged = 0
         with recorder.span("async_run"):
             while merged < total:
-                finish, s, cid, v0, snap = heapq.heappop(heap)
+                finish, s, cid, v0, snap, dur = heapq.heappop(heap)
                 if spec is not None and spec.client_dropout > 0.0 \
                         and rs_fault.rand() < spec.client_dropout:
                     # the client crashed mid-round: its update never
@@ -224,8 +233,14 @@ class AsyncSimulator:
                 merged += 1
                 record_staleness(tau)
                 record_participation(cid)
+                if self.cost_model is not None:
+                    self.cost_model.record_dispatch([cid], float(dur))
                 _mx.set_gauge("fed.version", float(self.version))
                 if merged % eval_every == 0 or merged == total:
+                    if self.cost_model is not None:
+                        # refresh the fit and its fed.cost_model.* gauges
+                        # on the eval cadence; the loop places nothing
+                        self.cost_model.engaged()
                     loss_sum, count = torch.stack(
                         [met.loss_sum, met.count]).float().tolist()
                     row = {"update": merged, "sim_time": finish,

@@ -47,12 +47,35 @@ block, its last round's, as in the JAX package. A failed publish is
 logged and the run goes on. At the end of a run the buffering sinks are
 flushed (`utils/sinks.flush_sinks`).
 
-This is the JAX package's `backend: sp` path, and its `backend: xla` path
-when one device is visible. Not ported yet, each refused with a
-NotImplementedError naming its ROADMAP port-queue item: a mesh or several
-GPUs, and the cost model that places clients across them (item 4).
+Over a device mesh the Simulator runs SPMD, one instance in every rank
+of a `torch.distributed` world (`parallel/launch.py`, or torchrun): the
+JAX package's `backend: xla` path. The mesh is `mesh=` (a `DeviceMesh`;
+anything else is a TypeError), else, with backend xla over more than one
+rank, `device_args.mesh_shape`, then `device_args.extra.mesh_mapping_file`
+(`parallel/mesh.py`), then a `clients` axis over every rank. Every rank
+samples the same cohort, pads it to a multiple of the federated axis (of
+the cohort chunk when chunking) with zero-weight duplicates of ids[0]
+(`_pad_only`), and places it with balanced LPT (`schedule/`) when the
+weights vary or the cost model has engaged, unless padding meets FULL
+aggregation (`_lpt_applies`); a given schedule or fault mask follows its
+client through both. Each rank trains its block of the cohort and the
+round all-reduces (`parallel/round.py`); with `cohort_chunk` each rank
+streams only its own rows of every chunk. The stacked data is padded with
+zero-mask ghost clients to a multiple of the axis, as JAX's is; each rank
+holds the whole table, since any client can fall to any rank. Rank 0
+alone writes the history rows to the recorder, publishes models and
+saves checkpoints; every rank keeps the history and restores from the
+same directory. A (silos, intra) mesh runs the hierarchical round
+(`parallel/hier.py`, FedAvg / FedOpt, no round plugins, blocks or chunks):
+each rank holds its intra block of every client's samples.
+
+`train_args.cost_model` (`schedule.CostModel`) records each dispatch's
+wall time (across a mesh, the slowest rank's, so every rank fits the same
+model) and, once engaged, costs LPT by predicted runtime; the first
+dispatch, which carries the warm-up, is not recorded. Without a mesh it
+records and exports its gauges but places nothing, as in JAX.
 `common_args.extra.metrics_port` starts the process's /metrics endpoint
-(`utils/prometheus.py`).
+(`utils/prometheus.py`; rank 0's).
 """
 from __future__ import annotations
 
@@ -81,10 +104,13 @@ from ..data.fed_dataset import FedDataset
 from ..models import hub as model_hub
 from ..ops import keys
 from ..ops.tree import tree_leaves, tree_map
+from ..parallel import mesh as mesh_mod
+from ..parallel.mesh import make_mesh, mesh_from_file
 from ..parallel.round import (
     build_block_fn, build_chunk_fns, build_round_fn, group_width,
     stack_metrics,
 )
+from .. import schedule as lpt_sched
 from ..utils import checkpoint as ckpt
 from ..utils.events import recorder
 from ..utils.health import HealthTracker
@@ -94,30 +120,21 @@ from .ingest import DeviceChunk, IngestPipeline
 log = logging.getLogger(__name__)
 
 
-def _later(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP 'Port queue' item {item})")
+def _config_mesh(cfg: Config):
+    """The mesh the config asks for: with backend xla over more than one
+    rank, `mesh_shape`, else `mesh_mapping_file`, else `clients` over
+    every rank; None otherwise (one process is one device)."""
+    import torch.distributed as dist
 
-
-def _refuse_unported(cfg: Config, device: torch.device) -> None:
-    """Raise for every knob of the JAX Simulator this port does not run."""
-    if cfg.device_args.mesh_shape or cfg.device_args.extra.get(
-            "mesh_mapping_file"):
-        raise _later("a device mesh", "4, multi-GPU")
-    if (cfg.comm_args.backend == BACKEND_XLA and device.type == "cuda"
-            and torch.cuda.device_count() > 1):
-        raise _later("backend 'xla' over more than one GPU (a mesh)",
-                     "4, multi-GPU")
-    refuse_cost_model(cfg)
-
-
-def refuse_cost_model(cfg: Config) -> None:
-    """`train_args.cost_model` waits for multi-GPU (the async simulator
-    refuses it the same way)."""
-    if cfg.train_args.extra.get("cost_model"):
-        raise _later("train_args.cost_model (the Parrot cost model and LPT "
-                     "placement, which only place clients across devices)",
-                     "4, multi-GPU")
+    if not (cfg.comm_args.backend == BACKEND_XLA and dist.is_available()
+            and dist.is_initialized() and dist.get_world_size() > 1):
+        return None
+    mapping = cfg.device_args.extra.get("mesh_mapping_file")
+    if cfg.device_args.mesh_shape:
+        return make_mesh(cfg.device_args.mesh_shape)
+    if mapping:
+        return mesh_from_file(mapping)
+    return make_mesh({"clients": dist.get_world_size()})
 
 
 def _compose(*fns):
@@ -163,16 +180,30 @@ class Simulator:
 
     def __init__(self, cfg: Config, dataset: Optional[FedDataset] = None,
                  model=None, mesh=None, device=None, params=None):
-        if mesh is not None:
-            raise _later("a device mesh", "4, multi-GPU")
         self.device = resolve_device(
             device if device is not None
             else cfg.device_args.extra.get("device"))
-        _refuse_unported(cfg, self.device)
         deterministic_cuda(self.device)
         self.cfg = cfg
+        # every rank builds the config's mesh (collective); a rank it
+        # leaves out stops here
+        self.mesh = mesh if mesh is not None else _config_mesh(cfg)
+        mesh_mod.check_mesh(self.mesh, "the Simulator's mesh")
+        names = () if self.mesh is None else tuple(self.mesh.mesh_dim_names)
+        self._hier = names == ("silos", "intra")
+        self._axis = "silos" if self._hier else "clients"
+        if names not in ((), ("clients",), ("silos", "intra")):
+            raise ValueError(
+                f"the Simulator runs a ('clients',) mesh, or a ('silos', "
+                f"'intra') mesh for the hierarchical round; got {names}")
+        self._d = (mesh_mod.axis_size(self.mesh, self._axis)
+                   if self.mesh is not None else 0)
+        # rank 0 of the mesh writes the run's rows, models and checkpoints
+        self._lead = self.mesh is None or int(
+            self.mesh.mesh.flatten()[0]) == torch.distributed.get_rank()
         # opt-in live scrape surface (common_args.extra.metrics_port)
-        self.metrics_exporter = maybe_start_metrics_server(cfg)
+        self.metrics_exporter = (maybe_start_metrics_server(cfg)
+                                 if self._lead else None)
         t = cfg.train_args
         self.dataset = dataset if dataset is not None else data_loader.load(cfg)
         self.num_classes = self.dataset.num_classes
@@ -224,11 +255,14 @@ class Simulator:
         self.fault_spec = FaultSpec.from_config(cfg)
         fs = self.fault_spec
         self._plugins = dict(
+            mesh=self.mesh, axis=self._axis,
             aggregate_full=agg_full, postprocess_update=post_update,
             postprocess_agg=post_agg,
             num_real_clients=t.client_num_per_round,
             client_dropout=fs.client_dropout if fs else 0.0,
             client_straggler=fs.client_straggler if fs else 0.0)
+        self._use_full = agg_full is not None
+        self._schedule = bool(t.extra.get("heterogeneity_schedule", True))
         self.group_size = int(t.extra.get("clients_per_device_parallel", 1))
         # per-client health stats ride the round's metrics (default on, as
         # in the JAX package; train_args.extra.health_stats=False opts out);
@@ -237,16 +271,32 @@ class Simulator:
         self.health = HealthTracker.from_config(cfg)
         self._cohort_chunk = int(t.extra.get("cohort_chunk", 0) or 0)
         cc, m = self._cohort_chunk, t.client_num_per_round
-        g = group_width(cc or m, self.group_size)
+        d = max(self._d, 1)
+        if cc and cc % d:
+            raise ValueError(
+                f"train_args.cohort_chunk ({cc}) must be a multiple of "
+                f"the mesh size ({d}): a chunk splits into per-device "
+                "sub-batches")
+        if cc and self.group_size > 1 and (cc // d) % self.group_size:
+            raise ValueError(
+                f"train_args.clients_per_device_parallel ({self.group_size})"
+                f" must divide the per-device chunk (cohort_chunk/mesh = "
+                f"{cc // d}): unaligned client groups break chunked == "
+                "single-shot bit-identity")
+        per_rank = cc // d if cc else -(-m // d)
+        g = group_width(per_rank, self.group_size)
         if g < self.group_size:
             log.warning(
                 "clients_per_device_parallel=%d does not divide the %s (%d):"
                 " the clients train in groups of %d, the largest divisor",
                 self.group_size, "cohort chunk" if cc else "cohort",
-                cc or m, g)
+                per_rank, g)
         self.round_fn = self.chunk_fn = self.finalize_fn = None
         self._make_carry = None
-        if self._cohort_chunk:
+        if self._hier:
+            self._health_enabled = False
+            self.round_fn = self._hier_round(agg_full, post_update, post_agg)
+        elif self._cohort_chunk:
             if self._health_enabled:
                 log.info("cohort_chunk=%d: per-client health stats do not "
                          "ride chunked rounds; participation and straggler "
@@ -273,7 +323,21 @@ class Simulator:
         raw = {"x": ds.x_train, "y": ds.y_train, "mask": ds.mask_train}
         # data poisoning changes the host arrays before they are uploaded
         raw = self.attacker.poison_dataset(raw, self.num_classes)
-        if self._cohort_chunk:
+        counts = np.asarray(ds.counts, np.float32)
+        if self._d and not self._cohort_chunk:
+            # the stacked client axis a multiple of the mesh: zero-mask
+            # ghost clients, never sampled (ids < num_clients)
+            pad = (-raw["x"].shape[0]) % self._d
+            if pad:
+                raw = {k: np.concatenate([v, np.zeros(
+                    (pad,) + v.shape[1:], v.dtype)]) for k, v in raw.items()}
+                counts = np.concatenate([counts, np.zeros(pad, np.float32)])
+        if self._hier:
+            from ..parallel.hier import shard_hier_data
+
+            self._host_data = self._ingest = None
+            self.data = shard_hier_data(raw, self.mesh, device=self.device)
+        elif self._cohort_chunk:
             # the dataset stays in host memory; each round streams its
             # cohort chunk by chunk
             self._host_data = {k: np.asarray(v) for k, v in raw.items()}
@@ -283,10 +347,17 @@ class Simulator:
             self._ingest_stream = (torch.cuda.Stream(self.device)
                                    if self.device.type == "cuda" else None)
         else:
+            # the whole table on every rank: any client can fall to any
+            # rank's block of a cohort
             self._host_data = self._ingest = None
             self.data = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
                 self.device) for k, v in raw.items()}
-        self.counts = np.asarray(ds.counts, np.float32)
+        self.counts = counts
+        self._cost_model = lpt_sched.CostModel.from_config(
+            t.extra.get("cost_model"),
+            {i: int(c) for i, c in enumerate(np.asarray(ds.counts))})
+        # the first dispatch carries the warm-up: not a runtime sample
+        self._cold_dispatch = True
         xb, yb, mb = pad_test_batches(ds.x_test, ds.y_test,
                                       max(t.batch_size, 64))
         self._test = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(
@@ -308,54 +379,126 @@ class Simulator:
     def _pad_only(self, ids: np.ndarray):
         """(ids, weights, pad): the sampled ids with their sample counts
         as weights, padded to a multiple of the cohort chunk (when
-        chunking) with zero-weight duplicates of ids[0]. A duplicate of an
-        already-sampled client recomputes from the same pre-round state
-        and is never the row the state scatter keeps; padding with id 0
-        would corrupt client 0's persistent state on rounds it was not
-        sampled."""
+        chunking), else of the mesh's federated axis, with zero-weight
+        duplicates of ids[0]. A duplicate of an already-sampled client
+        recomputes from the same pre-round state and is never the row the
+        state scatter keeps; padding with id 0 would corrupt client 0's
+        persistent state on rounds it was not sampled."""
         weights = self.counts[ids].astype(np.float32)
-        pad = (-len(ids)) % self._cohort_chunk if self._cohort_chunk else 0
+        mult = self._cohort_chunk or self._d
+        pad = (-len(ids)) % mult if mult else 0
         if pad:
             ids = np.concatenate([ids, np.full(pad, ids[0], np.int32)])
             weights = np.concatenate([weights, np.zeros(pad, np.float32)])
         return ids, weights, pad
 
-    def _round_inputs(self, round_idx: int, batch_idx=None):
-        """(ids, weights, batch_idx) of one round; a given schedule of the
-        sampled clients gains its pads' rows (ids[0]'s, which is what a
-        pad would draw)."""
+    def _lpt_applies(self, weights: np.ndarray, pad: int) -> bool:
+        """Whether a padded id row gets the balanced-LPT permutation: on a
+        mesh, with more clients than ranks, varied weights (or an engaged
+        cost model), and not where padding meets FULL aggregation (the
+        hook sees the real clients as a prefix, which a permutation would
+        break)."""
+        if self.mesh is None:
+            return False
+        schedulable = pad == 0 or not self._use_full
+        varied = (len(np.unique(weights)) > 1
+                  or (self._cost_model is not None
+                      and self._cost_model.engaged()))
+        return bool(self._schedule and schedulable
+                    and len(weights) > self._d and varied)
+
+    def _sched_costs(self, ids: np.ndarray, weights: np.ndarray) -> np.ndarray:
+        """Per-slot LPT costs: the sample counts (the weights) until the
+        cost model engages, then its predicted runtimes; pads cost 0."""
+        cm = self._cost_model
+        if cm is None or not cm.engaged():
+            return weights
+        costs = cm.predict_costs(ids)
+        return np.where(weights > 0, costs, 0.0).astype(float)
+
+    def _record_dispatch(self, ids, weights, duration_s: float) -> None:
+        """Feed the cost model one dispatch's wall time over its real
+        clients (across a mesh the slowest rank's, so every rank fits the
+        same model and places alike); the cold first dispatch is
+        dropped."""
+        if self._cost_model is None or self._cold_dispatch:
+            return
+        if self.mesh is not None:
+            duration_s = mesh_mod.agree_max(duration_s, self.mesh, self._axis)
+        real = np.asarray(ids)[np.asarray(weights) > 0]
+        self._cost_model.record_dispatch(real.tolist(), duration_s)
+        # refresh the fit and the fed.cost_model.* gauges every time
+        self._cost_model.engaged()
+
+    def _round_inputs(self, round_idx: int, batch_idx=None, faults=None):
+        """(ids, weights, batch_idx, faults) of one round: the sampled
+        ids padded (`_pad_only`) and placed (`_lpt_applies`). A given
+        schedule or fault mask of the sampled clients gains its pads' rows
+        (ids[0]'s, which is what a pad draws) and follows the placement."""
         ids, weights, pad = self._pad_only(self.sample_clients(round_idx))
-        if batch_idx is not None and pad:
+        perm = None
+        if self._lpt_applies(weights, pad):
+            blocks = lpt_sched.balanced_lpt(self._sched_costs(ids, weights),
+                                            self._d)
+            perm = np.concatenate([np.asarray(b, int) for b in blocks])
+            ids, weights = ids[perm], weights[perm]
+        if batch_idx is not None and (pad or perm is not None):
             batch_idx = torch.as_tensor(np.asarray(batch_idx))
             batch_idx = torch.cat([batch_idx, batch_idx[:1].expand(
                 (pad,) + tuple(batch_idx.shape[1:]))])
-        return ids, weights, batch_idx
+            if perm is not None:
+                batch_idx = batch_idx[torch.from_numpy(perm)]
+        if faults is not None:
+            faults = {k: np.asarray(v) for k, v in faults.items()}
+            if pad:
+                faults = {k: np.concatenate([v, np.full(pad, v[0])])
+                          for k, v in faults.items()}
+            if perm is not None:
+                faults = {k: v[perm] for k, v in faults.items()}
+        return ids, weights, batch_idx, faults
 
     def _seed(self, round_idx: int):
         return (self.cfg.common_args.random_seed, round_idx)
 
     def _observe(self, round_idx, ids, weights, metrics: dict,
                  duration_s: float) -> dict:
-        """Feed the health tracker one round and step the DP accountant;
-        returns the history row's scalar metrics (with dp_epsilon where
-        the DP is accounted)."""
+        """Feed the health tracker and the cost model one round and step
+        the DP accountant; returns the history row's scalar metrics (with
+        dp_epsilon where the DP is accounted)."""
         health = metrics.pop("health", None)
         faults = metrics.pop("faults", None)
         self.health.observe_round(round_idx, ids, weights, health,
                                   duration_s=duration_s, faults=faults)
+        self._record_dispatch(ids, weights, duration_s)
         row = {k: float(v) for k, v in metrics.items()}
         self.dp.step_round()
         if self.dp.enabled and self.dp.accountant is not None:
             row["dp_epsilon"] = self.dp.get_epsilon()
         return row
 
-    def _pad_faults(self, faults, pad: int):
-        """A given {"dropped", "straggled"} of the sampled clients, its
-        pads' rows those of ids[0], which a pad shares."""
-        if faults is None or not pad:
-            return faults
-        return {k: np.concatenate([np.asarray(v), np.full(pad, np.asarray(
-            v)[0])]) for k, v in faults.items()}
+    def _hier_round(self, agg_full, post_update, post_agg):
+        """The (silos, intra) round: FedAvg / FedOpt with no plugins."""
+        from ..core.algorithm import make_client_optimizer, make_objective
+        from ..parallel.hier import make_hier_round
+
+        t = self.cfg.train_args
+        extras = [k for k, v in (
+            ("round plugins (security, DP, compression, chaos)",
+             agg_full or post_update or post_agg
+             or self._plugins["client_dropout"]
+             or self._plugins["client_straggler"]),
+            ("cohort_chunk", t.extra.get("cohort_chunk")),
+            ("rounds_per_block > 1",
+             int(t.extra.get("rounds_per_block", 1) or 1) > 1)) if v]
+        if extras:
+            raise ValueError(
+                f"the hierarchical round (a ('silos', 'intra') mesh) runs "
+                f"plain FedAvg / FedOpt; it takes no {', '.join(extras)}")
+        opt = make_client_optimizer(t.client_optimizer, t.learning_rate,
+                                    t.momentum, t.weight_decay)
+        return make_hier_round(self.apply_fn, self.alg, self.mesh, opt,
+                               t.batch_size, t.epochs,
+                               objective=make_objective(t.extra.get("task")))
 
     def run_round(self, round_idx: int, batch_idx=None, faults=None) -> dict:
         """One round. `batch_idx` ([m, steps, B], optional) is every
@@ -364,20 +507,31 @@ class Simulator:
         "straggled"}, [m] 0/1, optional) replaces the chaos plane's draws
         (the tests hand the JAX round's masks over this way)."""
         if self._cohort_chunk:
-            return self._run_round_chunked(round_idx, batch_idx, faults)
-        ids, weights, batch_idx = self._round_inputs(round_idx, batch_idx)
+            row = self._run_round_chunked(round_idx, batch_idx, faults)
+            self._cold_dispatch = False
+            return row
+        ids, weights, batch_idx, faults = self._round_inputs(
+            round_idx, batch_idx, faults)
         t0 = time.perf_counter()
         with recorder.span("train", round=round_idx):
-            out = self.round_fn(
-                self.server_state, self.client_states, self.data, ids,
-                weights, seed=self._seed(round_idx), batch_idx=batch_idx,
-                hook_state=self.hook_state, faults=faults)
-            metrics = fetch(out.metrics)
-        self.server_state = out.server_state
-        self.client_states = out.client_states
-        self.hook_state = out.hook_state
-        return self._observe(round_idx, ids, weights, metrics,
-                             time.perf_counter() - t0)
+            if self._hier:
+                self.server_state, metrics = self.round_fn(
+                    self.server_state, self.data, ids, weights,
+                    self._seed(round_idx), batch_idx)
+                metrics = fetch(metrics)
+            else:
+                out = self.round_fn(
+                    self.server_state, self.client_states, self.data, ids,
+                    weights, seed=self._seed(round_idx), batch_idx=batch_idx,
+                    hook_state=self.hook_state, faults=faults)
+                metrics = fetch(out.metrics)
+                self.server_state = out.server_state
+                self.client_states = out.client_states
+                self.hook_state = out.hook_state
+        row = self._observe(round_idx, ids, weights, metrics,
+                            time.perf_counter() - t0)
+        self._cold_dispatch = False
+        return row
 
     # ------------------------------------------- chunked cohort execution
     def _chunk_thunk(self, cids: np.ndarray):
@@ -393,22 +547,27 @@ class Simulator:
     def _dispatch_chunked(self, round_idx: int, batch_idx=None, faults=None):
         """Queue one chunk-streamed round: chunk k+1's gather and copy
         overlap chunk k's compute, the partial aggregate rides the carry,
-        finalize closes the round. Returns (ids, weights, RoundOutput)."""
-        ids, weights, batch_idx = self._round_inputs(round_idx, batch_idx)
-        c = self._cohort_chunk
-        faults = self._pad_faults(
-            faults, len(ids) - self.cfg.train_args.client_num_per_round)
+        finalize closes the round. Under a mesh each rank streams only its
+        own block of the cohort, cohort_chunk / d clients a chunk, in the
+        order the single-shot round trains them. Returns (ids, weights,
+        RoundOutput)."""
+        ids, weights, batch_idx, faults = self._round_inputs(
+            round_idx, batch_idx, faults)
+        c = self._cohort_chunk // max(self._d, 1)
         carry = self._make_carry(self.client_states, ids, self.device)
-        thunks = [self._chunk_thunk(ids[j:j + c])
-                  for j in range(0, len(ids), c)]
+        sh = carry["share"]
+        mine, w_mine = ids[sh], weights[sh]
+        thunks = [self._chunk_thunk(mine[j:j + c])
+                  for j in range(0, len(mine), c)]
         for j, chunk in enumerate(self._ingest.stream(thunks)):
-            lo = j * c
+            lo, hi = sh.start + j * c, sh.start + (j + 1) * c
             carry = self.chunk_fn(
                 carry, self.server_state, chunk.ready(), np.arange(c),
-                ids[lo:lo + c], weights[lo:lo + c], self._seed(round_idx),
-                lo, None if batch_idx is None else batch_idx[lo:lo + c],
+                mine[j * c:(j + 1) * c], w_mine[j * c:(j + 1) * c],
+                self._seed(round_idx), j * c,
+                None if batch_idx is None else batch_idx[lo:hi],
                 None if faults is None
-                else {k: v[lo:lo + c] for k, v in faults.items()})
+                else {k: v[lo:hi] for k, v in faults.items()})
         out = self.finalize_fn(self.server_state, carry, ids, self.hook_state)
         self.server_state = out.server_state
         self.client_states = out.client_states
@@ -445,12 +604,16 @@ class Simulator:
         return {"params": st.params, "opt_state": st.opt_state,
                 "round": st.round, "extra": st.extra}
 
-    def save(self, ckpt_dir: str, keep: Optional[int] = 3) -> str:
+    def save(self, ckpt_dir: str, keep: Optional[int] = 3) -> Optional[str]:
+        """Checkpoint the run (rank 0 of a mesh writes; the others return
+        None)."""
         rounds_done = len(self.history)
         if rounds_done == 0:
             raise ValueError(
                 "nothing to checkpoint: no rounds have completed (a "
                 "round_-1 directory would be invisible to restore)")
+        if not self._lead:
+            return None
         return ckpt.save_checkpoint(
             ckpt_dir, rounds_done - 1, self._server_dict(),
             client_states=self.client_states, history=self.history,
@@ -488,8 +651,12 @@ class Simulator:
     def _publish_model(self, r: int, params) -> None:
         """Publish round r's aggregated model to the artifact store (a
         no-op without one). A failed write is logged and the run goes on,
-        as in the JAX package: a store hiccup must not end a long run."""
+        as in the JAX package: a store hiccup must not end a long run.
+        Rank 0 of a mesh publishes."""
         from .. import mlops
+
+        if not self._lead:
+            return
 
         try:
             mlops.log_aggregated_model_info(r, params)
@@ -503,7 +670,8 @@ class Simulator:
         row = {"round": r, **self.run_round(r, batch_idx)}
         if self._eval_due(r, rounds):
             row.update(self.evaluate())
-        recorder.log(row)
+        if self._lead:
+            recorder.log(row)
         self.history.append(row)
         self._publish_model(r, self.server_state.params)
 
@@ -528,10 +696,10 @@ class Simulator:
                     self.alg, self.group_size, self._health_enabled,
                     **self._plugins)
             trips = [self._round_inputs(r, sched(r)) for r in blk]
-            ids = np.stack([i for i, _, _ in trips])
-            weights = np.stack([w for _, w, _ in trips])
+            ids = np.stack([i for i, _, _, _ in trips])
+            weights = np.stack([w for _, w, _, _ in trips])
             batch_idx = (None if batch_schedule is None
-                         else [b for _, _, b in trips])
+                         else [b for _, _, b, _ in trips])
             out = self.block_fn(
                 self.server_state, self.client_states, self.data, ids,
                 weights, self.cfg.common_args.random_seed, blk, batch_idx,
@@ -571,8 +739,11 @@ class Simulator:
                 row.update(self._eval_finish(eval_out))
                 recorder.log_block_span("eval", [r],
                                         time.perf_counter() - te)
-            recorder.log(row)
+            if self._lead:
+                recorder.log(row)
             self.history.append(row)
+        # the whole first block carried the warm-up
+        self._cold_dispatch = False
         if snap is not None:
             self._publish_model(blk[-1], snap)
 

@@ -448,8 +448,11 @@ def test_simulator_runs_with_its_own_draws():
 # (override, the ROADMAP item its refusal names or None where the knob is
 # ported and the Simulator builds, sections the case adds outside its id)
 REFUSED = [
-    ({"device_args": {"mesh_shape": {"clients": 2}}}, "item 4", {}),
-    ({"train_args": {"cost_model": True}}, "item 4", {}),
+    # ported since the mesh slice: one process is one rank, so a mesh
+    # shape builds the single-device Simulator (as JAX's does on one
+    # device), and the cost model records without placing
+    ({"device_args": {"mesh_shape": {"clients": 2}}}, None, {}),
+    ({"train_args": {"cost_model": True}}, None, {}),
     # ported since the artifact store: the Simulator builds, and publishes
     # only to a store mlops.init set up
     ({"tracking_args": {"artifact_dir": "/nonexistent"}}, None, {}),
@@ -516,12 +519,18 @@ def test_plugin_knobs_build(override, tmp_path):
 
 def test_unported_round_options_raise(tmp_path):
     """The round's hooks and chaos faults build (item 3e is ported); a
-    mesh still raises with its item. The tracking sinks are ported: init
-    attaches the run's JSONL sink, once however often it is called."""
+    real mesh builds (a one-rank world here), anything else passed as a
+    mesh is a TypeError. The tracking sinks are ported: init attaches the
+    run's JSONL sink, once however often it is called."""
+    from fedml_tpu_torch.parallel.launch import local_world
+    from fedml_tpu_torch.parallel.mesh import make_mesh
+
     alg = build_algorithm("FedAvg", lambda p, x: x, TrainArgs())
     build_round_fn(alg, postprocess_update=lambda u, r: u)
     build_round_fn(alg, client_dropout=0.1)
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with local_world():
+        build_round_fn(alg, mesh=make_mesh({"clients": 1}))
+    with pytest.raises(TypeError, match="DeviceMesh"):
         build_round_fn(alg, mesh=object())
     from fedml_tpu_torch.utils.events import recorder
     from fedml_tpu_torch.utils.sinks import JsonlSink

@@ -259,7 +259,12 @@ def test_loss_falls_over_eight_rounds(base):
 def test_unported_options_raise(base):
     _params, state = base
     alg, _ = federated_lora(_port_model(state), state, TrainArgs(), _gen())
-    with pytest.raises(NotImplementedError, match="item 4"):
+    from fedml_tpu_torch.parallel.launch import local_world
+    from fedml_tpu_torch.parallel.mesh import make_mesh
+
+    with local_world():
+        build_round_fn(alg, mesh=make_mesh({"clients": 1}))
+    with pytest.raises(TypeError, match="DeviceMesh"):
         build_round_fn(alg, mesh=object())
     with pytest.raises(NotImplementedError, match="group_size"):
         build_round_fn(alg, group_size=2)
