@@ -369,6 +369,40 @@ exits non-zero; nothing is caught and carried past):
              ranks); seconds per part and peak memory per rank. A rank
              that fails fails the phase; one that hangs is stopped after
              MESH_TIMEOUT_S and fails it.
+20. qlora  - the int8 LoRA base, vmapped LoRA clients and the seq round.
+             (a) LLaMA-2-7B at full width and depth, the seeded bf16 init
+             quantised on the card (`quantize_tree_int8`: its
+             `quant_bytes` beside the bf16 base's), served by the
+             `serve` cell's engine (8 slots, max_len 1024, pages of 16,
+             prefill chunks of 256, paged_kernel) with rank-8 adapters
+             (nonzero B) on the first QLORA_WAVE requests, beside the
+             bf16 base's engine on the same wave: peak memory, ms a
+             decode step, decode tokens/s, K4 launches = 32 x decode
+             steps; then the f32 engine over the int8 base (TF32 off)
+             on QLORA_CHECK of them for QLORA_CHECK_NEW tokens, token
+             identical to the f32 recompute greedy loop of
+             `make_inscan_quant_apply` under the near-tie rule (the bf16
+             engine's match with the bf16 loop printed, not gated).
+             (b) `make_fedllm_seq_round(inscan_quant=True)` over that
+             int8 base on a one-rank NCCL (silos 1, seq 1) mesh, bf16:
+             one round of 2 clients x QLORA_SEQS sequences of 2048
+             tokens, batch 1: adapters finite and moved, peak memory.
+             (c) the flash LoRA round at 7B width and QLORA_LAYERS
+             layers, bf16, at G = QLORA_G against G = 1 (phase train's
+             clients, sequences and schedule): the adapters within
+             QLORA_VMAP_TOL of G = 1's largest update, launches K1 =
+             2 x layers x group steps (not x G), K2 = K3 = layers x
+             group steps; at the group's shape (G 2, BH 64, T 2048, D
+             128) the folded K1-K3 bitwise the per-client launches, one
+             launch each, and within FLASH_TOL of their plain versions;
+             the folded forward and gradient timed against the clients'
+             launches one by one.
+             (d) two gloo ranks sharing the card, 7B width, QLORA_LAYERS
+             layers, f32 (TF32 off): the (silos 1, seq 2) round, ring
+             and Ulysses, over the float and the int8 base (2 clients x
+             QLORA_SEQS sequences of QLORA_SEQ_T), each within
+             QLORA_SEQ_TOL (atol, rtol) of the (silos 1, seq 1) round,
+             the ranks' adapters bitwise, exit codes 0.
 
 Then the `kernels` line, the raw `nvidia-smi` name/power-limit line, and as
 the last line {"ok": true, "device": {...}}. Imports nothing of JAX or of
@@ -393,7 +427,7 @@ import numpy as np
 PHASES = ("device", "build", "kernel", "engine", "serve", "serve_surface",
           "flash", "train", "fedavg", "fedsim", "plugins", "cross_silo",
           "cross_silo_secure", "standalone", "entry", "tasks", "runtimes",
-          "fleet", "mesh")
+          "fleet", "mesh", "qlora")
 # run only when named in --only
 OPTIONAL = ("profile", "train_profile", "fedavg_profile")
 DEV = "cuda"
@@ -654,6 +688,19 @@ FLEET_LOOP_SLO = {"shed_frac_max": 0.4, "ttft_p99_slo_ms": 5000.0,
 # a silo (2 steps of 32), and the seconds after which a rank that has not
 # answered is stopped and fails the phase
 MESH_CLIENTS, MESH_SAMPLES, MESH_SILO_ROWS, MESH_TIMEOUT_S = 9, 64, 64, 240
+# phase qlora: (a) the first QLORA_WAVE of `_requests` through the serve
+# cell's engine, bf16 and int8 bases, and QLORA_CHECK of them for
+# QLORA_CHECK_NEW tokens through the f32 engine against the f32 recompute
+# loop; (b) QLORA_SEQS sequences of TRAIN_T a client, batch 1; (c) the
+# group width and depth of the vmapped round, and the bar on its adapters:
+# max |a(G=2) - a(G=1)| over max |a(G=1) - a0| (bf16: the vmapped group
+# runs its products as batched cuBLAS calls, which round bf16 at other
+# points than the per-client calls; the flash kernels themselves give the
+# same bits); (d) the seq round's depth, its tokens a sequence and the
+# JAX inscan bar (tests/test_fedllm_scale.py:403-406)
+QLORA_WAVE, QLORA_CHECK, QLORA_CHECK_NEW = 8, (0, 2, 3), 8
+QLORA_SEQS, QLORA_G, QLORA_LAYERS, QLORA_VMAP_TOL = 2, 2, 2, 5e-2
+QLORA_SEQ_T, QLORA_SEQ_TOL, QLORA_TIMEOUT_S = 256, (2e-4, 2e-3), 300
 VMAP_FALLBACK = ("There is a performance drop because we have not yet "
                  "implemented the batching rule")
 
@@ -6413,12 +6460,485 @@ def phase_mesh() -> dict:
     return res
 
 
+# ------------------------------------------------------------- phase 20
+def _qlora_rank_setup() -> None:
+    """Phase qlora (d)'s rank setup, run as each rank joins: cuBLAS's and
+    cuDNN's TF32 off in the rank's process (the f32 bar)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _recompute_greedy(apply, model, ads, prompt, n_new) -> tuple:
+    """(tokens, top-2 margins) of the greedy loop over the full-recompute
+    forward `apply(model, ads, tokens)`, one forward a token."""
+    import torch
+
+    buf, margins = list(prompt), []
+    with torch.no_grad():
+        for _ in range(n_new):
+            lg = apply(model, ads, torch.tensor([buf], device=DEV))[0, -1]
+            top = torch.topk(lg.float(), 2).values
+            margins.append(float(top[0] - top[1]))
+            buf.append(int(lg.float().argmax()))
+    return buf[len(prompt):], margins
+
+
+def _against_recompute(outs, refs) -> dict:
+    """Token identity against the recompute loop under the near-tie rule:
+    a stream whose first difference sits at a pick where the recompute's
+    top-2 margin is below NEAR_TIE passes (nothing after it is read)."""
+    ties = []
+    for i, (a, (b, margins)) in enumerate(zip(outs, refs)):
+        j = next((k for k in range(len(b)) if a[k] != b[k]), None)
+        if j is None:
+            continue
+        emit({"phase": "qlora", "near_tie": {"request": i, "pick": j,
+                                            "margin": margins[j]}})
+        check(margins[j] < NEAR_TIE, f"qlora (a): request {i} differs from "
+              f"the recompute at pick {j}, top-2 margin {margins[j]}")
+        ties.append(i)
+    return {"identical": len(refs) - len(ties), "near_ties": ties}
+
+
+def _qlora_a(reqs) -> tuple:
+    """Phase qlora (a): the int8 7B base served by the engine at the serve
+    cell's knobs with rank-8 adapters, beside the bf16 base; the f32
+    engine over the int8 base against the f32 recompute loop. Returns
+    (results, the int8 state, the adapters)."""
+    import torch
+
+    from fedml_tpu_torch.llm import quant
+    from fedml_tpu_torch.llm.transformer import (
+        LLAMA2_7B, TransformerLM, init_params,
+    )
+
+    L, nh = LLAMA2_7B.n_layers, LLAMA2_7B.n_heads
+    wave = reqs[:QLORA_WAVE]
+    t0 = time.perf_counter()
+    state = init_params(LLAMA2_7B, seed=0, dtype=torch.bfloat16, device=DEV)
+    model = TransformerLM.from_state(LLAMA2_7B, state)
+    ads = _adapters(model, seed=5)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    res = {"bf16_bytes": quant.quant_bytes(state), "init_s": init_s}
+    torch.cuda.reset_peak_memory_stats()
+    outs_b, st_b = _serve(model, wave, adapters=ads, paged_kernel=True)
+    st_b["peak_bytes"] = torch.cuda.max_memory_allocated()
+    t1 = time.perf_counter()
+    qstate = quant.quantize_tree_int8(state)
+    torch.cuda.synchronize()
+    res["quantize_s"] = time.perf_counter() - t1
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["int8_bytes"] = quant.quant_bytes(qstate)
+    qmodel = TransformerLM.from_state(LLAMA2_7B, qstate)
+    torch.cuda.reset_peak_memory_stats()
+    outs_q, st_q = _serve(qmodel, wave, adapters=ads, paged_kernel=True)
+    st_q["peak_bytes"] = torch.cuda.max_memory_allocated()
+    for st in (st_b, st_q):
+        st["ms_per_decode_step"] = st["wall_s"] * 1e3 / st["decode_steps"]
+    # the bf16 engine against the bf16 recompute loop: printed, not gated
+    # (bf16 rounds at other points in the two paths; random weights)
+    apply_b = quant.make_inscan_quant_apply(nh, dtype=torch.bfloat16)
+    same_b = sum(
+        x == y for i in QLORA_CHECK for x, y in zip(_recompute_greedy(
+            apply_b, qmodel, ads, wave[i][0], QLORA_CHECK_NEW)[0],
+            outs_q[i]))
+    # the bar: the f32 engine over the int8 base against the f32 recompute
+    # loop of make_inscan_quant_apply, TF32 off
+    checks = [(reqs[i][0], QLORA_CHECK_NEW) for i in QLORA_CHECK]
+    with _tf32_off():
+        outs_f, st_f = _serve(qmodel, checks, adapters=ads,
+                              paged_kernel=True, dtype=torch.float32)
+        apply_f = quant.make_inscan_quant_apply(nh, dtype=torch.float32)
+        refs = [_recompute_greedy(apply_f, qmodel, ads, p, n)
+                for p, n in checks]
+    ident = _against_recompute(outs_f, refs)
+    res.update(bf16_wave=st_b, int8_wave=st_q, f32_check=st_f,
+               bf16_recompute_match=same_b / (len(QLORA_CHECK)
+                                              * QLORA_CHECK_NEW),
+               f32_vs_recompute=ident,
+               int8_vs_bf16_greedy_match=sum(
+                   x == y for a, b in zip(outs_b, outs_q)
+                   for x, y in zip(a, b)) / sum(len(a) for a in outs_b))
+    emit({"phase": "qlora", "part": "a_serving", **res})
+    for outs, st in ((outs_b, st_b), (outs_q, st_q), (outs_f, st_f)):
+        check(all(len(o) == n for o, (_p, n) in zip(
+            outs, wave if st is not st_f else checks)),
+              "qlora (a): a ticket ended short of max_new_tokens")
+        check(st["launches"] == L * st["decode_steps"] > 0,
+              f"qlora (a): K4 launches {st['launches']} != {L} x "
+              f"{st['decode_steps']} decode steps")
+    del qmodel
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, qstate, ads
+
+
+def _qlora_b(qstate, ads) -> dict:
+    """Phase qlora (b): make_fedllm_seq_round(inscan_quant=True) over the
+    int8 7B base on a one-rank NCCL (silos 1, seq 1) mesh, one round."""
+    import torch
+
+    from fedml_tpu_torch.config import TrainArgs
+    from fedml_tpu_torch.core.algorithm import ServerState
+    from fedml_tpu_torch.llm import make_fedllm_seq_round, shard_fedllm_data
+    from fedml_tpu_torch.llm.transformer import LLAMA2_7B, TransformerLM
+    from fedml_tpu_torch.parallel.launch import local_world
+    from fedml_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(11)
+    seqs = rng.integers(0, LLAMA2_7B.vocab_size,
+                        (TRAIN_CLIENTS, QLORA_SEQS, TRAIN_T + 1))
+    raw = {"x": seqs[..., :-1], "y": seqs[..., 1:],
+           "mask": np.ones((TRAIN_CLIENTS, QLORA_SEQS), np.float32)}
+    t = TrainArgs(epochs=1, batch_size=1, learning_rate=1e-3,
+                  compute_dtype="bfloat16")
+    model = TransformerLM.from_state(LLAMA2_7B, qstate)
+    k0 = _k1_k4()
+    torch.cuda.reset_peak_memory_stats()
+    with local_world("nccl", DEV):
+        mesh = make_mesh({"silos": 1, "seq": 1})
+        rnd = make_fedllm_seq_round(model, qstate, t, mesh,
+                                    inscan_quant=True)
+        data = shard_fedllm_data(raw, mesh, device=DEV)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, met = rnd(ServerState(ads, None, 0), data,
+                      np.arange(TRAIN_CLIENTS),
+                      np.full(TRAIN_CLIENTS, float(QLORA_SEQS)), seed=0)
+        loss = float(met["train_loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    moved = min((st.params[k][n] - ads[k][n]).abs().max().item()
+                for k in ads for n in ("a", "b"))
+    finite = all(torch.isfinite(v).all().item() for ab in st.params.values()
+                 for v in ab.values())
+    steps = TRAIN_CLIENTS * QLORA_SEQS
+    res = {"clients": TRAIN_CLIENTS, "seqs": QLORA_SEQS, "seq_len": TRAIN_T,
+           "steps": steps, "round_s": wall, "s_per_step": wall / steps,
+           "tokens_per_s": steps * TRAIN_T / wall, "train_loss": loss,
+           "n_tokens": float(met["n_tokens"]), "min_adapter_move": moved,
+           "finite": finite, "peak_bytes": torch.cuda.max_memory_allocated(),
+           "k1_k4": _k1_k4() - k0}
+    emit({"phase": "qlora", "part": "b_seq_round_int8_7b", **res})
+    check(finite and np.isfinite(loss), "qlora (b): adapters not finite")
+    check(moved > 0, "qlora (b): an adapter did not move")
+    return res
+
+
+def _qlora_c(bw: float) -> dict:
+    """Phase qlora (c): the flash LoRA round at 7B width and QLORA_LAYERS
+    layers in bf16, G = QLORA_G against G = 1, and the folded flash
+    kernels at the group's shape: bitwise the per-client launches and
+    within the rule of their plain versions, timed beside the per-client
+    launches, the plain forward, SDPA's forward and the forward's bound
+    (HBM rate `bw`)."""
+    import torch
+    import torch.nn.functional as F
+
+    from fedml_tpu_torch.config import TrainArgs
+    from fedml_tpu_torch.core.algorithm import make_batch_indices
+    from fedml_tpu_torch.llm.transformer import LLAMA2_7B, init_params
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.parallel.round import build_round_fn, client_generator
+
+    g, bh, t, d = QLORA_G, TRAIN_BS * H, TRAIN_T, DH
+    rng = np.random.default_rng(21)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (g, bh, t, d), np.float32)).to(DEV, torch.bfloat16) for _ in range(4))
+
+    def loss(q_, k_, v_, do_):
+        return (fa.flash_attention(q_, k_, v_).float() * do_.float()).sum()
+
+    grad = torch.func.grad(loss, argnums=(0, 1, 2))
+    before = dict(fa.launch_count)
+    o_v = torch.func.vmap(fa.flash_attention)(q, k, v)
+    g_v = torch.func.vmap(grad)(q, k, v, do)
+    torch.cuda.synchronize()
+    fold = {n: fa.launch_count[n] - before[n] for n in before}
+    bitwise = all(
+        torch.equal(o_v[i], fa.flash_attention(q[i], k[i], v[i]))
+        and all(torch.equal(a[i], b) for a, b in
+                zip(g_v, grad(q[i], k[i], v[i], do[i])))
+        for i in range(g))
+    qf, kf, vf, dof = (x.reshape(g * bh, t, d) for x in (q, k, v, do))
+    o_f, lse = fa.flash_fwd(qf, kf, vf)
+    delta = fa.flash_delta(o_f, dof)
+    bq, bk = FLASH_BQ, FLASH_BK
+    errs = _errors((
+        ("o", o_v.reshape(g * bh, t, d), fa.flash_fwd_ref(qf, kf, vf, bq,
+                                                          bk)[0]),
+        ("dq", g_v[0].reshape(g * bh, t, d),
+         fa.flash_dq_ref(qf, kf, vf, dof, lse, delta, bq, bk)),
+        *zip(("dk", "dv"), (x.reshape(g * bh, t, d) for x in g_v[1:]),
+             fa.flash_dkv_ref(qf, kf, vf, dof, lse, delta, bq, bk))),
+        f"qlora (c) folded at G {g}, BH {bh}, T {t}", FLASH_TOL["bf16"])
+    same_fold = torch.equal(o_f, o_v.reshape(g * bh, t, d))
+    # the group's folded launches against its clients' launches one by
+    # one (CUDA-event medians): the forward, and the gradient (forward,
+    # delta, dQ, dK/dV)
+    vfwd = torch.func.vmap(fa.flash_attention)
+    vgrad = torch.func.vmap(grad)
+    fold_ms = {
+        "fwd": time_ms(lambda: vfwd(q, k, v)),
+        "fwd_per_client": time_ms(lambda: [fa.flash_attention(
+            q[i], k[i], v[i]) for i in range(g)]),
+        "grad": time_ms(lambda: vgrad(q, k, v, do)),
+        "grad_per_client": time_ms(lambda: [grad(q[i], k[i], v[i], do[i])
+                                            for i in range(g)]),
+        "fwd_plain": time_ms(lambda: fa.flash_fwd_ref(qf, kf, vf, bq, bk),
+                             n=10, warmup=2),
+        "fwd_library": time_ms(lambda: F.scaled_dot_product_attention(
+            qf[None], kf[None], vf[None], is_causal=True))}
+    fold_bound = _bound(*_flash_cost("fwd", g * bh, t, d, 2),
+                        torch.bfloat16, bw)
+    del q, k, v, do, o_v, g_v, qf, kf, vf, dof, o_f, lse, delta
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dims = dataclasses.replace(LLAMA2_7B, n_layers=QLORA_LAYERS)
+    L = QLORA_LAYERS
+    state = init_params(dims, seed=0, dtype=torch.bfloat16, device=DEV)
+    data = _token_data(dims.vocab_size, seed=0)
+    tr = TrainArgs(epochs=1, batch_size=TRAIN_BS, learning_rate=1e-3,
+                   compute_dtype="bfloat16")
+    alg, adapters, _fn = _fed_lora(dims, state, tr, flash=True)
+    ids = np.arange(TRAIN_CLIENTS)
+    weights = np.full((TRAIN_CLIENTS,), float(TRAIN_SEQS), np.float32)
+    sched = [make_batch_indices(client_generator(7, int(c)), TRAIN_SEQS,
+                                TRAIN_BS, 1) for c in ids]
+    steps = TRAIN_SEQS // TRAIN_BS
+    rounds = {}
+    for group in (1, g):
+        fn = build_round_fn(alg, group_size=group)
+        fa.launch_count.update(dict.fromkeys(fa.launch_count, 0))
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = fn(alg.server_init(adapters), None, data, ids, weights, seed=7,
+               batch_idx=sched)
+        loss_v = o.metrics["train_loss"].item()
+        torch.cuda.synchronize()
+        rounds[group] = {"round_s": time.perf_counter() - t0,
+                         "train_loss": loss_v,
+                         "launches": dict(fa.launch_count),
+                         "peak_bytes": torch.cuda.max_memory_allocated(),
+                         "params": o.server_state.params}
+    update = _max_abs_diff(rounds[1]["params"], adapters)
+    diff = _max_abs_diff(rounds[g]["params"], rounds[1]["params"])
+    for r in rounds.values():
+        del r["params"]
+    res = {"fold": {"group": g, "shape": [bh, t, d], "launches": fold,
+                    "bitwise_per_client": bitwise,
+                    "folded_is_one_launch": same_fold, "errors": errs,
+                    "ms": fold_ms, "fwd_bound": fold_bound},
+           "layers": L, "rounds": rounds, "max_abs_adapter_diff": diff,
+           "max_abs_adapter_update": update,
+           "ratio": diff / update if update else float("inf"),
+           "tol": QLORA_VMAP_TOL, "launches": rounds[g]["launches"]}
+    emit({"phase": "qlora", "part": "c_vmapped_lora", **res})
+    zero = dict.fromkeys(fa.launch_count, 0)
+    check(fold == {**zero, "fwd_tc": 2, "dq_tc": 1, "dkv_tc": 1},
+          f"qlora (c): the folded passes launched {fold}, not K1 twice "
+          "(forward, and the grad's forward), K2 and K3 once")
+    check(bitwise and same_fold, "qlora (c): the folded launches are not "
+          "the per-client launches bit for bit")
+    for group, n in ((1, TRAIN_CLIENTS * steps), (g, steps)):
+        want = {**zero, "fwd_tc": 2 * L * n, "dq_tc": L * n, "dkv_tc": L * n}
+        check(rounds[group]["launches"] == want,
+              f"qlora (c): G = {group} launched {rounds[group]['launches']}"
+              f" != {want}")
+    check(update > 0 and diff <= QLORA_VMAP_TOL * update,
+          f"qlora (c): G = {g} round {diff} from G = 1's, over "
+          f"{QLORA_VMAP_TOL} x its update {update}")
+    del state, data, alg, adapters, rounds, o
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _qlora_rank_d(cfg: dict) -> dict:
+    """Phase qlora (d) in one gloo rank: the f32 seq round at the dims
+    `cfg["dims"]` (7B width, QLORA_LAYERS layers) on the (silos 1, seq 2)
+    mesh, ring and Ulysses, over the float and the int8 base, sequences
+    of `cfg["seq_t"]` tokens; rank 0 also the (silos 1, seq 1) round of
+    each (a prefix mesh without rank 1). The dims come as an argument and
+    the device from the rank, so that a CPU rehearsal can cut them."""
+    import torch
+
+    from fedml_tpu_torch.config import TrainArgs
+    from fedml_tpu_torch.core.algorithm import ServerState
+    from fedml_tpu_torch.llm import (
+        make_fedllm_seq_round, quant, shard_fedllm_data,
+    )
+    from fedml_tpu_torch.llm.lora import lora_init
+    from fedml_tpu_torch.llm.transformer import (
+        ModelDims, TransformerLM, init_params,
+    )
+    from fedml_tpu_torch.parallel import mesh as mesh_mod
+    from fedml_tpu_torch.parallel.launch import current
+
+    info = current()
+    dev = info.device
+    cuda = dev.type == "cuda"
+    dims = ModelDims(**cfg["dims"])
+    state = init_params(dims, seed=0, dtype=torch.float32, device=dev)
+    qstate = quant.quantize_tree_int8(state)
+    model = TransformerLM.from_state(dims, state)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ads = lora_init(state, LORA_RANK, generator=gen)
+    for ab in ads.values():
+        ab["b"] = 0.05 * torch.randn(ab["b"].shape, generator=gen, device=dev)
+    meshes = (("seq2", mesh_mod.make_mesh({"silos": 1, "seq": 2})),
+              ("seq1", mesh_mod.make_mesh({"silos": 1, "seq": 1})))
+    rng = np.random.default_rng(13)
+    seqs = rng.integers(0, dims.vocab_size,
+                        (TRAIN_CLIENTS, QLORA_SEQS, cfg["seq_t"] + 1))
+    raw = {"x": seqs[..., :-1], "y": seqs[..., 1:],
+           "mask": np.ones((TRAIN_CLIENTS, QLORA_SEQS), np.float32)}
+    t = TrainArgs(epochs=1, batch_size=1, learning_rate=1e-2,
+                  compute_dtype="float32")
+    ids = np.arange(TRAIN_CLIENTS)
+    w = np.full(TRAIN_CLIENTS, float(QLORA_SEQS))
+    k0 = _k1_k4()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    runs = {}
+    for attn in ("ring", "ulysses"):
+        for inscan in (False, True):
+            res = {}
+            for tag, m in meshes:
+                if not mesh_mod.in_mesh(m):
+                    continue
+                rnd = make_fedllm_seq_round(
+                    model, qstate if inscan else state, t, m, attn=attn,
+                    inscan_quant=inscan)
+                data = shard_fedllm_data(raw, m, device=dev)
+                if cuda:
+                    torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                st, met = rnd(ServerState(ads, None, 0), data, ids, w,
+                              seed=0)
+                if cuda:
+                    torch.cuda.synchronize(dev)
+                res[tag] = {"seconds": time.perf_counter() - t0,
+                            "train_loss": float(met["train_loss"]),
+                            "params": {k: {n: x.cpu().numpy()
+                                           for n, x in ab.items()}
+                                       for k, ab in st.params.items()}}
+            runs[attn + ("_inscan" if inscan else "")] = res
+    return {"rank": info.rank, "backend": info.backend, "runs": runs,
+            "start": {k: {n: x.cpu().numpy() for n, x in ab.items()}
+                      for k, ab in ads.items()},
+            "k1_k4": _k1_k4() - k0,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda
+            else 0}
+
+
+def _qlora_d(pool) -> dict:
+    """Phase qlora (d): two gloo ranks sharing the card run `_qlora_rank_d`;
+    each (silos 1, seq 2) round within QLORA_SEQ_TOL of the (silos 1,
+    seq 1) round, the two ranks' adapters the same bit for bit."""
+    from fedml_tpu_torch.llm.transformer import LLAMA2_7B
+
+    outs = pool.run(_qlora_rank_d, {
+        "dims": dataclasses.asdict(dataclasses.replace(
+            LLAMA2_7B, n_layers=QLORA_LAYERS)), "seq_t": QLORA_SEQ_T})
+    r0, r1 = outs
+    atol, rtol = QLORA_SEQ_TOL
+    res = {"backend": r0["backend"], "seq_len": QLORA_SEQ_T,
+           "k1_k4": [o["k1_k4"] for o in outs],
+           "peak_bytes": [o["peak_bytes"] for o in outs], "runs": {}}
+    for name, runs in r0["runs"].items():
+        a, b = runs["seq2"]["params"], runs["seq1"]["params"]
+        err = max(float(np.abs(a[k][n] - b[k][n]).max()) for k in a
+                  for n in ("a", "b"))
+        upd = max(float(np.abs(b[k][n] - r0["start"][k][n]).max())
+                  for k in b for n in ("a", "b"))
+        within = all(np.allclose(a[k][n], b[k][n], rtol=rtol, atol=atol)
+                     for k in a for n in ("a", "b"))
+        same_ranks = all(np.array_equal(a[k][n],
+                                        r1["runs"][name]["seq2"]["params"][k][n])
+                         for k in a for n in ("a", "b"))
+        res["runs"][name] = {
+            "max_abs_err": err, "max_update": upd, "within_tol": within,
+            "ranks_bitwise": same_ranks,
+            "loss_seq2": runs["seq2"]["train_loss"],
+            "loss_seq1": runs["seq1"]["train_loss"],
+            "seconds_seq2": runs["seq2"]["seconds"],
+            "seconds_seq1": runs["seq1"]["seconds"]}
+    emit({"phase": "qlora", "part": "d_seq_round_gloo", **res})
+    for name, r in res["runs"].items():
+        check(r["max_update"] > 0 and r["within_tol"],
+              f"qlora (d) {name}: seq 2 is {r['max_abs_err']} from seq 1, "
+              f"outside atol {atol} / rtol {rtol}")
+        check(r["ranks_bitwise"], f"qlora (d) {name}: the ranks' adapters "
+              "differ")
+        check(np.isclose(r["loss_seq2"], r["loss_seq1"], rtol=rtol,
+                         atol=atol), f"qlora (d) {name}: losses "
+              f"{r['loss_seq2']} vs {r['loss_seq1']}")
+    return res
+
+
+def phase_qlora(reqs, bw: float) -> dict:
+    """Phase 20 (module docstring)."""
+    import torch
+
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.ops import paged_attention as pa
+    from fedml_tpu_torch.parallel.launch import RankPool
+
+    t0 = time.perf_counter()
+    fa.launch_count.update(dict.fromkeys(fa.launch_count, 0))
+    pa.launch_count = 0
+    # (d)'s two ranks reach the card while (a)-(c) run here
+    pool = RankPool([DEV, DEV], timeout_s=QLORA_TIMEOUT_S,
+                    setup=_qlora_rank_setup)
+    res = {}
+
+    def part(name, fn, *args):
+        t1 = time.perf_counter()
+        out = fn(*args)
+        res[name] = out[0] if isinstance(out, tuple) else out
+        res[name]["part_seconds"] = time.perf_counter() - t1
+        emit({"phase": "qlora", "part": name,
+              "seconds": res[name]["part_seconds"]})
+        return out
+
+    try:
+        _res, qstate, ads = part("a", _qlora_a, reqs)
+        part("b", _qlora_b, qstate, ads)
+        del qstate, ads
+        gc.collect()
+        torch.cuda.empty_cache()
+        part("c", _qlora_c, bw)
+        part("d", _qlora_d, pool)
+    finally:
+        res["d_exitcodes"] = pool.close()
+    res["seconds"] = time.perf_counter() - t0
+    emit({"phase": "qlora", "d_exitcodes": res["d_exitcodes"],
+          "nvidia_smi": nvidia_smi_line(), "seconds": res["seconds"]})
+    check(res["d_exitcodes"] == [0, 0],
+          f"qlora (d): rank exit codes {res['d_exitcodes']}")
+    return res
+
+
 def kernel_rows(kern: dict, runs: dict, flash: dict, train: dict,
-                surface: dict, every_phase: bool, fleet=None) -> list:
+                surface: dict, every_phase: bool, fleet=None,
+                qlora=None) -> list:
     """The `kernels` line's rows from the phases' results; with
     `every_phase`, also checks that each kernel was launched where it
     should have been. The bf16 K4 row carries phase fleet's main-path
-    launches (its loadgen wave over two replicas) as `fleet_launches`."""
+    launches (its loadgen wave over two replicas) as `fleet_launches`,
+    and phase qlora's (the engine over the int8 7B base) as
+    `qlora_launches`; the bf16 K1-K3 rows carry phase qlora's vmapped
+    LoRA round (G = 2, one launch a layer and pass a group step) as
+    `qlora_launches`."""
+    qlora = qlora or {}
     kernels = []
     for kind, k in kern.items():
         if kind == "bf16" and "serve_c5" in k:
@@ -6453,6 +6973,8 @@ def kernel_rows(kern: dict, runs: dict, flash: dict, train: dict,
         if kind == "bf16":
             kernels[-1]["fleet_launches"] = (fleet or {}).get(
                 "a", {}).get("launches", 0)
+            kernels[-1]["qlora_launches"] = qlora.get("a", {}).get(
+                "int8_wave", {}).get("launches", 0)
     # the flash kernels at the main path's dtype (bf16: the tensor-core
     # kernels) and at f32 (the three-pass TF32 kernels). `launches` is each
     # kernel's count from phase train's main path; `parity_launches` its
@@ -6507,10 +7029,24 @@ def kernel_rows(kern: dict, runs: dict, flash: dict, train: dict,
             "d40": {**timed(g, fk, lib_key),
                     "check_launches": d40["launches"][counter],
                     "at_flagship": timed(g["at_flagship"], fk, lib_key)}})
+        if dt == "bf16":
+            kernels[-1]["qlora_launches"] = qlora.get("c", {}).get(
+                "launches", {}).get(counter, 0)
+        fold = qlora.get("c", {}).get("fold")
+        if fold and counter == "fwd_tc":
+            # K1 over the vmapped group (G x BH folded into one launch)
+            m, b = fold["ms"], fold["fwd_bound"]
+            kernels[-1]["qlora_fold"] = {
+                "shape": [fold["group"] * fold["shape"][0]]
+                + fold["shape"][1:], "ms": m["fwd"],
+                "per_client_ms": m["fwd_per_client"],
+                "plain_ms": m["fwd_plain"], "library_ms": m["fwd_library"],
+                "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
     # no kernel can beat the least time the card needs for its work
     flash_rows = [k for k in kernels if "d40" in k]
     every_time = kernels + [k["d40"] for k in flash_rows] + [
-        k["d40"]["at_flagship"] for k in flash_rows]
+        k["d40"]["at_flagship"] for k in flash_rows] + [
+        k["qlora_fold"] for k in kernels if "qlora_fold" in k]
     check(all(k["ms"] >= k["bound_ms"] for k in every_time),
           "a kernel's time is below its bound: the bound is wrong")
     if every_phase:
@@ -6528,6 +7064,9 @@ def kernel_rows(kern: dict, runs: dict, flash: dict, train: dict,
         check(all(k["fleet_launches"] > 0 for k in kernels
                   if "fleet_launches" in k),
               "K4 was never launched by phase fleet's main path")
+        check(all(k["qlora_launches"] > 0 for k in kernels
+                  if "qlora_launches" in k),
+              "a kernel was never launched by phase qlora's main paths")
     return kernels
 
 
@@ -6604,10 +7143,11 @@ def main() -> int:
     run("runtimes", phase_runtimes)
     fleet = run("fleet", phase_fleet, default={})
     run("mesh", phase_mesh)
+    qlora = run("qlora", phase_qlora, reqs, bw, default={})
 
     kernels = kernel_rows(kern, runs, flash, train, surface,
                           every_phase=set(PHASES) <= set(args.only),
-                          fleet=fleet)
+                          fleet=fleet, qlora=qlora)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

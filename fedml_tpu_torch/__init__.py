@@ -9,9 +9,12 @@ with health stats, eval) on one GPU; the paged continuous-batching decode
 engine (`serving.engine.DecodeEngine`) over a LLaMA-shaped
 `llm.TransformerLM`, with decode attention through a hand-written CUDA
 paged-attention kernel (`ops.paged_attention`); and federated LoRA
-training (`llm.federated_lora` under `parallel.round.build_round_fn`) with
-causal attention through hand-written CUDA flash-attention kernels
-(`ops.flash_attention`: forward, dQ, dK/dV); and cross-silo FedAvg over
+training (`llm.federated_lora` under `parallel.round.build_round_fn`,
+clients one at a time or in vmapped groups) with causal attention through
+hand-written CUDA flash-attention kernels (`ops.flash_attention`:
+forward, dQ, dK/dV), over a float or an int8 base (`llm.quant`), and the
+long-context round over a (silos, seq) mesh (`llm.make_fedllm_seq_round`,
+`parallel.seq`); and cross-silo FedAvg over
 the message layer (`FedMLRunner` with `training_type: cross_silo`:
 `comm/`, `cross_silo/`); and the single-process entry surface
 (`python -m fedml_tpu_torch`, `mlops`, the telemetry sinks, the

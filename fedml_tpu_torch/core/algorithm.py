@@ -278,9 +278,9 @@ def func_grad(loss_fn: Callable) -> Callable:
 
 def autograd_grad(loss_fn: Callable) -> Callable:
     """The same through `torch.autograd.grad`, for models whose forward
-    `torch.func.grad` refuses: per-block remat (`torch.utils.checkpoint`)
-    installs saved-tensor hooks, which torch.func does not take. Such a
-    client cannot be vmapped either."""
+    `torch.func.grad` refuses (`torch.utils.checkpoint`, say, installs
+    saved-tensor hooks, which torch.func does not take). Such a client
+    cannot be vmapped either."""
     def grad(params, *batch):
         p = tree_map(lambda t: t.detach().requires_grad_(True), params)
         with torch.enable_grad():

@@ -24,8 +24,10 @@ is the cache that comes out.
 LoRA adapters are not an argument here, unlike the JAX functions, which
 merge them into every adapted kernel inside their jit on every call: the
 callers (the serving engine and predictor) merge an adapter set once
-(`serving.engine.merged_model`, `llm.lora.merge_delta`'s arithmetic) and
-call these functions on the merged model.
+(`serving.engine.merged_model`, the arithmetic of `llm.quant.merged_kernel`)
+and call these functions on the merged model. The model may hold an int8
+base (`llm/quant.py`): each step dequantises its int8 weights to the
+compute dtype at use, as the JAX functions do inside their jit.
 
 Sampling draws from a `torch.Generator` seeded from (request seed,
 position) through `draw_seed`; the JAX package folds the position into a
@@ -38,7 +40,10 @@ from typing import Optional
 
 import torch
 
-from .quant import lm_head_logits, project_qkv, rms_norm, swiglu_mlp
+from .quant import (
+    dequant_leaf, embed_rows, lm_head_logits, project_qkv, rms_norm,
+    swiglu_mlp,
+)
 from .transformer import dense_causal_attention, rope
 
 _NEG = -1e9   # the gather path's mask value (fedml_tpu/parallel/seq.py)
@@ -150,7 +155,7 @@ def make_kv_decode(n_heads: int, dtype=torch.float32, eps: float = 1e-6,
                 rows=None):
         b, t = tokens.shape
         dev = tokens.device
-        x = model.embed.embedding.to(dtype)[tokens]               # [B, T, D]
+        x = embed_rows(model.embed.embedding, tokens, dtype)      # [B, T, D]
         pos = torch.arange(t, device=dev)
         dh = model.d_model // n_heads
         if cache is None:
@@ -167,7 +172,7 @@ def make_kv_decode(n_heads: int, dtype=torch.float32, eps: float = 1e-6,
             cache["k"][i, rows, :t] = k
             cache["v"][i, rows, :t] = v
             o = attn(q, k, v)
-            x = x + o.reshape(x.shape) @ bl.wo.kernel.to(dtype)
+            x = x + o.reshape(x.shape) @ dequant_leaf(bl.wo.kernel, dtype)
             x = swiglu_mlp(bl, None, 0.0, x, dtype, eps)
         if length is None:
             last = x[:, -1]
@@ -180,7 +185,7 @@ def make_kv_decode(n_heads: int, dtype=torch.float32, eps: float = 1e-6,
     def step(model, cache, pos, token):
         b = token.shape[0]
         dev = token.device
-        x = model.embed.embedding.to(dtype)[token][:, None]       # [B, 1, D]
+        x = embed_rows(model.embed.embedding, token, dtype)[:, None]  # [B,1,D]
         max_len = cache["k"].shape[2]
         pos = torch.as_tensor(pos, device=dev).long().expand(b)
         bidx = torch.arange(b, device=dev)
@@ -198,7 +203,7 @@ def make_kv_decode(n_heads: int, dtype=torch.float32, eps: float = 1e-6,
             s = torch.einsum("bqhd,bkhd->bhqk", q, ck) * scale
             s = torch.where(live[:, None, None, :], s, _NEG)
             o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), cv)
-            x = x + o.reshape(x.shape) @ bl.wo.kernel.to(dtype)
+            x = x + o.reshape(x.shape) @ dequant_leaf(bl.wo.kernel, dtype)
             x = swiglu_mlp(bl, None, 0.0, x, dtype, eps)
         return lm_head_logits(model, None, 0.0, x, dtype, eps)[:, 0]
 
@@ -281,7 +286,7 @@ def make_paged_kv_decode(n_heads: int, page_size: int,
         """The layer stack over tokens [B, C] at positions posr [B, C]:
         each layer writes its K/V at (wpage, woff), then `attend`s; returns
         the final hidden [B, C, D]."""
-        x = model.embed.embedding.to(dtype)[tokens]               # [B, C, D]
+        x = embed_rows(model.embed.embedding, tokens, dtype)      # [B, C, D]
         for i, bl in enumerate(model.blocks):
             ck, cv, ks, vs = layer_cache(cache, i)
             h = rms_norm(x, bl.RMSNorm_0.scale.to(dtype), eps)
@@ -290,7 +295,7 @@ def make_paged_kv_decode(n_heads: int, page_size: int,
             k = _rope_rows(k, posr)
             write(ck, cv, ks, vs, wpage, woff, k, v)
             o = attend(q, ck, cv, ks, vs)
-            x = x + o.reshape(x.shape) @ bl.wo.kernel.to(dtype)
+            x = x + o.reshape(x.shape) @ dequant_leaf(bl.wo.kernel, dtype)
             x = swiglu_mlp(bl, None, 0.0, x, dtype, eps)
         return x
 

@@ -9,16 +9,20 @@ are applied as `x @ W` (they are NOT transposed into `nn.Linear`'s
 `[out, in]`); the embedding is `[vocab, d_model]`. State-dict keys are
 `embed.embedding`, `blocks.{i}.{RMSNorm_0,RMSNorm_1}.scale`,
 `blocks.{i}.{wq,wk,wv,wo,w_gate,w_up,w_down}.kernel`,
-`final_norm.scale` and `lm_head.kernel`.
+`final_norm.scale` and `lm_head.kernel`. A kernel or the embedding may be
+an int8 `QWeight` (`llm/quant.py`): its keys are then `<name>.q` (int8)
+and `<name>.s` (f32 per-output-channel scales), and `from_state` builds
+the module to the state's layout.
 
 The forward is the training path and the full-recompute reference the
 decode path is held against (the serving hot path lives in
 `llm/decode.py`). Attention is pluggable (`attn_fn`, default the plain
 dense causal attention; `ops.flash_attention.flash_attn_fn` runs the
 flash kernels), `remat=True` recomputes each block in the backward
-(`torch.utils.checkpoint`, the counterpart of flax's `nn.remat(Block)`),
-and the forward takes LoRA adapters, merged into each adapted kernel
-inside its block, and a compute dtype that the weights are cast to at use.
+(`remat`, the counterpart of flax's `nn.remat(Block)`, which
+`torch.func.grad` and `torch.func.vmap` take), and the forward takes LoRA
+adapters, merged into each adapted kernel inside its block, and a compute
+dtype that the weights are cast (or dequantised) to at use.
 """
 from __future__ import annotations
 
@@ -29,15 +33,14 @@ from typing import Mapping
 import numpy as np
 import torch
 import torch.nn as nn
-from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
+from ..parallel.seq import dense_causal_attention
 from .quant import (
-    lm_head_logits, merged_kernel, project_qkv, rms_norm, split_adapters,
-    swiglu_mlp,
+    QWeight, embed_rows, flat_state, lm_head_logits, merged_kernel,
+    project_qkv, rms_norm, split_adapters, swiglu_mlp,
 )
 
-_NEG = -1e9   # fedml_tpu/parallel/seq.py's finite "-inf"
 _EPS = 1e-6   # flax RMSNorm eps
 
 
@@ -70,17 +73,6 @@ def rope(x: torch.Tensor, pos: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
-def dense_causal_attention(q, k, v):
-    """q/k/v [B, T, H, D] -> [B, T, H, D] (fedml_tpu/parallel/seq.py)."""
-    scale = q.shape[-1] ** -0.5
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
-    tq, tk = q.shape[1], k.shape[1]
-    mask = (torch.arange(tq, device=q.device)[:, None]
-            >= torch.arange(tk, device=q.device)[None, :])
-    s = torch.where(mask, s, _NEG)
-    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v)
-
-
 def _param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
@@ -106,11 +98,69 @@ class Embed(nn.Module):
         self.embedding = _param((vocab, d), dtype, device)
 
 
+class _Remat(torch.autograd.Function):
+    """fn(*tensors) -> y, with nothing of fn kept for the backward but its
+    inputs: the backward runs fn again under `torch.func.vjp`. Unlike
+    `torch.utils.checkpoint` it installs no saved-tensor hooks, which
+    `torch.func.grad` refuses, and `torch.func.vmap` batches it through
+    the generated rule."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(fn, *tensors):
+        return fn(*tensors)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.fn = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
+
+    @staticmethod
+    def backward(ctx, grad):
+        tensors = ctx.saved_tensors
+        need = [i for i, n in enumerate(ctx.needs_input_grad[1:]) if n]
+
+        def part(*sub):
+            full = list(tensors)
+            for i, t in zip(need, sub):
+                full[i] = t
+            return ctx.fn(*full)
+
+        # torch.func.grad runs the backward with create_graph: without
+        # no_grad the recompute would join the outer graph and every
+        # block's activations would stay alive until the gradient returns
+        # (no second derivative goes through a remat block)
+        with torch.no_grad():
+            _, vjp = torch.func.vjp(part, *(tensors[i] for i in need))
+            grads = dict(zip(need, vjp(grad)))
+        return (None,) + tuple(grads.get(i) for i in range(len(tensors)))
+
+
+def remat(block, x: torch.Tensor, pos: torch.Tensor, ad_l,
+          rank_scale: float) -> torch.Tensor:
+    """block(x, pos, ad_l, rank_scale), recomputed in the backward instead
+    of keeping its activations. Every tensor the block reads that is not
+    a parameter (x, pos, the adapters) is an input of the function, not
+    a closure: a tensor made inside a torch.func transform belongs to its
+    level, which the generated vmap rule has left."""
+    names = sorted(ad_l) if ad_l else []
+    flat = [ad_l[n][k] for n in names for k in ("a", "b")]
+
+    def fn(x, pos, *ab):
+        ads = {n: {"a": ab[2 * i], "b": ab[2 * i + 1]}
+               for i, n in enumerate(names)} or None
+        return block(x, pos, ads, rank_scale)
+
+    return _Remat.apply(fn, x, pos, *flat)
+
+
 class Block(nn.Module):
-    def __init__(self, dims: ModelDims, dtype, device, attn_fn=None):
+    def __init__(self, dims: ModelDims, dtype, device, attn_fn=None,
+                 eps: float = _EPS):
         super().__init__()
         d, ff = dims.d_model, dims.d_ff
         self.n_heads = dims.n_heads
+        self.eps = eps
         self.attn_fn = attn_fn or dense_causal_attention
         self.RMSNorm_0 = RMSNorm(d, dtype, device)
         self.wq = Dense(d, d, dtype, device)
@@ -125,12 +175,12 @@ class Block(nn.Module):
     def forward(self, x: torch.Tensor, pos: torch.Tensor, ad_l=None,
                 rank_scale: float = 0.0) -> torch.Tensor:
         dt = x.dtype
-        h = rms_norm(x, self.RMSNorm_0.scale.to(dt), _EPS)
+        h = rms_norm(x, self.RMSNorm_0.scale.to(dt), self.eps)
         q, k, v = project_qkv(self, ad_l, rank_scale, h, self.n_heads, dt)
         o = self.attn_fn(rope(q, pos), rope(k, pos), v)
         x = x + o.reshape(x.shape) @ merged_kernel(self, ad_l, "wo",
                                                    rank_scale, dt)
-        return swiglu_mlp(self, ad_l, rank_scale, x, dt, _EPS)
+        return swiglu_mlp(self, ad_l, rank_scale, x, dt, self.eps)
 
 
 class TransformerLM(nn.Module):
@@ -140,10 +190,11 @@ class TransformerLM(nn.Module):
     `init_params` / `params_from_flax`. `attn_fn` ([B, T, H, Dh] q/k/v ->
     [B, T, H, Dh]) defaults to `dense_causal_attention`; `remat`
     recomputes each block in the backward instead of keeping its
-    activations."""
+    activations; `eps` is the RMSNorms' (flax's 1e-6)."""
 
     def __init__(self, dims: ModelDims, *, dtype=torch.float32,
-                 device=None, attn_fn=None, remat: bool = False):
+                 device=None, attn_fn=None, remat: bool = False,
+                 eps: float = _EPS):
         super().__init__()
         dev = (torch.device("meta") if str(device) == "meta"
                else resolve_device(device))
@@ -151,8 +202,9 @@ class TransformerLM(nn.Module):
         self.n_layers, self.n_heads = dims.n_layers, dims.n_heads
         self.d_model = dims.d_model
         self.remat = remat
+        self.eps = eps
         self.embed = Embed(dims.vocab_size, dims.d_model, dtype, dev)
-        self.blocks = nn.ModuleList(Block(dims, dtype, dev, attn_fn)
+        self.blocks = nn.ModuleList(Block(dims, dtype, dev, attn_fn, eps)
                                     for _ in range(dims.n_layers))
         self.final_norm = RMSNorm(dims.d_model, dtype, dev)
         self.lm_head = Dense(dims.d_model, dims.vocab_size, dtype, dev)
@@ -162,19 +214,31 @@ class TransformerLM(nn.Module):
                    **kw) -> "TransformerLM":
         """A model whose parameters ARE the state's tensors (no copy): the
         module is built on the meta device and the state assigned in.
-        `kw` (attn_fn, remat) go to the constructor."""
-        dtype = next(iter(state.values())).dtype
-        model = cls(dims, dtype=dtype, device="meta", **kw)
+        A weight the state holds int8 (`{"q", "s"}`, or `<name>.q` /
+        `<name>.s` keys) becomes a `QWeight` there. `kw` (attn_fn, remat,
+        eps) go to the constructor."""
+        state = flat_state(state)
+        model = cls(dims, dtype=state["final_norm.scale"].dtype,
+                    device="meta", **kw)
+        for key in state:
+            if key.endswith(".q"):
+                owner, _, attr = key[:-2].rpartition(".")
+                mod = model.get_submodule(owner)
+                del mod._parameters[attr]
+                setattr(mod, attr, QWeight(tuple(state[key].shape),
+                                           device="meta"))
         model.load_state_dict(state, strict=True, assign=True)
         return model
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.embed.embedding.dtype
+        """The float weights' dtype (bf16 for an int8 base, whose float
+        leaves `quantize_tree_int8` stores bf16)."""
+        return self.final_norm.scale.dtype
 
     @property
     def device(self) -> torch.device:
-        return self.embed.embedding.device
+        return self.final_norm.scale.device
 
     def forward(self, tokens: torch.Tensor, pos_offset: int = 0,
                 adapters=None, alpha: float = 16.0, dtype=None):
@@ -186,14 +250,28 @@ class TransformerLM(nn.Module):
         dt = dtype or self.dtype
         pos = pos_offset + torch.arange(tokens.shape[1], device=tokens.device)
         ads, top, rank_scale = split_adapters(adapters, alpha, self.n_layers)
-        x = self.embed.embedding[tokens].to(dt)
+        x = embed_rows(self.embed.embedding, tokens, dt)
         for blk, ad_l in zip(self.blocks, ads):
             if self.remat:
-                x = checkpoint(blk, x, pos, ad_l, rank_scale,
-                               use_reentrant=False)
+                x = remat(blk, x, pos, ad_l, rank_scale)
             else:
                 x = blk(x, pos, ad_l, rank_scale)
-        return lm_head_logits(self, top, rank_scale, x, dt, _EPS)
+        return lm_head_logits(self, top, rank_scale, x, dt, self.eps)
+
+
+def dims_of_state(state: Mapping, n_heads: int) -> ModelDims:
+    """The ModelDims of a (possibly int8) state dict, from its shapes."""
+    flat = flat_state(state)
+
+    def shape(name):
+        return tuple((flat.get(name) if name in flat
+                      else flat[name + ".q"]).shape)
+
+    vocab, d = shape("embed.embedding")
+    n_layers = 1 + max(int(k.split(".")[1]) for k in flat
+                       if k.startswith("blocks."))
+    return ModelDims(vocab_size=vocab, d_model=d, n_layers=n_layers,
+                     n_heads=n_heads, d_ff=shape("blocks.0.w_gate.kernel")[1])
 
 
 def init_params(dims: ModelDims, seed: int = 0, dtype=torch.float32,
@@ -237,34 +315,52 @@ def init_params(dims: ModelDims, seed: int = 0, dtype=torch.float32,
 
 
 def params_from_flax(params, dtype=torch.float32,
-                     device=None) -> dict[str, torch.Tensor]:
+                     device=None) -> dict:
     """The JAX package's TransformerLM parameter tree (nested dicts of
     numpy arrays) -> this module's state dict. Accepts both layouts:
     unrolled (`block_0` .. `block_{L-1}`) and scan-stacked (`blocks/...`
     with a leading [L] axis, the mapping `fedml_tpu/llm/decode.py`
-    `stack_blocks` makes). Kernels keep their [in, out] layout."""
+    `stack_blocks` makes). Kernels keep their [in, out] layout. Float
+    leaves go to `dtype`; an int8 `{"q", "s"}` leaf of
+    `quantize_tree_int8` stays {"q": int8, "s": f32} under its weight's
+    name, a stacked one split per layer (s [L, 1, dout] -> [1, dout]), so
+    that stacked and unrolled bases give the same per-layer scales."""
     dev = resolve_device(device)
-    flat: dict[str, np.ndarray] = {}
+    flat: dict = {}
 
     def walk(prefix, node):
-        if isinstance(node, Mapping):
+        if isinstance(node, Mapping) and set(node) == {"q", "s"}:
+            flat[".".join(prefix)] = {k: np.asarray(v)
+                                      for k, v in node.items()}
+        elif isinstance(node, Mapping):
             for k, v in node.items():
                 walk(prefix + (str(k),), v)
         else:
             flat[".".join(prefix)] = np.asarray(node)
 
     walk((), params)
-    state: dict[str, torch.Tensor] = {}
+    state: dict = {}
 
     def put(name, arr):
-        state[name] = torch.from_numpy(np.array(arr, np.float32)).to(
-            device=dev, dtype=dtype)
+        if isinstance(arr, dict):
+            state[name] = {
+                "q": torch.from_numpy(np.array(arr["q"], np.int8)).to(dev),
+                "s": torch.from_numpy(np.array(arr["s"], np.float32)).to(
+                    dev)}
+        else:
+            state[name] = torch.from_numpy(np.array(arr, np.float32)).to(
+                device=dev, dtype=dtype)
+
+    def layer(arr, i):
+        return ({k: v[i] for k, v in arr.items()} if isinstance(arr, dict)
+                else arr[i])
 
     for name, arr in flat.items():
         head, _, rest = name.partition(".")
         if head == "blocks":           # scan layout: split the [L] axis
-            for i in range(arr.shape[0]):
-                put(f"blocks.{i}.{rest}", arr[i])
+            n = (arr["q"] if isinstance(arr, dict) else arr).shape[0]
+            for i in range(n):
+                put(f"blocks.{i}.{rest}", layer(arr, i))
         elif head.startswith("block_"):
             put(f"blocks.{head[len('block_'):]}.{rest}", arr)
         else:

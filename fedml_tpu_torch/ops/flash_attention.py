@@ -20,7 +20,11 @@ Gradients: `flash_attention` is a `torch.autograd.Function`. Its forward
 saves q, k, v, o and the per-row log-sum-exp (LSE, [BH, T] f32: the JAX
 module's [BH, T/bq, bq] layout served Mosaic's tiling only); its backward
 computes delta = rowsum(o * dO) in f32 with plain torch ops, as the JAX
-module does outside Pallas, then dQ and dK/dV in two passes.
+module does outside Pallas, then dQ and dK/dV in two passes. Both passes
+take `torch.func.grad` and have a `torch.func.vmap` rule that folds the
+vmapped dim into BH, so a vmapped group of G clients launches each kernel
+once, not G times, and gets the bits G separate launches give (rows are
+independent).
 
 Each of the three passes has a wrapper -- `flash_fwd` (K1), `flash_dq`
 (K2), `flash_dkv` (K3) -- that launches the hand-written kernel in
@@ -250,25 +254,85 @@ def flash_bwd(q, k, v, o, lse, do, block_q=None, block_k=None):
     return dq, dk, dv
 
 
+def _fold(x: torch.Tensor, dim, g: int) -> torch.Tensor:
+    """A vmapped [BH, ...] operand as one [g * BH, ...] tensor: the batch
+    dim moved first (an unbatched operand broadcast to g), merged into BH,
+    contiguous and 16-byte aligned, as the kernels take it."""
+    x = (x.unsqueeze(0).expand(g, *x.shape) if dim is None
+         else x.movedim(dim, 0))
+    x = x.reshape((g * x.shape[1],) + tuple(x.shape[2:])).contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
+def _unfold(x: torch.Tensor, g: int) -> torch.Tensor:
+    return x.view((g, x.shape[0] // g) + tuple(x.shape[1:]))
+
+
 class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, block_q, block_k):
-        o, lse = flash_fwd(q, k, v, block_q, block_k)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.blocks = (block_q, block_k)
-        return o
+    """(o, lse) = K1(q, k, v), differentiable in q, k and v. Under
+    `torch.func.vmap` the rule folds the vmapped dim into BH and launches
+    K1 once for the whole batch: a bh row depends on no other, so the
+    folded launch computes what per-item launches would. The backward is
+    `_FlashBackward`, a function of its own with the same rule, so that
+    `vmap(grad(...))` launches K2 and K3 once a group too."""
 
     @staticmethod
-    def backward(ctx, do):
+    def forward(q, k, v, block_q, block_k):
+        return flash_fwd(q, k, v, block_q, block_k)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, block_q, block_k = inputs
+        o, lse = output
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.blocks = (block_q, block_k)
+        ctx.mark_non_differentiable(lse)
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, o, lse, do.contiguous(), *ctx.blocks)
+        dq, dk, dv = _FlashBackward.apply(q, k, v, o, lse, do, *ctx.blocks)
         return dq, dk, dv, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, block_q, block_k):
+        g = info.batch_size
+        o, lse = flash_fwd(*(_fold(x, d, g) for x, d in
+                             zip((q, k, v), in_dims[:3])), block_q, block_k)
+        return (_unfold(o, g), _unfold(lse, g)), (0, 0)
+
+
+class _FlashBackward(torch.autograd.Function):
+    """(dQ, dK, dV) of `_FlashAttention`: delta, K2 and K3, with the same
+    fold-into-BH rule under `torch.func.vmap`. Not differentiable again."""
+
+    @staticmethod
+    def forward(q, k, v, o, lse, do, block_q, block_k):
+        return flash_bwd(q, k, v, o, lse, do.contiguous(), block_q, block_k)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "flash attention has no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, o, lse, do, block_q, block_k):
+        g = info.batch_size
+        folded = [_fold(x, d, g) for x, d in
+                  zip((q, k, v, o, lse, do), in_dims[:6])]
+        return (tuple(_unfold(x, g) for x in flash_bwd(
+            *folded, block_q, block_k)), (0, 0, 0))
 
 
 def flash_attention(q, k, v, block_q=None, block_k=None) -> torch.Tensor:
     """Causal flash attention over [BH, T, D] (module docstring has the
-    contract), differentiable in q, k and v."""
-    return _FlashAttention.apply(q, k, v, block_q, block_k)
+    contract), differentiable in q, k and v, and batched by
+    `torch.func.vmap` into one launch a pass."""
+    return _FlashAttention.apply(q, k, v, block_q, block_k)[0]
 
 
 def flash_attn_fn(q, k, v) -> torch.Tensor:

@@ -89,8 +89,11 @@ bitwise only for d = 1. Gloo collectives on CUDA tensors are staged
 through the host.
 
 A `mesh` that is not a DeviceMesh raises TypeError; a group of clients
-that `torch.func.vmap` cannot batch raises NotImplementedError naming
-its ROADMAP port-queue item (3d.1b).
+of an algorithm whose gradients come from `torch.autograd.grad`
+(`core.algorithm.autograd_grad`, `vmap_ok=False`), which
+`torch.func.vmap` cannot batch, raises NotImplementedError. The FedLLM
+LoRA round takes groups: its flash attention and per-block remat are
+`torch.func` functions with vmap rules.
 """
 from __future__ import annotations
 
@@ -243,10 +246,10 @@ def _refuse(alg: FedAlgorithm, mesh, group_size: int) -> None:
     mesh_mod.check_mesh(mesh, "the round's mesh")
     if group_size > 1 and not alg.vmap_ok:
         raise NotImplementedError(
-            "group_size > 1 for a client torch.func.vmap cannot batch (the "
-            "FedLLM LoRA round: its flash autograd.Function has no vmap "
-            "rule and its per-block remat no torch.func.grad): not ported "
-            "yet (ROADMAP 'Port queue' item 3d.1b)")
+            "group_size > 1 for a client torch.func.vmap cannot batch: "
+            "its gradients come from torch.autograd.grad "
+            "(core.algorithm.autograd_grad); build it on func_grad to run "
+            "vmapped groups")
 
 
 def _rows(x, share: slice):

@@ -35,13 +35,19 @@
   set ONCE (`merged_model`: `llm.lora.lora_merge`, the arithmetic the
   decode functions' per-call merge uses, so the same bits) and decodes on
   the merged model; the JAX engine merges inside every jitted step, where
-  XLA fuses it. Cost: one copy of each adapted kernel. `swap_adapters`
-  replaces the set between iterations (no KV teardown): in-flight requests
+  XLA fuses it. Cost: one copy of each adapted kernel, in the compute
+  dtype for an int8 base. `swap_adapters` replaces the set between
+  iterations (no KV teardown): in-flight requests
   finish on the new adapters from their next step; a swap whose keys,
   shapes or dtypes differ is refused. A swap empties the prefix cache,
   whose pages hold K/V of the old adapters (the JAX engine keeps them, so
   a later hit would mix versions). `model_version` is monotonic and rides
   the `serving.model_version` gauge and a `serving.swap` span.
+- INT8 BASE: the model may hold the QLoRA layout (`llm/quant.py`: int8
+  kernels and embedding with per-channel scales). Each forward
+  dequantises the int8 kernels it reads to the compute dtype (`dtype`,
+  default the model's: bf16 for a `quantize_tree_int8` base), as the JAX
+  engine does inside its jit; the adapted kernels are merged once.
 - Retirement is decided ON THE DEVICE (token budget or eos); the host
   learns it from the token frames it fetches. Frames are fetched
   `fetch_chunk` at a time: their device-to-host copies are queued when
@@ -145,16 +151,23 @@ def prepare_adapter_swap(current: dict, adapters: dict,
 
 
 def merged_model(model, adapters: Optional[dict],
-                 alpha: float = LORA_ALPHA):
-    """`model` with `adapters` merged into its adapted kernels, W +
-    (alpha / r) * A @ B in W's dtype (`llm.lora.lora_merge`), as a
+                 alpha: float = LORA_ALPHA, dtype=None):
+    """`model` with `adapters` merged into its adapted kernels, as a
     `TransformerLM` that shares every other tensor with `model`; `model`
-    itself when there are no adapters."""
+    itself when there are no adapters. A float kernel becomes W +
+    (alpha / r) * A @ B in W's dtype (`llm.lora.lora_merge`); an int8
+    kernel becomes its dequantisation to the compute dtype `dtype`
+    (default the model's) plus the delta in that dtype, the JAX engine's
+    per-step merge done once (`llm.quant.merged_kernel`), while the
+    kernels without adapters stay int8."""
     if not adapters:
         return model
+    from ..llm.quant import dequant_leaf
+
+    dtype = dtype or model.dtype
     state = model.state_dict()
     for name, ab in adapters.items():
-        w = state.get(name)
+        w = state.get(name, state.get(name + ".q"))
         if w is None or w.dim() != 2:
             raise ValueError(f"adapter {name!r} names no kernel of the "
                              "model")
@@ -168,6 +181,11 @@ def merged_model(model, adapters: Optional[dict],
             raise ValueError(f"adapter {name!r} is on {ab['a'].device}, the "
                              f"model on {w.device}")
     with torch.no_grad():
+        for name in adapters:
+            if name + ".q" in state:
+                state[name] = dequant_leaf(
+                    {"q": state.pop(name + ".q"),
+                     "s": state.pop(name + ".s")}, dtype)
         merged = lora_merge(state, adapters, alpha)
     return TransformerLM.from_state(model.dims, merged)
 
@@ -423,7 +441,7 @@ class DecodeEngine:
         self.dtype = dtype or model.dtype
         self.adapters = adapters
         # what every forward runs on: the model with the adapters merged
-        self._serving = merged_model(model, adapters)
+        self._serving = merged_model(model, adapters, dtype=self.dtype)
         heads, dh = model.n_heads, model.d_model // model.n_heads
         dev = self.device
         if self._paged:
@@ -552,7 +570,7 @@ class DecodeEngine:
         # every iteration, so decoding goes on during the merge
         new, _ver = prepare_adapter_swap(cur, adapters, self._version,
                                          version)
-        merged = merged_model(self.model, new)
+        merged = merged_model(self.model, new, dtype=self.dtype)
         with self._cond:
             self._check_no_pending_swap()
             # re-checked against the version now served: a swap may have

@@ -176,7 +176,10 @@ class TorchPredictor(_InstrumentedPredictor):
     predict({"inputs": [[...], ...]}) -> {"predictions": [...],
     "probabilities": [[...], ...]}: the batch padded to a power-of-two
     bucket, run on `device` (CUDA unless the caller names "cpu"), the
-    probabilities rounded to 6 places."""
+    probabilities rounded to 6 places. Calls into apply_fn take a lock:
+    `hub.apply_fn` swaps the parameters into one module for the length of
+    a call (`functional_call`), so two HTTP threads running it at once
+    would each see the other's restore."""
 
     def __init__(self, apply_fn: Callable, params, return_probs: bool = True,
                  device=None):
@@ -184,6 +187,7 @@ class TorchPredictor(_InstrumentedPredictor):
         self.apply_fn = apply_fn
         self.params = {k: v.to(self.device) for k, v in params.items()}
         self.return_probs = return_probs
+        self._apply_lock = threading.Lock()
 
     def _predict(self, input_json: dict) -> tuple[dict, tuple]:
         try:
@@ -195,7 +199,7 @@ class TorchPredictor(_InstrumentedPredictor):
         b = _bucket(n)
         if b > n:
             x = np.concatenate([x, np.zeros((b - n,) + x.shape[1:], x.dtype)])
-        with torch.no_grad():
+        with torch.no_grad(), self._apply_lock:
             logits = self.apply_fn(self.params,
                                    torch.from_numpy(x).to(self.device))
             labels = logits.argmax(-1)
@@ -334,7 +338,8 @@ class GreedyLMPredictor(_InstrumentedPredictor):
                 admit_batch=int(admit_batch), device=self.device).start()
             self._serving = None
         else:
-            self._serving = merged_model(model, adapters)
+            self._serving = merged_model(model, adapters,
+                                         dtype=self._kv_dtype)
 
     def _serving_model(self):
         """The weights both paths serve: the engine's merged model when an
@@ -380,7 +385,7 @@ class GreedyLMPredictor(_InstrumentedPredictor):
         new, ver = prepare_adapter_swap(self.adapters, adapters,
                                         self._version, version,
                                         who="this replica")
-        serving = merged_model(self.model, new)
+        serving = merged_model(self.model, new, dtype=self._kv_dtype)
         with recorder.span("serving.swap", version=ver):
             self.adapters, self._serving = new, serving
             self._version = ver

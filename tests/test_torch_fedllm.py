@@ -266,8 +266,18 @@ def test_unported_options_raise(base):
         build_round_fn(alg, mesh=make_mesh({"clients": 1}))
     with pytest.raises(TypeError, match="DeviceMesh"):
         build_round_fn(alg, mesh=object())
-    with pytest.raises(NotImplementedError, match="group_size"):
-        build_round_fn(alg, group_size=2)
+    # vmapped LoRA clients (item 3d.1b) are ported: a G = 2 round builds
+    # and runs, and gives the G = 1 round's adapters
+    data = {k: torch.from_numpy(v.astype(np.int64) if k != "mask" else v)
+            for k, v in _lm_task().items()}
+    ids, w = np.arange(N_CLIENTS), np.full((N_CLIENTS,), 8.0, np.float32)
+    alg, ads = federated_lora(_port_model(state), state, TrainArgs(), _gen())
+    outs = [build_round_fn(alg, group_size=g)(
+        alg.server_init(ads), None, data, ids, w, seed=0).server_state.params
+        for g in (1, 2)]
+    _assert_adapters_close({k.replace("blocks.", "block_", 1).replace(
+        ".", "/"): {n: v.numpy() for n, v in ab.items()}
+        for k, ab in outs[0].items()}, outs[1], rtol=1e-5, atol=1e-6)
     # chaos faults (item 3e) are ported: the LoRA round takes them
     build_round_fn(alg, client_dropout=0.1)
     with pytest.raises(ValueError, match="model's own state"):

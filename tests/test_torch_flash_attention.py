@@ -810,3 +810,35 @@ def test_backward_route_rule(d, dtype, want_dq, want_dkv):
     assert fa.dkv_route(q) == want_dkv
     assert fa.fwd_route(q) == ("fwd_tc" if dtype == torch.bfloat16
                                else "fwd_3xtf32")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,bh,t,d", [(2, 3, 130, 40), (3, 2, 65, 128),
+                                      (2, 4, 256, 64)])
+def test_cuda_vmap_fold_is_the_per_client_launches(cuda, dtype, g, bh, t,
+                                                   d):
+    """A vmapped group through the kernels: the forward and the gradients
+    of `vmap(grad(...))` bitwise G separate launches (a bh row depends on
+    no other), one launch of K1 for the forward, and K1, K2 and K3 once
+    each for the gradient, whatever G."""
+    rs = np.random.RandomState(10)
+    q, k, v, do = (torch.from_numpy(rs.randn(g, bh, t, d).astype(np.float32))
+                   .to(cuda, dtype) for _ in range(4))
+
+    def loss(q_, k_, v_, do_):
+        return (fa.flash_attention(q_, k_, v_).float() * do_.float()).sum()
+
+    grad = torch.func.grad(loss, argnums=(0, 1, 2))
+    before = dict(fa.launch_count)
+    o = torch.func.vmap(fa.flash_attention)(q, k, v)
+    grads = torch.func.vmap(grad)(q, k, v, do)
+    torch.cuda.synchronize()
+    routes = (fa.fwd_route(q), fa.dq_route(q), fa.dkv_route(q))
+    assert fa.launch_count == {
+        n: before[n] + (2 if n == routes[0] else int(n in routes))
+        for n in before}
+    for i in range(g):
+        assert torch.equal(o[i], fa.flash_attention(q[i], k[i], v[i]))
+        for got, want in zip(grads, grad(q[i], k[i], v[i], do[i])):
+            assert torch.equal(got[i], want)

@@ -538,6 +538,43 @@ def test_torch_predictor_matches_jax_predictor():
         mine.predict({"inputs": [[1.0], [1.0, 2.0]]})
 
 
+def test_torch_predictor_concurrent_predicts():
+    """Eight threads predicting at once over one module (an HTTP replica's
+    request threads) all get the single-thread answer: `hub.apply_fn`
+    swaps the parameters into the module for the length of a call, so
+    unlocked calls see each other's restore (the module's own tensors
+    live on "meta") and raise."""
+    import sys
+
+    module = hub.create("lr", 3, (4,), device="meta")
+    params = hub.init_params(module, torch.Generator().manual_seed(0))
+    pred = TorchPredictor(hub.apply_fn(module), params, device="cpu")
+    x = np.random.RandomState(0).randn(5, 4).astype(np.float32).tolist()
+    want = pred.predict({"inputs": x})
+    errors, got = [], []
+
+    def hammer():
+        try:
+            for _ in range(25):
+                got.append(pred.predict({"inputs": x}))
+        except Exception as e:  # noqa: BLE001 — counted below
+            errors.append(repr(e))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=hammer) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
+    assert len(got) == 8 * 25 and all(g == want for g in got)
+
+
 def test_serve_simulator_and_checkpoint(tmp_path):
     d = {"data_args": {"dataset": "synthetic",
                        "data_cache_dir": str(tmp_path / "data"),
