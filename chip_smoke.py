@@ -5,7 +5,18 @@
     python3 chip_smoke.py --only kernel   # a subset of phases
 
 Phases, each printing one JSON line (a failing phase raises and the script
-exits non-zero; nothing is caught and carried past):
+exits non-zero; nothing is caught and carried past). They run in two lanes
+on the one card: after device, build, kernel and flash (the kernels timed
+alone), the phases in LANE_B (mesh, fedavg, fedsim, plugins, cross_silo,
+standalone, in that order) run in a child process of this script, while
+this process runs engine, serve, serve_surface, train, tasks, runtimes,
+entry, qlora, tp and fleet; when both are done, cross_silo_secure runs
+alone here (it takes phase cross_silo's results from the child). The
+phases in HEAVY, whose memory peaks would not fit beside each other, take
+turns across the lanes. Each phase's line of wall seconds names its lane,
+the seconds it waited for its turn, the memory it left allocated and when
+it ended (seconds from the script's start). A failed lane fails the
+script, and every process the script started is stopped when it ends.
 
 1. device  - the card's name and `nvidia-smi` name / power limit.
 2. build   - nvcc builds every kernel under fedml_tpu_torch/csrc (seconds).
@@ -19,6 +30,11 @@ exits non-zero; nothing is caught and carried past):
              HBM bound at C=1, and of the kernel at the serve shape phase
              `serve` gives it (64-entry tables, the wave's reservations) at
              C=1 and at the speculative window's C=5, checked there too.
+             Then at the head split a tensor-parallel rank launches (the
+             serve shape at H = 16 heads, its own contiguous pool): f32,
+             bf16 and int8 (bf16 q) at C=1, bf16 at C=5 and the int8 pool
+             under f32 q at C=1 (phase tp's f32 gate), each checked and
+             timed as above.
 4. engine  - LLaMA-2-7B width in f32 (seeded random weights, TF32 off): the
              kernel engine and the gather engine, on the same weights, serve
              10 greedy requests (prompts 40-600 tokens, two sharing a
@@ -73,18 +89,17 @@ exits non-zero; nothing is caught and carried past):
              (`_flagship_config`: 100 clients of synthetic CIFAR-10, 96
              samples each, Dirichlet alpha 0.5, all 100 per round, batch
              32, 1 epoch, lr 0.05, resnet18_gn, bf16 compute, health stats
-             on): first one f32 round of FEDAVG_CPU_CLIENTS clients on
-             the card and on the CPU from the same parameters and batch
-             schedule (TF32 off; the CPU's rounds in a child process
-             started with the script),
-             within 1e-3 of the CPU round's largest update or, where f32
-             itself departs further from the f64 round, as close to the
-             f64 round as the CPU's f32 round (`_fedavg_parity`); then,
-             through
-             `fedml_tpu_torch.init` and the Simulator, a warm round and a
-             timed one (rounds/s, ms per round and per local step, peak
-             memory, losses, conv + matmul FLOPs and their share of the
-             bf16 peak), the loss falling, then one eval. No K1-K4 launch.
+             on): through `fedml_tpu_torch.init` and the Simulator, a warm
+             round and a timed one (rounds/s, ms per round and per local
+             step, peak memory, losses, conv + matmul FLOPs and their
+             share of the bf16 peak), the loss falling, then one eval;
+             then one f32 round of FEDAVG_CPU_CLIENTS clients on the card
+             and on the CPU from the same parameters and batch schedule
+             (TF32 off; the CPU's rounds in a child process started with
+             the second lane), within 1e-3 of the CPU round's largest
+             update or, where f32 itself departs further from the f64
+             round, as close to the f64 round as the CPU's f32 round
+             (`_fedavg_parity`). No K1-K4 launch.
 10. fedsim - the rest of the round engine (vmapped client groups,
              SCAFFOLD / FedDyn / Mime, round blocks, cohort chunks,
              checkpoint and resume), vmap's per-example fallback an
@@ -153,8 +168,9 @@ exits non-zero; nothing is caught and carried past):
              masked uploads) at the flagship width over the first
              SA_SILOS = 10 shards (each client draws SA_SILOS PRG masks
              of 11.17 M entries a round: the cut), bf16, a warm round and
-             a timed one (one round when phase cross_silo warmed the
-             shapes in this process): ms a round, a client's mask ms,
+             a timed one (one round when phase cross_silo ran in this
+             call; phase entry has then run the flagship's rounds in this
+             process): ms a round, a client's mask ms,
              the unmask ms, the masked bytes raw and packed, peak
              memory; the unmasked
              aggregate bitwise dequantize(sum quantize(vec_i n_i/N)) /
@@ -245,9 +261,9 @@ exits non-zero; nothing is caught and carried past):
              then 4 concurrent POSTs answered in full with K4 launched;
              the swap's ms. (f) `env` names nvidia-smi's card, and
              `diagnosis` (K1-K4 built and held against their plain
-             versions, the transports, the serving engine through K4)
-             exits 0 with every required probe passed; each probe's
-             seconds.
+             versions, the transports, the serving engine through K4;
+             started with the phase, beside (a)-(c)) exits 0 with every
+             required probe passed; each probe's seconds.
 
 16. tasks  - the simulator's other tasks, datasets and models through
              `fedml_tpu_torch.init` and the Simulator (vmap's per-example
@@ -404,6 +420,48 @@ exits non-zero; nothing is caught and carried past):
              QLORA_SEQ_TOL (atol, rtol) of the (silos 1, seq 1) round,
              the ranks' adapters bitwise, exit codes 0.
 
+21. tp     - tensor parallelism: two gloo ranks sharing the card
+             (an {"mp": 2} or {"dp": 1, "tp": 2} mesh, 16 of the 32 heads a
+             rank); one card, so no part is a speed of several GPUs.
+             (a) the tensor-parallel DecodeEngine at LLaMA-2-7B width and
+             TP_A_LAYERS layers in bf16, the `serve` cell's knobs (8 slots, pages of
+             16, prefill chunks of 256, paged_kernel) with rank-8 adapters
+             and spec_k 4, over the first TP_WAVE requests: K4 on each
+             rank at H 16 only and at C 5 only, layers x windows a rank;
+             ms a decode step (wave wall / windows), peak memory a rank,
+             the tokens against rank 0's unmeshed engine (reported, not
+             gated: bf16 sums in another order). (a') the f32 gate at 7B
+             width and TP_F32_LAYERS layers, TF32 off: the mp 2 kernel
+             engine token-identical to the unmeshed kernel engine under
+             the near-tie rule, over an f32 and an int8 pool, each
+             request cut to TP_F32_NEW tokens; a margin is the reference
+             engine's own at the first differing pick (an int8 pool's
+             rounding moves the logits off the float model's, whose
+             margin is printed beside it). (b) `build_scaled_fedllm`
+             over (dp 1, tp 2) with an int8 base at 7B width and
+             TP_B_LAYERS layers (the same seeded base injected in both
+             ranks), the flash kernels on each rank's heads, bf16,
+             TP_B_STEPS steps of TP_B_BS x TP_B_T tokens: K1 = 2 x
+             layers x steps, K2 = K3 = layers x steps a rank, at SGD
+             rate TP_B_LR: every step's loss within TP_B_TOL of the tp 1
+             run's (rank 0, the same base and tokens), the adapters
+             moved by at least TP_B_MOVED and bitwise the same in both
+             ranks, seconds a step; the same steps again in f32 (TF32
+             off, the f32 flash kernels): each adapter leaf's change
+             over the steps within TP_B_UPD_TOL of tp 1's (over the
+             largest change; the bf16 pass's distance reported), base
+             bytes a rank 45-60% of the whole int8 base, and the
+             sharded base checkpoint bitwise after a write and a read.
+             (c) the centralized trainer on the flagship ResNet-18-GN at
+             {"mp": 2}, one epoch over the synthetic loader's 500 images
+             (TP_C_CLIENTS x TP_C_SAMPLES is under its floor) from one
+             seeded start, against {"mp": 1}: in f64 within rtol 1e-4 /
+             atol 1e-5 (the parameters) and rtol 1e-4 (the loss); in f32
+             (TF32 off) the distance reported beside the update, and
+             each f32 run's distance from the f64 run at its mp (how far
+             one epoch of the cell carries f32 rounding); 62 leaves;
+             K1-K4 0.
+
 Then the `kernels` line, the raw `nvidia-smi` name/power-limit line, and as
 the last line {"ok": true, "device": {...}}. Imports nothing of JAX or of
 the JAX package; without a CUDA device it exits non-zero and prints no
@@ -412,6 +470,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -427,9 +486,23 @@ import numpy as np
 PHASES = ("device", "build", "kernel", "engine", "serve", "serve_surface",
           "flash", "train", "fedavg", "fedsim", "plugins", "cross_silo",
           "cross_silo_secure", "standalone", "entry", "tasks", "runtimes",
-          "fleet", "mesh", "qlora")
+          "fleet", "mesh", "qlora", "tp")
 # run only when named in --only
 OPTIONAL = ("profile", "train_profile", "fedavg_profile")
+# the second lane: these phases run in their order in a child process,
+# beside the first lane's (the rest) in this one, from when phases kernel
+# and flash have timed the kernels alone on the card (the script read
+# 949-1224 s with every phase in one line, over its 1200 s limit on a
+# slow host); the phases whose peaks would not fit beside each other
+# (engine's f32 7B weights alone are 27 GB, fleet peaks at 41 GB, fedsim
+# at 28 and plugins at 23 on the H100; every other pair of peaks stays
+# under 60 of its 80 GB) take turns
+# across the lanes; the seconds from the start by which the second lane
+# must have ended
+LANE_B = ("mesh", "fedavg", "fedavg_profile", "fedsim", "plugins",
+          "cross_silo", "standalone")
+HEAVY = ("engine", "fleet", "fedsim", "plugins")
+LANE_JOIN_S = 1100.0
 DEV = "cuda"
 
 # the kernel check's shapes: LLaMA-2-7B attention at the engine's page size
@@ -498,9 +571,9 @@ FEDAVG_CONFIG = {
 FEDAVG_SAMPLES, FEDAVG_ROUNDS, FEDAVG_PARITY_CLIENTS = 96, 1, 4
 # phase fedavg's card-vs-CPU round (f64 and f32 on the CPU, f32 on the
 # card) over its first clients, and the threads of the child process that
-# runs the CPU's two rounds beside phases kernel to train (inline they
-# read 46-76 s of the host; 2 clients while phase fleet first joined the
-# script)
+# runs the CPU's two rounds beside the second lane's phases before it
+# (inline they read 46-76 s of the host; 2 clients while phase fleet
+# first joined the script)
 FEDAVG_CPU_CLIENTS, CPU_PARITY_THREADS = 4, 6
 # phase fedsim: the client-group widths timed at the flagship beside
 # G = 1, G = 10's timed rounds after its warm one (3 since phase plugins
@@ -701,6 +774,28 @@ MESH_CLIENTS, MESH_SAMPLES, MESH_SILO_ROWS, MESH_TIMEOUT_S = 9, 64, 64, 240
 QLORA_WAVE, QLORA_CHECK, QLORA_CHECK_NEW = 8, (0, 2, 3), 8
 QLORA_SEQS, QLORA_G, QLORA_LAYERS, QLORA_VMAP_TOL = 2, 2, 2, 5e-2
 QLORA_SEQ_T, QLORA_SEQ_TOL, QLORA_TIMEOUT_S = 256, (2e-4, 2e-3), 300
+# phase tp: two gloo ranks sharing the card, mp = 2 (16 heads a
+# rank). (a) the bf16 engine at TP_A_LAYERS layers (cut from 32 to keep the
+# script near 1000 s: every collective is staged through the host, and at
+# full depth the phase read 92 s) over the first TP_WAVE requests;
+# (a') the f32 gate at TP_F32_LAYERS layers over the same requests, each
+# cut to TP_F32_NEW tokens; (b) the int8 scaled step at TP_B_LAYERS
+# layers, TP_B_STEPS steps of TP_B_BS x TP_B_T tokens; (c) the flagship's
+# centralized epoch over TP_C_CLIENTS clients' synthetic images, batch
+# TP_C_BATCH, f32. (b)'s bars against tp = 1: TP_B_TOL on every bf16
+# step's loss; TP_B_UPD_TOL on each adapter leaf's change over the f32
+# steps (TF32 off), over the largest change (a missing adapter all-reduce
+# halves wv's and wo's; the bf16 pass, reported, read 6.7e-2 on an
+# H100: its rounding, summed over 2048 tokens that mostly cancel); an
+# SGD rate TP_B_LR that moves an adapter by at least TP_B_MOVED of its
+# largest entry
+TP_WAVE, TP_A_LAYERS, TP_F32_LAYERS, TP_F32_NEW = 4, 8, 2, 16
+TP_TIMEOUT_S = 300
+TP_B_LAYERS, TP_B_STEPS, TP_B_BS, TP_B_T = 2, 3, 2, 1024
+TP_B_LR, TP_B_TOL, TP_B_UPD_TOL, TP_B_MOVED = 1.0, 1e-4, 1e-4, 1e-2
+# (c)'s 4 x 32 images fall under the synthetic loader's floor of 500
+# (`data/loader._synthetic_for`), which sets (c)'s set: 16 steps of 32
+TP_C_CLIENTS, TP_C_SAMPLES, TP_C_BATCH = 4, 32, 32
 VMAP_FALLBACK = ("There is a performance drop because we have not yet "
                  "implemented the batching rule")
 
@@ -802,13 +897,15 @@ def time_ms(fn, n: int = 60, warmup: int = 5) -> float:
 
 
 # ------------------------------------------------------------------ phase 3
-def _kernel_case(rng, c: int, kind: str, serve: bool = False):
+def _kernel_case(rng, c: int, kind: str, serve: bool = False, h: int = H,
+                 qdt=None):
     """Random pool, page tables and positions at the check shape (or, with
-    `serve`, at the serve wave's tables and reservations)."""
+    `serve`, at the serve wave's tables and reservations), at `h` heads;
+    `qdt` overrides q's dtype (an int8 pool under f32 q)."""
     import torch
 
     dev = DEV
-    qdt = torch.float32 if kind == "f32" else torch.bfloat16
+    qdt = qdt or (torch.float32 if kind == "f32" else torch.bfloat16)
     n_res, max_pages = (RES_SERVE, MP_SERVE) if serve else (RES_CHECK,
                                                             MP_CHECK)
     perm = rng.permutation(np.arange(1, P_CHECK))
@@ -823,7 +920,7 @@ def _kernel_case(rng, c: int, kind: str, serve: bool = False):
         pos[0] = max_pages * PS - c    # the table's last position
         pos[7] = 0                     # one live row
         pos[3] = 20                    # 64 pages reserved, 2 live: skips 62
-    shape = (P_CHECK, PS, H, DH)
+    shape = (P_CHECK, PS, h, DH)
     # the pools (2 x 72 M entries) are drawn on the card, from a seed the
     # case's generator draws: set-up, not the check, and slow on the host
     gen = torch.Generator(device=dev)
@@ -831,9 +928,9 @@ def _kernel_case(rng, c: int, kind: str, serve: bool = False):
     if kind == "int8":
         k, v = (torch.randint(-127, 128, shape, generator=gen, device=dev,
                               dtype=torch.int8) for _ in range(2))
-        ks = torch.from_numpy(rng.uniform(0.005, 0.02, (P_CHECK, H))
+        ks = torch.from_numpy(rng.uniform(0.005, 0.02, (P_CHECK, h))
                               .astype(np.float32))
-        vs = torch.from_numpy(rng.uniform(0.005, 0.02, (P_CHECK, H))
+        vs = torch.from_numpy(rng.uniform(0.005, 0.02, (P_CHECK, h))
                               .astype(np.float32))
         scales = (ks.to(dev), vs.to(dev))
     else:
@@ -841,7 +938,7 @@ def _kernel_case(rng, c: int, kind: str, serve: bool = False):
                 for _ in range(2))
         scales = (None, None)
     q = torch.from_numpy(
-        rng.standard_normal((S_CHECK, c, H, DH), np.float32)).to(qdt)
+        rng.standard_normal((S_CHECK, c, h, DH), np.float32)).to(qdt)
     return (q.to(dev), k, v, torch.from_numpy(pages).to(dev),
             torch.from_numpy(pos).to(dev)) + scales
 
@@ -874,7 +971,7 @@ def _sdpa_gathered_ms(q, k, v, pages, pos, ks, vs) -> float:
     import torch
     import torch.nn.functional as F
 
-    s_, c = q.shape[:2]
+    s_, c, h = q.shape[:3]
     n_pg = int(((pos.long() + c - 1) // PS + 1).max())
     idx = pages[:, :n_pg].long()
 
@@ -882,7 +979,7 @@ def _sdpa_gathered_ms(q, k, v, pages, pos, ks, vs) -> float:
         g = pool[idx]
         if sc is not None:
             g = (g.float() * sc[idx][:, :, None, :, None]).to(q.dtype)
-        return g.reshape(s_, n_pg * PS, H, DH).transpose(1, 2).contiguous()
+        return g.reshape(s_, n_pg * PS, h, DH).transpose(1, 2).contiguous()
 
     kk, vv = gathered(k, ks), gathered(v, vs)
     qq = q.transpose(1, 2).contiguous()
@@ -947,6 +1044,51 @@ def phase_kernel(bw: float) -> dict:
                   **row})
         out[kind]["max_abs_err"] = max(errs)
         out[kind]["max_row_rel_err"] = max(rels)
+        del case, q, k, v
+        torch.cuda.empty_cache()
+    out["head_split"] = _kernel_head_split(bw)
+    return out
+
+
+# K4 at the head split (phase tp's ranks): (name, pool kind, C, q dtype)
+HEAD_SPLIT_CASES = (("f32", "f32", 1, "float32"), ("bf16", "bf16", 1, None),
+                    ("bf16_c5", "bf16", 5, None), ("int8", "int8", 1, None),
+                    ("int8_f32q", "int8", 1, "float32"))
+
+
+def _kernel_head_split(bw: float) -> dict:
+    """K4 at the serve shape over H / 2 heads, each case checked against
+    the plain version under TOL and timed (kernel, plain, SDPA on
+    pre-gathered K/V, bound)."""
+    import torch
+
+    from fedml_tpu_torch.ops import paged_attention as pa
+    from fedml_tpu_torch.ops.tolerance import rowwise_rel_err
+
+    out = {}
+    for i, (name, kind, c, qdt) in enumerate(HEAD_SPLIT_CASES):
+        case = _kernel_case(np.random.default_rng(40 + i), c, kind,
+                            serve=True, h=H // 2,
+                            qdt=getattr(torch, qdt) if qdt else None)
+        q, k, v, pages, pos, ks, vs = case
+        got = pa.paged_attention(*case)
+        ref = pa.paged_attention_ref(*case)
+        torch.cuda.synchronize()
+        check(torch.isfinite(got).all().item(), f"h16 {name}: non-finite")
+        rel = rowwise_rel_err(got, ref)
+        check(rel <= TOL[kind], f"h16 {name}: row-relative err {rel} > "
+              f"{TOL[kind]}")
+        nbytes, flops = _case_cost(q, k, pages, pos, ks is not None)
+        out[name] = {
+            "heads": H // 2, "C": c, "q_dtype": str(q.dtype),
+            "max_abs_err": (got.float() - ref.float()).abs().max().item(),
+            "max_row_rel_err": rel,
+            "ms": time_ms(lambda: pa.paged_attention(*case)),
+            "plain_ms": time_ms(lambda: pa.paged_attention_ref(*case),
+                                n=10, warmup=1),
+            "library_ms": _sdpa_gathered_ms(*case),
+            **_bound(nbytes, flops, q.dtype, bw)}
+        emit({"phase": "kernel", "head_split": name, **out[name]})
         del case, q, k, v
         torch.cuda.empty_cache()
     return out
@@ -1047,31 +1189,87 @@ def _top2_margin(model, tokens) -> float:
     import torch
 
     with torch.no_grad():
-        lg = model(torch.tensor([tokens], device=DEV))[0, -1].float()
+        lg = model(torch.tensor([tokens], device=model.device))[0, -1].float()
     top = torch.topk(lg, 2).values
     return float(top[0] - top[1])
 
 
-def _near_tie_identical(model, reqs, ref_outs, outs,
-                        phase: str = "engine") -> dict:
-    """Token identity under the near-tie rule: identical streams pass; a
-    stream whose first difference sits where the reference's top-2 margin
-    (under `model`) is below NEAR_TIE passes (nothing after it is
-    checked); anything else fails."""
-    ties = []
-    for i, ((prompt, _n), a, b) in enumerate(zip(reqs, ref_outs, outs)):
-        if a == b:
-            continue
-        j = next((k for k in range(min(len(a), len(b))) if a[k] != b[k]),
-                 None)
-        check(j is not None, f"request {i}: lengths {len(a)} vs {len(b)}")
-        margin = _top2_margin(model, prompt + a[:j])
+def _record_margins(eng) -> dict:
+    """Wrap an engine's picks (a harness around the non-speculative
+    engine, greedy requests): {id(ticket): [top-2 logit margin of each
+    pick, in order]} from the logits the engine itself picks from (its
+    first token at admission, then one a step while its slot is
+    active). Reads the margins back each step, so the wave synchronises."""
+    import torch
+
+    rec: dict = {}
+    last: dict = {}
+    pick, arm, step_all = eng._pick, eng._arm, eng._step_all
+
+    def rec_pick(logits, draws):
+        top = torch.topk(logits.float(), 2, dim=-1).values
+        last["m"] = top[..., 0] - top[..., 1]
+        return pick(logits, draws)
+
+    def rec_arm(slot, req, logits):
+        first = arm(slot, req, logits)
+        rec.setdefault(id(req.ticket), []).append(float(last["m"][0]))
+        return first
+
+    def rec_step(stepping):
+        nxt, active = step_all(stepping)
+        m, act = last["m"].cpu(), active.cpu()
+        for sl in stepping:
+            if act[sl]:
+                rec.setdefault(id(eng._slots[sl].req.ticket), []).append(
+                    float(m[sl]))
+        return nxt, active
+
+    eng._pick, eng._arm, eng._step_all = rec_pick, rec_arm, rec_step
+    return rec
+
+
+def _diff_picks(ref_outs, outs) -> list:
+    """[(request, first differing pick, or None for streams of unequal
+    length that agree as far as both go)] of every stream that differs
+    from its reference."""
+    out = []
+    for i, (a, b) in enumerate(zip(ref_outs, outs)):
+        if a != b:
+            out.append((i, next((k for k in range(min(len(a), len(b)))
+                                 if a[k] != b[k]), None)))
+    return out
+
+
+def _first_differences(model, reqs, ref_outs, outs) -> list:
+    """`_diff_picks` with the reference's top-2 margin at each first
+    difference under `model` (the full-recompute forward)."""
+    return [(i, j, None if j is None else _top2_margin(
+        model, reqs[i][0] + ref_outs[i][:j]))
+        for i, j in _diff_picks(ref_outs, outs)]
+
+
+def _near_tie_check(diffs, n: int, phase: str = "engine") -> dict:
+    """Token identity under the near-tie rule over `_first_differences`:
+    identical streams pass; a stream whose first difference sits where
+    the reference's top-2 margin is below NEAR_TIE passes (nothing after
+    it is checked); anything else fails."""
+    for i, j, margin in diffs:
+        check(j is not None, f"request {i}: lengths differ")
         emit({"phase": phase, "near_tie": {"request": i, "pick": j,
                                            "margin": margin}})
         check(margin < NEAR_TIE, f"request {i} differs at pick {j} with "
               f"top-2 margin {margin} >= {NEAR_TIE}")
-        ties.append(i)
-    return {"identical": len(reqs) - len(ties), "near_ties": ties}
+    return {"identical": n - len(diffs),
+            "near_ties": [i for i, _j, _m in diffs]}
+
+
+def _near_tie_identical(model, reqs, ref_outs, outs,
+                        phase: str = "engine") -> dict:
+    """`_near_tie_check` of `model`'s margins at each stream's first
+    difference from its reference."""
+    return _near_tie_check(_first_differences(model, reqs, ref_outs, outs),
+                           len(reqs), phase)
 
 
 def phase_engine(reqs) -> dict:
@@ -2065,8 +2263,9 @@ def _parity_round(ds, dev: str, dt) -> tuple:
 
 
 def fedavg_cpu_rounds(path: str) -> None:
-    """Phase fedavg's two CPU rounds (f64, then f32) into `path`. `main`
-    runs this in a child process beside phases kernel to train (niced,
+    """Phase fedavg's two CPU rounds (f64, then f32) into `path`. The
+    second lane runs this in a child process beside its phases before
+    fedavg (niced,
     CPU_PARITY_THREADS threads, no card visible): inline they read 76 s of
     the host at 4 clients."""
     import os
@@ -2175,8 +2374,8 @@ def _fedavg_parity(ds, cpu_rounds=None) -> dict:
 
 
 def phase_fedavg(cpu_rounds=None) -> dict:
-    """Phase 8 (module docstring). `cpu_rounds`: `start_cpu_rounds`'s
-    child, started when the script began."""
+    """Phase 9 (module docstring). `cpu_rounds`: `start_cpu_rounds`'s
+    child, started when the second lane began."""
     import torch
 
     from fedml_tpu_torch.data import loader
@@ -2189,7 +2388,6 @@ def phase_fedavg(cpu_rounds=None) -> dict:
     ds = loader.load(cfg)
     check(ds.synthetic, "the flagship data is not the synthetic CIFAR-10")
     data_s = time.perf_counter() - t0
-    parity = _fedavg_parity(ds, cpu_rounds)
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -2238,7 +2436,8 @@ def phase_fedavg(cpu_rounds=None) -> dict:
     del sim
     gc.collect()
     torch.cuda.empty_cache()
-    res["f32_card_vs_cpu"] = parity
+    # after the rounds: the CPU's child has had their time to finish
+    res["f32_card_vs_cpu"] = _fedavg_parity(ds, cpu_rounds)
     return res
 
 
@@ -3870,12 +4069,12 @@ def _transports_and_edges(ref_params=None) -> dict:
 
 def phase_cross_silo_secure(cs_flagship=None, loopback_params=None) -> dict:
     """Phase 13 (module docstring). `cs_flagship`, phase cross_silo's
-    flagship result when that phase ran in this call, gives the dense
-    round's ms beside the codec's; that phase has then warmed the
-    flagship's shapes in this process, so (a) and (c) time one round
-    with no warm round before it. `loopback_params`, its 4-silo card
-    federation's params, stand for (d)'s loopback run (the same
-    program)."""
+    flagship result when that phase ran in this call (in the second
+    lane, which hands it on), gives the dense round's ms beside the
+    codec's; (a) and (c) then time one round with no warm round before
+    it (phase entry has run the flagship's rounds in this process).
+    `loopback_params`, its 4-silo card federation's params, stand for
+    (d)'s loopback run (the same program)."""
     import torch
 
     from fedml_tpu_torch.data import loader
@@ -4426,15 +4625,22 @@ def _cli(*args, timeout: float = 300) -> subprocess.CompletedProcess:
     return _clis([args], timeout)[0]
 
 
-def _cli_start(*args) -> subprocess.Popen:
+def _cli_start(*args, to_files: bool = False) -> subprocess.Popen:
     """`python -m fedml_tpu_torch <args>` from the checkout's root, started
-    (`_cli_wait` collects it)."""
+    (`_cli_wait` collects it). `to_files`: its output goes to temporary
+    files, not pipes, so that a process left running beside other work
+    never stalls on a full pipe."""
     import os
+    import tempfile
 
-    return subprocess.Popen(
+    files = (tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")) \
+        if to_files else (subprocess.PIPE, subprocess.PIPE)
+    p = subprocess.Popen(
         [sys.executable, "-m", "fedml_tpu_torch", *args],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        stdout=files[0], stderr=files[1], text=True,
         cwd=os.path.dirname(os.path.abspath(__file__)))
+    p.files = files if to_files else None
+    return p
 
 
 def _cli_wait(p: subprocess.Popen, timeout: float = 300
@@ -4443,6 +4649,10 @@ def _cli_wait(p: subprocess.Popen, timeout: float = 300
         so, se = p.communicate(timeout=timeout)
     finally:
         p.kill()
+    if p.files:
+        for f in p.files:
+            f.seek(0)
+        so, se = (f.read() for f in p.files)
     return subprocess.CompletedProcess(p.args, p.returncode, so, se)
 
 
@@ -4604,6 +4814,11 @@ def phase_entry(surface=None) -> dict:
     fa.launch_count.update(dict.fromkeys(fa.launch_count, 0))
     pa.launch_count = 0
     t0 = time.perf_counter()
+    # (f)'s diagnosis battery runs beside (a)-(c): it reads nothing of
+    # theirs, and its probes' budgets (the live loop's 20 s) sit far
+    # above their readings (2.9 s)
+    diag_p = _cli_start("diagnosis", to_files=True)
+    atexit.register(diag_p.kill)
     res = {}
     with tempfile.TemporaryDirectory() as d:
         t1 = time.perf_counter()
@@ -4661,14 +4876,14 @@ def phase_entry(surface=None) -> dict:
     res["e_swap"] = (surface or {}).get("swap") or \
         "not run: phase serve_surface did not run in this call"
     emit({"phase": "entry", "part": "e_swap", "swap": res["e_swap"]})
-    # (f) the diagnosis battery, alone on the card (its live_loop_smoke
-    # holds a wall-clock budget), and `env` (run in (b)), as subprocesses
+    # (f) the diagnosis battery (started with the phase) and `env` (run
+    # in (b)), as subprocesses
     t1 = time.perf_counter()
     check(env.returncode == 0, f"env rc {env.returncode}")
     card = json.loads(env.stdout)["devices"][0]
     smi_name = nvidia_smi_line().split(",")[0].strip()
     check(card == smi_name, f"env names {card!r}, nvidia-smi {smi_name!r}")
-    diag = _cli("diagnosis", timeout=600)
+    diag = _cli_wait(diag_p, timeout=600)
     report = json.loads(diag.stdout) if diag.stdout.strip() else {}
     checks = report.get("checks", {})
     from fedml_tpu_torch.diagnosis import REQUIRED
@@ -6926,10 +7141,502 @@ def phase_qlora(reqs, bw: float) -> dict:
           f"qlora (d): rank exit codes {res['d_exitcodes']}")
     return res
 
+# ------------------------------------------------------------- phase 21
+def _k4_counts() -> dict:
+    from fedml_tpu_torch.ops import paged_attention as pa
+
+    with pa._count_lock:
+        return {"launches": pa.launch_count, "by_c": dict(pa.launches_by_c),
+                "by_h": dict(pa.launches_by_h)}
+
+
+def _k4_reset() -> None:
+    from fedml_tpu_torch.ops import paged_attention as pa
+
+    with pa._count_lock:
+        pa.launch_count = 0
+        pa.launches_by_c.clear()
+        pa.launches_by_h.clear()
+
+
+def _tp_wave(model, ads, reqs, dev, mesh, margins: bool = False,
+             **kw) -> dict:
+    """One engine wave over `reqs` (every rank of `mesh` runs it; the
+    leader submits): K4's counts from the engine's start to its stop,
+    the decode steps, the leader's tokens and wall seconds; with
+    `margins`, each request's top-2 margin at every pick
+    (`_record_margins`)."""
+    from fedml_tpu_torch.serving.engine import DecodeEngine
+
+    _k4_reset()
+    eng = DecodeEngine(model, ads, n_slots=N_SLOTS, max_len=MAX_LEN,
+                       page_size=PS, prefill_chunk=PREFILL_CHUNK,
+                       paged_kernel=True, mesh=mesh, device=dev,
+                       **kw)
+    rec = _record_margins(eng) if margins else None
+    eng.start()
+    outs, wall, picks = None, None, None
+    if eng._leader:
+        t0 = time.perf_counter()
+        tickets = [eng.submit(p, n) for p, n in reqs]
+        outs = [t.result(timeout=600) for t in tickets]
+        wall = time.perf_counter() - t0
+        if rec is not None:
+            picks = [rec.get(id(t), []) for t in tickets]
+    eng.stop()
+    res = {**_k4_counts(), "decode_steps": eng.decode_steps,
+           "outs": outs, "wall_s": wall, "margins": picks}
+    del eng
+    gc.collect()
+    return res
+
+
+def _tp_rank_a(cfg: dict) -> dict:
+    """Phase tp (a) and (a') in one gloo rank: the mp = 2 engine with K4
+    on the rank's 16 heads. (a) bf16 at 7B width and TP_A_LAYERS layers,
+    rank-8 adapters, spec_k 4 (K4 at C = 5), the first TP_WAVE
+    requests; rank 0 then serves them unmeshed (tokens reported). (a')
+    f32 at TP_F32_LAYERS layers, TF32 off: the mp = 2 kernel engine, over
+    an f32 and an int8 pool, against the unmeshed kernel engine under the
+    near-tie rule (rank 0 checks)."""
+    import torch
+
+    from fedml_tpu_torch.llm.lora import lora_init
+    from fedml_tpu_torch.llm.transformer import (
+        ModelDims, TransformerLM, init_params,
+    )
+    from fedml_tpu_torch.parallel import mesh as mesh_mod
+    from fedml_tpu_torch.parallel.launch import current
+
+    info = current()
+    dev = info.device
+    cuda = dev.type == "cuda"
+    mesh = mesh_mod.make_mesh({"mp": 2})
+    reqs = [tuple(r) for r in cfg["reqs"]]
+    out = {"rank": info.rank, "backend": info.backend}
+    # (a) bf16, the main path
+    dims = ModelDims(**{**cfg["dims"], "n_layers": TP_A_LAYERS})
+    t0 = time.perf_counter()
+    model = TransformerLM.from_state(dims, init_params(
+        dims, seed=0, dtype=torch.bfloat16, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    ads = lora_init(model.state_dict(), rank=LORA_RANK, generator=gen)
+    for ab in ads.values():
+        ab["b"] = 0.05 * torch.randn(ab["b"].shape, generator=gen,
+                                     device=dev)
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    out["init_s"] = time.perf_counter() - t0
+    a = _tp_wave(model, ads, reqs, dev, mesh, spec_decode="ngram",
+                 spec_k=SPEC_K)
+    a["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    if info.rank == 0:
+        ref = _tp_wave(model, ads, reqs, dev, None, spec_decode="ngram",
+                       spec_k=SPEC_K)
+        a["unmeshed_identical"] = sum(x == y for x, y in zip(a["outs"],
+                                                             ref["outs"]))
+        a["unmeshed_ms_per_decode_step"] = (ref["wall_s"] * 1e3
+                                            / ref["decode_steps"])
+    out["a"] = a
+    del model, ads
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    # (a') the f32 gate
+    dims = ModelDims(**{**cfg["dims"], "n_layers": TP_F32_LAYERS})
+    model = TransformerLM.from_state(dims, init_params(
+        dims, seed=1, dtype=torch.float32, device=dev))
+    checks = [(p, min(n, TP_F32_NEW)) for p, n in reqs]
+    # the f32 TP forward against the whole model's on one prompt
+    from fedml_tpu_torch.llm import tp as tp_mod
+
+    toks = torch.tensor([reqs[0][0]], device=dev)
+    with torch.no_grad():
+        got = tp_mod.tp_model(dims, tp_mod.shard_params_tp(
+            model.state_dict(), mesh, "mp"), mesh, "mp")(toks)
+        want = model(toks)
+    out["a2_logits_max_rel_diff"] = float(
+        (got - want).abs().max() / want.abs().max())
+    for pool in ("f32", "int8"):
+        kw = {"kv_quant": "int8"} if pool == "int8" else {}
+        w = _tp_wave(model, None, checks, dev, mesh, margins=True, **kw)
+        if info.rank == 0:
+            # the reference engine's own margins at each pick: an int8
+            # pool's rounding moves its logits, so the float model's
+            # margin (reported beside it) is not the reference's
+            ref = _tp_wave(model, None, checks, dev, None, margins=True,
+                           **kw)
+            w["diffs"] = [(i, j, None if j is None
+                           else ref["margins"][i][j])
+                          for i, j in _diff_picks(ref["outs"], w["outs"])]
+            w["float_margins"] = [_top2_margin(model, checks[i][0]
+                                               + ref["outs"][i][:j])
+                                  for i, j, _m in w["diffs"]
+                                  if j is not None]
+            # the meshed engine's own margin at the same pick
+            w["mesh_margins"] = [w["margins"][i][j]
+                                 for i, j, _m in w["diffs"] if j is not None]
+        out["a2_" + pool] = w
+    return out
+
+
+def _tp_rank_b(cfg: dict) -> dict:
+    """Phase tp (b) in one gloo rank: `build_scaled_fedllm` over (dp 1,
+    tp 2) with an injected int8 base at 7B width (the same full base in
+    both ranks, each keeping its shard) and the flash kernels on the
+    rank's heads, once for each of `cfg["dtypes"]`; K1-K3 counted; in
+    bf16 the sharded checkpoint written, read back and compared; rank 0
+    then runs the same steps at tp = 1 (a prefix mesh)."""
+    import tempfile
+
+    import torch
+
+    from fedml_tpu_torch.llm import quant, scale
+    from fedml_tpu_torch.llm.lora import lora_init
+    from fedml_tpu_torch.llm.transformer import ModelDims, TransformerLM
+    from fedml_tpu_torch.ops import flash_attention as fa
+    from fedml_tpu_torch.parallel import mesh as mesh_mod
+    from fedml_tpu_torch.parallel.launch import current
+
+    info = current()
+    dev = info.device
+    cuda = dev.type == "cuda"
+    dims = ModelDims(**cfg["dims"])
+    gen = torch.Generator(device=dev).manual_seed(11)
+    full = quant.synth_quantized_base(scale.state_shapes(dims), gen,
+                                      device=dev)
+    ads = lora_init(scale._shape_leaves(dims, dev), rank=LORA_RANK,
+                    generator=gen)
+    for ab in ads.values():
+        ab["b"] = 0.05 * torch.randn(ab["b"].shape, generator=gen,
+                                     device=dev)
+    rng = np.random.default_rng(12)
+    seqs = torch.from_numpy(rng.integers(
+        0, dims.vocab_size, (cfg["bs"], cfg["t"] + 1))).to(dev)
+    x, y = seqs[:, :-1], seqs[:, 1:]
+    meshes = {"tp2": mesh_mod.make_mesh({"dp": 1, "tp": 2}),
+              "tp1": mesh_mod.make_mesh({"dp": 1, "tp": 1})}
+    attn = fa.flash_attn_fn if cuda else None
+    out = {"rank": info.rank, "full_bytes": quant.quant_bytes(full)}
+    runs = [(tag, m, dt) for dt in cfg["dtypes"] for tag, m in meshes.items()]
+    for tag, m, dt in runs:
+        if not mesh_mod.in_mesh(m):
+            continue
+        fa.launch_count.update(dict.fromkeys(fa.launch_count, 0))
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        _m, base, a, step = scale.build_scaled_fedllm(
+            TransformerLM, m, **dataclasses.asdict(dims), rank=LORA_RANK,
+            lr=cfg["lr"], seq_axis=None, quantize_base=True, base=full,
+            adapters=ads, attn_fn=attn, compute_dtype=dt, device=dev)
+        a0 = {k: {c: t.float().cpu() for c, t in ab.items()}
+              for k, ab in a.items()}
+        losses, secs = [], []
+        for _ in range(cfg["steps"]):
+            if cuda:
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            a, loss = step(a, x, y)
+            losses.append(float(loss))
+            secs.append(time.perf_counter() - t0)
+        # each adapter leaf's change over the steps, and its largest
+        # entry at the start
+        r = {"losses": losses, "seconds": secs,
+             "update": {f"{k}.{c}": (t.float().cpu() - a0[k][c]).numpy()
+                        for k, ab in a.items() for c, t in ab.items()},
+             "start_max": {f"{k}.{c}": float(t.abs().max())
+                           for k, ab in a0.items() for c, t in ab.items()},
+             "launches": dict(fa.launch_count),
+             "base_bytes": quant.quant_bytes(base),
+             "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda
+             else 0}
+        if tag == "tp2" and dt == "bfloat16":
+            with tempfile.TemporaryDirectory() as tmp:
+                path = tmp if info.rank == 0 else None
+                path = mesh_mod.broadcast_object(path, m, "tp")
+                t0 = time.perf_counter()
+                scale.save_base_sharded(path, base, m)
+                got = scale.restore_base_sharded(path, base, m, device=dev)
+                r["ckpt_s"] = time.perf_counter() - t0
+                fb, fg = quant.flat_state(base), quant.flat_state(got)
+                r["ckpt_bitwise"] = fb.keys() == fg.keys() and all(
+                    torch.equal(fb[k], fg[k]) for k in fb)
+                mesh_mod.barrier(m)
+        out[tag if dt == "bfloat16" else f"{tag}_{dt}"] = r
+        del base, a, step, _m
+        gc.collect()
+    return out
+
+
+def _tp_rank_c(cfg: dict) -> dict:
+    """Phase tp (c) in one gloo rank: the centralized trainer on the
+    flagship ResNet-18-GN over {"mp": 2}, one epoch from the same seeded
+    start, in f64 and in f32 (TF32 off); rank 0 then the same epochs at
+    {"mp": 1} (a prefix mesh rank 1 also builds). The whole parameters
+    gathered back and K1-K4 counted."""
+    import torch
+
+    import fedml_tpu_torch
+    from fedml_tpu_torch.centralized import CentralizedTrainer
+    from fedml_tpu_torch.models import hub
+    from fedml_tpu_torch.parallel import mesh as mesh_mod
+    from fedml_tpu_torch.parallel import partition
+    from fedml_tpu_torch.parallel.launch import current
+
+    info = current()
+    dev = info.device
+    k0 = _k1_k4()
+    p0 = hub.init_params(hub.create("resnet18_gn", 10, (32, 32, 3),
+                                    device="meta"),
+                         torch.Generator(device=dev).manual_seed(0))
+    out = {"rank": info.rank}
+    for dt in ("float64", "float32"):
+        start = {k: v.to(getattr(torch, dt)) for k, v in p0.items()}
+        out[dt] = {"start": {k: v.cpu().numpy() for k, v in start.items()}}
+        for mp in (2, 1):
+            d = {**cfg["config"], "device_args": {"mesh_shape": {"mp": mp}}}
+            if mp == 1 and info.rank != 0:
+                mesh_mod.make_mesh({"mp": 1})  # every rank builds each mesh
+                continue
+            tr = CentralizedTrainer(fedml_tpu_torch.init(
+                config=d, device=str(dev)), params=start)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            hist = tr.run(epochs=1)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            secs = time.perf_counter() - t0
+            whole = partition.unshard_params(tr.params, tr.mesh,
+                                             tr.param_specs)
+            out[dt][f"mp{mp}"] = {
+                "seconds": secs, "train_loss": hist[0]["train_loss"],
+                "params": {k: v.cpu().numpy() for k, v in whole.items()},
+                "split": sum("mp" in tuple(sp) for sp in
+                             tr.param_specs.values()),
+                "leaves": len(tr.param_specs)}
+    out["k1_k4"] = _k1_k4() - k0
+    return out
+
+
+def _tp_b_readings(t2: dict, t1: dict, t2_other: dict) -> dict:
+    """Phase tp (b)'s readings of one pass (rank 0's tp 2 and tp 1 runs,
+    rank 1's tp 2 run): every step's loss against tp 1's; the worst
+    adapter leaf's change over the steps against tp 1's change of it,
+    over the largest change of any leaf (wq's and wk's adapters barely
+    move from a random start, so a leaf's own change is below the f32
+    resolution of its entries), and that leaf; how far the adapters
+    moved (the largest change over its leaf's largest start entry); the
+    ranks' replicas bitwise."""
+    top = max(float(np.abs(u).max()) for u in t1["update"].values())
+    errs = {k: float(np.abs(t2["update"][k] - u).max())
+            for k, u in t1["update"].items()}
+    worst = max(errs, key=errs.get)
+    return {
+        "losses_tp2": t2["losses"], "losses_tp1": t1["losses"],
+        "loss_rel_diff": max(abs(x - y) / abs(y) for x, y in
+                             zip(t2["losses"], t1["losses"])),
+        "update_rel_err": errs[worst] / top, "update_max": top,
+        "worst_leaf": [worst, float(np.abs(t1["update"][worst]).max()),
+                       errs[worst]],
+        "adapter_moved": max(float(np.abs(u).max()) / t1["start_max"][k]
+                             for k, u in t1["update"].items()),
+        "replicas_bitwise": all(np.array_equal(u, t2_other["update"][k])
+                                for k, u in t2["update"].items()),
+        "seconds_per_step_tp2": t2["seconds"],
+        "seconds_per_step_tp1": t1["seconds"],
+        "launches_per_rank": [t2["launches"], t2_other["launches"]],
+        "peak_bytes_per_rank": [t2["peak_bytes"], t2_other["peak_bytes"]]}
+
+
+def phase_tp() -> dict:
+    """Phase 21 (module docstring)."""
+    from fedml_tpu_torch.llm.transformer import LLAMA2_7B
+    from fedml_tpu_torch.parallel.launch import RankPool
+
+    t0 = time.perf_counter()
+    pool = RankPool([DEV, DEV], timeout_s=TP_TIMEOUT_S,
+                    setup=_qlora_rank_setup)
+    res = {}
+    try:
+        t1 = time.perf_counter()
+        ra = pool.run(_tp_rank_a, {
+            "dims": dataclasses.asdict(LLAMA2_7B),
+            "reqs": _requests(LLAMA2_7B.vocab_size)[:TP_WAVE]})
+        res["a_seconds"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        rb = pool.run(_tp_rank_b, {
+            "dims": dataclasses.asdict(dataclasses.replace(
+                LLAMA2_7B, n_layers=TP_B_LAYERS)),
+            "bs": TP_B_BS, "t": TP_B_T, "steps": TP_B_STEPS,
+            "lr": TP_B_LR, "dtypes": ("bfloat16", "float32")})
+        res["b_seconds"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        rc = pool.run(_tp_rank_c, {"config": _tp_c_config()})
+        res["c_seconds"] = time.perf_counter() - t1
+    finally:
+        res["exitcodes"] = pool.close()
+    L = TP_A_LAYERS
+    # every part's readings first, then every bar
+    for pool_kind in ("f32", "int8"):
+        w0, w1 = ra[0]["a2_" + pool_kind], ra[1]["a2_" + pool_kind]
+        res["a2_" + pool_kind] = {
+            "launches_per_rank": [w0["launches"], w1["launches"]],
+            "by_h": [w0["by_h"], w1["by_h"]],
+            "decode_steps": w0["decode_steps"], "diffs": w0["diffs"],
+            "mesh_engine_margins": w0["mesh_margins"],
+            "float_model_margins": w0["float_margins"]}
+        emit({"phase": "tp", "part": f"a2_f32_gate_{pool_kind}_pool",
+              "logits_max_rel_diff": ra[0]["a2_logits_max_rel_diff"],
+              **res["a2_" + pool_kind]})
+    a0, a1 = ra[0]["a"], ra[1]["a"]
+    res["a"] = {
+        "launches_per_rank": [a0["launches"], a1["launches"]],
+        "by_h": [a0["by_h"], a1["by_h"]], "by_c": [a0["by_c"], a1["by_c"]],
+        "decode_steps": a0["decode_steps"],
+        "ms_per_decode_step": a0["wall_s"] * 1e3 / a0["decode_steps"],
+        "unmeshed_ms_per_decode_step": a0["unmeshed_ms_per_decode_step"],
+        "wall_s": a0["wall_s"], "init_s": [ra[0]["init_s"], ra[1]["init_s"]],
+        "peak_bytes_per_rank": [a0["peak_bytes"], a1["peak_bytes"]],
+        "tokens": sum(len(o) for o in a0["outs"]),
+        "unmeshed_identical": f"{a0['unmeshed_identical']}/{TP_WAVE}"}
+    emit({"phase": "tp", "part": "a_engine_bf16", **res["a"]})
+    b0, b1 = rb[0], rb[1]
+    res["b"] = {dt: _tp_b_readings(b0[f"tp2{sfx}"], b0[f"tp1{sfx}"],
+                                   b1[f"tp2{sfx}"])
+                for dt, sfx in (("bfloat16", ""), ("float32", "_float32"))}
+    res["b"].update({
+        "lr": TP_B_LR,
+        "base_bytes_per_rank": [b0["tp2"]["base_bytes"],
+                                b1["tp2"]["base_bytes"]],
+        "full_base_bytes": b0["full_bytes"],
+        "base_share": b0["tp2"]["base_bytes"] / b0["full_bytes"],
+        "ckpt_bitwise": [b0["tp2"]["ckpt_bitwise"],
+                         b1["tp2"]["ckpt_bitwise"]],
+        "ckpt_s": b0["tp2"]["ckpt_s"]})
+    emit({"phase": "tp", "part": "b_scaled_step_int8", **res["b"]})
+    c0, c1 = rc[0], rc[1]
+    res["c"] = {"leaves": c0["float64"]["mp2"]["leaves"],
+                "split_leaves": c0["float64"]["mp2"]["split"],
+                "k1_k4": [c0["k1_k4"], c1["k1_k4"]]}
+    for dt in ("float64", "float32"):
+        want = c0[dt]["mp1"]["params"]
+        worst = {}
+        for got in (c0[dt]["mp2"]["params"], c1[dt]["mp2"]["params"]):
+            for k, v in want.items():
+                den = np.abs(v) * 1e-4 + 1e-5
+                worst[k] = max(worst.get(k, 0.0),
+                               float((np.abs(got[k] - v) / den).max()))
+        err = max(float(np.abs(c0[dt]["mp2"]["params"][k] - v).max())
+                  for k, v in want.items())
+        upd = max(float(np.abs(v - c0[dt]["start"][k]).max())
+                  for k, v in want.items())
+        res["c"][dt] = {
+            "max_abs_err": err, "max_update": upd,
+            "err_of_update": err / upd,
+            "worst_share_of_bar": max(worst.values()),
+            "seconds_mp2": [c0[dt]["mp2"]["seconds"],
+                            c1[dt]["mp2"]["seconds"]],
+            "seconds_mp1": c0[dt]["mp1"]["seconds"],
+            "train_loss_mp2": c0[dt]["mp2"]["train_loss"],
+            "train_loss_mp1": c0[dt]["mp1"]["train_loss"]}
+    # f32 against f64 from the same start, at mp 1 and at mp 2: how far
+    # the cell itself carries f32 rounding in one epoch
+    for mp in ("mp1", "mp2"):
+        want, got = c0["float64"][mp]["params"], c0["float32"][mp]["params"]
+        err = max(float(np.abs(got[k] - v).max()) for k, v in want.items())
+        res["c"][f"f32_vs_f64_{mp}_err_of_update"] = (
+            err / res["c"]["float64"]["max_update"])
+    emit({"phase": "tp", "part": "c_centralized_mp2", **res["c"]})
+    # (a') the f32 gate under the near-tie rule, each margin the
+    # reference engine's own at the first differing pick
+    for pool_kind in ("f32", "int8"):
+        res["a2_" + pool_kind].update(_near_tie_check(
+            ra[0]["a2_" + pool_kind]["diffs"], TP_WAVE, phase="tp"))
+    for pool_kind in ("f32", "int8"):
+        for r in (ra[0]["a2_" + pool_kind], ra[1]["a2_" + pool_kind]):
+            check(r["launches"] == TP_F32_LAYERS * r["decode_steps"] > 0
+                  and r["by_h"] == {H // 2: r["launches"]},
+                  f"tp (a') {pool_kind}: K4 launches {r['by_h']}")
+    # (a) the bf16 engine: K4 on each rank's own 16 heads, every launch a
+    # verify window (C = spec_k + 1), layers x windows a rank
+    check(all(len(o) == n for o, (_p, n) in zip(
+        a0["outs"], _requests(32000)[:TP_WAVE])),
+        "tp (a): a ticket ended short of max_new_tokens")
+    for r in (a0, a1):
+        check(r["decode_steps"] == a0["decode_steps"] > 0,
+              "tp (a): the ranks stepped differently")
+        check(r["launches"] == L * r["decode_steps"]
+              and r["by_h"] == {H // 2: r["launches"]}
+              and r["by_c"] == {SPEC_K + 1: r["launches"]},
+              f"tp (a): K4 launches {r['by_h']} / {r['by_c']} != {L} x "
+              f"{r['decode_steps']} windows at H {H // 2}, C {SPEC_K + 1}")
+    # (b) the scaled step: K1-K3 in both passes, the bf16 pass's losses
+    # and the f32 pass's adapters against tp 1's
+    n = TP_B_LAYERS * TP_B_STEPS
+    for r in (b0["tp2"], b1["tp2"]):
+        check(r["ckpt_bitwise"], "tp (b): the checkpoint did not round-trip")
+        check(0.45 <= r["base_bytes"] / b0["full_bytes"] <= 0.6,
+              f"tp (b): a rank holds {r['base_bytes']} of "
+              f"{b0['full_bytes']} base bytes")
+    for dt, route in (("bfloat16", "tc"), ("float32", "3xtf32")):
+        rd = res["b"][dt]
+        for r in rd["launches_per_rank"]:
+            check(r[f"fwd_{route}"] == 2 * n
+                  and r[f"dq_{route}"] == r[f"dkv_{route}"] == n,
+                  f"tp (b) {dt}: K1-K3 launches {r} != 2 x {n}, {n}, {n}")
+        check(all(np.isfinite(rd["losses_tp2"])),
+              f"tp (b) {dt}: a loss is not finite")
+        check(rd["adapter_moved"] >= TP_B_MOVED, f"tp (b) {dt}: the "
+              f"adapters moved {rd['adapter_moved']} of their largest "
+              "entry, too little to check their change")
+        check(rd["replicas_bitwise"], f"tp (b) {dt}: the ranks' adapters "
+              "differ")
+    check(res["b"]["bfloat16"]["loss_rel_diff"] <= TP_B_TOL,
+          f"tp (b): a bf16 tp 2 loss is "
+          f"{res['b']['bfloat16']['loss_rel_diff']} from tp 1's")
+    check(res["b"]["float32"]["update_rel_err"] <= TP_B_UPD_TOL,
+          f"tp (b): an f32 adapter leaf's change over the steps is "
+          f"{res['b']['float32']['update_rel_err']} of the largest change "
+          "from tp 1's")
+    # (c) the centralized trainer at mp 2 against mp 1, in f64: in f32 the
+    # two sum in other orders (the split halves each conv's output
+    # channels, and cuDNN picks its algorithm by shape), and the epoch
+    # carries that rounding on; the f32 distances are reported beside
+    # each f32 run's distance from f64
+    c64 = res["c"]["float64"]
+    check(res["c"]["leaves"] == 62, "tp (c): ResNet-18-GN has not 62 leaves")
+    check(c64["worst_share_of_bar"] <= 1.0,
+          "tp (c): f64 mp 2's parameters are outside rtol 1e-4 / atol 1e-5 "
+          "of mp 1's")
+    check(np.isclose(c64["train_loss_mp2"], c64["train_loss_mp1"],
+                     rtol=1e-4, atol=1e-6), "tp (c): the f64 losses differ")
+    check(res["c"]["k1_k4"] == [0, 0], "tp (c): K1-K4 launched")
+    res["seconds"] = time.perf_counter() - t0
+    emit({"phase": "tp", "exitcodes": res["exitcodes"],
+          "a_seconds": res["a_seconds"], "b_seconds": res["b_seconds"],
+          "c_seconds": res["c_seconds"], "nvidia_smi": nvidia_smi_line(),
+          "seconds": res["seconds"]})
+    check(res["exitcodes"] == [0, 0], f"tp: rank exit codes "
+          f"{res['exitcodes']}")
+    return res
+
+
+def _tp_c_config() -> dict:
+    """Phase tp (c)'s config: the flagship's model, batch and shapes over
+    TP_C_CLIENTS clients of synthetic CIFAR-10 images (TP_C_SAMPLES
+    asked for each, the loader's floor of 500 in all), f32."""
+    d = _flagship_dict(client_num_in_total=TP_C_CLIENTS,
+                       client_num_per_round=TP_C_CLIENTS,
+                       batch_size=TP_C_BATCH, compute_dtype="float32")
+    d["data_args"]["synthetic_samples_per_client"] = TP_C_SAMPLES
+    return d
+
 
 def kernel_rows(kern: dict, runs: dict, flash: dict, train: dict,
                 surface: dict, every_phase: bool, fleet=None,
-                qlora=None) -> list:
+                qlora=None, tp=None) -> list:
     """The `kernels` line's rows from the phases' results; with
     `every_phase`, also checks that each kernel was launched where it
     should have been. The bf16 K4 row carries phase fleet's main-path
@@ -6937,10 +7644,19 @@ def kernel_rows(kern: dict, runs: dict, flash: dict, train: dict,
     and phase qlora's (the engine over the int8 7B base) as
     `qlora_launches`; the bf16 K1-K3 rows carry phase qlora's vmapped
     LoRA round (G = 2, one launch a layer and pass a group step) as
-    `qlora_launches`."""
+    `qlora_launches`; the K1-K3 rows of each dtype carry phase tp's
+    scaled step (b) in that dtype (the ranks' sum) as `tp_launches`. K4 at phase tp's head split (H 16 a rank, its own
+    pool) has rows of its own, their `launches` the ranks' sum on
+    phase tp's main paths: bf16 at C = 5 from (a), the f32 and int8 pools
+    under f32 q from (a'); the bf16 and int8 rows carry their C = 1 H 16
+    case, checked and timed in phase kernel, as `head_split_h16`."""
     qlora = qlora or {}
+    tp = tp or {}
+    split = kern.get("head_split", {})
     kernels = []
     for kind, k in kern.items():
+        if kind == "head_split":
+            continue
         if kind == "bf16" and "serve_c5" in k:
             # K4 at the speculative verify window's C = 5, at the serve
             # shape; `launches` from phase serve_surface's main path
@@ -6975,6 +7691,27 @@ def kernel_rows(kern: dict, runs: dict, flash: dict, train: dict,
                 "a", {}).get("launches", 0)
             kernels[-1]["qlora_launches"] = qlora.get("a", {}).get(
                 "int8_wave", {}).get("launches", 0)
+        if kind in ("bf16", "int8") and kind in split:
+            kernels[-1]["head_split_h16"] = split[kind]
+    # K4 at the head split on phase tp's main paths
+    for name, case, part in (("paged_attention_bf16_c5_h16", "bf16_c5", "a"),
+                             ("paged_attention_f32_h16", "f32", "a2_f32"),
+                             ("paged_attention_int8_f32q_h16", "int8_f32q",
+                              "a2_int8")):
+        if case not in split:
+            continue
+        c = split[case]
+        per_rank = tp.get(part, {}).get("launches_per_rank", [0])
+        kernels.append({
+            "name": name, "route": "cuda", "design": "split-page",
+            "source": "fedml_tpu_torch/csrc/paged_attention.cu",
+            "replaces": "fedml_tpu/ops/paged_attention.py:84",
+            "heads": c["heads"], "C": c["C"], "q_dtype": c["q_dtype"],
+            "launches": sum(per_rank), "launches_per_rank": per_rank,
+            "max_abs_err": c["max_abs_err"],
+            "max_row_rel_err": c["max_row_rel_err"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
     # the flash kernels at the main path's dtype (bf16: the tensor-core
     # kernels) and at f32 (the three-pass TF32 kernels). `launches` is each
     # kernel's count from phase train's main path; `parity_launches` its
@@ -7032,6 +7769,11 @@ def kernel_rows(kern: dict, runs: dict, flash: dict, train: dict,
         if dt == "bf16":
             kernels[-1]["qlora_launches"] = qlora.get("c", {}).get(
                 "launches", {}).get(counter, 0)
+        # phase tp (b)'s bf16 pass (the main path) and its f32 pass
+        kernels[-1]["tp_launches"] = sum(
+            r.get(counter, 0) for r in tp.get("b", {}).get(
+                {"bf16": "bfloat16", "f32": "float32"}[dt], {}).get(
+                    "launches_per_rank", []))
         fold = qlora.get("c", {}).get("fold")
         if fold and counter == "fwd_tc":
             # K1 over the vmapped group (G x BH folded into one launch)
@@ -7046,9 +7788,13 @@ def kernel_rows(kern: dict, runs: dict, flash: dict, train: dict,
     flash_rows = [k for k in kernels if "d40" in k]
     every_time = kernels + [k["d40"] for k in flash_rows] + [
         k["d40"]["at_flagship"] for k in flash_rows] + [
-        k["qlora_fold"] for k in kernels if "qlora_fold" in k]
+        k["qlora_fold"] for k in kernels if "qlora_fold" in k] + [
+        k["head_split_h16"] for k in kernels if "head_split_h16" in k]
     check(all(k["ms"] >= k["bound_ms"] for k in every_time),
           "a kernel's time is below its bound: the bound is wrong")
+    if tp:
+        check(all(k["launches"] > 0 for k in kernels if "heads" in k),
+              "K4 at the head split was never launched by phase tp")
     if every_phase:
         # the f32 flash kernels are off the main path (phase train checked
         # their counts are 0 there); the f32 round must have run them, and
@@ -7067,14 +7813,166 @@ def kernel_rows(kern: dict, runs: dict, flash: dict, train: dict,
         check(all(k["qlora_launches"] > 0 for k in kernels
                   if "qlora_launches" in k),
               "a kernel was never launched by phase qlora's main paths")
+        check(all(k["tp_launches"] > 0 for k in kernels
+                  if "tp_launches" in k),
+              "a flash kernel was never launched by phase tp (b)")
     return kernels
 
 
+class _Lane:
+    """The second lane: LANE_B's phases in a child process (this script
+    with --lane, in a process group of its own) beside the first lane's
+    here, on the same card. Its JSON lines go to a file and are printed
+    here when it has ended; a lane that fails fails the script, and
+    `stop` ends the child and every process it started."""
+
+    def __init__(self, phases: list, work: str):
+        import os
+
+        self.work = work
+        self.out_path = os.path.join(work, "lane.jsonl")
+        self._out = open(self.out_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--only", *phases,
+             "--lane", work],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=self._out, process_group=0)
+
+    def stop(self) -> None:
+        import os
+        import signal
+
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        self.proc.wait()
+
+    def _relay(self) -> None:
+        self._out.close()
+        with open(self.out_path) as f:
+            sys.stdout.write(f.read())
+        sys.stdout.flush()
+
+    def poll(self) -> None:
+        """Fail at once when the lane has already failed."""
+        if self.proc.poll() not in (None, 0):
+            self._relay()
+            check(False, f"the second lane failed (exit "
+                  f"{self.proc.returncode})")
+
+    def join(self, timeout: float) -> dict:
+        """Wait for the lane; its phase lines printed here, and what it
+        hands on (`_lane_main`) returned."""
+        import os
+
+        import torch
+
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.stop()
+            self._relay()
+            check(False, f"the second lane did not end within {timeout:.0f}"
+                  f" s of the join")
+        self._relay()
+        check(rc == 0, f"the second lane failed (exit {rc})")
+        return torch.load(os.path.join(self.work, "lane.pt"),
+                          weights_only=False)
+
+
+def _phase_runner(selected, lock: str, lane_no: int, poll=None):
+    """`run(name, fn, *a, default=None)`: phase `name` when it is in
+    `selected`, its wall seconds on a line of its own; `default`
+    otherwise. A phase in HEAVY first takes the lock file `lock`, which
+    both lanes share, and gives back its memory before it lets go; `poll`
+    is called before each phase."""
+    import fcntl
+    import os
+
+    import torch
+
+    t_zero = float(os.environ.get("CHIP_SMOKE_T0", time.time()))
+
+    def run(name, fn, *a, default=None):
+        if name not in selected:
+            return default
+        if poll is not None:
+            poll()
+        with open(lock, "a") as f:
+            t1 = time.perf_counter()
+            if name in HEAVY:
+                fcntl.flock(f, fcntl.LOCK_EX)
+            t2 = time.perf_counter()
+            try:
+                out = fn(*a)
+                wall = time.perf_counter() - t2
+                gc.collect()
+                torch.cuda.empty_cache()
+            finally:
+                if name in HEAVY:
+                    fcntl.flock(f, fcntl.LOCK_UN)
+        emit({"phase": name, "wall_s": wall, "lane": lane_no,
+              "lock_wait_s": t2 - t1,
+              "resident_bytes": torch.cuda.memory_allocated(),
+              "end_s": time.time() - t_zero})
+        return out
+
+    return run
+
+
+def _lane_main(selected, work: str) -> int:
+    """The second lane (`_Lane`): LANE_B's phases in their order, then
+    what phase cross_silo_secure needs of phase cross_silo saved under
+    `work`. The first lane's earlier phases leave TF32 off (phases engine
+    and train), cuDNN deterministic (the first Simulator) and vmap's
+    fallback an error (phase fedsim) for every phase after them; this
+    process starts from the same settings."""
+    import os
+    import warnings
+
+    import torch
+
+    from fedml_tpu_torch._device import deterministic_cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    deterministic_cuda(torch.device(DEV))
+    warnings.filterwarnings("error", message=VMAP_FALLBACK)
+    cpu_rounds = start_cpu_rounds() if "fedavg" in selected else None
+    run = _phase_runner(selected, os.path.join(work, "card.lock"), 2)
+    run("mesh", phase_mesh)
+    fedavg = run("fedavg", phase_fedavg, cpu_rounds)
+    run("fedavg_profile", phase_fedavg_profile)
+    fedsim = run("fedsim", phase_fedsim, fedavg, default={})
+    run("plugins", phase_plugins)
+    cross_silo = run("cross_silo", phase_cross_silo,
+                     fedsim.get("flagship", {}).get(1), default={})
+    run("standalone", phase_standalone, fedsim.get("flagship"))
+    torch.save({"cross_silo_flagship": cross_silo.get("flagship"),
+                "card_params": cross_silo.get("bars", {}).get(
+                    "card_params")}, os.path.join(work, "lane.pt"))
+    sys.stdout.flush()
+    # end here: a thread a phase left behind (a server waiting out its
+    # timeout) would hold the interpreter's exit, and the first lane
+    # waits for this one
+    atexit._run_exitfuncs()
+    os._exit(0)
+
+
 def main() -> int:
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    t_start = time.perf_counter()
+    # the second lane inherits the first's start, and its lines count
+    # from it
+    os.environ.setdefault("CHIP_SMOKE_T0", repr(time.time()))
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", nargs="+", choices=PHASES + OPTIONAL,
                     default=PHASES, help="run only these phases (device and "
                     "build always run; profile only when named)")
+    ap.add_argument("--lane", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -7083,6 +7981,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible; this smoke run needs one "
               "GPU", file=sys.stderr)
         return 2
+    if args.lane:
+        return _lane_main(args.only, args.lane)
     from fedml_tpu_torch.ops import _build
 
     name = torch.cuda.get_device_name(0)
@@ -7103,20 +8003,31 @@ def main() -> int:
     check(sass["HMMA"] + sass["HGMMA"] > 0,
           "the flash library holds no tensor-core instruction")
 
-    # phase fedavg's CPU rounds run in a child process from here on
-    cpu_rounds = start_cpu_rounds() if "fedavg" in args.only else None
+    work = tempfile.mkdtemp(prefix="chip-smoke-")
+    atexit.register(shutil.rmtree, work, True)
+    second = [p for p in LANE_B if p in args.only]
+    lane = None
 
-    def run(name, fn, *a, default=None):
-        """Phase `name` when selected, its wall seconds on a line of its
-        own; `default` otherwise."""
-        if name not in args.only:
-            return default
-        t1 = time.perf_counter()
-        out = fn(*a)
-        emit({"phase": name, "wall_s": time.perf_counter() - t1})
-        return out
+    def start_lane():
+        nonlocal lane
+        lane = _Lane(second, work)
+        atexit.register(lane.stop)
 
+        def on_term(signum, frame):
+            lane.stop()
+            signal.signal(signal.SIGTERM, signal.SIG_DFL)
+            os.kill(os.getpid(), signal.SIGTERM)
+
+        signal.signal(signal.SIGTERM, on_term)
+
+    run = _phase_runner([p for p in args.only if p not in second],
+                        os.path.join(work, "card.lock"), 1,
+                        poll=lambda: lane and lane.poll())
+    # the kernels' timings first, alone on the card
     kern = run("kernel", phase_kernel, bw, default={})
+    flash = run("flash", phase_flash, bw, default={})
+    if second:
+        start_lane()
     reqs = _requests(32000)
     runs = {}   # pool kind -> the main-path wave that used it
     if "engine" in args.only:
@@ -7125,29 +8036,25 @@ def main() -> int:
     surface = run("serve_surface", phase_serve_surface, reqs, runs,
                   default={})
     run("profile", phase_profile, reqs)
-    flash = run("flash", phase_flash, bw, default={})
     train = run("train", phase_train, default={"launches": {}})
     run("train_profile", phase_train_profile)
-    fedavg = run("fedavg", phase_fedavg, cpu_rounds)
-    run("fedavg_profile", phase_fedavg_profile)
-    fedsim = run("fedsim", phase_fedsim, fedavg, default={})
-    run("plugins", phase_plugins)
-    cross_silo = run("cross_silo", phase_cross_silo,
-                     fedsim.get("flagship", {}).get(1), default={})
-    run("cross_silo_secure", phase_cross_silo_secure,
-        cross_silo.get("flagship"),
-        cross_silo.get("bars", {}).get("card_params"))
-    run("standalone", phase_standalone, fedsim.get("flagship"))
-    run("entry", phase_entry, surface)
     run("tasks", phase_tasks)
     run("runtimes", phase_runtimes)
-    fleet = run("fleet", phase_fleet, default={})
-    run("mesh", phase_mesh)
+    run("entry", phase_entry, surface)
     qlora = run("qlora", phase_qlora, reqs, bw, default={})
+    tp = run("tp", phase_tp, default={})
+    # last here: the second lane's fedsim and plugins are done by then
+    fleet = run("fleet", phase_fleet, default={})
+    t1 = time.perf_counter()
+    handed = lane.join(LANE_JOIN_S - (t1 - t_start)) if lane else {}
+    emit({"phase": "lanes", "join_wait_s": time.perf_counter() - t1,
+          "end_s": time.perf_counter() - t_start})
+    run("cross_silo_secure", phase_cross_silo_secure,
+        handed.get("cross_silo_flagship"), handed.get("card_params"))
 
     kernels = kernel_rows(kern, runs, flash, train, surface,
                           every_phase=set(PHASES) <= set(args.only),
-                          fleet=fleet, qlora=qlora)
+                          fleet=fleet, qlora=qlora, tp=tp)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -12,9 +12,20 @@ training. Each epoch records a `centralized_epoch` span and sets the
 
 Batches come from the port's generators (`ops/keys.py`, keyed by
 (random_seed, epoch)); `run(batch_idx=)` takes one [steps, B] schedule an
-epoch instead (the tests hand over the JAX package's). A device mesh with
-an `mp` axis (the model-parallel layout) is ROADMAP 'Port queue' item 4,
-entry 6b (tensor parallelism), and is refused.
+epoch instead (the tests hand over the JAX package's).
+
+A `device_args.mesh_shape` naming an `mp` axis trains model-parallel,
+SPMD in every rank of the world (`parallel/mesh.make_mesh`): the params
+resolve through the partition-rule registry (the model's table,
+`table_for_model`, unless `device_args.partition_rules` names one;
+`device_args.unmatched_params` is the unmatched policy, an error by
+default), each rank keeps its shard (`self.params`, laid out by
+`self.param_specs` through every epoch), and every column-split Dense /
+Conv / Embed computes its block of output features and all-gathers them
+(`models/hub.py`); the backward keeps the rank's block of the gradient,
+which every rank holds whole. The pooled data and the batch order are
+the same on every rank. `partition.unshard_params(trainer.params, mesh,
+trainer.param_specs)` gathers the whole parameters back.
 """
 from __future__ import annotations
 
@@ -64,12 +75,6 @@ class CentralizedTrainer:
                  model=None, device=None, params=None):
         from ..data import loader as data_loader
 
-        mesh_shape = cfg.device_args.mesh_shape
-        if mesh_shape and "mp" in mesh_shape:
-            raise NotImplementedError(
-                "a model-parallel device mesh (device_args.mesh_shape with "
-                "an 'mp' axis) is not ported yet (ROADMAP 'Port queue' "
-                "item 4, entry 6b: multi-GPU tensor parallelism)")
         self.device = resolve_device(
             device if device is not None
             else cfg.device_args.extra.get("device"))
@@ -90,6 +95,11 @@ class CentralizedTrainer:
             params = model_hub.init_params(self.model, gen)
         self.params = {k: torch.as_tensor(v).to(self.device)
                        for k, v in params.items()}
+        self.mesh = None
+        self.param_specs = None
+        mesh_shape = cfg.device_args.mesh_shape
+        if mesh_shape and "mp" in mesh_shape:
+            self._shard(mesh_shape, cfg.device_args.extra)
         self.apply_fn = model_hub.apply_fn(self.model, t.compute_dtype)
         pooled = pool_clients(self.dataset)
         self.pooled = {
@@ -109,6 +119,24 @@ class CentralizedTrainer:
         self._eval = make_eval_fn(self.apply_fn, t.extra.get("task"),
                                   self.dataset.num_classes)
         self.history: list[dict] = []
+
+    def _shard(self, mesh_shape: dict, extra: dict) -> None:
+        """The model-parallel layout (module docstring): resolve, shard,
+        and mark each split layer of a private copy of the model."""
+        from ..parallel import partition
+        from ..parallel.mesh import make_mesh
+        from ..parallel.tensor import TPContext
+
+        self.mesh = make_mesh(mesh_shape)
+        table = (extra.get("partition_rules")
+                 or partition.table_for_model(self.model))
+        self.param_specs = partition.resolve(
+            table, self.params, axis="mp",
+            on_unmatched=extra.get("unmatched_params", partition.ERROR))
+        self.params = partition.shard_params(self.params, self.mesh,
+                                             specs=self.param_specs)
+        self.model = model_hub.split_layers(self.model, self.param_specs,
+                                            TPContext(self.mesh, "mp"))
 
     def _schedule(self, epoch: int) -> torch.Tensor:
         gen = keys.generator(keys.fold(self.cfg.common_args.random_seed,

@@ -422,6 +422,22 @@ class Config:
         from .serving.knobs import validate_serve_args
 
         validate_serve_args(self.serve_args.extra)
+        # the partitioning knobs (parallel/partition.py): the rule-table
+        # name must be in the registry and the unmatched policy a known
+        # one, so a typo fails at load, not mid-init
+        pr = self.device_args.extra.get("partition_rules")
+        if pr is not None:
+            from .parallel.partition import TABLES
+
+            if pr not in TABLES:
+                raise ValueError(
+                    f"device_args.partition_rules must be one of "
+                    f"{sorted(TABLES)}; got {pr!r}")
+        um = self.device_args.extra.get("unmatched_params")
+        if um is not None and um not in ("error", "replicated"):
+            raise ValueError(
+                "device_args.unmatched_params must be 'error' or "
+                f"'replicated'; got {um!r}")
         # the wire codec's knobs (comm/codec.py CODEC_KNOBS): unknown keys,
         # bad kinds and knobs gated on an unselected codec fail at load
         cc = self.comm_args.extra.get("comm_codec")

@@ -34,7 +34,13 @@ Required:
 - `cohort_sharded_smoke`: two spawned gloo ranks on the device (a
   `clients` mesh of 2) run a chunk-streamed cohort round and the
   single-shot round: history and parameters bitwise, every chunk
-  streamed, ingest overlapping compute.
+  streamed, ingest overlapping compute;
+- `partition_rules_smoke`: the partitioning plane end to end: the int8
+  TransformerLM in the JAX package's scan (stacked) layout and in the
+  port's state-dict layout, and its LoRA adapters, resolve under the
+  error policy (full coverage, no ambiguity), then two spawned gloo ranks
+  on the device (an {"mp": 2} mesh) shard the int8 base and hold the
+  halves of a column and a row kernel.
 
 Reported, not required: `grpc_transport` (the card's machine has no
 grpc), `native_lib`, `metrics_endpoint`.
@@ -62,7 +68,8 @@ REQUIRED = ("cuda", "kernels", "wire_codec", "loopback_transport",
             "serving_paged_smoke", "serving_spec_smoke",
             "serving_density_smoke", "fleet_rolling_update_smoke",
             "cross_silo_durability_smoke", "live_loop_smoke",
-            "attribution_smoke", "cohort_sharded_smoke")
+            "attribution_smoke", "cohort_sharded_smoke",
+            "partition_rules_smoke")
 
 
 class NotRun(Exception):
@@ -821,6 +828,80 @@ def probe_cohort_sharded_smoke(dev):
             "mode": "2 spawned gloo ranks"}
 
 
+def _partition_base(dev):
+    """The probe's base (d_model 64, so that the size rule quantises the
+    block kernels): dims, the float state, its int8 form, its adapters."""
+    from .llm.lora import lora_init
+    from .llm.quant import quantize_tree_int8
+    from .llm.transformer import ModelDims, init_params
+
+    dims = ModelDims(vocab_size=64, d_model=64, n_layers=2, n_heads=2,
+                     d_ff=128)
+    state = init_params(dims, seed=0, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    return (dims, state, quantize_tree_int8(state),
+            lora_init(state, rank=2, generator=gen))
+
+
+def _partition_rank() -> dict:
+    """One rank's half of `partition_rules_smoke`: the shapes of its shard
+    of the int8 base over an {"mp": 2} mesh."""
+    from .llm.quant import flat_state
+    from .parallel import partition as part
+    from .parallel.launch import current
+    from .parallel.mesh import make_mesh
+
+    qbase = _partition_base(current().device)[2]
+    sh = flat_state(part.shard_params(qbase, make_mesh({"mp": 2}),
+                                      "transformer_lm"))
+    return {k: tuple(sh[k].shape) for k in
+            ("blocks.0.wq.kernel.q", "blocks.0.wo.kernel.q")}
+
+
+def probe_partition_rules_smoke(dev):
+    """The rule tables resolve the int8 base in both layouts and its
+    adapters under the error policy; two gloo ranks shard it over
+    {"mp": 2}: wq's columns and wo's rows halve."""
+    from .llm.quant import quantize_leaf
+    from .parallel import partition as part
+    from .parallel.launch import RankPool
+
+    dims, state, qbase, ads = _partition_base(dev)
+    specs = part.resolve("transformer_lm", qbase)
+    # the JAX package's scan layout: each block leaf stacked [L, ...]
+    blocks: dict = {}
+    for name in state:
+        if name.startswith("blocks.0."):
+            *path, leaf = name.split(".")[2:]
+            w = torch.stack([state[f"blocks.{i}.{'.'.join(path)}.{leaf}"]
+                             for i in range(dims.n_layers)])
+            node = blocks
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = (quantize_leaf(w) if leaf == "kernel"
+                          else w.to(torch.bfloat16))
+    scan = {"blocks": blocks,
+            "embed": {"embedding": qbase["embed.embedding"]},
+            "final_norm": {"scale": qbase["final_norm.scale"]},
+            "lm_head": {"kernel": qbase["lm_head.kernel"]}}
+    scan_specs = part.resolve("transformer_lm", scan)
+    part.resolve("lora", ads)
+    with RankPool([str(dev)] * 2, timeout_s=120.0) as pool:
+        outs = pool.run(_partition_rank)
+    d = dims.d_model
+    for k, o in enumerate(outs):
+        if o != {"blocks.0.wq.kernel.q": (d, d // 2),
+                 "blocks.0.wo.kernel.q": (d // 2, d)}:
+            raise ValueError(f"rank {k} holds {o}, not wq's column half "
+                             "and wo's row half")
+    return {"resolved_params": len(part._flatten(specs)),
+            "resolved_scan_params": len(part._flatten(scan_specs)),
+            "wq_spec": str(scan_specs["blocks"]["wq"]["kernel"]["q"]),
+            "ranks": 2, "backend": pool.backend,
+            "exitcodes": pool.exitcodes, "mode": "2 spawned gloo ranks"}
+
+
 PROBES = {
     "cuda": probe_cuda,
     "kernels": probe_kernels,
@@ -840,6 +921,7 @@ PROBES = {
     "live_loop_smoke": probe_live_loop_smoke,
     "attribution_smoke": probe_attribution_smoke,
     "cohort_sharded_smoke": probe_cohort_sharded_smoke,
+    "partition_rules_smoke": probe_partition_rules_smoke,
 }
 
 

@@ -29,6 +29,17 @@ and call these functions on the merged model. The model may hold an int8
 base (`llm/quant.py`): each step dequantises its int8 weights to the
 compute dtype at use, as the JAX functions do inside their jit.
 
+Over a tensor-parallel mesh (`llm/tp.py`) the model is the rank's shard
+(`TransformerLM(tp=...)`), `n_heads` its own heads and the cache its own
+contiguous tensors at those heads: `[L, B, max_len, H/tp, Dh]`, or a pool
+`[L, P, ps, H/tp, Dh]` with int8 scales `[L, P, H/tp]` (the JAX package's
+`kv_cache_spec` / `paged_kv_cache_spec` / `paged_kv_scale_spec` blocks).
+The page table and the positions are the same on every rank, and with
+`kernel` K4 runs on each rank over its own heads (the JAX package's
+`shard_map` over `mp`). The block helpers (`llm/quant.py`) add the one
+all-reduce after wo and after w_down and the embedding and LM-head
+gathers.
+
 Sampling draws from a `torch.Generator` seeded from (request seed,
 position) through `draw_seed`; the JAX package folds the position into a
 `jax.random` key. Both are deterministic per (seed, position); the bits
@@ -41,7 +52,7 @@ from typing import Optional
 import torch
 
 from .quant import (
-    dequant_leaf, embed_rows, lm_head_logits, project_qkv, rms_norm,
+    attn_out, embed_rows, lm_head_logits, project_qkv, rms_norm,
     swiglu_mlp,
 )
 from .transformer import dense_causal_attention, rope
@@ -155,9 +166,10 @@ def make_kv_decode(n_heads: int, dtype=torch.float32, eps: float = 1e-6,
                 rows=None):
         b, t = tokens.shape
         dev = tokens.device
-        x = embed_rows(model.embed.embedding, tokens, dtype)      # [B, T, D]
+        x = embed_rows(model.embed.embedding, tokens, dtype,
+                       model.tp)                                  # [B, T, D]
         pos = torch.arange(t, device=dev)
-        dh = model.d_model // n_heads
+        dh = model.head_dim
         if cache is None:
             z = (model.n_layers, b, max_len, n_heads, dh)
             cache = {"k": torch.zeros(z, dtype=dtype, device=dev),
@@ -172,7 +184,7 @@ def make_kv_decode(n_heads: int, dtype=torch.float32, eps: float = 1e-6,
             cache["k"][i, rows, :t] = k
             cache["v"][i, rows, :t] = v
             o = attn(q, k, v)
-            x = x + o.reshape(x.shape) @ dequant_leaf(bl.wo.kernel, dtype)
+            x = attn_out(bl, None, 0.0, x, o, dtype)
             x = swiglu_mlp(bl, None, 0.0, x, dtype, eps)
         if length is None:
             last = x[:, -1]
@@ -185,7 +197,8 @@ def make_kv_decode(n_heads: int, dtype=torch.float32, eps: float = 1e-6,
     def step(model, cache, pos, token):
         b = token.shape[0]
         dev = token.device
-        x = embed_rows(model.embed.embedding, token, dtype)[:, None]  # [B,1,D]
+        x = embed_rows(model.embed.embedding, token, dtype,
+                       model.tp)[:, None]                         # [B,1,D]
         max_len = cache["k"].shape[2]
         pos = torch.as_tensor(pos, device=dev).long().expand(b)
         bidx = torch.arange(b, device=dev)
@@ -203,7 +216,7 @@ def make_kv_decode(n_heads: int, dtype=torch.float32, eps: float = 1e-6,
             s = torch.einsum("bqhd,bkhd->bhqk", q, ck) * scale
             s = torch.where(live[:, None, None, :], s, _NEG)
             o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), cv)
-            x = x + o.reshape(x.shape) @ dequant_leaf(bl.wo.kernel, dtype)
+            x = attn_out(bl, None, 0.0, x, o, dtype)
             x = swiglu_mlp(bl, None, 0.0, x, dtype, eps)
         return lm_head_logits(model, None, 0.0, x, dtype, eps)[:, 0]
 
@@ -286,7 +299,8 @@ def make_paged_kv_decode(n_heads: int, page_size: int,
         """The layer stack over tokens [B, C] at positions posr [B, C]:
         each layer writes its K/V at (wpage, woff), then `attend`s; returns
         the final hidden [B, C, D]."""
-        x = embed_rows(model.embed.embedding, tokens, dtype)      # [B, C, D]
+        x = embed_rows(model.embed.embedding, tokens, dtype,
+                       model.tp)                                  # [B, C, D]
         for i, bl in enumerate(model.blocks):
             ck, cv, ks, vs = layer_cache(cache, i)
             h = rms_norm(x, bl.RMSNorm_0.scale.to(dtype), eps)
@@ -295,7 +309,7 @@ def make_paged_kv_decode(n_heads: int, page_size: int,
             k = _rope_rows(k, posr)
             write(ck, cv, ks, vs, wpage, woff, k, v)
             o = attend(q, ck, cv, ks, vs)
-            x = x + o.reshape(x.shape) @ dequant_leaf(bl.wo.kernel, dtype)
+            x = attn_out(bl, None, 0.0, x, o, dtype)
             x = swiglu_mlp(bl, None, 0.0, x, dtype, eps)
         return x
 

@@ -43,6 +43,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.tensor import copy_in, gather, reduce_out
 from .lora import merge_delta
 
 _MIN_QUANT_SIZE = 4096   # leaves smaller than this stay bf16
@@ -173,7 +174,14 @@ def synth_quantized_base(shapes: Mapping[str, tuple], generator, *,
 
 
 # ---- the LLaMA block math, shared by the training forward and the decode
-# path (one implementation, so dequant / LoRA-merge semantics cannot drift)
+# path (one implementation, so dequant / LoRA-merge semantics cannot drift).
+# A tensor-parallel shard (`llm/tp.py`) sets `tp` (a
+# `parallel.tensor.TPContext`) on the model and its blocks: the helpers
+# then run the Megatron split, with replicated adapters cut to the shard
+# (a column kernel takes b's column block, a row kernel a's row block).
+_ROW_KERNELS = ("wo", "w_down")
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """The variance is taken in f32 and the normalised value cast back to
@@ -203,14 +211,31 @@ def split_adapters(adapters, alpha: float, n_layers: int):
 
 
 def embed_rows(embedding, tokens: torch.Tensor,
-               dtype: torch.dtype) -> torch.Tensor:
+               dtype: torch.dtype, tp=None) -> torch.Tensor:
     """The embedding rows of `tokens` in the compute dtype. A quantised
     embedding gathers its int8 rows, then dequantises them: elementwise,
-    so bitwise the JAX package's dequantise-then-gather."""
+    so bitwise the JAX package's dequantise-then-gather. A shard of the
+    embedding's columns (`tp`) gathers the other ranks' columns."""
     if is_q(embedding):
         q, s = _qs(embedding)
-        return (q[tokens].float() * s).to(dtype)
-    return embedding[tokens].to(dtype)
+        return gather((q[tokens].float() * s).to(dtype), tp)
+    return gather(embedding[tokens].to(dtype), tp)
+
+
+def local_adapter(ab: dict, name: str, shape, tp) -> dict:
+    """A replicated adapter of kernel `name` cut to the kernel's shard of
+    `shape` [din, dout] on this rank of `tp`: a's row block for a row-split
+    kernel (wo, w_down), b's column block for the column-split ones; an
+    adapter already cut (or no `tp`) passes through."""
+    if tp is None or tp.size == 1:
+        return ab
+    if name in _ROW_KERNELS:
+        if ab["a"].shape[0] == shape[0]:
+            return ab
+        return {"a": ab["a"][tp.block(ab["a"].shape[0])], "b": ab["b"]}
+    if ab["b"].shape[1] == shape[1]:
+        return ab
+    return {"a": ab["a"], "b": ab["b"][:, tp.block(ab["b"].shape[1])]}
 
 
 def merged_kernel(block, ad_l, name: str, rank_scale: float,
@@ -221,6 +246,9 @@ def merged_kernel(block, ad_l, name: str, rank_scale: float,
     in its stored dtype (`llm.lora.merge_delta`), then is cast."""
     w = getattr(block, name).kernel
     ab = ad_l.get(name) if ad_l else None
+    if ab is not None:
+        ab = local_adapter(ab, name, _qs(w)[0].shape if is_q(w)
+                           else w.shape, getattr(block, "tp", None))
     if is_q(w):
         w = dequant_leaf(w, dtype)
         return w if ab is None else merge_delta(w, ab, rank_scale)
@@ -232,27 +260,43 @@ def merged_kernel(block, ad_l, name: str, rank_scale: float,
 def project_qkv(block, ad_l, rank_scale: float, h: torch.Tensor,
                 n_heads: int, dtype: torch.dtype):
     """Pre-norm hidden [B, T, D] -> per-head q, k, v [B, T, H, Dh] (RoPE
-    is the caller's: train and decode place positions differently)."""
-    b, t, d = h.shape
-    shape = (b, t, n_heads, d // n_heads)
+    is the caller's: train and decode place positions differently). On a
+    tensor-parallel shard `n_heads` is the rank's own heads."""
+    b, t = h.shape[:2]
+    h = copy_in(h, getattr(block, "tp", None))
     return tuple((h @ merged_kernel(block, ad_l, n, rank_scale, dtype))
-                 .reshape(shape) for n in ("wq", "wk", "wv"))
+                 .reshape(b, t, n_heads, -1) for n in ("wq", "wk", "wv"))
+
+
+def attn_out(block, ad_l, rank_scale: float, x: torch.Tensor,
+             o: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x + W_o o for the attention output o [B, T, H, Dh]; a shard's
+    row-split W_o gives a partial sum, all-reduced over the axis."""
+    w = merged_kernel(block, ad_l, "wo", rank_scale, dtype)
+    return x + reduce_out(o.flatten(-2) @ w, getattr(block, "tp", None))
 
 
 def swiglu_mlp(block, ad_l, rank_scale: float, x: torch.Tensor,
                dtype: torch.dtype, eps: float = 1e-6) -> torch.Tensor:
-    """x + W_down(silu(W_gate h) * W_up h), h = RMSNorm_1(x)."""
-    h = rms_norm(x, block.RMSNorm_1.scale.to(dtype), eps)
+    """x + W_down(silu(W_gate h) * W_up h), h = RMSNorm_1(x); a shard
+    holds a column block of gate / up and W_down's matching rows, whose
+    partial sum is all-reduced over the axis."""
+    tp = getattr(block, "tp", None)
+    h = copy_in(rms_norm(x, block.RMSNorm_1.scale.to(dtype), eps), tp)
     gate = h @ merged_kernel(block, ad_l, "w_gate", rank_scale, dtype)
     up = h @ merged_kernel(block, ad_l, "w_up", rank_scale, dtype)
-    return x + (F.silu(gate) * up) @ merged_kernel(block, ad_l, "w_down",
-                                                   rank_scale, dtype)
+    return x + reduce_out((F.silu(gate) * up) @ merged_kernel(
+        block, ad_l, "w_down", rank_scale, dtype), tp)
 
 
 def lm_head_logits(model, top_ads, rank_scale: float, x: torch.Tensor,
                    dtype: torch.dtype, eps: float = 1e-6) -> torch.Tensor:
-    x = rms_norm(x, model.final_norm.scale.to(dtype), eps)
-    return x @ merged_kernel(model, top_ads, "lm_head", rank_scale, dtype)
+    """Final norm and LM head; a shard's column block of the head gives
+    its block of the vocabulary, gathered over the axis."""
+    tp = getattr(model, "tp", None)
+    x = copy_in(rms_norm(x, model.final_norm.scale.to(dtype), eps), tp)
+    return gather(x @ merged_kernel(model, top_ads, "lm_head", rank_scale,
+                                    dtype), tp)
 
 
 # ------------------------------------------------- training over the base

@@ -37,8 +37,8 @@ import torch.nn as nn
 from .._device import resolve_device
 from ..parallel.seq import dense_causal_attention
 from .quant import (
-    QWeight, embed_rows, flat_state, lm_head_logits, merged_kernel,
-    project_qkv, rms_norm, split_adapters, swiglu_mlp,
+    QWeight, attn_out, embed_rows, flat_state, lm_head_logits, project_qkv,
+    rms_norm, split_adapters, swiglu_mlp,
 )
 
 _EPS = 1e-6   # flax RMSNorm eps
@@ -154,23 +154,40 @@ def remat(block, x: torch.Tensor, pos: torch.Tensor, ad_l,
     return _Remat.apply(fn, x, pos, *flat)
 
 
+def _split(n: int, tp, what: str) -> int:
+    """n / tp.size, the shard's share of a split dimension."""
+    if tp is None:
+        return n
+    if n % tp.size:
+        raise ValueError(f"{what} {n} is not divisible by the {tp.size} "
+                         f"ranks of mesh axis {tp.axis!r}")
+    return n // tp.size
+
+
 class Block(nn.Module):
+    """One block; with `tp` its tensor-parallel shard: the rank's heads
+    (wq / wk / wv column blocks, wo's matching rows) and its block of
+    d_ff (w_gate / w_up columns, w_down rows)."""
+
     def __init__(self, dims: ModelDims, dtype, device, attn_fn=None,
-                 eps: float = _EPS):
+                 eps: float = _EPS, tp=None):
         super().__init__()
         d, ff = dims.d_model, dims.d_ff
-        self.n_heads = dims.n_heads
+        dl = _split(d, tp, "d_model")
+        fl = _split(ff, tp, "d_ff")
+        self.n_heads = _split(dims.n_heads, tp, "n_heads")
+        self.tp = tp
         self.eps = eps
         self.attn_fn = attn_fn or dense_causal_attention
         self.RMSNorm_0 = RMSNorm(d, dtype, device)
-        self.wq = Dense(d, d, dtype, device)
-        self.wk = Dense(d, d, dtype, device)
-        self.wv = Dense(d, d, dtype, device)
-        self.wo = Dense(d, d, dtype, device)
+        self.wq = Dense(d, dl, dtype, device)
+        self.wk = Dense(d, dl, dtype, device)
+        self.wv = Dense(d, dl, dtype, device)
+        self.wo = Dense(dl, d, dtype, device)
         self.RMSNorm_1 = RMSNorm(d, dtype, device)
-        self.w_gate = Dense(d, ff, dtype, device)
-        self.w_up = Dense(d, ff, dtype, device)
-        self.w_down = Dense(ff, d, dtype, device)
+        self.w_gate = Dense(d, fl, dtype, device)
+        self.w_up = Dense(d, fl, dtype, device)
+        self.w_down = Dense(fl, d, dtype, device)
 
     def forward(self, x: torch.Tensor, pos: torch.Tensor, ad_l=None,
                 rank_scale: float = 0.0) -> torch.Tensor:
@@ -178,8 +195,7 @@ class Block(nn.Module):
         h = rms_norm(x, self.RMSNorm_0.scale.to(dt), self.eps)
         q, k, v = project_qkv(self, ad_l, rank_scale, h, self.n_heads, dt)
         o = self.attn_fn(rope(q, pos), rope(k, pos), v)
-        x = x + o.reshape(x.shape) @ merged_kernel(self, ad_l, "wo",
-                                                   rank_scale, dt)
+        x = attn_out(self, ad_l, rank_scale, x, o, dt)
         return swiglu_mlp(self, ad_l, rank_scale, x, dt, self.eps)
 
 
@@ -190,24 +206,36 @@ class TransformerLM(nn.Module):
     `init_params` / `params_from_flax`. `attn_fn` ([B, T, H, Dh] q/k/v ->
     [B, T, H, Dh]) defaults to `dense_causal_attention`; `remat`
     recomputes each block in the backward instead of keeping its
-    activations; `eps` is the RMSNorms' (flax's 1e-6)."""
+    activations; `eps` is the RMSNorms' (flax's 1e-6).
+
+    `tp` (a `parallel.tensor.TPContext`) makes the module this rank's
+    tensor-parallel shard of the model `dims` describes (`llm/tp.py`):
+    its blocks hold their column / row blocks, the embedding its column
+    block, the LM head its vocabulary block, and `n_heads` counts the
+    rank's own heads (`head_dim` stays the model's)."""
 
     def __init__(self, dims: ModelDims, *, dtype=torch.float32,
                  device=None, attn_fn=None, remat: bool = False,
-                 eps: float = _EPS):
+                 eps: float = _EPS, tp=None):
         super().__init__()
         dev = (torch.device("meta") if str(device) == "meta"
                else resolve_device(device))
         self.dims = dims
-        self.n_layers, self.n_heads = dims.n_layers, dims.n_heads
+        self.tp = tp
+        self.n_layers = dims.n_layers
+        self.n_heads = _split(dims.n_heads, tp, "n_heads")
+        self.head_dim = dims.d_model // dims.n_heads
         self.d_model = dims.d_model
         self.remat = remat
         self.eps = eps
-        self.embed = Embed(dims.vocab_size, dims.d_model, dtype, dev)
-        self.blocks = nn.ModuleList(Block(dims, dtype, dev, attn_fn, eps)
+        self.embed = Embed(dims.vocab_size,
+                           _split(dims.d_model, tp, "d_model"), dtype, dev)
+        self.blocks = nn.ModuleList(Block(dims, dtype, dev, attn_fn, eps, tp)
                                     for _ in range(dims.n_layers))
         self.final_norm = RMSNorm(dims.d_model, dtype, dev)
-        self.lm_head = Dense(dims.d_model, dims.vocab_size, dtype, dev)
+        self.lm_head = Dense(dims.d_model,
+                             _split(dims.vocab_size, tp, "vocab_size"),
+                             dtype, dev)
 
     @classmethod
     def from_state(cls, dims: ModelDims, state: Mapping[str, torch.Tensor],
@@ -216,17 +244,23 @@ class TransformerLM(nn.Module):
         module is built on the meta device and the state assigned in.
         A weight the state holds int8 (`{"q", "s"}`, or `<name>.q` /
         `<name>.s` keys) becomes a `QWeight` there. `kw` (attn_fn, remat,
-        eps) go to the constructor."""
+        eps, tp) go to the constructor; with `tp` the state is the rank's
+        shard (`parallel.partition.shard_params`), whose replicated
+        embedding / LM-head scales are cut here to the shard's columns."""
         state = flat_state(state)
         model = cls(dims, dtype=state["final_norm.scale"].dtype,
                     device="meta", **kw)
-        for key in state:
+        for key in list(state):
             if key.endswith(".q"):
                 owner, _, attr = key[:-2].rpartition(".")
                 mod = model.get_submodule(owner)
                 del mod._parameters[attr]
                 setattr(mod, attr, QWeight(tuple(state[key].shape),
                                            device="meta"))
+                s_key, cols = key[:-2] + ".s", state[key].shape[-1]
+                if model.tp is not None and state[s_key].shape[-1] != cols:
+                    state[s_key] = state[s_key][
+                        ..., model.tp.block(state[s_key].shape[-1])]
         model.load_state_dict(state, strict=True, assign=True)
         return model
 
@@ -250,7 +284,7 @@ class TransformerLM(nn.Module):
         dt = dtype or self.dtype
         pos = pos_offset + torch.arange(tokens.shape[1], device=tokens.device)
         ads, top, rank_scale = split_adapters(adapters, alpha, self.n_layers)
-        x = embed_rows(self.embed.embedding, tokens, dt)
+        x = embed_rows(self.embed.embedding, tokens, dt, self.tp)
         for blk, ad_l in zip(self.blocks, ads):
             if self.remat:
                 x = remat(blk, x, pos, ad_l, rank_scale)

@@ -57,6 +57,22 @@ def _same_pad(size: int, k: int, s: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+# `split_layers` sets `tp` (a `parallel.tensor.TPContext`) on a Dense /
+# Conv / Embed whose weight holds its column block of output features (the
+# `mlp_cnn` table): the layer computes its block of outputs from the whole
+# input, all-gathers them over the axis and adds the replicated bias
+# (Megatron's f in front, so the input gradient is summed over the ranks).
+def _tp_of(module):
+    return getattr(module, "tp", None)
+
+
+def _split_product(x, kernel, tp):
+    """x @ kernel of a column-split kernel, gathered over `tp`."""
+    from ..parallel.tensor import copy_in, gather
+
+    return gather(copy_in(x, tp) @ kernel, tp, -1)
+
+
 class Dense(nn.Module):
     """flax Dense: `kernel` [in, out], optional `bias` [out]. `recurrent`
     marks an LSTM's hidden-to-hidden kernel, which `init_params` draws
@@ -71,6 +87,10 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
+        tp = _tp_of(self)
+        if tp is not None:
+            y = _split_product(x, self.kernel.to(dt), tp)
+            return y if self.bias is None else y + self.bias.to(dt)
         if self.bias is None:
             return x @ self.kernel.to(dt)
         return torch.addmm(self.bias.to(dt), x, self.kernel.to(dt))
@@ -96,6 +116,13 @@ class Conv(nn.Module):
         else:
             pad = (h0, w0)
         bias = None if self.bias is None else self.bias.to(dt)
+        tp = _tp_of(self)
+        if tp is not None:
+            from ..parallel.tensor import copy_in, gather
+
+            y = gather(F.conv2d(copy_in(x, tp), self.kernel.to(dt), None,
+                                self.stride, pad), tp, 1)
+            return y if bias is None else y + bias[:, None, None]
         return F.conv2d(x, self.kernel.to(dt), bias, self.stride, pad,
                         groups=self.groups)
 
@@ -108,6 +135,11 @@ class Embed(nn.Module):
         self.embedding = _param((vocab, features), dtype, device)
 
     def forward(self, tokens: torch.Tensor, dt) -> torch.Tensor:
+        tp = _tp_of(self)
+        if tp is not None:
+            from ..parallel.tensor import gather
+
+            return gather(F.embedding(tokens, self.embedding.to(dt)), tp, -1)
         return F.embedding(tokens, self.embedding.to(dt))
 
 
@@ -326,8 +358,10 @@ class CharRNN(nn.Module):
         h = self.OptimizedLSTMCell_0(h, dt)
         h = self.OptimizedLSTMCell_1(h, dt)              # f32 [B, T, H]
         head = self.Dense_0
-        return h @ head.kernel.to(dt).to(h.dtype) + head.bias.to(dt).to(
-            h.dtype)
+        kernel = head.kernel.to(dt).to(h.dtype)
+        y = (h @ kernel if _tp_of(head) is None
+             else _split_product(h, kernel, _tp_of(head)))
+        return y + head.bias.to(dt).to(h.dtype)
 
 
 def _device(device):
@@ -543,6 +577,35 @@ def structure_copy(module: nn.Module) -> nn.Module:
         memo[id(t)] = (nn.Parameter(meta, requires_grad=t.requires_grad)
                        if isinstance(t, nn.Parameter) else meta)
     return copy.deepcopy(module, memo)
+
+
+def split_layers(module: nn.Module, specs: dict, tp) -> nn.Module:
+    """A `structure_copy` of `module` that computes model-parallel over
+    `tp` (a `parallel.tensor.TPContext`) on the parameters `specs`
+    splits (`parallel.partition.resolve` over its state names): each
+    Dense kernel and embedding split on its output features
+    (`P(None, axis)`) and each ungrouped conv kernel on its output
+    channels (`P(axis)`) marks its layer; any other split is refused."""
+    from ..parallel.partition import PartitionRuleError
+
+    module = structure_copy(module)
+    owners = dict(module.named_modules())
+    ax = tp.axis
+    for name, spec in specs.items():
+        if ax not in tuple(spec):
+            continue
+        owner, _, leaf = name.rpartition(".")
+        mod = owners.get(owner)
+        ok = {(Dense, "kernel"): (None, ax), (Embed, "embedding"): (None, ax),
+              (Conv, "kernel"): (ax,)}.get((type(mod), leaf))
+        if ok != tuple(spec) or getattr(mod, "groups", 1) != 1:
+            raise PartitionRuleError(
+                f"param {name!r} resolves to {spec}; the model-parallel "
+                "trainer splits Dense kernels and embeddings on their "
+                f"output features (P(None, {ax!r})) and ungrouped conv "
+                f"kernels on their output channels (P({ax!r})) only")
+        mod.tp = tp
+    return module
 
 
 def apply_fn(module: nn.Module, compute_dtype: str = "float32"):

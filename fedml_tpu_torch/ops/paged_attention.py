@@ -34,9 +34,12 @@ to the JAX kernel. `launch_count` counts `paged_attention` calls that
 launched the kernels (one per call, though each launches two), and
 nothing else, so a run can show its path went through the kernel;
 `launches_by_c` counts the same launches by the query count C (1 for a
-decode step, spec_k + 1 for a speculative verify window). Both update
+decode step, spec_k + 1 for a speculative verify window) and
+`launches_by_h` by the head count H (a tensor-parallel engine's rank
+launches at its own H / mp heads, on its own pool). All three update
 under one lock, since engines on several threads (a fleet of replicas in
-one process) launch concurrently.
+one process) launch concurrently; each process counts its own launches,
+so a tensor-parallel run reads them rank by rank.
 """
 from __future__ import annotations
 
@@ -54,6 +57,7 @@ _KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 launch_count = 0
 launches_by_c: dict[int, int] = {}
+launches_by_h: dict[int, int] = {}
 _count_lock = threading.Lock()
 
 _lib = None
@@ -173,6 +177,7 @@ def paged_attention(q, k_pool, v_pool, pages, pos, k_scales=None,
     with _count_lock:
         launch_count += 1
         launches_by_c[c] = launches_by_c.get(c, 0) + 1
+        launches_by_h[h] = launches_by_h.get(h, 0) + 1
     return out
 
 

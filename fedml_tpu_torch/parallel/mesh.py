@@ -266,3 +266,75 @@ def agree_max(value: float, mesh, axis: str) -> float:
     t = torch.tensor([float(value)], dtype=torch.float64, device=dev)
     dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
     return float(t.item())
+
+
+def _host_buf(t: torch.Tensor, group) -> torch.Tensor:
+    """What a collective moves: `t` itself, or, on a gloo group, a host
+    copy of a CUDA tensor, a low-precision float widened to f32 (the sum
+    of two bf16 values rounded once is the same either way)."""
+    if not _staged(t, group):
+        return t
+    if t.is_floating_point() and t.element_size() < 4:
+        return t.float().cpu()
+    return t.cpu()
+
+
+def all_reduce(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The sum of `t` over the ranks of `axis`, as a new tensor."""
+    import torch.distributed as dist
+
+    group = mesh.get_group(axis)
+    src = t.contiguous()
+    buf = _host_buf(src, group)
+    if buf.data_ptr() == src.data_ptr():
+        buf = buf.clone()
+    dist.all_reduce(buf, group=group)
+    return buf.to(device=t.device, dtype=t.dtype)
+
+
+def all_gather_dim(t: torch.Tensor, mesh, axis: str,
+                   dim: int = -1) -> torch.Tensor:
+    """Each rank's `t` concatenated along `dim` in coordinate order (every
+    rank holds the same shape)."""
+    import torch.distributed as dist
+
+    group = mesh.get_group(axis)
+    src = _host_buf(t.contiguous(), group)
+    out = [torch.empty_like(src) for _ in range(axis_size(mesh, axis))]
+    dist.all_gather(out, src, group=group)
+    return torch.cat(out, dim=dim).to(device=t.device, dtype=t.dtype)
+
+
+def broadcast(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The value `t` has on the axis's first rank (coordinate 0), on
+    every rank of the axis, as a new tensor."""
+    import torch.distributed as dist
+
+    group = mesh.get_group(axis)
+    src = t.contiguous()
+    buf = _host_buf(src, group)
+    if buf.data_ptr() == src.data_ptr():
+        buf = buf.clone()
+    dist.broadcast(buf, src=dist.get_global_rank(group, 0), group=group)
+    return buf.to(device=t.device, dtype=t.dtype)
+
+
+def broadcast_object(obj, mesh, axis: str):
+    """A picklable object from the axis's first rank, on every rank of
+    the axis (what the others pass is ignored). CUDA tensors inside it
+    must be moved to the host first."""
+    import torch.distributed as dist
+
+    group = mesh.get_group(axis)
+    box = [obj]
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend(group) == "nccl" else None)
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0),
+                               group=group, device=dev)
+    return box[0]
+
+
+def barrier(mesh) -> None:
+    """Every rank of the mesh has reached this call."""
+    for ax in mesh.mesh_dim_names:
+        agree_max(0.0, mesh, ax)

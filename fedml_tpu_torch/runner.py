@@ -54,9 +54,9 @@ configured (`tracking_args.extra.artifact_store` / `artifact_dir`): the
 Simulator and the server the aggregated model each round, a client its
 trained model.
 
-The centralized trainer's model-parallel (`mp`) mesh is refused with a
-NotImplementedError naming its ROADMAP 'Port queue' item (4, entry 6b).
-The one-process composition of the hierarchical scenario is
+The centralized trainer trains model-parallel when
+`device_args.mesh_shape` names an `mp` axis (SPMD: every rank of the
+world builds the runner). The one-process composition of the hierarchical scenario is
 `cross_silo.hierarchical.run_hierarchical`, called directly.
 """
 from __future__ import annotations

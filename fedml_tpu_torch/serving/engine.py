@@ -66,10 +66,27 @@
 Capacity contract per request: prompt + max_new_tokens <= max_len, and
 (paged) ceil((prompt + max_new_tokens) / page_size) <= n_pages - 1.
 
+TENSOR PARALLEL (`mesh` with an `mp` axis): every rank of the axis runs
+an engine over its shard of the whole model it is given (the
+`transformer_lm` rule table, or `partition_rules`) and its own KV pool
+at its own heads, and decodes
+SPMD: the same admissions, steps, retirements and swaps in the same
+order, or the collectives inside the forward would deadlock or
+diverge. The axis's first rank (the LEADER) owns the queue: `submit`
+and `swap_adapters` are called there, and a follower's `submit`
+refuses. Each iteration the leader's loop broadcasts a small plan to the
+axis (the requests submitted since the last one, a pending swap with its
+adapters, stop), every rank appends the same requests to its own queue,
+and the host logic that follows depends only on that queue and on the
+tokens; the tokens every rank picks are the leader's (broadcast after
+each pick), so sampling and retirement agree bit for bit. An idle leader
+still sends a plan every 0.2 s, so a follower never waits out a
+collective's timeout. Adapters are replicated and cut to each shard at
+the merge. Followers run until the leader stops (`join`).
+
 Deviations by design: the JAX engine's XLA ledger hooks, its
 `program_counts()` and the retrace guards describe compiled XLA programs
-and have no torch counterpart. A tensor-parallel `mesh` is not ported yet
-(NotImplementedError naming its ROADMAP item).
+and have no torch counterpart.
 """
 from __future__ import annotations
 
@@ -98,8 +115,6 @@ from .predictor import InvalidRequest, _bucket
 log = logging.getLogger(__name__)
 
 LORA_ALPHA = 16.0   # the JAX engine's (make_*_kv_decode's default alpha)
-MULTI_GPU = ("not ported yet (ROADMAP.md, 'Port queue', entry 6b, item 4: "
-             "multi-GPU tensor parallelism)")
 
 
 def _page_key(parent: bytes, tokens) -> bytes:
@@ -162,10 +177,16 @@ def merged_model(model, adapters: Optional[dict],
     kernels without adapters stay int8."""
     if not adapters:
         return model
-    from ..llm.quant import dequant_leaf
+    from ..llm.quant import dequant_leaf, local_adapter
 
     dtype = dtype or model.dtype
     state = model.state_dict()
+    if model.tp is not None:
+        # a tensor-parallel shard merges each replicated adapter's block
+        adapters = {name: local_adapter(
+            ab, name.split(".")[-2],
+            state.get(name, state.get(name + ".q")).shape, model.tp)
+            for name, ab in adapters.items()}
     for name, ab in adapters.items():
         w = state.get(name, state.get(name + ".q"))
         if w is None or w.dim() != 2:
@@ -187,7 +208,7 @@ def merged_model(model, adapters: Optional[dict],
                     {"q": state.pop(name + ".q"),
                      "s": state.pop(name + ".s")}, dtype)
         merged = lora_merge(state, adapters, alpha)
-    return TransformerLM.from_state(model.dims, merged)
+    return TransformerLM.from_state(model.dims, merged, tp=model.tp)
 
 
 class _PrefixEntry:
@@ -344,7 +365,10 @@ class DecodeEngine:
     `admit_batch` > 1 batches same-bucket admission chunks; each of these
     is refused with page_size=0 (the contiguous layout), as in the JAX
     engine. `dtype` is the compute and KV dtype (default: the model's).
-    `eos_id=None` disables eos retirement."""
+    `eos_id=None` disables eos retirement. `mesh` (a `DeviceMesh` with an
+    `mp` axis, built in every rank) runs the engine tensor-parallel
+    (module docstring); `partition_rules` overrides the `transformer_lm`
+    table that shards a whole model."""
 
     def __init__(self, model, adapters=None, *, n_slots: int = 4,
                  max_len: int = 256, eos_id: Optional[int] = None,
@@ -353,13 +377,16 @@ class DecodeEngine:
                  prefill_chunk: int = 0, prefix_cache: bool = True,
                  paged_kernel: bool = False, spec_decode: str = "off",
                  spec_k: int = 4, kv_quant: str = "off",
-                 admit_batch: int = 1, mesh=None, device=None):
+                 admit_batch: int = 1, mesh=None, partition_rules=None,
+                 device=None):
         self.device = resolve_device(device)
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1; got {n_slots}")
+        self.mesh = mesh
+        self.param_specs = None
+        self._leader = True
         if mesh is not None:
-            raise NotImplementedError(
-                "a tensor-parallel mesh is " + MULTI_GPU)
+            model = self._shard(model, mesh, partition_rules)
         self.model = model
         self.n_slots = S = int(n_slots)
         self.max_len = int(max_len)
@@ -442,7 +469,8 @@ class DecodeEngine:
         self.adapters = adapters
         # what every forward runs on: the model with the adapters merged
         self._serving = merged_model(model, adapters, dtype=self.dtype)
-        heads, dh = model.n_heads, model.d_model // model.n_heads
+        # on a mesh: this rank's heads, each rank's pool its own tensors
+        heads, dh = model.n_heads, model.head_dim
         dev = self.device
         if self._paged:
             (self._chunk_fn, self._step_fn, self._verify_fn,
@@ -492,6 +520,8 @@ class DecodeEngine:
 
         self._cond = threading.Condition()
         self._waiting: deque[_Request] = deque()
+        # submits wait here for the loop's next plan (`_plan`)
+        self._inbox: list[_Request] = []
         self._free: list[int] = list(range(S))
         self._slots: list[Optional[_SlotState]] = [None] * S
         self._stopping = False
@@ -500,6 +530,81 @@ class DecodeEngine:
         self._version = 0
         self._pending_swap: Optional[_Swap] = None
         _mx.set_gauge("serving.model_version", 0)
+
+    def _shard(self, model, mesh, partition_rules):
+        """This rank's shard of `model` over the mesh's `mp` axis (JAX's
+        refusals word for word); sets the leader flag."""
+        from ..parallel import partition
+        from ..parallel.mesh import axis_index, axis_size, check_mesh
+        from ..parallel.tensor import TPContext
+
+        check_mesh(mesh, "DecodeEngine mesh")
+        names = tuple(mesh.mesh_dim_names or ())
+        if "mp" not in names:
+            raise ValueError(
+                f"DecodeEngine mesh axes {names} have no "
+                "'mp' axis (the tensor-parallel axis the rule tables "
+                "shard over)")
+        mp = axis_size(mesh, "mp")
+        n_heads = model.dims.n_heads
+        if n_heads % mp:
+            raise ValueError(
+                f"n_heads {n_heads} is not divisible by mp={mp}"
+                " — the KV cache shards the heads axis")
+        if model.tp is not None:
+            raise ValueError("DecodeEngine(mesh=) shards the whole model "
+                             f"itself; this one is already a shard ({model.tp})")
+        self._leader = axis_index(mesh, "mp") == 0
+        state = model.state_dict()
+        rules = (partition_rules if partition_rules is not None
+                 else partition.transformer_lm_rules("mp"))
+        self.param_specs = partition.resolve(rules, state, axis="mp")
+        shard = partition.shard_params(state, mesh, axis="mp",
+                                       specs=self.param_specs)
+        return TransformerLM.from_state(model.dims, shard,
+                                        tp=TPContext(mesh, "mp"))
+
+    def _plan(self, pending: deque):
+        """Once an iteration: what was submitted since the last one (new
+        requests, a pending swap, stop) joins the loop; an idle engine
+        waits for it up to 0.2 s. On a mesh the leader's plan is broadcast
+        over the `mp` axis and every rank queues the same requests.
+        Returns (stop, swap to apply)."""
+        new: list = []
+        swap = plan = None
+        if self._leader:
+            with self._cond:
+                idle = (self._pending_swap is None and not self._inbox
+                        and not self._waiting and not pending
+                        and not self._stopping
+                        and all(st is None for st in self._slots))
+                if idle:
+                    self._cond.wait(0.2)
+                swap, self._pending_swap = self._pending_swap, None
+                new, self._inbox = self._inbox, []
+                plan = {"stop": self._stopping}
+            if self.mesh is not None:
+                plan["reqs"] = [(r.tokens, r.max_new, r.temperature, r.seed)
+                                for r in new]
+                plan["swap"] = None if swap is None else (
+                    {k: {c: t.cpu() for c, t in ab.items()}
+                     for k, ab in swap.adapters.items()}, swap.version)
+        if self.mesh is not None:
+            from ..parallel.mesh import broadcast_object
+
+            plan = broadcast_object(plan, self.mesh, "mp")
+        if not self._leader:
+            new = [_Request(*r) for r in plan["reqs"]]
+            if plan["swap"] is not None:
+                host, ver = plan["swap"]
+                ads = {k: {c: t.to(self.device) for c, t in ab.items()}
+                       for k, ab in host.items()}
+                swap = _Swap(ads, merged_model(self.model, ads,
+                                               dtype=self.dtype), ver)
+        with self._cond:
+            self._waiting.extend(new)
+            _mx.set_gauge("serving.engine.queue", len(self._waiting))
+        return plan["stop"], swap
 
     # ------------------------------------------------------------ lifecycle
     def start(self) -> "DecodeEngine":
@@ -515,7 +620,8 @@ class DecodeEngine:
             self._draining = True
             self._cond.notify_all()
             deadline = time.monotonic() + timeout_s
-            while self._waiting or any(s is not None for s in self._slots):
+            while self._waiting or self._inbox or any(
+                    s is not None for s in self._slots):
                 if (self._stopping or self._thread is None
                         or not self._thread.is_alive()):
                     break
@@ -529,7 +635,13 @@ class DecodeEngine:
     def stop(self, drain: bool = False,
              drain_timeout_s: float = 30.0) -> None:
         """Tear down; `drain=True` first lets in-flight requests finish
-        (bounded). Whatever is still in flight is errored."""
+        (bounded). Whatever is still in flight is errored. On a mesh the
+        leader's stop ends every rank's loop; a follower's waits for it
+        (`join`)."""
+        if not self._leader:
+            self.join()
+            self._fail_outstanding(RuntimeError("decode engine stopped"))
+            return
         if drain and self._thread is not None and self._thread.is_alive():
             self.drain(drain_timeout_s)
         with self._cond:
@@ -538,6 +650,19 @@ class DecodeEngine:
         if self._thread is not None:
             self._thread.join(timeout=10)
         self._fail_outstanding(RuntimeError("decode engine stopped"))
+
+    def join(self, timeout: Optional[float] = None) -> bool:
+        """Wait for the engine thread to end (a follower's ends when the
+        leader stops); True when it has."""
+        if self._thread is not None:
+            self._thread.join(timeout)
+        return self._thread is None or not self._thread.is_alive()
+
+    def _check_leader(self, what: str) -> None:
+        if not self._leader:
+            raise RuntimeError(
+                f"{what}: this rank follows the first rank of the engine's "
+                "'mp' axis, which owns the queue — call it there")
 
     # ------------------------------------------------------------- hot swap
     @property
@@ -557,6 +682,7 @@ class DecodeEngine:
         (`check_adapter_swap`). The new set is merged here, in the
         caller's thread, so the engine thread only swaps a reference.
         Returns the new monotonic `model_version` (default current + 1)."""
+        self._check_leader("swap_adapters")
         with self._cond:
             cur = self.adapters
             self._check_no_pending_swap()
@@ -619,6 +745,7 @@ class DecodeEngine:
         """Queue one prompt; returns the Ticket its tokens stream to.
         temperature <= 0 is greedy; a sampled request is deterministic per
         seed (a random one when seed is None)."""
+        self._check_leader("submit")
         tokens = [int(t) for t in tokens]
         if not tokens:
             raise InvalidRequest("tokens must contain at least one prompt "
@@ -643,8 +770,9 @@ class DecodeEngine:
             if self._thread is None:
                 raise RuntimeError("decode engine not started (call "
                                    ".start())")
-            self._waiting.append(req)
-            _mx.set_gauge("serving.engine.queue", len(self._waiting))
+            self._inbox.append(req)
+            _mx.set_gauge("serving.engine.queue",
+                          len(self._waiting) + len(self._inbox))
             self._cond.notify_all()
         _mx.inc("serving.engine.requests")
         return req.ticket
@@ -720,6 +848,11 @@ class DecodeEngine:
             g = self._gens[slot]
             g.manual_seed(draw_seed(self._seed[slot], position))
             out[row] = gumbel_pick(logits[row], self._temp[slot], g)
+        if self.mesh is not None and self.model.tp.size > 1:
+            # every rank continues from the leader's picks
+            from ..parallel.mesh import broadcast
+
+            out = broadcast(out, self.mesh, "mp")
         return out
 
     def _arm(self, slot: int, req: _Request, logits: torch.Tensor):
@@ -837,16 +970,9 @@ class DecodeEngine:
         try:
             with torch.no_grad():
                 while True:
-                    with self._cond:
-                        if self._stopping:
-                            break
-                        swap, self._pending_swap = self._pending_swap, None
-                        idle = (swap is None and not self._waiting
-                                and not pending
-                                and all(s is None for s in self._slots))
-                        if idle:
-                            self._cond.wait(0.2)
-                            continue
+                    stop, swap = self._plan(pending)
+                    if stop:
+                        break
                     if swap is not None:
                         # between iterations: every later forward reads the
                         # new weights
@@ -1207,8 +1333,9 @@ class DecodeEngine:
 
     def _fail_outstanding(self, err: BaseException) -> None:
         with self._cond:
-            reqs = list(self._waiting)
+            reqs = list(self._waiting) + self._inbox
             self._waiting.clear()
+            self._inbox = []
             slots = [s for s in self._slots if s is not None]
             self._slots = [None] * self.n_slots
             self._free = list(range(self.n_slots))

@@ -124,8 +124,9 @@ class FedMLInferenceRunner:
                         "slots_active": (
                             sum(s is not None for s in eng._slots)
                             if eng is not None else None),
-                        "decode_queue": (len(eng._waiting)
-                                         if eng is not None else None),
+                        "decode_queue": (
+                            len(eng._waiting) + len(eng._inbox)
+                            if eng is not None else None),
                         "draining": (bool(eng._draining)
                                      if eng is not None else False),
                         "kv_page_size": (getattr(eng, "kv_page_size", 0)

@@ -231,9 +231,14 @@ class GreedyLMPredictor(_InstrumentedPredictor):
     the page budget refuses falls back to the per-request path when that
     path can serve it honestly; an engine failure degrades to that path
     the same way, except on the paged kernel, where it always surfaces.
-    `engine_mp` > 1 (a tensor-parallel
-    engine) is not ported yet. Runs on `device` (CUDA unless the caller
-    names "cpu"), where the model must already be."""
+    `engine_mp` > 1 runs the engine tensor-parallel over an {"mp": N}
+    mesh of the world's first N ranks (`parallel/mesh.make_mesh`): every
+    rank of that world builds the predictor (SPMD) with the whole model,
+    the engine shards it, and requests go to the first rank's predictor
+    (the engine's leader; a follower's engine refuses submits). The
+    per-request path keeps the whole merged model. Runs on `device`
+    (CUDA unless the caller names "cpu"), where the model must already
+    be."""
 
     def __init__(self, model,
                  detokenize: Optional[Callable[[list[int]], str]] = None,
@@ -298,11 +303,6 @@ class GreedyLMPredictor(_InstrumentedPredictor):
                 "compute_dtype only applies to kv_cache=True (the "
                 "recompute path runs the model in its own dtype); cast the "
                 "model's weights instead")
-        if int(engine_mp) > 1:
-            from .engine import MULTI_GPU
-
-            raise NotImplementedError(
-                "a tensor-parallel engine (engine_mp > 1) is " + MULTI_GPU)
         if model.device != self.device:
             raise ValueError(f"the model's weights are on {model.device}, "
                              f"the predictor runs on {self.device}")
@@ -328,6 +328,11 @@ class GreedyLMPredictor(_InstrumentedPredictor):
         self._samplers_cap = max(1, int(sampler_cache_size))
         self._samplers_lock = threading.Lock()
         if decode_slots:
+            mesh = None
+            if int(engine_mp) > 1:
+                from ..parallel.mesh import make_mesh
+
+                mesh = make_mesh({"mp": int(engine_mp)})
             self.engine = DecodeEngine(
                 model, adapters, n_slots=int(decode_slots), max_len=max_len,
                 eos_id=eos_id, dtype=self._kv_dtype,
@@ -335,16 +340,19 @@ class GreedyLMPredictor(_InstrumentedPredictor):
                 n_pages=kv_n_pages, prefill_chunk=prefill_chunk,
                 prefix_cache=prefix_cache, paged_kernel=paged_kernel,
                 spec_decode=spec_decode, spec_k=spec_k, kv_quant=kv_quant,
-                admit_batch=int(admit_batch), device=self.device).start()
-            self._serving = None
-        else:
-            self._serving = merged_model(model, adapters,
-                                         dtype=self._kv_dtype)
+                admit_batch=int(admit_batch), mesh=mesh,
+                device=self.device).start()
+        # the per-request path's weights; an unmeshed engine's are its own
+        # (swaps change them there), a tensor-parallel engine's are shards
+        self._serving = (None if self.engine is not None
+                         and self.engine.mesh is None
+                         else merged_model(model, adapters,
+                                           dtype=self._kv_dtype))
 
     def _serving_model(self):
         """The weights both paths serve: the engine's merged model when an
         engine runs (swaps change it there), else this predictor's."""
-        return (self.engine.serving_model if self.engine is not None
+        return (self.engine.serving_model if self._serving is None
                 else self._serving)
 
     def stop(self, drain: bool = False) -> None:
@@ -379,6 +387,9 @@ class GreedyLMPredictor(_InstrumentedPredictor):
             ver = self.engine.swap_adapters(adapters, version=version)
             self.adapters = self.engine.adapters
             self._version = ver
+            if self._serving is not None:
+                self._serving = merged_model(self.model, self.adapters,
+                                             dtype=self._kv_dtype)
             return ver
         from .engine import merged_model, prepare_adapter_swap
 

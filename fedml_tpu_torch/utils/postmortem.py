@@ -66,6 +66,7 @@ class FlightRecorder:
         self._baseline: dict = {}
         self._flushed = False
         self._prev_sigterm = None
+        self._atexit_registered = False
         self._t0 = time.time()
 
     # ------------------------------------------------------------ intake
@@ -165,12 +166,17 @@ class FlightRecorder:
                 name="fedml-flight-spill")
             self._spill_thread.start()
         if install_handlers:
-            atexit.register(self._atexit)
-            try:
-                self._prev_sigterm = signal.signal(
-                    signal.SIGTERM, self._on_sigterm)
-            except ValueError:        # not the main thread
-                self._prev_sigterm = None
+            if not self._atexit_registered:
+                atexit.register(self._atexit)
+                self._atexit_registered = True
+            # arming again must not chain the handler to itself: the
+            # handler it replaced is kept from the first install
+            if signal.getsignal(signal.SIGTERM) != self._on_sigterm:
+                try:
+                    self._prev_sigterm = signal.signal(
+                        signal.SIGTERM, self._on_sigterm)
+                except ValueError:    # not the main thread
+                    pass
         return self
 
     def disarm(self) -> None:

@@ -156,9 +156,11 @@ def test_runner_centralized_and_refusals(tmp_path):
     hist = r.run(epochs=2)
     assert [h["epoch"] for h in hist] == [0, 1]
     assert np.isfinite([h["train_loss"] for h in hist]).all()
+    # a model-parallel mesh runs SPMD over ranks (test_torch_centralized_
+    # mp.py); outside a torch.distributed world it refuses to start
     mp = fedml_tpu_torch.init(config={
         **d, "device_args": {"mesh_shape": {"mp": 2}}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(RuntimeError, match="torch.distributed initialised"):
         CentralizedTrainer(mp)
 
 

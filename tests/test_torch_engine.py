@@ -158,12 +158,13 @@ def test_capacity_and_request_errors(setup, engine):
 
 
 def test_refused_knobs(setup, engine):
-    """What the engine still refuses: a tensor-parallel mesh (not ported,
-    naming its ROADMAP item), the paged-only knobs at page_size=0 (the JAX
-    engine's gating, a ValueError), a swap on an engine built without
-    adapters, and an unknown kv_quant."""
+    """What the engine refuses: a mesh that is not a `DeviceMesh` (the
+    tensor-parallel engine's own refusals are in test_torch_engine_tp.py),
+    the paged-only knobs at page_size=0 (the JAX engine's gating, a
+    ValueError), a swap on an engine built without adapters, and an
+    unknown kv_quant."""
     _fm, _params, model = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP.*multi-GPU"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         DecodeEngine(model, device="cpu", page_size=PS, mesh=object())
     for kw in (dict(spec_decode="ngram"), dict(admit_batch=2),
                dict(kv_quant="int8")):

@@ -121,7 +121,8 @@ def test_every_subpackage_is_checked():
     the engine adapters), and the serving fleet, the scheduler tier, soak
     and the platform API (the deploy FSM and gateway, the fleet harness,
     the export, the agents and their job store, the live loop, loadgen,
-    the SLO modules, `api.py`) included."""
+    the SLO modules, `api.py`), and tensor parallelism (the Megatron
+    collectives, `llm/tp.py`, `llm/scale.py`) included."""
     checked = {p.relative_to(ROOT).parts[1] for p in FILES
                if p.parent != ROOT and p.parent.name != "fedml_tpu_torch"}
     for sub in ("mpc", "cross_cloud", "cross_device", "cross_silo", "comm",
@@ -145,7 +146,8 @@ def test_every_subpackage_is_checked():
                 "serving/export.py", "scheduler/__init__.py",
                 "scheduler/store.py", "soak/__init__.py", "soak/knobs.py",
                 "soak/loadgen.py", "soak/loop.py", "soak/slo.py",
-                "utils/slo.py", "api.py"):
+                "utils/slo.py", "api.py", "parallel/tensor.py",
+                "parallel/partition.py", "llm/tp.py", "llm/scale.py"):
         assert f"fedml_tpu_torch/{mod}" in names, mod
     assert {p.name for p in NATIVE} >= {"crc32c.cpp", "finite_field.cpp",
                                         "edge_trainer.cpp"}

@@ -167,9 +167,13 @@ def test_fed_data_rules_and_tables():
     assert {k: str(v) for k, v in got.items()} == \
         {k: str(v) for k, v in want.items()} == \
         {k: "PartitionSpec('clients',)" for k in data}
-    # the model-parallel tables come with tensor parallelism (entry 6b)
-    with pytest.raises(port_part.PartitionRuleError, match="valid: \\[\\]"):
-        port_part.rules_for("transformer_lm")
+    # the model-parallel tables (tensor parallelism, entry 6b) are named
+    # as in JAX; an unknown name lists them (tests/test_torch_tp.py holds
+    # the tables themselves to JAX's)
+    assert set(port_part.TABLES) == set(jax_part.TABLES)
+    with pytest.raises(port_part.PartitionRuleError,
+                       match="valid: \\['lora', 'mlp_cnn', 'transformer_lm'\\]"):
+        port_part.rules_for("transfomer")
 
 
 # ------------------------------------------------------ the ranks' runs

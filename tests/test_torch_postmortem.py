@@ -97,21 +97,24 @@ def test_frame_ring_over_loopback():
     """Every frame through the transports' encode and decode is noted in
     the process's recorder: type, direction, ranks and bytes."""
     run = f"pm-{uuid.uuid4().hex[:6]}"
+    # a type of this test's own: the ring is the process's, and other
+    # tests in the same process send "ping" frames of their own
+    kind = f"ping-{run}"
     a = FedCommManager(LoopbackTransport(0, run), 0)
     b = FedCommManager(LoopbackTransport(1, run), 1)
     got = threading.Event()
-    b.register_message_receive_handler("ping", lambda m: got.set())
+    b.register_message_receive_handler(kind, lambda m: got.set())
     a.run(background=True)
     b.run(background=True)
     try:
-        a.send_message(Message("ping", 0, 1).add("x", 1))
+        a.send_message(Message(kind, 0, 1).add("x", 1))
         assert got.wait(timeout=10)
     finally:
         a.stop()
         b.stop()
         release_router(run)
     frames = [f for f in pm.flight.snapshot("t")["frames"]
-              if f["type"] == "ping"]
+              if f["type"] == kind]
     assert [f["dir"] for f in frames] == ["send", "recv"]
     assert all(f["sender"] == 0 and f["receiver"] == 1 and f["bytes"] > 0
                for f in frames)
@@ -152,3 +155,29 @@ def test_killed_process_leaves_its_postmortem(tmp_path, sig, reason):
     doc = pm.load_postmortem(str(d))
     assert doc["reason"] == reason and doc["process"] == "child"
     assert doc["last_span"] == "train"
+
+
+def test_rearmed_process_still_ends_on_sigterm(tmp_path):
+    """A process that arms the recorder more than once (one run dir after
+    another) flushes once on SIGTERM and then ends by the signal: the
+    handler never chains to itself."""
+    d = tmp_path / "run"
+    child = _CHILD.replace(
+        'pm.arm({d!r}, process="child")',
+        'pm.arm({d!r} + "0", process="child")\n'
+        'pm.arm({d!r}, process="child")\n'
+        'pm.arm({d!r}, process="child")')
+    p = subprocess.Popen([sys.executable, "-c", child.format(
+        root=str(ROOT), d=str(d))], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, OMP_NUM_THREADS="1"))
+    try:
+        assert p.stdout.readline().strip() == "armed"
+        p.send_signal(signal.SIGTERM)
+        _out, err = p.communicate(timeout=30)
+    finally:
+        p.kill()
+    assert p.returncode == -signal.SIGTERM, err[-2000:]
+    assert "RecursionError" not in err
+    doc = pm.load_postmortem(str(d))
+    assert doc["reason"] == "sigterm" and doc["process"] == "child"

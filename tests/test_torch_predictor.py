@@ -281,7 +281,10 @@ def test_predictor_gating_as_jax(setup, kw, msg):
 
 
 def test_engine_mp_not_ported(setup):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    """engine_mp > 1 builds an {"mp": N} mesh over torch.distributed ranks
+    (test_torch_engine_tp.py runs it); outside a world of ranks it
+    refuses to start."""
+    with pytest.raises(RuntimeError, match="torch.distributed initialised"):
         GreedyLMPredictor(setup[2], max_len=MAXLEN, kv_cache=True,
                           decode_slots=2, engine_mp=2, device="cpu")
 
