@@ -44,7 +44,10 @@ script, and every process the script started is stopped when it ends.
 5. serve   - the same requests in bf16 through the kernel engine with a bf16
              pool and with an int8 pool: decode tokens/s, TTFT p50, the int8
              engine's greedy match rate against bf16 (printed, not gated:
-             the weights are random), kernel launches.
+             the weights are random), kernel launches; each engine's
+             kv_pool ledger bytes within 1% of its slots x
+             `serving.kv_bytes_per_slot`, and the ledger's `engine_step`
+             entry (with K4's work).
 6. serve_surface - the serving surface at LLaMA-2-7B width. In f32 at
              full width and 4 layers (TF32 off; width is not cut, depth is,
              to keep the phase short): spec-on (spec_k 4, K4 at C = 5) vs
@@ -84,7 +87,11 @@ script, and every process the script started is stopped when it ends.
              f32 round at full width and 2 layers (TF32 off for cuBLAS) with
              flash (the three-pass TF32 forward, dQ and dK/dV, and only
              they) and with dense attention from the same adapters and
-             batch schedule: the adapters agree.
+             batch schedule: the adapters agree. The cost ledger: the 7B
+             round's `round_fn` FLOPs (captured in round 0), their K1-K3
+             share equal to ops/cost.py's count of 2 forwards, dQ and
+             dK/dV a layer and step, and the MFU over the steady round;
+             the f32 flash and dense rounds' ledger FLOPs equal.
 9. fedavg  - the FedAvg simulation path at bench.py's flagship shape
              (`_flagship_config`: 100 clients of synthetic CIFAR-10, 96
              samples each, Dirichlet alpha 0.5, all 100 per round, batch
@@ -99,7 +106,12 @@ script, and every process the script started is stopped when it ends.
              the second lane), within 1e-3 of the CPU round's largest
              update or, where f32 itself departs further from the f64
              round, as close to the f64 round as the CPU's f32 round
-             (`_fedavg_parity`). No K1-K4 launch.
+             (`_fedavg_parity`). No K1-K4 launch. The cost ledger's
+             `round_fn` entry (captured in the warm round): its FLOPs
+             within 1% of `analytic_flops` of one local step x the
+             round's steps, no K1-K4 work, its calls and capture
+             seconds, and the MFU those FLOPs give over the timed round
+             against the bf16 peak (989 TFLOP/s).
 10. fedsim - the rest of the round engine (vmapped client groups,
              SCAFFOLD / FedDyn / Mime, round blocks, cohort chunks,
              checkpoint and resume), vmap's per-example fallback an
@@ -145,7 +157,10 @@ script, and every process the script started is stopped when it ends.
              `train` spans (sum and largest), the wire's serialise /
              deserialise seconds, bytes and frames a round, the
              aggregate's ms (CUDA events), peak memory, every round
-             receiving every silo's result; then the port Simulator's
+             receiving every silo's result, and in every round each
+             silo's handle span of the server's broadcast stitched to
+             its send span (trace headers: one chain a silo); then the
+             port Simulator's
              G = 1 round of the 100 clients, compared per client.
              (b) A 4-silo f32 federation (silos of 32, 48, 64 and 96
              N(0, 1) images at the same shape, so that the aggregate's
@@ -263,7 +278,11 @@ script, and every process the script started is stopped when it ends.
              `diagnosis` (K1-K4 built and held against their plain
              versions, the transports, the serving engine through K4;
              started with the phase, beside (a)-(c)) exits 0 with every
-             required probe passed; each probe's seconds.
+             required probe passed (`lint_clean`: graftlint's zero
+             findings; `attribution_smoke` with the ledger's legs); each
+             probe's seconds. `fleet_obs_smoke` is left out where the
+             `grpc` module is missing (the card's machine), named on
+             (f)'s line with the reason.
 
 16. tasks  - the simulator's other tasks, datasets and models through
              `fedml_tpu_torch.init` and the Simulator (vmap's per-example
@@ -360,7 +379,15 @@ script, and every process the script started is stopped when it ends.
              a trainer client and a replica: no non-2xx but sheds, the
              fleet at the last round's version, the SLOs held (the JAX
              soak test's bounds), and the final adapters bitwise an
-             unkilled run's on the card.
+             unkilled run's on the card. A `FleetCollector` over the
+             gateway's `fleet_roster()` (the gateway and both replicas)
+             scrapes every FLEET_SCRAPE_S through (a)'s wave: three
+             `process` label values in its aggregate, each split back
+             equal to the process's own scrape, the fleet sums of the
+             wave's `serving_*` counters equal to the sum of the
+             per-process deltas (the three share this process's
+             registry); after the kill the killed replica stays in the
+             view, marked stale.
 19. mesh   - rounds over a device mesh and hierarchical cross-silo at the
              flagship ResNet-18-GN width (bench.py's batch and shapes;
              the cut is depth: MESH_CLIENTS of a 10-client synthetic
@@ -742,6 +769,7 @@ FLEET_SERVE = {"decode_slots": N_SLOTS, "engine_max_len": MAX_LEN,
                "paged_kernel": True}
 FLEET_LOAD_S, FLEET_RATE, FLEET_SWAP_AT_S = 20.0, 2.5, 8.0
 FLEET_SHED = float(N_SLOTS)
+FLEET_SCRAPE_S = 2.0   # the fleet collector's interval through the wave
 FLEET_BURST, FLEET_BURST_S = 3.0, 2.0
 FLEET_TRAFFIC = dict(prefix_pool=16, prefix_len=256, zipf_s=1.2,
                      suffix_len_med=64.0, suffix_len_sigma=0.8,
@@ -863,14 +891,14 @@ def hbm_bytes_per_s(name: str) -> tuple[float, str]:
     return 3.35e12, "H100 SXM data sheet"
 
 
-def peak_flops(dtype) -> float:
-    """Dense peak for the operand type. f32 products at full f32 accuracy
-    are at least three TF32 tensor-core passes each (hi/lo split, the
-    floor the three-pass kernel and SDPA's f32 route both sit on): 495 /
-    3 TFLOP/s, above the CUDA cores' 67."""
-    import torch
+def _cost():
+    """The package's one count of kernel work
+    (`fedml_tpu_torch/ops/cost.py`: `paged_cost`, `flash_cost`,
+    `peak_flops`): the bounds below and the cost ledger read the same
+    functions."""
+    from fedml_tpu_torch.ops import cost
 
-    return 495e12 / 3 if dtype == torch.float32 else 989e12
+    return cost
 
 
 def time_ms(fn, n: int = 60, warmup: int = 5) -> float:
@@ -943,23 +971,9 @@ def _kernel_case(rng, c: int, kind: str, serve: bool = False, h: int = H,
             torch.from_numpy(pos).to(dev)) + scales
 
 
-def _case_cost(q, k, pages, pos, scales_on: bool):
-    """(bytes, flops) the call must move/do for THESE positions: each live
-    page's K and V slab for every head once, its scales, q, out, the live
-    page-table entries and pos."""
-    s_, c, h, dh = q.shape
-    live = ((pos.long() + c - 1) // PS + 1).clamp(max=pages.shape[1])
-    n_live = int(live.sum())
-    slab = PS * h * dh * k.element_size()
-    nbytes = 2 * n_live * slab + 2 * q.numel() * q.element_size() \
-        + n_live * 4 + s_ * 4 + (2 * n_live * h * 4 if scales_on else 0)
-    flops = 4 * c * h * dh * n_live * PS
-    return nbytes, flops
-
-
 def _bound(nbytes: int, flops: int, dtype, bw: float) -> dict:
     t_bytes = nbytes / bw * 1e3
-    t_ops = flops / peak_flops(dtype) * 1e3
+    t_ops = flops / _cost().peak_flops(dtype) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops}
@@ -1026,7 +1040,9 @@ def phase_kernel(bw: float) -> dict:
             # speculative verify window (C = spec_k + 1 = 5)
             ms = time_ms(lambda: pa.paged_attention(*case))
             lib_ms = _sdpa_gathered_ms(*case)
-            nbytes, flops = _case_cost(q, k, pages, pos, ks is not None)
+            nbytes, flops = _cost().paged_cost(
+                q, pos, PS, pages.shape[1], k.element_size(),
+                ks is not None)
             row = {"ms": ms, "library_ms": lib_ms,
                    "plain_ms": time_ms(lambda: pa.paged_attention_ref(*case),
                                        n=10, warmup=1),
@@ -1078,7 +1094,8 @@ def _kernel_head_split(bw: float) -> dict:
         rel = rowwise_rel_err(got, ref)
         check(rel <= TOL[kind], f"h16 {name}: row-relative err {rel} > "
               f"{TOL[kind]}")
-        nbytes, flops = _case_cost(q, k, pages, pos, ks is not None)
+        nbytes, flops = _cost().paged_cost(
+            q, pos, PS, pages.shape[1], k.element_size(), ks is not None)
         out[name] = {
             "heads": H // 2, "C": c, "q_dtype": str(q.dtype),
             "max_abs_err": (got.float() - ref.float()).abs().max().item(),
@@ -1147,6 +1164,7 @@ def _serve(model, reqs, submit_kw=None, **kw) -> tuple[list, dict]:
 
     from fedml_tpu_torch.ops import paged_attention as pa
     from fedml_tpu_torch.utils import metrics as mx
+    from fedml_tpu_torch.utils import xla_ledger
 
     def counters():
         c = mx.snapshot()["counters"]
@@ -1155,8 +1173,20 @@ def _serve(model, reqs, submit_kw=None, **kw) -> tuple[list, dict]:
             "serving.spec.accepted")}
 
     eng = _engine(model, **kw)
+    # the device-memory ledger's kv_pool entry beside the engine's own
+    # math, read before another engine in this process re-registers
+    ledger = {"kv_pool_bytes": xla_ledger.buffers()["kv_pool"],
+              "engine_kv_bytes": eng.n_slots * mx.snapshot()["gauges"][
+                  "serving.kv_bytes_per_slot"]}
     try:
-        eng.submit(list(range(1, 33)), 4).result(timeout=600)   # warm-up
+        # the warm-up with the cost ledger's captures on, as a tracked run
+        # has them (each engine program captured at its first call); the
+        # wave runs with them off, as an untracked server does
+        prev = xla_ledger.set_capture(True)
+        try:
+            eng.submit(list(range(1, 33)), 4).result(timeout=600)
+        finally:
+            xla_ledger.set_capture(prev)
         c0 = counters()
         steps0 = eng.decode_steps
         pa.launch_count = 0
@@ -1177,6 +1207,11 @@ def _serve(model, reqs, submit_kw=None, **kw) -> tuple[list, dict]:
         stats["pool_back_to_budget"] = not eng.kv_page_size or (
             len(eng._free_pages) + len(eng._prefix) == eng._usable
             and all(e.refs == 0 for e in eng._prefix.values()))
+        # the programs the warm-up captured (its first admission and step)
+        progs = xla_ledger.programs()
+        stats["ledger"] = {**ledger, **{
+            k: progs.get(k) for k in ("engine_step", "engine_admit",
+                                      "engine_spec")}}
     finally:
         eng.stop()
     del eng
@@ -1330,6 +1365,13 @@ def phase_serve(reqs) -> dict:
               "a ticket ended short of max_new_tokens")
         check(st["launches"] == L * st["decode_steps"] > 0,
               "kernel launches != layers x decode steps")
+        led = st["ledger"]
+        check(abs(led["kv_pool_bytes"] - led["engine_kv_bytes"])
+              <= 0.01 * led["engine_kv_bytes"],
+              f"the kv_pool ledger bytes {led['kv_pool_bytes']} are not the "
+              f"engine's {led['engine_kv_bytes']} within 1%")
+        check((led["engine_step"] or {}).get("attention_flops", 0) > 0,
+              f"engine_step's ledger entry has no K4 work: {led}")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1765,24 +1807,6 @@ def phase_profile(reqs, top: int = 15) -> None:
 
 
 # ------------------------------------------------------------------ phase 7
-def _flash_cost(kernel: str, bh: int, t: int, d: int, es: int):
-    """(bytes, flops) the function must move/do: each input read once,
-    each output written once; causal products count T(T+1)/2 score
-    entries, 2*D flops each. The forward does 2 products (S, P.V), dQ 2
-    (dP, dS.K), dK/dV 2 (P^T.dO, dS^T.Q): the backward's 4 products split
-    between its two kernels. Recomputing S (both), and dP in dK/dV, is the
-    kernels' choice and is not counted."""
-    tri = t * (t + 1) // 2
-    tile = bh * t * d * es       # one [BH, T, D] operand
-    row = bh * t * 4             # one [BH, T] f32 vector
-    flops = 4 * bh * d * tri
-    nbytes = {"fwd": 3 * tile + tile + row,              # q k v -> o lse
-              "dq": 4 * tile + 2 * row + tile,           # q k v dO lse dlt
-              "dkv": 4 * tile + 2 * row + 2 * tile,      # ... -> dK dV
-              "bwd": 5 * tile + row + 3 * tile}[kernel]  # q k v o dO lse
-    return nbytes, 2 * flops if kernel == "bwd" else flops
-
-
 def _errors(pairs, where: str, tol: float) -> dict:
     """{name: max abs and row-relative error} of (name, got, want) pairs,
     each checked finite and within `tol` under `rowwise_rel_err`."""
@@ -1872,8 +1896,8 @@ def phase_flash(bw: float) -> dict:
             "bwd": time_ms(lambda: torch.autograd.grad(
                 y, (qg, kg, vg), do4, retain_graph=True))}
         del y
-        bounds = {name: _bound(*_flash_cost(name, bh, t, d,
-                                            q.element_size()), dt, bw)
+        bounds = {name: _bound(*_cost().flash_cost(name, bh, t, d,
+                                                   q.element_size()), dt, bw)
                   for name in ms}
         out[kind] = {"ms": ms, "plain_ms": plain, "library_ms": library,
                      "bounds": bounds, "errors": errs, "routes": routes}
@@ -1944,8 +1968,9 @@ def _flash_passes(kind: str, dt, bh: int, t: int, blocks, rng, bw: float,
                 q4, k4, v4, is_causal=True)),
             "bwd": time_ms(lambda: torch.autograd.grad(
                 y, (qg, kg, vg), do4, retain_graph=True))},
-        "bounds": {n: _bound(*_flash_cost(n, bh, t, d, q.element_size()),
-                             dt, bw) for n in ("fwd", "dq", "dkv")}}
+        "bounds": {n: _bound(*_cost().flash_cost(n, bh, t, d,
+                                                 q.element_size()), dt, bw)
+                   for n in ("fwd", "dq", "dkv")}}
     del y, qg, kg, vg, q, k, v, do, o, lse, delta, dq, dk, dv
     gc.collect()
     torch.cuda.empty_cache()
@@ -2030,6 +2055,7 @@ def phase_train(dims=None, parity_layers: int = 2) -> dict:
     from fedml_tpu_torch.llm.transformer import LLAMA2_7B, init_params
     from fedml_tpu_torch.ops import flash_attention as fa
     from fedml_tpu_torch.parallel.round import client_generator
+    from fedml_tpu_torch.utils import xla_ledger
 
     dims = dims or LLAMA2_7B
     L = dims.n_layers
@@ -2049,6 +2075,9 @@ def phase_train(dims=None, parity_layers: int = 2) -> dict:
     rounds = []
     fa.launch_count.update(dict.fromkeys(fa.launch_count, 0))
     torch.cuda.reset_peak_memory_stats()
+    # the cost ledger's captures on for this phase, as a tracked run has
+    # them: each round_fn's first call is captured
+    prev_capture = xla_ledger.set_capture(True)
     for r in range(TRAIN_ROUNDS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2063,8 +2092,19 @@ def phase_train(dims=None, parity_layers: int = 2) -> dict:
                        "ms_per_local_step": wall / steps_per_round * 1e3})
     launches = dict(fa.launch_count)
     steps = steps_per_round * TRAIN_ROUNDS
+    # the cost ledger's round_fn entry (captured in round 0): matmul FLOPs
+    # plus K1-K3's work by ops/cost.py, its K1-K3 share, and the
+    # utilization over the steady round's measured wall
+    entry = xla_ledger.programs()["round_fn"]
+    steady = rounds[-1]["wall_s"]
+    peak = _cost().peak_flops(torch.bfloat16)
+    ledger = {"round_fn": entry,
+              "k1_k3_share": entry["attention_flops"] / entry["flops"],
+              "measured_mfu": entry["flops"] / steady / peak,
+              "capture_over_steady_round_s": entry["capture_s"] - steady,
+              "peak_tflops": peak / 1e12, "nvidia_smi": nvidia_smi_line()}
     res = {"init_s": init_s, "rounds": rounds, "launches": launches,
-           "steps": steps,
+           "steps": steps, "ledger": ledger,
            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
            "adapter_payload_fraction":
                count_params(adapters) / count_params(state)}
@@ -2084,6 +2124,16 @@ def phase_train(dims=None, parity_layers: int = 2) -> dict:
                        "dkv_tc": L * steps, "dkv_3xtf32": 0},
           f"flash launches {launches} != K1 2 x {L} x {steps}, K2 = K3 "
           f"{L} x {steps}, all on the tensor cores")
+    # the K1-K3 work a round: two forwards (the remat recomputes it), dQ
+    # and dK/dV a layer and step, at BH = TRAIN_BS x heads
+    bh, dh = TRAIN_BS * dims.n_heads, dims.d_model // dims.n_heads
+    want_att = L * steps_per_round * sum(
+        k * _cost().flash_cost(n, bh, TRAIN_T, dh, 2)[1]
+        for n, k in (("fwd", 2), ("dq", 1), ("dkv", 1)))
+    check(entry["attention_flops"] == want_att
+          and 0 < ledger["k1_k3_share"] < 1,
+          f"the ledger's K1-K3 FLOPs {entry['attention_flops']} != "
+          f"{want_att} (share {ledger['k1_k3_share']})")
     del state, base_copy, alg, adapters, round_fn, st, out
     gc.collect()
     torch.cuda.empty_cache()
@@ -2098,6 +2148,7 @@ def phase_train(dims=None, parity_layers: int = 2) -> dict:
     sched = [make_batch_indices(client_generator(7, int(c)), TRAIN_SEQS,
                                 TRAIN_BS, 1) for c in ids]
     after = {}
+    counted = {}
     adapters = None
     fa.launch_count.update(dict.fromkeys(fa.launch_count, 0))
     for flash in (True, False):
@@ -2107,17 +2158,27 @@ def phase_train(dims=None, parity_layers: int = 2) -> dict:
                      seed=7, batch_idx=sched)
         after[flash] = (o.server_state.params,
                         o.metrics["train_loss"].item())
+        counted[flash] = xla_ledger.programs()["round_fn"]
+    xla_ledger.set_capture(prev_capture)
     update = _max_abs_diff(after[True][0], adapters)
     diff = _max_abs_diff(after[True][0], after[False][0])
     parity = {"layers": parity_layers, "max_abs_adapter_diff": diff,
               "max_abs_adapter_update": update, "ratio": diff / update,
               "tol": PARITY_TOL, "loss_flash": after[True][1],
               "loss_dense": after[False][1],
-              "launches": dict(fa.launch_count)}
+              "launches": dict(fa.launch_count),
+              "ledger_flops": {"flash": counted[True]["flops"],
+                               "dense": counted[False]["flops"]},
+              "ledger_attention_flops": counted[True]["attention_flops"]}
     emit({"phase": "train", "f32_flash_vs_dense": parity})
     check(update > 0 and diff <= PARITY_TOL * update,
           f"f32 flash vs dense round: adapter diff {diff} > {PARITY_TOL} x "
           f"update {update}")
+    # one count of attention: the dense path's FLOPs are the kernels'
+    check(counted[True]["flops"] == counted[False]["flops"]
+          and counted[True]["attention_flops"]
+          == counted[False]["attention_flops"] > 0,
+          f"the ledger counts the flash and dense rounds apart: {counted}")
     # the flash round alone launches: K1 twice a layer and step (remat),
     # K2 and K3 once, all through the three-pass TF32 kernels
     n = parity_layers * steps_per_round
@@ -2382,6 +2443,8 @@ def phase_fedavg(cpu_rounds=None) -> dict:
     from fedml_tpu_torch.ops import flash_attention as fa
     from fedml_tpu_torch.ops import paged_attention as pa
     from fedml_tpu_torch.simulation.simulator import Simulator
+    from fedml_tpu_torch.utils import metrics as mx
+    from fedml_tpu_torch.utils import xla_ledger
 
     t0 = time.perf_counter()
     cfg = _fedavg_cfg(DEV)
@@ -2401,6 +2464,9 @@ def phase_fedavg(cpu_rounds=None) -> dict:
     fa.launch_count.update(dict.fromkeys(fa.launch_count, 0))
     pa.launch_count = 0
     rows = []
+    # the cost ledger's captures on for the timed rounds, as a tracked run
+    # has them: the warm round is round_fn's first call, the one captured
+    prev_capture = xla_ledger.set_capture(True)
     for r in range(1 + FEDAVG_ROUNDS):     # round 0 is the warm round
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2413,6 +2479,12 @@ def phase_fedavg(cpu_rounds=None) -> dict:
     peak = torch.cuda.max_memory_allocated()
     timed = [r["ms"] for r in rows[1:]]
     med = statistics.median(timed)
+    # the cost ledger's round_fn entry, captured in the warm round (this
+    # Simulator's first call); the parity rounds run uncaptured
+    xla_ledger.set_capture(prev_capture)
+    ledger = xla_ledger.programs()["round_fn"]
+    calls = int(mx.snapshot()["counters"].get("xla.program.calls.round_fn",
+                                              0))
     ev = sim.evaluate()
     res = {
         "clients": ds.num_clients, "shard_size": ds.shard_size,
@@ -2423,16 +2495,35 @@ def phase_fedavg(cpu_rounds=None) -> dict:
         "max_memory_allocated_bytes": peak,
         "conv_matmul_flops_per_round": flops,
         "achieved_tflops": flops / med / 1e9,
-        "bf16_peak_share": flops / (med / 1e3) / peak_flops(torch.bfloat16),
+        "bf16_peak_share": flops / (med / 1e3)
+        / _cost().peak_flops(torch.bfloat16),
         "test_acc": ev["test_acc"], "test_loss": ev["test_loss"],
         "k1_k4_launches": launches,
     }
+    # the ledger beside analytic_flops of one local step x the round's
+    # steps (every step of the padded shards runs), and the utilization
+    # the ledger's FLOPs give over the timed rounds' measured wall
+    step_flops = _step_flops(image=ds.x_train.shape[2:])
+    res["ledger"] = {
+        "round_fn": ledger, "calls": calls,
+        "analytic_step_flops": step_flops,
+        "analytic_round_flops": step_flops * steps,
+        "rel_to_analytic": ledger["flops"] / (step_flops * steps) - 1,
+        "capture_over_timed_round_s": ledger["capture_s"] - med / 1e3,
+        "measured_mfu": ledger["flops"] / (med / 1e3)
+        / _cost().peak_flops(torch.bfloat16),
+        "peak_tflops": _cost().peak_flops(torch.bfloat16) / 1e12,
+        "nvidia_smi": nvidia_smi_line()}
     emit({"phase": "fedavg", **res})
     losses = [r["train_loss"] for r in rows]
     check(all(np.isfinite(losses)), "a FedAvg round's loss is not finite")
     check(losses[-1] < losses[0], f"train_loss did not fall: {losses}")
     check(not any(launches.values()),
           f"the FedAvg path launched a flash or paged kernel: {launches}")
+    check(abs(res["ledger"]["rel_to_analytic"]) <= 0.01
+          and ledger["attention_flops"] == 0,
+          f"the ledger's round FLOPs {ledger['flops']} are not analytic_flops"
+          f" x steps {step_flops * steps} within 1%")
     del sim
     gc.collect()
     torch.cuda.empty_cache()
@@ -3363,6 +3454,21 @@ def _cs_flagship(ds) -> dict:
             train_max_ms=max(train),
             server_model_sends_s=span_s("comm.send.s2c_"),
             client_model_sends_s=span_s("comm.send.c2s_send_model")))
+    # trace headers on the wire: each round's broadcast (the server's
+    # model sends inside its round span) and the silos' handle spans of
+    # it, stitched by the `_trace_id` / `_parent_span` headers
+    stitched = []
+    for rs in rounds:
+        sends = {s.span_id: s for s in spans
+                 if s.name in ("comm.send.s2c_init_config",
+                               "comm.send.s2c_sync_model")
+                 and rs.start <= s.start < rs.end}
+        stitched.append(sum(
+            1 for s in spans if s.name.startswith("comm.handle.s2c_")
+            and s.parent_id in sends
+            and s.trace_id == sends[s.parent_id].trace_id
+            and s.meta.get("receiver") == sends[s.parent_id].meta.get(
+                "receiver")))
     timed = rows[1:]
     res = {"silos": len(silos), "samples": int(ds.counts.sum()),
            "steps_per_round": int(sum(len(x) // min(32, len(x))
@@ -3374,6 +3480,7 @@ def _cs_flagship(ds) -> dict:
                "frames_sent", "agg_ms", "train_sum_ms", "train_max_ms",
                "server_model_sends_s", "client_model_sends_s")},
            "wall_s": wall_s, "spans": len(spans),
+           "stitched_broadcast_chains": stitched,
            "max_memory_allocated_bytes": peak}
     res["frame_bytes"] = res["timed_mean"]["bytes_sent"] / max(
         res["timed_mean"]["frames_sent"], 1)
@@ -3385,6 +3492,9 @@ def _cs_flagship(ds) -> dict:
     check(all(r["train_spans"] == len(silos) for r in rows),
           "a round did not train every silo once: train spans a round "
           f"{[r['train_spans'] for r in rows]}")
+    check(stitched == [len(silos)] * len(rounds),
+          f"stitched broadcast chains a round {stitched}, not one for each "
+          f"of the {len(silos)} silos")
     check(all(np.isfinite(v).all() for v in srv.params.values()),
           "the aggregate is not finite")
     del srv
@@ -4436,23 +4546,21 @@ def _inversion(ds) -> dict:
     return res
 
 
-def _round_flops(ds, fedsim_g10=None) -> dict:
-    """(d): the port's analytic_flops of one flagship local step (B 32,
-    bf16) and one G = 10 group step, executed on the card; TFLOP a round
-    (100 clients x 7 steps: every step over the shards padded to 224
-    runs); with phase fedsim's G = 10 round, its achieved TFLOP/s and
-    share of the bf16 peak."""
+def _step_flops(g: int = 1, image=(32, 32, 3)) -> float:
+    """The port's analytic_flops of one flagship local step (B 32, bf16,
+    `image` inputs), or of one vmapped group step of `g` clients,
+    executed on the card."""
     import torch
 
     from fedml_tpu_torch.core.algorithm import masked_softmax_ce
     from fedml_tpu_torch.models import hub
-    from fedml_tpu_torch.utils.flops import analytic_flops, spec_peak_tflops
+    from fedml_tpu_torch.utils.flops import analytic_flops
 
     bs = FEDAVG_CONFIG["train_args"]["batch_size"]
-    model = hub.create("resnet18_gn", 10, (32, 32, 3), device="meta")
+    model = hub.create("resnet18_gn", 10, tuple(image), device="meta")
     fn = hub.apply_fn(model, "bfloat16")
     p = {k: v.to(DEV) for k, v in _parity_params().items()}
-    x = torch.randn(bs, 32, 32, 3, device=DEV)
+    x = torch.randn(bs, *image, device=DEV)
     y = torch.randint(0, 10, (bs,), device=DEV)
     mk = torch.ones(bs, device=DEV)
 
@@ -4460,12 +4568,26 @@ def _round_flops(ds, fedsim_g10=None) -> dict:
         return masked_softmax_ce(fn(pp, xx), yy, mm)[0]
 
     grad = torch.func.grad(loss)
-    step = analytic_flops(grad, p, x, y, mk)
-    g = 10
+    if g == 1:
+        return analytic_flops(grad, p, x, y, mk)
     stk = lambda t: t.expand((g,) + t.shape).clone()  # noqa: E731
-    group = analytic_flops(torch.func.vmap(grad), {k: stk(v) for k, v
-                                                   in p.items()},
-                           stk(x), stk(y), stk(mk))
+    return analytic_flops(torch.func.vmap(grad), {k: stk(v) for k, v
+                                                  in p.items()},
+                          stk(x), stk(y), stk(mk))
+
+
+def _round_flops(ds, fedsim_g10=None) -> dict:
+    """(d): the port's analytic_flops of one flagship local step (B 32,
+    bf16) and one G = 10 group step, executed on the card; TFLOP a round
+    (100 clients x 7 steps: every step over the shards padded to 224
+    runs); with phase fedsim's G = 10 round, its achieved TFLOP/s and
+    share of the bf16 peak."""
+    from fedml_tpu_torch.utils.flops import spec_peak_tflops
+
+    bs = FEDAVG_CONFIG["train_args"]["batch_size"]
+    step = _step_flops()
+    g = 10
+    group = _step_flops(g)
     steps = ds.num_clients * (ds.shard_size // bs)
     res = {"step_flops": step, "group_step_flops_g10": group,
            "group_over_10_steps": group / (10 * step),
@@ -4801,6 +4923,24 @@ def _entry_tracked(d) -> dict:
     return out
 
 
+def _battery() -> tuple:
+    """(the probes phase entry (f) runs, {probe left out: why}): every
+    probe of the port's battery, but fleet_obs_smoke where the `grpc`
+    module is missing (its peers' transport; the card's machine has
+    none)."""
+    import importlib.util
+
+    from fedml_tpu_torch.diagnosis import PROBES
+
+    left_out = {}
+    if importlib.util.find_spec("grpc") is None:
+        left_out["fleet_obs_smoke"] = (
+            "its peers talk over gRPC and this machine has no `grpc` "
+            "module (the probe fails naming it); its legs run on the CPU "
+            "in tests/test_torch_obsfleet.py")
+    return [p for p in PROBES if p not in left_out], left_out
+
+
 def phase_entry(surface=None) -> dict:
     """Phase 15 (module docstring): the single-process entry surface at the
     flagship. `surface`, phase serve_surface's results when it ran in this
@@ -4816,8 +4956,11 @@ def phase_entry(surface=None) -> dict:
     t0 = time.perf_counter()
     # (f)'s diagnosis battery runs beside (a)-(c): it reads nothing of
     # theirs, and its probes' budgets (the live loop's 20 s) sit far
-    # above their readings (2.9 s)
-    diag_p = _cli_start("diagnosis", to_files=True)
+    # above their readings (2.9 s). fleet_obs_smoke's peers talk over
+    # gRPC: on a machine without the module the probe fails naming it, so
+    # the battery here leaves it out, and says so on (f)'s line
+    battery, left_out = _battery()
+    diag_p = _cli_start("diagnosis", "--only", *battery, to_files=True)
     atexit.register(diag_p.kill)
     res = {}
     with tempfile.TemporaryDirectory() as d:
@@ -4888,15 +5031,19 @@ def phase_entry(surface=None) -> dict:
     checks = report.get("checks", {})
     from fedml_tpu_torch.diagnosis import REQUIRED
 
-    failed = [k for k in REQUIRED if not checks.get(k, {}).get("ok")]
-    check(diag.returncode == 0 and not failed,
-          f"diagnosis rc {diag.returncode}, failed {failed}: "
+    failed = [k for k in REQUIRED if k in battery
+              and not checks.get(k, {}).get("ok")]
+    check(diag.returncode == 0 and not failed and set(checks) == set(
+        battery), f"diagnosis rc {diag.returncode}, failed {failed}: "
           f"{ {k: checks.get(k) for k in failed} } {diag.stderr[-500:]}")
     res["f_diagnosis"] = {
         "env_device": card,
         "probe_seconds": {k: v.get("seconds") for k, v in checks.items()},
         "probe_ok": {k: v.get("ok") for k, v in checks.items()},
         "kernels": checks.get("kernels"),
+        "lint_clean": checks.get("lint_clean"),
+        "attribution_smoke": checks.get("attribution_smoke"),
+        "left_out": left_out,
         "seconds": time.perf_counter() - t1}
     emit({"phase": "entry", "part": "f_diagnosis", **res["f_diagnosis"]})
     res["seconds"] = time.perf_counter() - t0
@@ -5875,6 +6022,49 @@ def _fleet_counters() -> dict:
         "serving.prefix_hits", "fed.chaos.replica_kills")}
 
 
+def _fleet_obs_wave(coll, before: dict) -> dict:
+    """(a)'s fleet plane after the wave: one more scrape, then the gates:
+    three `process` label values in the aggregated exposition, each
+    process's split-back series equal to its own scrape, and the fleet
+    sums of the wave's `serving_*` counters (after minus before) equal to
+    the sum of the per-process deltas. The gateway and the replicas run
+    in this one process, so their /metrics serve one registry: each
+    column is the same snapshot, and the sums count it three times."""
+    from fedml_tpu_torch.utils import metrics as mx
+    from fedml_tpu_torch.utils.prometheus import (parse_prometheus,
+                                                  split_by_label)
+
+    ok = coll.scrape_once()
+    after = coll.fleet_snapshot()
+    per = {k: v for k, v in split_by_label(
+        parse_prometheus(coll.aggregated_text()), "process").items() if k}
+    procs = after["processes"]
+    check(all(ok.values()) and len(per) == 3 and sorted(per)
+          == sorted(procs), f"the aggregate's process labels {sorted(per)}"
+          f" (scrapes {ok})")
+    for name, p in procs.items():
+        check(per[name]["counters"] == p["snapshot"]["counters"],
+              f"{name}'s split-back counters are not its scrape")
+
+    def delta(snap_of, key):
+        return (snap_of(after).get(key, 0) - snap_of(before).get(key, 0))
+
+    keys = sorted(k for k in after["sums"]["counters"]
+                  if k.startswith("serving_"))
+    sums = {k: delta(lambda f: f["sums"]["counters"], k) for k in keys}
+    parts = {k: sum(
+        p["snapshot"]["counters"].get(k, 0)
+        - ((before["processes"].get(n) or {}).get("snapshot") or {}).get(
+            "counters", {}).get(k, 0) for n, p in procs.items())
+        for k in keys}
+    check(sums == parts and any(sums.values()),
+          f"the fleet sums of the wave's serving counters {sums} are not "
+          f"the per-process deltas {parts}")
+    return {"processes": sorted(per), "serving_counter_deltas": sums,
+            "scrapes": mx.snapshot()["counters"].get("obs.fleet.scrapes"),
+            "stale": {n: p["stale"] for n, p in procs.items()}}
+
+
 def _fleet_headline() -> dict:
     """(a): two 7B replicas behind the gateway under a loadgen wave with a
     rolling update to v2 mid-wave, the probes against a direct v2 engine,
@@ -5895,6 +6085,7 @@ def _fleet_headline() -> dict:
     )
     from fedml_tpu_torch.soak.loadgen import LoadGenerator, TrafficSpec
     from fedml_tpu_torch.utils.artifacts import FileArtifactStore, adapter_name
+    from fedml_tpu_torch.utils.obsfleet import FleetCollector
 
     smi = nvidia_smi_line()
     gc.collect()
@@ -5933,6 +6124,11 @@ def _fleet_headline() -> dict:
            "base_weights_gb": base_bytes / 1e9,
            "merged_kernel_gb_per_replica": merged_bytes / 1e9,
            "weights_shared": shared}
+    # the fleet plane: a collector over the gateway's roster (the gateway
+    # and both replicas) scraping through the wave
+    roster = gw.fleet_roster()
+    coll = FleetCollector(roster, interval_s=FLEET_SCRAPE_S,
+                          timeout_s=5.0, stale_after_s=60.0).start()
     try:
         # warm both replicas (first-call costs off the wave)
         for r in runners:
@@ -5949,6 +6145,9 @@ def _fleet_headline() -> dict:
         store = FileArtifactStore(store_dir)
         store.put(adapter_name(2), v2)
         c0 = _fleet_counters()
+        check(all(coll.scrape_once().values()), "a fleet scrape failed "
+              "before the wave")
+        fleet0 = coll.fleet_snapshot()
         steps0 = [e.decode_steps for e in engines]
         slots0 = [e.decode_slot_steps for e in engines]
         fa.launch_count.update(dict.fromkeys(fa.launch_count, 0))
@@ -6012,6 +6211,9 @@ def _fleet_headline() -> dict:
             "counters": {k: c1[k] - c0[k] for k in c0},
             "nvidia_smi": smi}
         emit({"phase": "fleet", "part": "a_wave", **out["a_wave"]})
+        out["a_fleet_obs"] = _fleet_obs_wave(coll, fleet0)
+        emit({"phase": "fleet", "part": "a_fleet_obs",
+              **out["a_fleet_obs"]})
         check(not bad, f"the wave answered non-2xx other than 429: {bad}")
         check(len(ok) > 0, "no request of the wave was answered")
         check(sorted(versions.values()) == [2, 2],
@@ -6087,12 +6289,29 @@ def _fleet_headline() -> dict:
             "stream_failovers": (k1["serving.stream_failovers"]
                                  - k0["serving.stream_failovers"]),
             "doomed_state": dep.replicas[doomed_i].state, "nvidia_smi": smi}
+        # the killed replica's endpoint is gone: it stays in the fleet
+        # view, marked stale with the scrape's error
+        doomed_name = next(n for n, u in roster.items()
+                           if f":{doomed.port}/" in u)
+        ok = coll.scrape_once()
+        gone = coll.fleet_snapshot()["processes"]
+        out["a_fleet_obs"]["after_kill"] = {
+            "scrape_ok": ok, "doomed": doomed_name,
+            "stale": {n: p["stale"] for n, p in gone.items()},
+            "error": gone[doomed_name]["error"]}
+        check(sorted(gone) == sorted(roster) and gone[doomed_name]["stale"]
+              and gone[doomed_name]["snapshot"] is not None
+              and not ok[doomed_name],
+              f"the stopped replica is not a stale column: "
+              f"{out['a_fleet_obs']['after_kill']}")
         out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         out["launches"] = launches["all"]
         emit({"phase": "fleet", "part": "a_probes_kill",
               "probes": out["a_probes"], "kill": out["a_kill"],
+              "stale_after_kill": out["a_fleet_obs"]["after_kill"],
               "peak_gb": out["peak_gb"], "nvidia_smi": smi})
     finally:
+        coll.stop()
         gw.stop()
         for r in runners:
             r.stop()
@@ -6909,7 +7128,7 @@ def _qlora_c(bw: float) -> dict:
                              n=10, warmup=2),
         "fwd_library": time_ms(lambda: F.scaled_dot_product_attention(
             qf[None], kf[None], vf[None], is_causal=True))}
-    fold_bound = _bound(*_flash_cost("fwd", g * bh, t, d, 2),
+    fold_bound = _bound(*_cost().flash_cost("fwd", g * bh, t, d, 2),
                         torch.bfloat16, bw)
     del q, k, v, do, o_v, g_v, qf, kf, vf, dof, o_f, lse, delta
     gc.collect()

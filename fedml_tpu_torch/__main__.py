@@ -15,14 +15,22 @@ version / env / run / build / logs / diagnosis / ...`.)
              "status", "result"} and exits 0 iff the job FINISHED
   build      a job directory as a tarball with a sha256 manifest
   logs       the per-run logs and events the mlops facade wrote
-  report     a tracked run's telemetry (text, or `--format json`)
-  top        one screen of run health from /metrics or a finished run
+  report     a tracked run's telemetry (text, or `--format json`);
+             `--merge dirA dirB ...` folds N processes' Chrome traces into
+             one clock-corrected timeline (exit 1 if a stitched receive
+             still precedes its send), `--fleet URL` folds a fleet
+             collector's snapshot in
+  top        one screen of run health from /metrics or a finished run;
+             `--fleet` renders a collector's aggregate per process
+  lint       graftlint over the port's tree (`analysis/`): exit 0 clean,
+             1 findings, 2 usage error (`--format json`, `--rules`,
+             `--list-rules`, explicit paths)
   diagnosis  the port's battery: the card, the kernels K1-K4 against
-             their plain versions, the transports, the codec and the
-             serving engine (`--only`, `--device`)
+             their plain versions, the transports, the codec, the serving
+             engine, the ledger, the fleet plane and the linter
+             (`--only`, `--device`)
 
-`bench`, `lint`, `report --merge / --fleet` and `top --fleet` are not
-ported yet: each exits 2 naming the ROADMAP entry that brings it.
+`bench` is not ported yet (the port has no benchmark): it exits 2.
 Output formats, schemas and exit codes are the JAX package's.
 """
 from __future__ import annotations
@@ -34,10 +42,6 @@ import sys
 _LATER = {
     "bench": "a benchmark of the port (there is none yet; bench.py at the "
              "repository root is the JAX package's)",
-    "lint": "ROADMAP 'Port queue' entry 8 (analysis/)",
-    "report --merge": "ROADMAP 'Port queue' entry 8 (utils/obsfleet.py)",
-    "report --fleet": "ROADMAP 'Port queue' entry 8 (utils/obsfleet.py)",
-    "top --fleet": "ROADMAP 'Port queue' entry 8 (utils/obsfleet.py)",
 }
 
 
@@ -281,20 +285,38 @@ def cmd_report(args) -> int:
     table, SLO alert totals, metric-row counts, the end-of-run snapshot
     `mlops.finish` appended, the postmortem and the Chrome trace's path.
     `--format json` prints the same facts as one object (schema 2, the
-    JAX package's); the exit codes are the same in both formats."""
+    JAX package's); the exit codes are the same in both formats.
+    `--merge` switches to trace federation (`_report_merge`); `--fleet
+    URL` folds a fleet collector's snapshot (per-process columns, fleet
+    sums, staleness marks) into the report, or makes the whole report
+    when there is no local run."""
     import os
 
     if getattr(args, "merge", None):
-        return _later("report --merge")
-    if getattr(args, "fleet", None):
-        return _later("report --fleet")
+        return _report_merge(args)
+
     fleet = None
+    if getattr(args, "fleet", None):
+        try:
+            fleet = _fetch_fleet(args.fleet)
+        except Exception as e:  # noqa: BLE001 — operator-facing CLI
+            print(f"fleet fetch failed: {type(e).__name__}: {e}",
+                  file=sys.stderr)
+            return 1
 
     path = args.events
     if path is None:
         try:
             path = _newest_events_file(args.log_dir, args.run)
         except FileNotFoundError as e:
+            if fleet is not None:
+                # a fleet-only report: a live fleet needs no local run
+                if getattr(args, "format", "text") == "json":
+                    print(json.dumps({"schema": 2, "fleet": fleet},
+                                     indent=2, sort_keys=True))
+                else:
+                    print(_render_fleet(fleet))
+                return 0
             print(str(e), file=sys.stderr)
             return 1
 
@@ -412,6 +434,8 @@ def cmd_report(args) -> int:
         print(render_table(att))
     if links:
         print(render_link_table(att, snapshot=snap if report_row else None))
+    if fleet is not None:
+        print(_render_fleet(fleet))
     if report_row:
         if raw and wire:
             print(f"wire codec: {raw / wire:.1f}x payload reduction "
@@ -449,6 +473,146 @@ def cmd_report(args) -> int:
         print("(no end-of-run metrics snapshot row — run finished without "
               "mlops.finish, or predates the telemetry layer)")
     return 0
+
+
+def _report_merge(args) -> int:
+    """`report --merge dirA dirB ...`: fold N run dirs' (or trace files')
+    Chrome traces into one clock-corrected Perfetto timeline with a flow
+    arrow per cross-process send -> handle pair
+    (`utils/obsfleet.merge_traces`). Exit 1 if the corrected timeline
+    still shows a receive before its send."""
+    import os
+
+    from .utils.obsfleet import (load_trace, merge_traces,
+                                 verify_merged_order)
+
+    inputs = []
+    for spec in args.merge:
+        if os.path.isfile(spec):
+            path = spec
+            name = os.path.basename(spec).split(".")[0] or spec
+        elif os.path.isdir(spec):
+            names = [n for n in os.listdir(spec)
+                     if n.endswith(".trace.json")]
+            if not names:
+                print(f"--merge: no *.trace.json under {spec!r}",
+                      file=sys.stderr)
+                return 1
+            path = max((os.path.join(spec, n) for n in names),
+                       key=os.path.getmtime)
+            name = os.path.basename(os.path.normpath(spec))
+        else:
+            print(f"--merge: {spec!r} is neither a trace file nor a run "
+                  "dir", file=sys.stderr)
+            return 1
+        inputs.append((name, path))
+    # duplicate lane names would fold two processes into one pid label
+    counts: dict = {}
+    uniq = []
+    for name, path in inputs:
+        n = counts.get(name, 0)
+        counts[name] = n + 1
+        uniq.append((f"{name}#{n}" if n else name, path))
+    out_path = args.out or "merged.trace.json"
+    res = merge_traces(uniq, out_path=out_path)
+    bad = verify_merged_order(load_trace(out_path))
+    if getattr(args, "format", "text") == "json":
+        print(json.dumps(
+            {**{k: v for k, v in res.items() if k != "trace"},
+             "order_violations": bad}, indent=2, sort_keys=True))
+        return 0 if bad == 0 else 1
+    print(f"merged trace: {out_path}  (open at ui.perfetto.dev)")
+    print(f"processes: {len(res['processes'])} "
+          f"({', '.join(res['processes'])})  events: {res['events']}  "
+          f"send->handle pairs: {res['pairs']}  "
+          f"stitched flows: {res['flows']}")
+    if res["clock_skew_ms"]:
+        print("clock skew: " + "  ".join(
+            f"{k} {v:+.3f}ms"
+            for k, v in sorted(res["clock_skew_ms"].items())))
+    if res["clamped"]:
+        print(f"clamped events: {res['clamped']} (pair constraints "
+              "infeasible — ordering invariant enforced per event)")
+    if bad:
+        print(f"ERROR: {bad} flow(s) still show recv before the "
+              "corrected send", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _fetch_fleet(spec: str) -> dict:
+    """A fleet snapshot from a FleetCollector: its base URL (the /fleet
+    JSON endpoint; a .../metrics URL is rewritten), or a JSON file a
+    snapshot was saved to."""
+    import os
+
+    if os.path.isfile(spec):
+        with open(spec) as f:
+            return json.load(f)
+    import urllib.request
+
+    url = spec
+    if url.endswith("/metrics"):
+        url = url[:-len("/metrics")] + "/fleet"
+    elif not url.endswith("/fleet"):
+        url = url.rstrip("/") + "/fleet"
+    with urllib.request.urlopen(url, timeout=5) as r:
+        return json.loads(r.read().decode())
+
+
+def _render_fleet(fs: dict) -> str:
+    """Per-process columns and a fleet-sums column from a FleetCollector
+    snapshot ({"processes": ..., "sums": ...}); stale processes are
+    starred in the header and called out on the status line."""
+    procs = fs.get("processes") or {}
+    sums = fs.get("sums") or {}
+    names = sorted(procs)
+
+    def fmt(v):
+        return "-" if v is None else f"{v:g}"
+
+    def cell(snap, kind, key):
+        if not snap:
+            return "-"
+        v = (snap.get(kind) or {}).get(key)
+        if v is not None and kind == "histograms":
+            v = v.get("count", 0)
+        return fmt(v)
+
+    rows = []
+    for kind, suffix in (("counters", ""), ("gauges", ""),
+                         ("histograms", " (count)")):
+        keys = set(sums.get(kind) or {})
+        for p in procs.values():
+            keys |= set(((p.get("snapshot") or {}).get(kind)) or {})
+        for k in sorted(keys):
+            sv = (sums.get(kind) or {}).get(k)
+            if sv is not None and kind == "histograms":
+                sv = sv.get("count", 0)
+            rows.append(
+                [k + suffix]
+                + [cell((procs[n].get("snapshot")), kind, k)
+                   for n in names] + [fmt(sv)])
+    head = (["metric"]
+            + [n + ("*" if procs[n].get("stale") else "") for n in names]
+            + ["fleet"])
+    widths = [max(len(str(r[i])) for r in [head] + rows)
+              for i in range(len(head))]
+    status = []
+    for n in names:
+        p = procs[n]
+        s = f"{n}=" + ("STALE" if p.get("stale") else "ok")
+        if p.get("age_s") is not None:
+            s += f" ({p['age_s']:.1f}s ago)"
+        if p.get("error"):
+            s += f" [{p['error'][:60]}]"
+        status.append(s)
+    lines = ["fleet: " + ", ".join(status)
+             + "   (* = stale: last scrape failed or too old)"]
+    lines.append("  ".join(h.ljust(w) for h, w in zip(head, widths)))
+    for r in rows:
+        lines.append("  ".join(str(c).ljust(w) for c, w in zip(r, widths)))
+    return "\n".join(lines)
 
 
 def _top_frame(snap: dict, source: str, prev: dict = None,
@@ -694,11 +858,12 @@ def _top_frame(snap: dict, source: str, prev: dict = None,
             seg += f"  worst {worst[0]}"
         lines.append(seg)
 
-    retr = {k: int(v) for k, v in c.items() if k.startswith("xla_retraces_")}
-    if retr:
-        lines.append("xla retraces: " + " ".join(
-            f"{k[len('xla_retraces_'):-len('_total')]}:{v}"
-            for k, v in sorted(retr.items())))
+    # the cost ledger's measured utilization (utils/xla_ledger.py)
+    mfu = {k[len("xla_program_mfu_"):]: v for k, v in g.items()
+           if k.startswith("xla_program_mfu_")}
+    if mfu:
+        lines.append("mfu: " + " ".join(
+            f"{k}:{v:.3f}" for k, v in sorted(mfu.items())))
     return "\n".join(lines)
 
 
@@ -710,11 +875,14 @@ def cmd_top(args) -> int:
 
     from .utils.prometheus import parse_prometheus, render_prometheus
 
-    if getattr(args, "fleet", False):
-        return _later("top --fleet")
     url = args.url
     if url is None and args.port is not None:
         url = f"http://127.0.0.1:{args.port}/metrics"
+    if getattr(args, "fleet", False) and url is None:
+        print("top --fleet needs --url/--port pointing at a "
+              "FleetCollector's aggregated /metrics "
+              "(common_args.extra.obs_fleet.port)", file=sys.stderr)
+        return 2
     # the run-dir fallback is a finished run's static snapshot: one frame
     once = args.once or url is None
 
@@ -761,8 +929,12 @@ def cmd_top(args) -> int:
                 _time.sleep(args.interval)
                 continue
             now = _time.monotonic()
-            text = _top_frame(snap, source, prev,
-                              (now - prev_t) if prev_t is not None else None)
+            if getattr(args, "fleet", False):
+                text = _fleet_frame(snap, source)
+            else:
+                text = _top_frame(
+                    snap, source, prev,
+                    (now - prev_t) if prev_t is not None else None)
             if not once and frame:
                 print("\x1b[2J\x1b[H", end="")  # clear screen between frames
             print(text, flush=True)
@@ -773,6 +945,53 @@ def cmd_top(args) -> int:
             _time.sleep(args.interval)
     except KeyboardInterrupt:
         return 0        # ^C is the documented way to stop a live watch
+
+
+def _fleet_frame(snap: dict, source: str) -> str:
+    """`top --fleet`: the scraped exposition is a collector's aggregate;
+    split it back by process and render the per-process columns."""
+    import time as _time
+
+    from .utils.obsfleet import fleet_sums
+    from .utils.prometheus import split_by_label
+
+    split = split_by_label(snap, "process")
+    per = {k: v for k, v in split.items() if k}
+    # the collector's own (unlabeled) families carry the staleness gauge
+    n_stale = ((split.get("") or {}).get("gauges")
+               or {}).get("obs_fleet_stale")
+    fs = {"processes": {
+        n: {"ok": True, "stale": False, "age_s": None, "error": None,
+            "snapshot": s} for n, s in per.items()},
+        "sums": fleet_sums(per)}
+    head = (f"fedml_tpu_torch top --fleet — {source}  "
+            f"({_time.strftime('%Y-%m-%d %H:%M:%S')})")
+    if n_stale:
+        head += f"  STALE PROCESSES: {int(n_stale)}"
+    return head + "\n" + _render_fleet(fs)
+
+
+def cmd_lint(args) -> int:
+    """graftlint, the port's static analysis (`analysis/`): exit 0 clean,
+    1 findings, 2 usage error; `--format json` is the JAX package's
+    schema."""
+    from .analysis import all_rules, render_json, render_text, run_lint
+
+    if args.list_rules:
+        for r in all_rules():
+            print(f"{r.name}: {r.summary}")
+        return 0
+    rules = None
+    if args.rules:
+        rules = [t.strip() for t in args.rules.split(",") if t.strip()]
+    try:
+        findings, stats = run_lint(paths=args.paths or None, rules=rules)
+    except (ValueError, OSError) as e:
+        print(f"lint: {e}", file=sys.stderr)
+        return 2
+    print(render_json(findings, stats) if args.format == "json"
+          else render_text(findings, stats))
+    return 1 if findings else 0
 
 
 def cmd_diagnosis(args) -> int:
@@ -824,8 +1043,20 @@ def main(argv=None) -> int:
     dp.add_argument("--device", default=None,
                     help="cuda (the default; raises without a GPU) or cpu "
                          "(the plain versions; the kernels are not run)")
-    lint_p = sub.add_parser("lint", help="not ported yet (exits 2)")
-    lint_p.add_argument("paths", nargs="*", default=None)
+    lint_p = sub.add_parser(
+        "lint", help="graftlint: the port's static analysis "
+                     "(donation/retrace/knob/metric/lock/purity rules)")
+    lint_p.add_argument("paths", nargs="*", default=None,
+                        help="files/dirs to scan (default: the "
+                             "fedml_tpu_torch package tree)")
+    lint_p.add_argument("--format", choices=("text", "json"),
+                        default="text",
+                        help="json emits the stable CI schema")
+    lint_p.add_argument("--rules", default=None,
+                        help="comma-separated rule subset (see "
+                             "--list-rules)")
+    lint_p.add_argument("--list-rules", action="store_true",
+                        help="print the rule catalog and exit")
     rp = sub.add_parser("report",
                         help="summarize a tracked run's telemetry "
                              "(spans, counters, trace pointer)")
@@ -837,10 +1068,17 @@ def main(argv=None) -> int:
     rp.add_argument("--format", choices=("text", "json"), default="text",
                     help="json emits one stable machine-readable object")
     rp.add_argument("--merge", nargs="+", default=None, metavar="RUN_DIR",
-                    help="not ported yet (exits 2)")
-    rp.add_argument("--out", default=None, help="--merge output path")
+                    help="merge N run dirs' (or *.trace.json files') "
+                         "Chrome traces into one clock-corrected Perfetto "
+                         "timeline with cross-process send->handle flow "
+                         "arrows; exits 1 if a recv still precedes its "
+                         "corrected send")
+    rp.add_argument("--out", default=None,
+                    help="--merge output path (default merged.trace.json)")
     rp.add_argument("--fleet", default=None, metavar="URL",
-                    help="not ported yet (exits 2)")
+                    help="FleetCollector URL (or saved /fleet JSON file): "
+                         "fold the fleet snapshot (per-process columns, "
+                         "fleet sums, staleness marks) into the report")
     tp = sub.add_parser("top",
                         help="live one-screen run health from a /metrics "
                              "endpoint (or a finished run's events file)")
@@ -859,13 +1097,15 @@ def main(argv=None) -> int:
     tp.add_argument("--frames", type=int, default=0,
                     help="stop after N frames (0 = run until ^C)")
     tp.add_argument("--fleet", action="store_true",
-                    help="not ported yet (exits 2)")
+                    help="treat --url/--port as a FleetCollector's "
+                         "aggregated /metrics and render per-process "
+                         "columns instead of the single-process frame")
     args = p.parse_args(argv)
     return {"version": cmd_version, "env": cmd_env, "run": cmd_run,
             "bench": lambda a: _later("bench"),
             "launch": cmd_launch, "build": cmd_build,
             "logs": cmd_logs, "diagnosis": cmd_diagnosis,
-            "lint": lambda a: _later("lint"),
+            "lint": cmd_lint,
             "report": cmd_report, "top": cmd_top}[args.cmd](args)
 
 

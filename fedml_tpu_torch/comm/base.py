@@ -3,7 +3,9 @@ moves encoded Message frames between integer-addressed processes; the
 comm manager on top owns dispatch.
 
 Every transport funnels its wire traffic through `_encode_frame` /
-`_decode_frame`, which feed the process-wide instruments
+`_decode_frame`, which stamp the sender's trace context into the
+message's headers (`Message.stamp_trace`) and feed the process-wide
+instruments
 (`utils/metrics.py`) under the JAX package's names:
 `comm.<backend>.bytes_sent` / `bytes_recv` / `msgs_sent` / `msgs_recv`
 counters, the `serialize_s` / `deserialize_s` histograms and the per-link
@@ -11,9 +13,9 @@ counters, the `serialize_s` / `deserialize_s` histograms and the per-link
 hooks in here too: with a policy set (`set_codec`), `_encode_frame`
 compresses a message's training payloads before framing, and
 `_decode_frame` reverses any codec header a frame carries. Both note
-each frame's header (type, sender, receiver, bytes) in the crash flight
-recorder's frame ring (`utils/postmortem.py`). Messages carry no trace
-headers in the port, so the ring's `headers` stay empty.
+each frame's header (type, sender, receiver, bytes and `msg.headers()`)
+in the crash flight recorder's frame ring (`utils/postmortem.py`).
+`set_link_telemetry(False)` turns the per-link byte counters off.
 """
 from __future__ import annotations
 
@@ -26,6 +28,21 @@ from ..utils import postmortem as _pm
 from .message import Message
 
 _log = logging.getLogger(__name__)
+
+# the per-link byte counters (`comm.link.<src>.<dst>.bytes`), counted at
+# the same encode choke point as the per-backend ones; a module switch so
+# the plane's cost can be measured on against off
+_link_telemetry = True
+
+
+def set_link_telemetry(on: bool) -> None:
+    global _link_telemetry
+    _link_telemetry = bool(on)
+
+
+def link_telemetry_enabled() -> bool:
+    return _link_telemetry
+
 
 class Observer(abc.ABC):
     """(reference: observer.py:4-8)"""
@@ -91,9 +108,14 @@ class BaseTransport(abc.ABC):
         self._notify(msg)
 
     # ------------------------------------------------- instrumented codec
-    def _encode_frame(self, msg: Message) -> bytes:
-        """Compress (with a codec), serialize and count: the single choke
-        point for outbound bytes on every transport."""
+    def _encode_frame(self, msg: Message, stamp: bool = True) -> bytes:
+        """Stamp the trace headers, compress (with a codec), serialize and
+        count: the single choke point for outbound bytes on every
+        transport. stamp=False keeps a frame byte-identical across a
+        broadcast (the broker's content-addressed blob plane dedups by
+        hash; the trace context rides its key frame instead)."""
+        if stamp:
+            msg.stamp_trace()
         if self._codec is not None:
             # idempotent per message object: a retransmit re-entering here
             # sees the codec header marker and passes through unchanged
@@ -104,10 +126,11 @@ class BaseTransport(abc.ABC):
         _mx.observe(f"{pre}.serialize_s", time.perf_counter() - t0)
         _mx.inc(f"{pre}.bytes_sent", len(frame))
         _mx.inc(f"{pre}.msgs_sent")
-        _mx.inc(f"comm.link.{msg.sender_id}.{msg.receiver_id}.bytes",
-                len(frame))
+        if _link_telemetry:
+            _mx.inc(f"comm.link.{msg.sender_id}.{msg.receiver_id}.bytes",
+                    len(frame))
         _pm.note_frame("send", msg.type, msg.sender_id, msg.receiver_id,
-                       len(frame))
+                       len(frame), msg.headers())
         return frame
 
     def _decode_frame(self, frame: bytes) -> Message:
@@ -124,7 +147,7 @@ class BaseTransport(abc.ABC):
         _mx.inc(f"{pre}.bytes_recv", len(frame))
         _mx.inc(f"{pre}.msgs_recv")
         _pm.note_frame("recv", msg.type, msg.sender_id, msg.receiver_id,
-                       len(frame))
+                       len(frame), msg.headers())
         return msg
 
     @abc.abstractmethod

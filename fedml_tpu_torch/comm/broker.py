@@ -28,7 +28,7 @@ from typing import Optional
 
 from ..utils import metrics as _mx
 from .base import BaseTransport
-from .message import Message
+from .message import ARG_PARENT_SPAN, ARG_TRACE_ID, Message
 
 _BLOB_KEY_PREFIX = b"BLOB:"
 
@@ -220,17 +220,26 @@ class BrokerTransport(BaseTransport):
         # threshold the re-encode with the true receiver is cheap by
         # definition. Byte / message counters and serialize time ride the
         # canonical encode (the frame that carries the payload).
+        # stamp=False: per-send trace headers inside the canonical frame
+        # would break the broadcast's dedup; the trace context rides the
+        # topic-plane key frame below instead.
         canonical = self._encode_frame(
-            Message(msg.type, msg.sender_id, -1, msg.params))
+            Message(msg.type, msg.sender_id, -1, msg.params), stamp=False)
         if len(canonical) > self.blob_threshold:
             key = self._with_retry(
                 "blob_put", lambda: self.broker.put_blob(canonical))
-            frame = _BLOB_KEY_PREFIX + f"{key}|{msg.receiver_id}".encode()
+            from ..utils.events import current_trace
+
+            tid, sid = current_trace()
+            frame = _BLOB_KEY_PREFIX + "|".join(
+                (key, str(msg.receiver_id), tid or "", sid or "")).encode()
             _mx.inc("comm.broker.blob_puts")
             _mx.inc("comm.broker.bytes_sent", len(frame))  # topic-plane key
         else:
-            # the true-receiver re-encode; the payload's bytes were counted
-            # above
+            # the true-receiver re-encode (trace headers stamped here:
+            # inline frames never reach the content-addressed plane); the
+            # payload's bytes were counted above
+            msg.stamp_trace()
             frame = msg.encode()
         t0 = time.perf_counter()
         self._with_retry(
@@ -262,6 +271,12 @@ class BrokerTransport(BaseTransport):
                 key, receiver = parts[0], parts[1] if len(parts) > 1 else ""
                 msg = self._decode_frame(self.broker.get_blob(key))
                 msg.receiver_id = int(receiver) if receiver else self.rank
+                # the trace context the dedup-friendly canonical frame left
+                # out rode the key frame
+                if len(parts) > 2 and parts[2]:
+                    msg.params[ARG_TRACE_ID] = parts[2]
+                    if len(parts) > 3 and parts[3]:
+                        msg.params[ARG_PARENT_SPAN] = parts[3]
                 self._notify(msg)
                 continue
             self._notify(self._decode_frame(frame))

@@ -189,8 +189,8 @@ def validate_comm_codec(extra: dict) -> None:
 
 def make_policy(d: dict) -> "CodecPolicy":
     """comm_codec config dict -> CodecPolicy: the consumer of every knob in
-    CODEC_KNOBS but `secagg_premask_ratio`, which the SecAgg client reads
-    (the sparsifier runs before the mask, not on the wire)."""
+    CODEC_KNOBS (`secagg_premask_ratio` rides along for the SecAgg
+    client, whose sparsifier runs before the mask, not on the wire)."""
     validate_comm_codec(d)
     kind = d.get("kind")
     per_type = dict(d.get("per_type") or {})
@@ -203,6 +203,7 @@ def make_policy(d: dict) -> "CodecPolicy":
         bits=int(d.get("bits", 8)),
         val_bits=int(d.get("val_bits", 32)),
         error_feedback=bool(ef) if ef is not None else kind == "sparse_topk",
+        secagg_premask_ratio=d.get("secagg_premask_ratio"),
     )
 
 
@@ -453,7 +454,8 @@ class CodecPolicy:
     RING = 4
 
     def __init__(self, type_map: dict, ratio: float = 0.05, bits: int = 8,
-                 val_bits: int = 32, error_feedback: bool = True):
+                 val_bits: int = 32, error_feedback: bool = True,
+                 secagg_premask_ratio: Optional[float] = None):
         from ..mpc.finite import DEFAULT_PRIME
 
         self.type_map = {t: k for t, k in type_map.items() if k is not None}
@@ -465,6 +467,9 @@ class CodecPolicy:
         self.bits = int(bits)
         self.val_dtype = np.float16 if int(val_bits) == 16 else np.float32
         self.error_feedback = bool(error_feedback)
+        #: the SecAgg client's pre-mask sparsifier ratio, carried as in the
+        #: JAX policy (the client reads it from its own config)
+        self.secagg_premask_ratio = secagg_premask_ratio
         self.field_prime = DEFAULT_PRIME
         # anchors exist ONLY for sparse_topk delta mode: a qsgd/dense-only
         # policy must not pay a full-model digest + 4-deep model ring per

@@ -17,7 +17,7 @@ import threading
 from typing import Callable, Optional
 
 from ..utils import metrics as _mx
-from ..utils.events import recorder
+from ..utils.events import recorder, trace_context
 from .base import BaseTransport, Observer
 from .loopback import LoopbackTransport
 from .message import Message
@@ -54,7 +54,10 @@ class FedCommManager(Observer):
 
     def send_message(self, msg: Message) -> None:  # :53
         # the Message's own sender_id is authoritative (callers construct
-        # it with their client id, which need not equal the transport rank)
+        # it with their client id, which need not equal the transport rank).
+        # The span puts a trace context on this thread; the transport's
+        # _encode_frame stamps it into the headers, so the receiver's
+        # handle span stitches to this one.
         with recorder.span(f"comm.send.{msg.type}", sender=msg.sender_id,
                            receiver=msg.receiver_id, backend=self.backend):
             self.transport.send_message(msg)
@@ -75,9 +78,22 @@ class FedCommManager(Observer):
                     sorted(self._handlers))
             return
         _mx.inc("comm.msgs_handled")
-        with recorder.span(f"comm.handle.{msg_type}", sender=msg.sender_id,
-                           receiver=msg.receiver_id, backend=self.backend):
-            handler(msg)
+        tid, parent = msg.trace_context()
+        with trace_context(tid, parent):
+            with recorder.span(f"comm.handle.{msg_type}",
+                               sender=msg.sender_id,
+                               receiver=msg.receiver_id,
+                               backend=self.backend):
+                handler(msg)
+
+    def announce_metrics(self, process: str, url: str,
+                         collector_rank: int = 0) -> None:
+        """Register this process's /metrics endpoint with the fleet
+        collector's host: one OBS_REGISTER frame over this manager's
+        transport, routed there by `obsfleet.install_registration`."""
+        from ..utils.obsfleet import announce
+
+        announce(self, process, url, collector_rank)
 
     def run(self, background: bool = False) -> None:
         """Enter the receive loop (reference: run() :25 →

@@ -417,6 +417,13 @@ class Config:
             from .soak.knobs import validate_soak
 
             validate_soak(sk)
+        # the fleet-observability section (roster, port, cadence): a typo
+        # fails at load, not as a fleet view that never aggregates
+        of = self.common_args.extra.get("obs_fleet")
+        if of is not None:
+            from .utils.obsfleet import validate_obs_fleet
+
+            validate_obs_fleet(of)
         # the serving knobs fail at load too (serving/knobs.py, the
         # registry the predictor's knob mapping reads)
         from .serving.knobs import validate_serve_args

@@ -30,7 +30,9 @@ Required:
   serve under load, one trainer kill) converges on version 3 with zero
   non-2xx, inside 20 s;
 - `attribution_smoke`: the round-time budget over a round span and
-  loopback traffic, with a transport share > 0;
+  loopback traffic, with a transport share > 0; a tracked program's
+  ledger FLOPs > 0 (`utils/xla_ledger.py`); a 2-slot engine's kv_pool
+  ledger bytes within 1% of 2 x its `serving.kv_bytes_per_slot`;
 - `cohort_sharded_smoke`: two spawned gloo ranks on the device (a
   `clients` mesh of 2) run a chunk-streamed cohort round and the
   single-shot round: history and parameters bitwise, every chunk
@@ -40,7 +42,18 @@ Required:
   port's state-dict layout, and its LoRA adapters, resolve under the
   error policy (full coverage, no ambiguity), then two spawned gloo ranks
   on the device (an {"mp": 2} mesh) shard the int8 base and hold the
-  halves of a column and a row kernel.
+  halves of a column and a row kernel;
+- `lint_clean`: graftlint (`analysis/`) over the package tree reports
+  zero findings, inside 20 s;
+- `fleet_obs_smoke`: three child processes (two gRPC peers exchanging
+  reliable traffic both ways, one victim) scraped by a FleetCollector
+  into one exposition with three `process` label values, the peers'
+  traces merged into one timeline with a stitched send -> handle flow
+  and no ordering violation, and the victim, SIGKILLed, marked stale
+  and leaving a postmortem that names its last span, inside 20 s. The
+  peers need the `grpc` module: without it the probe fails with an
+  ImportError naming it (the card's machine has none, so `chip_smoke.py`
+  leaves this probe out of its battery).
 
 Reported, not required: `grpc_transport` (the card's machine has no
 grpc), `native_lib`, `metrics_endpoint`.
@@ -69,7 +82,7 @@ REQUIRED = ("cuda", "kernels", "wire_codec", "loopback_transport",
             "serving_density_smoke", "fleet_rolling_update_smoke",
             "cross_silo_durability_smoke", "live_loop_smoke",
             "attribution_smoke", "cohort_sharded_smoke",
-            "partition_rules_smoke")
+            "partition_rules_smoke", "lint_clean", "fleet_obs_smoke")
 
 
 class NotRun(Exception):
@@ -658,19 +671,32 @@ def probe_fleet_rolling_update_smoke(dev):
 
 
 def probe_attribution_smoke(dev):
-    """The round-time budget: a round-tagged `train` span around device
-    work and loopback traffic; the table renders with a transport share
-    > 0."""
+    """The round-time budget: a round-tagged `train` span around a tracked
+    program on the device and loopback traffic; the program's ledger
+    FLOPs > 0, the table renders with a transport share > 0, and a 2-slot
+    engine's kv_pool ledger bytes agree with its own math within 1%."""
     from .comm.manager import FedCommManager, create_transport
     from .comm.loopback import release_router
     from .comm.message import Message
+    from .serving.engine import DecodeEngine
+    from .utils import metrics as mx
+    from .utils import xla_ledger
     from .utils.attribution import attribute, render_table, \
         rows_from_recorder
     from .utils.events import recorder
 
-    with recorder.span("train", round=0):
-        x = torch.ones((64, 64), device=dev)
-        (x @ x).sum().item()
+    f = xla_ledger.track(lambda a, b: a @ b, "probe_matmul")
+    prev = xla_ledger.set_capture(True)     # as a tracked run asks for it
+    try:
+        with recorder.span("train", round=0):
+            x = torch.ones((64, 64), device=dev)
+            f(x, x).sum().item()
+    finally:
+        xla_ledger.set_capture(prev)
+    prog = xla_ledger.programs().get("probe_matmul", {})
+    if prog.get("flops") != 2 * 64 ** 3:
+        raise ValueError(f"the cost ledger captured {prog!r} for a 64^3 "
+                         "matmul (want 524288 flops)")
     run = f"diag-attr-{uuid.uuid4().hex[:6]}"
     a = FedCommManager(create_transport("loopback", 0, run), rank=0)
     b = FedCommManager(create_transport("loopback", 1, run), rank=1)
@@ -687,13 +713,28 @@ def probe_attribution_smoke(dev):
     release_router(run)
     if len(got) != 3:
         raise RuntimeError(f"loopback delivered {len(got)}/3")
+    eng = DecodeEngine(_tiny_lm(dev), n_slots=2, max_len=32,
+                       device=dev).start()
+    try:
+        eng.submit([1, 2, 3], 4).result(timeout=60)
+    finally:
+        eng.stop()
+    ledger_kv = xla_ledger.buffers().get("kv_pool", 0)
+    engine_kv = 2 * mx.snapshot()["gauges"].get(
+        "serving.kv_bytes_per_slot", 0)
+    if not engine_kv or abs(ledger_kv - engine_kv) / engine_kv > 0.01:
+        raise ValueError(
+            f"KV ledger disagrees with the engine: ledger {ledger_kv} vs "
+            f"engine {engine_kv} (must agree within 1%)")
     att = attribute(rows_from_recorder())
     table = render_table(att)
     share = att["totals"]["transport_share"]
     if "transport%" not in table or share <= 0:
         raise ValueError(f"budget table missing transport share: {share} "
                          f"(table: {table.splitlines()[0]!r})")
-    return {"transport_share": share, "rounds": len(att["rounds"])}
+    return {"program_flops": prog["flops"], "kv_ledger_bytes": ledger_kv,
+            "kv_engine_bytes": engine_kv, "transport_share": share,
+            "rounds": len(att["rounds"])}
 
 
 def probe_live_loop_smoke(dev):
@@ -902,6 +943,220 @@ def probe_partition_rules_smoke(dev):
             "exitcodes": pool.exitcodes, "mode": "2 spawned gloo ranks"}
 
 
+def probe_lint_clean(dev):
+    """graftlint over the whole package tree: zero findings, inside its
+    own 20 s budget (pure AST, about a second here)."""
+    from .analysis import run_lint
+
+    t0 = time.perf_counter()
+    findings, stats = run_lint()
+    dt = time.perf_counter() - t0
+    if findings:
+        raise ValueError(f"{len(findings)} graftlint finding(s); first: "
+                         f"{findings[0].format()}")
+    if dt > 20:
+        raise RuntimeError(f"lint took {dt:.1f}s (budget 20s)")
+    return {"files": stats["files"], "rules": len(stats["rules"]),
+            "suppressed": stats["suppressed"], "scan_s": round(dt, 3)}
+
+
+# fleet_obs_smoke's children (they import the comm and telemetry modules
+# only, so each starts well inside the probe's 20 s budget). The peers exchange reliable gRPC
+# traffic both ways (pings out, pongs back: both clock-offset directions
+# get constraints), export their Chrome traces, then serve /metrics and
+# block on stdin until the parent is done scraping. The victim arms the
+# flight recorder on a fast spill cadence and heartbeats until SIGKILLed.
+_FLEET_PEER_SRC = """\
+import json, sys, threading, time
+from fedml_tpu_torch.comm.manager import FedCommManager
+from fedml_tpu_torch.comm.message import Message
+from fedml_tpu_torch.comm.grpc_transport import GrpcTransport
+from fedml_tpu_torch.comm.reliable import ReliableTransport, RetryPolicy
+from fedml_tpu_torch.utils.events import recorder
+from fedml_tpu_torch.utils.prometheus import MetricsExporter
+
+rank = {rank}
+n = {n}
+ipmap = {{0: "127.0.0.1:{port_a}", 1: "127.0.0.1:{port_b}"}}
+t = ReliableTransport(
+    GrpcTransport(rank, ipmap, port={my_port}),
+    RetryPolicy(ack_timeout_s=0.2, max_attempts=20, deadline_s=20.0))
+m = FedCommManager(t, rank)
+got = set()
+done = threading.Event()
+
+def on_msg(msg):
+    got.add(msg.get("i"))
+    if rank == 1:
+        m.send_message(Message("fleet_pong", 1, 0).add("i", msg.get("i")))
+    if len(got) >= n:
+        done.set()
+
+m.register_message_receive_handler(
+    "fleet_ping" if rank == 1 else "fleet_pong", on_msg)
+m.run(background=True)
+if rank == 0:
+    time.sleep(0.4)
+    for i in range(n):
+        m.send_message(Message("fleet_ping", 0, 1).add("i", i))
+ok = done.wait(timeout=20)
+recorder.export_chrome_trace(r"{trace}")
+exp = MetricsExporter(port=0).start()
+print(json.dumps({{"ok": bool(ok), "url": exp.url, "got": len(got)}}),
+      flush=True)
+sys.stdin.read()
+m.stop()
+"""
+
+_FLEET_VICTIM_SRC = """\
+import json, sys, time
+from fedml_tpu_torch.utils import metrics as mx
+from fedml_tpu_torch.utils import postmortem
+from fedml_tpu_torch.utils.events import recorder
+from fedml_tpu_torch.utils.prometheus import MetricsExporter
+
+postmortem.flight.spill_every_s = 0.05
+postmortem.arm(r"{run_dir}", process="victim")
+mx.inc("victim.steps")
+with recorder.span("victim.work", step=0):
+    pass
+exp = MetricsExporter(port=0).start()
+print(json.dumps({{"url": exp.url}}), flush=True)
+while True:
+    with recorder.span("victim.heartbeat"):
+        time.sleep(0.05)
+"""
+
+
+def probe_fleet_obs_smoke(dev):
+    """The fleet-observability plane end to end, on real processes (the
+    JAX probe's legs; see the module docstring). Runs on the host: `dev`
+    is not used."""
+    import os
+    import signal
+    import socket
+    import subprocess
+    import tempfile
+
+    from .comm.grpc_transport import _import_grpc
+    from .utils.obsfleet import (FleetCollector, load_trace, merge_traces,
+                                 verify_merged_order)
+    from .utils.postmortem import POSTMORTEM_FILE, load_postmortem
+    from .utils.prometheus import parse_prometheus, split_by_label
+
+    _import_grpc()     # the peers' transport: an ImportError naming grpc
+    t0 = time.perf_counter()
+
+    def free_port():
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        p = s.getsockname()[1]
+        s.close()
+        return p
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [root] + ([os.environ["PYTHONPATH"]]
+                  if os.environ.get("PYTHONPATH") else []))}
+    pa, pb = free_port(), free_port()
+
+    def spawn(src):
+        return subprocess.Popen([sys.executable, "-c", src], env=env,
+                                stdin=subprocess.PIPE,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+    def ready_line(p, timeout=30):
+        out: list = []
+        th = threading.Thread(target=lambda: out.append(p.stdout.readline()),
+                              daemon=True)
+        th.start()
+        th.join(timeout)
+        if not out or not out[0]:
+            err = (p.stderr.read()[-400:] if p.poll() is not None
+                   else "(still running)")
+            raise TimeoutError(f"child never reported ready: {err}")
+        return json.loads(out[0])
+
+    n = 4
+    with tempfile.TemporaryDirectory() as d:
+        tr_a = os.path.join(d, "a.trace.json")
+        tr_b = os.path.join(d, "b.trace.json")
+        victim_dir = os.path.join(d, "victim")
+        procs = [
+            spawn(_FLEET_PEER_SRC.format(rank=0, n=n, port_a=pa, port_b=pb,
+                                         my_port=pa, trace=tr_a)),
+            spawn(_FLEET_PEER_SRC.format(rank=1, n=n, port_a=pa, port_b=pb,
+                                         my_port=pb, trace=tr_b)),
+            spawn(_FLEET_VICTIM_SRC.format(run_dir=victim_dir))]
+        try:
+            ready = [ready_line(p) for p in procs]
+            if not (ready[0]["ok"] and ready[1]["ok"]):
+                raise RuntimeError(f"peer exchange failed: {ready[:2]}")
+            coll = FleetCollector({"peer_a": ready[0]["url"],
+                                   "peer_b": ready[1]["url"],
+                                   "victim": ready[2]["url"]})
+            ok = coll.scrape_once()
+            if not all(ok.values()):
+                raise RuntimeError(f"scrape failed: {ok}")
+            agg = parse_prometheus(coll.aggregated_text())
+            per = {k: v for k, v in split_by_label(agg, "process").items()
+                   if k}
+            if sorted(per) != ["peer_a", "peer_b", "victim"]:
+                raise ValueError("aggregated /metrics missing process "
+                                 f"labels: {sorted(per)}")
+            vs = per["victim"]["counters"].get("victim_steps_total")
+            if not vs:
+                raise ValueError("victim counter absent from the "
+                                 "aggregated view")
+            # the victim's inflight spill must exist before the kill:
+            # SIGKILL runs no handler, the spill is all that survives
+            pm_path = os.path.join(victim_dir, POSTMORTEM_FILE)
+            deadline = time.monotonic() + 10
+            while (not os.path.exists(pm_path)
+                   and time.monotonic() < deadline):
+                time.sleep(0.02)
+            if not os.path.exists(pm_path):
+                raise TimeoutError(
+                    "victim never spilled an inflight postmortem")
+            procs[2].send_signal(signal.SIGKILL)
+            procs[2].wait(timeout=10)
+            coll.scrape_once()     # a dead endpoint -> the stale mark
+            fsnap = coll.fleet_snapshot()
+            if not fsnap["processes"]["victim"]["stale"]:
+                raise ValueError("SIGKILLed victim not marked stale")
+            pm = load_postmortem(victim_dir)
+            if pm is None or "hard-kill" not in pm["reason"]:
+                raise ValueError("postmortem unreadable or wrong reason: "
+                                 f"{pm and pm.get('reason')}")
+            if not str(pm["last_span"] or "").startswith("victim."):
+                raise ValueError(f"postmortem last span {pm['last_span']!r}")
+            for p in procs[:2]:    # the peers exit when stdin closes
+                p.stdin.close()
+            for p in procs[:2]:
+                p.wait(timeout=15)
+            res = merge_traces([("peer_a", tr_a), ("peer_b", tr_b)],
+                               out_path=os.path.join(d, "merged.trace.json"))
+            if res["flows"] < 1:
+                raise ValueError(f"no stitched send->handle flow: {res}")
+            bad = verify_merged_order(load_trace(res["out"]))
+            if bad:
+                raise ValueError(f"{bad} flow(s) violate corrected ordering")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait(timeout=10)
+    dt = time.perf_counter() - t0
+    if dt > 20:
+        raise RuntimeError(f"fleet obs smoke took {dt:.1f}s (budget 20s)")
+    return {"processes": sorted(per), "victim_steps": int(vs),
+            "flows": res["flows"], "order_violations": 0,
+            "clock_skew_ms": res["clock_skew_ms"],
+            "clamped": res["clamped"], "postmortem_reason": pm["reason"],
+            "last_span": pm["last_span"], "elapsed_s": round(dt, 1)}
+
+
 PROBES = {
     "cuda": probe_cuda,
     "kernels": probe_kernels,
@@ -922,6 +1177,8 @@ PROBES = {
     "attribution_smoke": probe_attribution_smoke,
     "cohort_sharded_smoke": probe_cohort_sharded_smoke,
     "partition_rules_smoke": probe_partition_rules_smoke,
+    "lint_clean": probe_lint_clean,
+    "fleet_obs_smoke": probe_fleet_obs_smoke,
 }
 
 

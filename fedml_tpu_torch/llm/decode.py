@@ -51,6 +51,7 @@ from typing import Optional
 
 import torch
 
+from ..ops import cost
 from .quant import (
     attn_out, embed_rows, lm_head_logits, project_qkv, rms_norm,
     swiglu_mlp,
@@ -212,10 +213,14 @@ def make_kv_decode(n_heads: int, dtype=torch.float32, eps: float = 1e-6,
             k = _rope_rows(k, pos[:, None])
             ck[bidx, pos] = k[:, 0]
             cv[bidx, pos] = v[:, 0]
-            scale = q.shape[-1] ** -0.5
-            s = torch.einsum("bqhd,bkhd->bhqk", q, ck) * scale
-            s = torch.where(live[:, None, None, :], s, _NEG)
-            o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), cv)
+            # a ledger capture counts it as K4 over pages of one position
+            with cost.region(lambda: cost.paged_cost(
+                    q, pos, 1, max_len, ck.element_size(), False)):
+                scale = q.shape[-1] ** -0.5
+                s = torch.einsum("bqhd,bkhd->bhqk", q, ck) * scale
+                s = torch.where(live[:, None, None, :], s, _NEG)
+                o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1),
+                                 cv)
             x = attn_out(bl, None, 0.0, x, o, dtype)
             x = swiglu_mlp(bl, None, 0.0, x, dtype, eps)
         return lm_head_logits(model, None, 0.0, x, dtype, eps)[:, 0]
@@ -279,7 +284,14 @@ def make_paged_kv_decode(n_heads: int, page_size: int,
 
     def gather_attend(q, ck, cv, ks, vs, pages, posr):
         """Each row's pages gathered into a contiguous view, attended
-        densely with query i live at virtual positions <= posr[:, i]."""
+        densely with query i live at virtual positions <= posr[:, i]. A
+        ledger capture counts it as K4's work (`ops/cost.py`)."""
+        with cost.region(lambda: cost.paged_cost(
+                q, posr[:, 0], ps, pages.shape[1], ck.element_size(),
+                quant)):
+            return _gather_attend(q, ck, cv, ks, vs, pages, posr)
+
+    def _gather_attend(q, ck, cv, ks, vs, pages, posr):
         b = q.shape[0]
         n_virt = pages.shape[1] * ps
         idx = pages.long()

@@ -34,7 +34,7 @@ from .utils.sysperf import SysPerfMonitor
 
 _state: dict = {"sysperf": None, "log_handler": None, "events": {},
                 "sinks": [], "prev_root_level": None, "artifacts": None,
-                "trace_run": None}
+                "trace_run": None, "prev_capture": None}
 
 
 def init(cfg, sysperf_interval: Optional[float] = None) -> None:
@@ -74,6 +74,13 @@ def init(cfg, sysperf_interval: Optional[float] = None) -> None:
 
         if postmortem.flight.armed_dir is None:
             postmortem.arm(t.log_file_dir, process=str(t.run_name))
+        # a tracked run asks for the cost ledger's captures (off otherwise:
+        # a capture runs a program's first call under the counting mode);
+        # finish() restores the setting
+        if _state["prev_capture"] is None:
+            from .utils import xla_ledger
+
+            _state["prev_capture"] = xla_ledger.set_capture(True)
     # the model-artifact store (module docstring)
     if _state["artifacts"] is None:
         kind = t.extra.get("artifact_store")
@@ -208,11 +215,13 @@ def export_chrome_trace(path: str) -> str:
 def _finish_report() -> None:
     """The end-of-run summary row to the sinks, then the Chrome trace and
     the final postmortem of a tracked run."""
-    # the round-time budget as gauges before the snapshot below, so the
-    # report row and Prometheus carry them
+    # the measured MFU (span wall over the ledger's FLOPs) and the
+    # round-time budget as gauges before the snapshot below, so the report
+    # row and Prometheus carry them
     try:
-        from .utils import attribution
+        from .utils import attribution, xla_ledger
 
+        xla_ledger.measured_mfu()
         attribution.analyze_and_publish()
     except Exception as e:  # noqa: BLE001 — attribution must not block exit
         logging.getLogger(__name__).warning(
@@ -285,4 +294,9 @@ def finish() -> None:
     if _state["prev_root_level"] is not None:
         root.setLevel(_state["prev_root_level"])
         _state["prev_root_level"] = None
+    if _state["prev_capture"] is not None:
+        from .utils import xla_ledger
+
+        xla_ledger.set_capture(_state["prev_capture"])
+        _state["prev_capture"] = None
     _state["artifacts"] = None

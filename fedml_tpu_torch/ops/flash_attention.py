@@ -52,7 +52,10 @@ so their operands must start 16-byte aligned (a view at another storage
 offset raises a ValueError). `launch_count` counts each kernel's
 launches (and nothing else): "fwd_tc" and "fwd_3xtf32" for the two
 forwards, "dq_tc" and "dq_3xtf32" for dQ, "dkv_tc" and "dkv_3xtf32" for
-dK/dV.
+dK/dV. The counts update under a lock, where each launch also notes its
+work (`ops/cost.py:flash_cost`) for a cost-ledger capture running on the
+launching thread; the plain versions count the same work
+(`cost.region`), so the ledger reads one count on either path.
 
 `rowwise_rel_err` (from `ops/tolerance.py`) is the rule the kernels are
 held to against their plain versions on the card.
@@ -60,10 +63,11 @@ held to against their plain versions on the card.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
-from . import _build
+from . import _build, cost
 from .tolerance import rowwise_rel_err  # noqa: F401  (fa.rowwise_rel_err)
 
 _NEG = -1e30
@@ -72,6 +76,7 @@ _KIND = {torch.float32: 0, torch.bfloat16: 1}
 
 launch_count = {"fwd_tc": 0, "fwd_3xtf32": 0, "dq_tc": 0, "dq_3xtf32": 0,
                 "dkv_tc": 0, "dkv_3xtf32": 0}
+_count_lock = threading.Lock()
 
 _lib = None
 
@@ -143,6 +148,12 @@ def _check(q, k, v, *grads) -> None:
                          f"{q.device}")
 
 
+def _work(name: str, q) -> tuple[int, int]:
+    """(bytes, flops) of pass `name` ("fwd", "dq", "dkv") at q's shape."""
+    bh, t, d = q.shape
+    return cost.flash_cost(name, bh, t, d, q.element_size())
+
+
 def _launch(name: str, *tensors, bh: int, t: int, d: int, kind: int) -> None:
     lib = _kernel_lib()
     dev = tensors[0].device
@@ -154,7 +165,9 @@ def _launch(name: str, *tensors, bh: int, t: int, d: int, kind: int) -> None:
         raise RuntimeError(
             f"flash_{name} kernel launch failed: CUDA error {err} "
             f"({lib.fedml_flash_error_string(err).decode()})")
-    launch_count[name] += 1
+    with _count_lock:
+        launch_count[name] += 1
+        cost.note(lambda: _work(name.split("_")[0], tensors[0]))  # q first
 
 
 # --------------------------------------------------------------- wrappers
@@ -196,7 +209,8 @@ def flash_fwd(q, k, v, block_q=None, block_k=None):
     _check(q, k, v)
     bq, bk = _blocks(q.shape[1], block_q, block_k)
     if q.device.type == "cpu":
-        return flash_fwd_ref(q, k, v, bq, bk)
+        with cost.region(lambda: _work("fwd", q)):
+            return flash_fwd_ref(q, k, v, bq, bk)
     route = fwd_route(q)
     _require_aligned("forward", q, k, v)
     bh, t, d = q.shape
@@ -213,7 +227,8 @@ def flash_dq(q, k, v, do, lse, delta, block_q=None, block_k=None):
     _check(q, k, v, do, lse, delta)
     bq, bk = _blocks(q.shape[1], block_q, block_k)
     if q.device.type == "cpu":
-        return flash_dq_ref(q, k, v, do, lse, delta, bq, bk)
+        with cost.region(lambda: _work("dq", q)):
+            return flash_dq_ref(q, k, v, do, lse, delta, bq, bk)
     name = dq_route(q)
     _require_aligned("backward", q, k, v, do)
     bh, t, d = q.shape
@@ -230,7 +245,8 @@ def flash_dkv(q, k, v, do, lse, delta, block_q=None, block_k=None):
     _check(q, k, v, do, lse, delta)
     bq, bk = _blocks(q.shape[1], block_q, block_k)
     if q.device.type == "cpu":
-        return flash_dkv_ref(q, k, v, do, lse, delta, bq, bk)
+        with cost.region(lambda: _work("dkv", q)):
+            return flash_dkv_ref(q, k, v, do, lse, delta, bq, bk)
     name = dkv_route(q)
     _require_aligned("backward", q, k, v, do)
     bh, t, d = q.shape

@@ -39,7 +39,10 @@ decode step, spec_k + 1 for a speculative verify window) and
 launches at its own H / mp heads, on its own pool). All three update
 under one lock, since engines on several threads (a fleet of replicas in
 one process) launch concurrently; each process counts its own launches,
-so a tensor-parallel run reads them rank by rank.
+so a tensor-parallel run reads them rank by rank. Under the same lock a
+launch notes its work (`ops/cost.py:paged_cost`) for a cost-ledger
+capture running on the launching thread; the plain version counts the
+same work (`cost.region`).
 """
 from __future__ import annotations
 
@@ -48,7 +51,7 @@ import threading
 
 import torch
 
-from . import _build
+from . import _build, cost
 
 _NEG = -1e30
 MAX_C, MAX_PAGE_SIZE, MAX_DH = 16, 64, 256
@@ -141,9 +144,16 @@ def paged_attention(q, k_pool, v_pool, pages, pos, k_scales=None,
     if pos.dim() == 0:
         pos = pos.expand(q.shape[0]).contiguous()
     _check(q, k_pool, v_pool, pages, pos, k_scales, v_scales)
+    quant = k_scales is not None
+
+    def work():
+        return cost.paged_cost(q, pos, k_pool.shape[1], pages.shape[1],
+                               k_pool.element_size(), quant)
+
     if q.device.type == "cpu":
-        return paged_attention_ref(q, k_pool, v_pool, pages, pos,
-                                   k_scales, v_scales)
+        with cost.region(work):
+            return paged_attention_ref(q, k_pool, v_pool, pages, pos,
+                                       k_scales, v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cuda or cpu; got "
                          f"{q.device}")
@@ -159,7 +169,6 @@ def paged_attention(q, k_pool, v_pool, pages, pos, k_scales=None,
     m_part = torch.empty((s_, c, h, n_split), dtype=torch.float32,
                          device=q.device)
     l_part = torch.empty_like(m_part)
-    quant = k_scales is not None
     with torch.cuda.device(q.device):
         err = lib.fedml_paged_attention(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -178,6 +187,7 @@ def paged_attention(q, k_pool, v_pool, pages, pos, k_scales=None,
         launch_count += 1
         launches_by_c[c] = launches_by_c.get(c, 0) + 1
         launches_by_h[h] = launches_by_h.get(h, 0) + 1
+        cost.note(work)     # reads pos back (a sync): only in a capture
     return out
 
 

@@ -105,6 +105,7 @@ import torch
 from ..core.algorithm import FedAlgorithm, ServerState
 from ..ops import keys
 from ..ops.tree import tree_leaves, tree_map, tree_vdot
+from ..utils import xla_ledger
 from . import mesh as mesh_mod
 
 
@@ -523,14 +524,15 @@ def build_round_fn(alg: FedAlgorithm, mesh=None, group_size: int = 1,
                    client_straggler: float = 0.0, aggregate_full=None,
                    num_real_clients: Optional[int] = None,
                    axis: str = "clients") -> Callable:
-    """The single-round function (module docstring has its contract)."""
-    return make_round_parts(
+    """The single-round function (module docstring has its contract),
+    tracked by the cost ledger as `round_fn` (`utils/xla_ledger.py`)."""
+    return xla_ledger.track(make_round_parts(
         alg, group_size, health_stats, mesh=mesh, axis=axis,
         aggregate_full=aggregate_full,
         postprocess_update=postprocess_update,
         postprocess_agg=postprocess_agg, num_real_clients=num_real_clients,
         client_dropout=client_dropout,
-        client_straggler=client_straggler).round_body
+        client_straggler=client_straggler).round_body, "round_fn")
 
 
 def build_block_fn(alg: FedAlgorithm, group_size: int = 1,
@@ -568,7 +570,7 @@ def build_block_fn(alg: FedAlgorithm, group_size: int = 1,
         return RoundOutput(server_state, client_states,
                            stack_metrics(rows), hook_state)
 
-    return block_fn
+    return xla_ledger.track(block_fn, "block_fn")
 
 
 def stack_metrics(rows: list) -> dict:
@@ -605,7 +607,9 @@ def build_chunk_fns(alg: FedAlgorithm, group_size: int = 1,
             "needs the full update stack; run unchunked or disable "
             "train_args.extra.health_stats")
     parts = make_round_parts(alg, group_size, health_stats, **plugins)
-    return parts.chunk_body, parts.finalize_body, parts.zero_carry
+    return (xla_ledger.track(parts.chunk_body, "chunk_fn"),
+            xla_ledger.track(parts.finalize_body, "finalize_fn"),
+            parts.zero_carry)
 
 
 def shard_fed_data(data: dict, mesh=None, axis: str = "clients",

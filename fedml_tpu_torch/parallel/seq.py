@@ -31,6 +31,8 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import cost
+
 _NEG = -1e9  # finite "-inf": keeps exp() NaN-free for fully-masked rows
 
 
@@ -39,7 +41,11 @@ def dense_causal_attention(q: torch.Tensor, k: torch.Tensor,
                            k_offset: int = 0) -> torch.Tensor:
     """Reference causal attention. q/k/v: [B, T, H, D] -> [B, T, H, D].
     Offsets give the global position of element 0 (used when chunks of a
-    sharded sequence are compared)."""
+    sharded sequence are compared). The whole-sequence form is
+    `_DenseCausal`, which a cost-ledger capture counts as the flash
+    kernels' work (`ops/cost.py`)."""
+    if q_offset == k_offset == 0 and q.shape[1] == k.shape[1]:
+        return _DenseCausal.apply(q, k, v)[0]
     scale = q.shape[-1] ** -0.5
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     qpos = q_offset + torch.arange(q.shape[1], device=q.device)
@@ -47,6 +53,106 @@ def dense_causal_attention(q: torch.Tensor, k: torch.Tensor,
     mask = qpos[:, None] >= kpos[None, :]
     s = torch.where(mask, s, _NEG)
     return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v)
+
+
+def _dense_fwd(q, k, v):
+    """(o, p): causal attention over the whole sequence and its softmax
+    [B, H, T, T], counted by a capture as K1's work."""
+    b, t, h, d = q.shape
+    with cost.region(lambda: cost.flash_cost("fwd", b * h, t, d,
+                                             q.element_size())):
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k) * d ** -0.5
+        pos = torch.arange(t, device=q.device)
+        s = torch.where(pos[:, None] >= pos[None, :], s, _NEG)
+        p = torch.softmax(s, -1)
+        return torch.einsum("bhqk,bkhd->bqhd", p, v), p
+
+
+def _dense_bwd(q, k, v, p, do):
+    """(dQ, dK, dV) of `_dense_fwd` from its softmax p, counted by a
+    capture as K2's and K3's work. A masked entry has p = 0, so its dS is
+    0 as the mask's own gradient would make it."""
+    b, t, h, d = q.shape
+    es = q.element_size()
+
+    def work():
+        qb, qf = cost.flash_cost("dq", b * h, t, d, es)
+        kb, kf = cost.flash_cost("dkv", b * h, t, d, es)
+        return qb + kb, qf + kf
+
+    with cost.region(work):
+        dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+        dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+        ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * d ** -0.5
+        dq = torch.einsum("bhqk,bkhd->bqhd", ds, k)
+        dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
+    return dq, dk, dv
+
+
+def _fold(x: torch.Tensor, dim, g: int) -> torch.Tensor:
+    """A vmapped [B, ...] operand as one [g * B, ...] tensor (an unbatched
+    operand broadcast to g)."""
+    x = (x.unsqueeze(0).expand(g, *x.shape) if dim is None
+         else x.movedim(dim, 0))
+    return x.reshape((g * x.shape[1],) + tuple(x.shape[2:]))
+
+
+def _unfold(x: torch.Tensor, g: int) -> torch.Tensor:
+    return x.reshape((g, x.shape[0] // g) + tuple(x.shape[1:]))
+
+
+class _DenseCausal(torch.autograd.Function):
+    """(o, p) = whole-sequence causal attention, differentiable in q, k
+    and v, with its backward (`_DenseCausalBackward`) written out: a
+    capture sees both passes and counts each by the flash kernels' cost
+    functions, so the ledger's FLOPs do not depend on which attention ran.
+    Under `torch.func.vmap` the rule folds the vmapped dim into B (a batch
+    row depends on no other), so the count sees the group's shape."""
+
+    @staticmethod
+    def forward(q, k, v):
+        return _dense_fwd(q, k, v)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs, output[1])
+        ctx.mark_non_differentiable(output[1])
+
+    @staticmethod
+    def backward(ctx, do, _dp):
+        return _DenseCausalBackward.apply(*ctx.saved_tensors, do)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v):
+        g = info.batch_size
+        o, p = _dense_fwd(*(_fold(x, d, g) for x, d in
+                            zip((q, k, v), in_dims)))
+        return (_unfold(o, g), _unfold(p, g)), (0, 0)
+
+
+class _DenseCausalBackward(torch.autograd.Function):
+    """(dQ, dK, dV) of `_DenseCausal`, with the same fold-into-B rule under
+    `torch.func.vmap`. Not differentiable again."""
+
+    @staticmethod
+    def forward(q, k, v, p, do):
+        return _dense_bwd(q, k, v, p, do)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "dense causal attention has no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, p, do):
+        g = info.batch_size
+        grads = _dense_bwd(*(_fold(x, d, g) for x, d in
+                             zip((q, k, v, p, do), in_dims)))
+        return tuple(_unfold(x, g) for x in grads), (0, 0, 0)
 
 
 def _merge_block(carry, q, k, v, qpos0: int, kpos0: int, scale: float):

@@ -109,6 +109,7 @@ from ..llm.decode import (
 from ..llm.lora import lora_merge
 from ..llm.transformer import TransformerLM
 from ..utils import metrics as _mx
+from ..utils import xla_ledger as _ledger
 from ..utils.events import recorder
 from .predictor import InvalidRequest, _bucket
 
@@ -472,17 +473,27 @@ class DecodeEngine:
         # on a mesh: this rank's heads, each rank's pool its own tensors
         heads, dh = model.n_heads, model.head_dim
         dev = self.device
+        # the cost ledger tracks each program under the JAX engine's name
+        # (utils/xla_ledger.py), captured at its first call only: prefill
+        # widths are not bucketed, so a capture per signature would land
+        # on nearly every admission
         if self._paged:
-            (self._chunk_fn, self._step_fn, self._verify_fn,
-             self._chunk_batch_fn) = make_paged_kv_decode(
+            chunk, step, verify, chunk_batch = make_paged_kv_decode(
                 heads, self._page_size, dtype=self.dtype,
                 kernel=self._kernel_on, quant=self._quant)
+            self._chunk_fn = _ledger.track(chunk, "engine_admit", once=True)
+            self._step_fn = _ledger.track(step, "engine_step", once=True)
+            self._verify_fn = _ledger.track(verify, "engine_spec", once=True)
+            self._chunk_batch_fn = _ledger.track(
+                chunk_batch, "engine_admit_many", once=True)
             self._cache = new_paged_cache(
                 model.n_layers, self._n_pages, self._page_size, heads, dh,
                 self.dtype, dev, quant=self._quant)
         else:
-            self._prefill_fn, self._cstep_fn = make_kv_decode(
-                heads, dtype=self.dtype)
+            prefill, cstep = make_kv_decode(heads, dtype=self.dtype)
+            self._prefill_fn = _ledger.track(prefill, "engine_admit",
+                                             once=True)
+            self._cstep_fn = _ledger.track(cstep, "engine_step", once=True)
             z = (model.n_layers, S, self.max_len, heads, dh)
             self._cache = {"k": torch.zeros(z, dtype=self.dtype, device=dev),
                            "v": torch.zeros(z, dtype=self.dtype, device=dev)}
@@ -513,6 +524,11 @@ class DecodeEngine:
         self._host_pos = [0] * S
         self._gens = [torch.Generator(device=dev) for _ in range(S)]
         self.decode_steps = 0
+        # the device-memory ledger: the engine's three resident trees; the
+        # kv_pool entry sums the buffers kv_bytes_per_slot sums above
+        _ledger.register_buffers("serving_params", self._serving)
+        _ledger.register_buffers("kv_pool", self._cache)
+        _ledger.register_buffers("engine_carry", self._carry)
         # slots each decode step advanced, summed: over decode_steps, the
         # mean batch the engine decoded
         self.decode_slot_steps = 0
@@ -719,7 +735,8 @@ class DecodeEngine:
         return self._version
 
     def _check_no_pending_swap(self) -> None:
-        if self._pending_swap is not None:
+        # both callers (swap_adapters) hold _cond around this call
+        if self._pending_swap is not None:  # graftlint: disable=lock-discipline (callers hold _cond)
             raise RuntimeError(
                 "an adapter swap is already pending — serialize swaps "
                 "(the rolling updater does)")
@@ -984,7 +1001,7 @@ class DecodeEngine:
                     # step when any occupied slot is past admission (a slot
                     # mid-prefill is inert on the device)
                     admitting = {a.slot for a in self._admissions}
-                    stepping = [i for i, s in enumerate(self._slots)
+                    stepping = [i for i, s in enumerate(self._slots)  # graftlint: disable=lock-discipline (engine-thread owned; see the ownership note above _next_tick)
                                 if s is not None and i not in admitting]
                     if stepping:
                         if self._spec_on:
@@ -1001,7 +1018,7 @@ class DecodeEngine:
                     # when requests starve for a slot or nothing decodes
                     with self._cond:
                         starved = bool(self._waiting) and not self._free
-                    eager = starved or all(s is None for s in self._slots)
+                    eager = starved or all(s is None for s in self._slots)  # graftlint: disable=lock-discipline (engine-thread owned; see the ownership note above _next_tick)
                     while pending and (eager
                                        or len(pending) >= self.fetch_chunk):
                         self._drain(pending.popleft())
@@ -1036,7 +1053,13 @@ class DecodeEngine:
 
     # ----------------------------------------------- paged admission plane
     # The page machinery runs on the engine thread only; _cond guards the
-    # _waiting/_free/_slots handoff with submit()/stop().
+    # _waiting/_free/_slots handoff with submit()/stop(). Ownership of
+    # _slots: its entries are read and replaced by the engine thread only;
+    # the one cross-thread writer under the lock, _fail_outstanding, runs
+    # after the loop has exited (the crash path) or after stop() joined
+    # the thread, and the _cond handoff in stop() / submit() is the
+    # happens-before edge. The engine thread's bare reads carry a
+    # graftlint suppression that points here.
     def _next_tick(self) -> int:
         self._ticks += 1
         return self._ticks
@@ -1135,7 +1158,7 @@ class DecodeEngine:
                     self._waiting.appendleft(req)
                     _mx.set_gauge("serving.engine.queue", len(self._waiting))
                 return
-            st = self._slots[slot]
+            st = self._slots[slot]  # graftlint: disable=lock-discipline (engine-thread owned; see the ownership note above _next_tick)
             st.entries = list(hits)
             st.private = list(fresh)
             row = np.zeros(self._max_pages, np.int32)
@@ -1244,7 +1267,7 @@ class DecodeEngine:
         mix the two versions)."""
         if not self._prefix_on or adm.version != self._version:
             return
-        st = self._slots[adm.slot]
+        st = self._slots[adm.slot]  # graftlint: disable=lock-discipline (engine-thread owned; see the ownership note above _next_tick)
         if st is None:   # raced a crash/stop reset
             return
         full = len(adm.req.tokens) // self._page_size
@@ -1298,10 +1321,10 @@ class DecodeEngine:
             for slot in np.nonzero(second)[0]:
                 self._deliver(int(slot), int(toks[slot]), first=False)
         _mx.set_gauge("serving.slots_active",
-                      sum(s is not None for s in self._slots))
+                      sum(s is not None for s in self._slots))  # graftlint: disable=lock-discipline (engine-thread owned; see the ownership note above _next_tick)
 
     def _deliver(self, slot: int, tok: int, first: bool) -> None:
-        st = self._slots[slot]
+        st = self._slots[slot]  # graftlint: disable=lock-discipline (engine-thread owned; see the ownership note above _next_tick)
         if st is None:
             # host and device retirement diverged: loud beats wrong
             log.warning("engine: token for free slot %d dropped", slot)

@@ -349,19 +349,21 @@ class FedMLInferenceRunner:
         """Count one streamed token against this replica's kill schedule;
         dying means: server down NOW, this connection severed (the raise
         propagates out of the handler and closes the socket abruptly)."""
-        if self._chaos is None:
-            return
+        # one read of the schedule under the lock: a re-arm between two
+        # bare reads would judge this token by a mix of both schedules
         with self._chaos_lock:
+            chaos, rank = self._chaos, self._chaos_rank
+            if chaos is None:
+                return
             self._chaos_tokens += 1
             n = self._chaos_tokens
-        if self._chaos.replica_killed(self._chaos_rank, n):
+        if chaos.replica_killed(rank, n):
             _mx.inc("fed.chaos.replica_kills")
             with recorder.span("serving.chaos.replica_kill",
-                               rank=self._chaos_rank, tokens=n):
+                               rank=rank, tokens=n):
                 self.kill()
             raise ConnectionError(
-                f"chaos: replica {self._chaos_rank} killed after "
-                f"{n} streamed tokens")
+                f"chaos: replica {rank} killed after {n} streamed tokens")
 
     def run(self) -> None:
         log.info("serving on :%d (/predict, /ready, /info)",

@@ -180,7 +180,12 @@ def start_replica(spec: dict):
         return serve(predictor_from_export(spec["export_dir"], device=dev))
 
     if spec.get("model_kind") == "lm":
-        return serve(_lm_predictor(spec, dev))
+        from .predictor import lm_predictor_from_serve_knobs
+
+        model, adapters, max_len = _lm_parts(spec, dev)
+        return serve(lm_predictor_from_serve_knobs(
+            dict(spec.get("serve", {})), model, adapters=adapters,
+            device=dev, default_max_len=max_len))
 
     import torch
 
@@ -222,15 +227,15 @@ def start_replica(spec: dict):
     return serve(TorchPredictor(apply_fn, params, device=dev))
 
 
-def _lm_predictor(spec: dict, dev):
-    """The "model_kind": "lm" replica's predictor (start_replica)."""
+def _lm_parts(spec: dict, dev):
+    """The "model_kind": "lm" replica's (model, adapters, default max_len)
+    (start_replica), on `dev`."""
     from collections.abc import Mapping
 
     import torch
 
     from ..llm.lora import adapters_from_jax
     from ..llm.transformer import ModelDims, TransformerLM, params_from_flax
-    from .predictor import lm_predictor_from_serve_knobs
 
     lm = dict(spec.get("lm", {}))
     dims = ModelDims(int(lm["vocab_size"]), int(lm["d_model"]),
@@ -258,9 +263,7 @@ def _lm_predictor(spec: dict, dev):
                                    ).to(device=dev, dtype=torch.float32)
                                for k, v in ab.items()}
                         for name, ab in adapters.items()}
-    return lm_predictor_from_serve_knobs(
-        dict(spec.get("serve", {})), model, adapters=adapters, device=dev,
-        default_max_len=int(lm.get("max_len", 256)))
+    return model, adapters, int(lm.get("max_len", 256))
 
 
 class _Replica:

@@ -112,6 +112,7 @@ from ..parallel.round import (
 )
 from .. import schedule as lpt_sched
 from ..utils import checkpoint as ckpt
+from ..utils import xla_ledger
 from ..utils.events import recorder
 from ..utils.health import HealthTracker
 from ..utils.prometheus import maybe_start_metrics_server
@@ -319,6 +320,10 @@ class Simulator:
             else tree_map(lambda a: a.unsqueeze(0).expand(
                 (n,) + tuple(a.shape)).clone(),
                 self.alg.client_state_init(self.params))
+        # the device-memory ledger: the federated parameters and per-client
+        # state (the round's resident trees)
+        xla_ledger.register_buffers("fed_params", self.params)
+        xla_ledger.register_buffers("client_states", self.client_states)
         ds = self.dataset
         raw = {"x": ds.x_train, "y": ds.y_train, "mask": ds.mask_train}
         # data poisoning changes the host arrays before they are uploaded
@@ -362,8 +367,9 @@ class Simulator:
                                       max(t.batch_size, 64))
         self._test = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(
             self.device) for a in (xb, eval_labels(yb), mb))
-        self._eval = make_eval_fn(self.apply_fn, t.extra.get("task"),
-                                  self.num_classes)
+        self._eval = xla_ledger.track(
+            make_eval_fn(self.apply_fn, t.extra.get("task"),
+                         self.num_classes), "eval_fn")
         self.history: list[dict] = []
 
     # sampling seeded by round index: a local RandomState(round) draws the

@@ -2,7 +2,8 @@
 and the diagnosis battery `diagnosis.py`), against the JAX package's
 `python -m fedml_tpu` on the same inputs: `run`'s last row, `build`'s
 manifest, `logs`, `report --format json` and `top --once` on the same run
-dir, the verbs that wait for later slices, and the entry points' CUDA
+dir, `report --merge` / `--fleet`, `top --fleet` and `lint`, the verb
+that waits for the port's benchmark, and the entry points' CUDA
 default."""
 import json
 import os
@@ -229,14 +230,146 @@ def test_diagnosis_host_probes_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv,entry", [
-    (["bench"], "benchmark of the port"),
-    (["lint"], "entry 8"),
-    (["report", "--merge", "a", "b"], "entry 8"),
-    (["report", "--fleet", "http://x"], "entry 8"),
-    (["top", "--fleet", "--port", "1"], "entry 8")])
+    (["bench"], "benchmark of the port")])
 def test_later_verbs_exit_2(capsys, argv, entry):
     rc, out = _out(capsys, main, argv)
     assert rc == 2 and "not ported yet" in out.err and entry in out.err
+
+
+def _merge_traces_on_disk(tmp_path):
+    """Two processes' traces, B's clock 100 ms ahead, one message each
+    way (tests/test_obsfleet.py's midpoint case)."""
+    def trace(name, events):
+        d = tmp_path / name
+        d.mkdir()
+        (d / f"{name}.trace.json").write_text(
+            json.dumps({"traceEvents": events}))
+        return str(d)
+
+    def send(ts, sid):
+        return {"ph": "X", "name": "comm.send.ping", "ts": ts, "dur": 10,
+                "pid": 0, "tid": 1, "args": {"span_id": sid}}
+
+    def handle(ts, parent):
+        return {"ph": "X", "name": "comm.handle.ping", "ts": ts, "dur": 10,
+                "pid": 0, "tid": 2, "args": {"parent_id": parent}}
+
+    return (trace("A", [send(1000, "sA1"), handle(5000, "sB1")]),
+            trace("B", [handle(101500, "sA1"), send(104800, "sB1")]))
+
+
+def test_report_merge_verb_as_jax(capsys, tmp_path):
+    """`report --merge` on two run dirs: the JAX verb's JSON (schema,
+    offsets, flows) and exit codes, its merged trace byte-equal."""
+    a, b = _merge_traces_on_disk(tmp_path)
+    outs = {}
+    for tag, fn in (("port", main), ("jax", jax_main)):
+        path = str(tmp_path / f"{tag}.merged.json")
+        rc, out = _out(capsys, fn, ["report", "--merge", a, b, "--out",
+                                    path, "--format", "json"])
+        assert rc == 0, out.err
+        outs[tag] = (json.loads(out.out), Path(path).read_bytes())
+    port, jax_res = outs["port"][0], outs["jax"][0]
+    assert port.pop("out").endswith("port.merged.json")
+    assert jax_res.pop("out").endswith("jax.merged.json")
+    assert port == jax_res
+    assert port["order_violations"] == 0 and port["flows"] == 2
+    assert port["offsets_us"] == [0.0, 100150.0]
+    assert outs["port"][1] == outs["jax"][1]
+    rc, out = _out(capsys, main, ["report", "--merge", a, str(tmp_path /
+                                                             "nope")])
+    assert rc == 1 and "neither a trace file nor a run dir" in out.err
+    rc, text = _out(capsys, main, ["report", "--merge", a, b, "--out",
+                                   str(tmp_path / "t.json")])
+    assert rc == 0 and "stitched flows: 2" in text.out
+
+
+def _fleet_file(tmp_path):
+    from fedml_tpu_torch.utils.obsfleet import FleetCollector
+    from fedml_tpu_torch.utils.prometheus import render_prometheus
+
+    texts = {"a": render_prometheus({"counters": {"fed.rounds": 3},
+                                     "gauges": {}, "histograms": {}}),
+             "b": render_prometheus({"counters": {"fed.rounds": 4},
+                                     "gauges": {}, "histograms": {}})}
+    coll = FleetCollector({"a": "a", "b": "b"}, fetch=lambda u: texts[u])
+    coll.scrape_once()
+    snap = coll.fleet_snapshot()
+    for p in snap["processes"].values():
+        p["age_s"] = 0.0           # the two verbs read one saved snapshot
+    path = tmp_path / "fleet.json"
+    path.write_text(json.dumps(snap))
+    return str(path)
+
+
+def test_report_fleet_verb_as_jax(capsys, tmp_path):
+    """`report --fleet` on a saved /fleet snapshot with no local run: the
+    JAX verb's fleet-only text and JSON; an unreachable collector is exit
+    1."""
+    spec = _fleet_file(tmp_path)
+    empty = str(tmp_path / "nolog")
+    for fmt in ("text", "json"):
+        got = [_out(capsys, fn, ["report", "--fleet", spec, "--log-dir",
+                                 empty, "--format", fmt])
+               for fn in (main, jax_main)]
+        assert got[0][0] == got[1][0] == 0
+        assert got[0][1].out == got[1][1].out
+    fleet = json.loads(got[0][1].out)["fleet"]    # the json pass
+    assert fleet["sums"]["counters"]["fed_rounds_total"] == 7
+    rc, out = _out(capsys, main, ["report", "--fleet",
+                                  "http://127.0.0.1:9/fleet"])
+    assert rc == 1 and "fleet fetch failed" in out.err
+
+
+def test_top_fleet_verb(capsys):
+    """`top --fleet --once` against a collector's aggregated /metrics:
+    per-process columns and the fleet sum; without a URL, exit 2 as in
+    JAX."""
+    from fedml_tpu_torch.utils.obsfleet import FleetCollector
+    from fedml_tpu_torch.utils.prometheus import render_prometheus
+
+    texts = {"a": render_prometheus({"counters": {"fed.rounds": 3},
+                                     "gauges": {}, "histograms": {}}),
+             "b": render_prometheus({"counters": {"fed.rounds": 4},
+                                     "gauges": {}, "histograms": {}})}
+    coll = FleetCollector({"a": "a", "b": "b"}, fetch=lambda u: texts[u])
+    coll.scrape_once()
+    exp = coll.serve(port=0)
+    try:
+        rc, out = _out(capsys, main, ["top", "--fleet", "--once", "--url",
+                                      exp.url])
+    finally:
+        coll.stop()
+    assert rc == 0, out.err
+    row = next(ln for ln in out.out.splitlines()
+               if ln.startswith("fed_rounds_total"))
+    assert row.split() == ["fed_rounds_total", "3", "4", "7"]
+    assert "fleet: a=ok, b=ok" in out.out
+    for fn in (main, jax_main):
+        rc, out = _out(capsys, fn, ["top", "--fleet", "--once"])
+        assert rc == 2 and "needs --url/--port" in out.err
+
+
+def test_lint_verb_as_jax(capsys, tmp_path):
+    """`lint`: exit 0 and zero findings on the port's tree; on a fixture
+    with findings exit 1 and the JAX verb's JSON findings; an unknown rule
+    and a missing path exit 2; `--list-rules` prints JAX's catalog."""
+    rc, out = _out(capsys, main, ["lint", "--format", "json"])
+    rep = json.loads(out.out)
+    assert rc == 0 and rep["count"] == 0 and rep["files"] > 100
+    fixture = str(ROOT / "tests" / "lint_fixtures" / "trace")
+    got = [_out(capsys, fn, ["lint", fixture, "--format", "json"])
+           for fn in (main, jax_main)]
+    assert got[0][0] == got[1][0] == 1
+    assert json.loads(got[0][1].out) == json.loads(got[1][1].out)
+    for fn in (main, jax_main):
+        rc, out = _out(capsys, fn, ["lint", "--rules", "nope"])
+        assert rc == 2 and "unknown rule" in out.err
+        rc, out = _out(capsys, fn, ["lint", str(tmp_path / "absent")])
+        assert rc == 2 and "does not exist" in out.err
+    cat = [_out(capsys, fn, ["lint", "--list-rules"]) for fn in (main,
+                                                                 jax_main)]
+    assert cat[0][1].out == cat[1][1].out and cat[0][0] == 0
 
 
 def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
