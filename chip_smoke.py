@@ -8,7 +8,8 @@ Phases, each printing one JSON line (a failing phase raises and the script
 exits non-zero; nothing is caught and carried past). They run in two lanes
 on the one card: after device, build, kernel and flash (the kernels timed
 alone), the phases in LANE_B (mesh, fedavg, fedsim, plugins, cross_silo,
-standalone, in that order) run in a child process of this script, while
+standalone, examples, in that order) run in a child process of this
+script, while
 this process runs engine, serve, serve_surface, train, tasks, runtimes,
 entry, qlora, tp and fleet; when both are done, cross_silo_secure runs
 alone here (it takes phase cross_silo's results from the child). The
@@ -489,6 +490,24 @@ script, and every process the script started is stopped when it ends.
              one epoch of the cell carries f32 rounding); 62 leaves;
              K1-K4 0.
 
+22. examples - the shipped examples' smoke suite: the 12 cases of
+             tests/test_examples.py (`examples.CASES`) through the ported
+             examples (`fedml_tpu_torch/examples/`), each its module's
+             `main(["--device", "cuda", ...])` in this process, at the
+             JAX examples' sizes; the two mesh cases (hierarchical
+             cross-silo over (silos 4, intra 2), FedLLM --ring over
+             (silos 2, seq 4)) start 8 gloo ranks sharing the card. Each
+             example's own asserts decide; a line a case: its wall
+             seconds, its final reading (what `main` returns: the last
+             round's test_acc or train_loss, tokens served) and K1-K4's
+             launches, which must be 0 (the examples run dense attention
+             and the contiguous decode): this process's, plus for the
+             two mesh cases the sum over their 8 ranks, which count
+             their own launches from 0 and return them
+             (`rank_launches`). The platform example's model registry is
+             a temporary directory. The digits cases read scikit-learn's
+             digits from the port's copy (`data/digits.npz`).
+
 Then the `kernels` line, the raw `nvidia-smi` name/power-limit line, and as
 the last line {"ok": true, "device": {...}}. Imports nothing of JAX or of
 the JAX package; without a CUDA device it exits non-zero and prints no
@@ -513,7 +532,7 @@ import numpy as np
 PHASES = ("device", "build", "kernel", "engine", "serve", "serve_surface",
           "flash", "train", "fedavg", "fedsim", "plugins", "cross_silo",
           "cross_silo_secure", "standalone", "entry", "tasks", "runtimes",
-          "fleet", "mesh", "qlora", "tp")
+          "fleet", "mesh", "qlora", "tp", "examples")
 # run only when named in --only
 OPTIONAL = ("profile", "train_profile", "fedavg_profile")
 # the second lane: these phases run in their order in a child process,
@@ -527,7 +546,7 @@ OPTIONAL = ("profile", "train_profile", "fedavg_profile")
 # across the lanes; the seconds from the start by which the second lane
 # must have ended
 LANE_B = ("mesh", "fedavg", "fedavg_profile", "fedsim", "plugins",
-          "cross_silo", "standalone")
+          "cross_silo", "standalone", "examples")
 HEAVY = ("engine", "fleet", "fedsim", "plugins")
 LANE_JOIN_S = 1100.0
 DEV = "cuda"
@@ -7853,6 +7872,66 @@ def _tp_c_config() -> dict:
     return d
 
 
+# ------------------------------------------------------------- phase 22
+def _example_reading(out: dict) -> dict:
+    """The numbers an example's `main` returned: its final reading."""
+    return {k: v for k, v in out.items()
+            if isinstance(v, (int, float)) and not isinstance(v, bool)}
+
+
+def phase_examples() -> dict:
+    """Phase 22 (module docstring): the 12 cases of tests/test_examples.py
+    through `fedml_tpu_torch.examples`, in this process, on the card."""
+    import importlib
+    import os
+    import tempfile
+
+    import torch
+
+    import fedml_tpu_torch.api as api
+    from fedml_tpu_torch.examples import CASES, kernel_launches, summed
+
+    t0 = time.perf_counter()
+    res = {"cases": {}}
+    saved = api._REGISTRY, api._PROFILE
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-ex-") as tmp:
+        api._REGISTRY = os.path.join(tmp, "models")
+        api._PROFILE = os.path.join(tmp, "profile.json")
+        try:
+            for name, flags in CASES:
+                case = name + "".join(" " + f for f in flags)
+                main = importlib.import_module(
+                    f"fedml_tpu_torch.examples.{name}").main
+                kernel_launches(reset=True)
+                t1 = time.perf_counter()
+                out = main(["--device", DEV, *flags])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+                # a mesh case's launches happen in its ranks
+                ranks = out.get("rank_launches")
+                launches = summed([kernel_launches()]
+                                  + ([ranks] if ranks else []))
+                line = {"phase": "examples", "case": case, "wall_s": wall,
+                        "final": _example_reading(out),
+                        "k1_k4_launches": launches}
+                if ranks:
+                    line["rank_launches"] = ranks
+                res["cases"][case] = {k: line[k] for k in (
+                    "wall_s", "final", "k1_k4_launches")}
+                emit(line)
+                check(not any(launches.values()),
+                      f"examples: {case} launched a flash or paged kernel "
+                      f"(the examples use dense attention and the "
+                      f"contiguous decode): {launches}")
+        finally:
+            api._REGISTRY, api._PROFILE = saved
+    res["seconds"] = time.perf_counter() - t0
+    emit({"phase": "examples", "cases": len(res["cases"]),
+          "nvidia_smi": nvidia_smi_line(), "seconds": res["seconds"]})
+    check(len(res["cases"]) == len(CASES), "examples: a case is missing")
+    return res
+
+
 def kernel_rows(kern: dict, runs: dict, flash: dict, train: dict,
                 surface: dict, every_phase: bool, fleet=None,
                 qlora=None, tp=None) -> list:
@@ -8166,6 +8245,7 @@ def _lane_main(selected, work: str) -> int:
     cross_silo = run("cross_silo", phase_cross_silo,
                      fedsim.get("flagship", {}).get(1), default={})
     run("standalone", phase_standalone, fedsim.get("flagship"))
+    run("examples", phase_examples)
     torch.save({"cross_silo_flagship": cross_silo.get("flagship"),
                 "card_params": cross_silo.get("bars", {}).get(
                     "card_params")}, os.path.join(work, "lane.pt"))

@@ -33,11 +33,13 @@ import numpy as np
 
 from ._device import resolve_device
 from .config import Config, load_config
+from .core.registry import ALGORITHMS, DATASETS, MODELS
 
 __version__ = "0.1.0"
 
 __all__ = ["Config", "load_config", "init", "run_simulation",
-           "resolve_device", "FedMLRunner", "__version__"]
+           "run_async_simulation", "resolve_device", "FedMLRunner",
+           "ALGORITHMS", "DATASETS", "MODELS", "__version__"]
 
 
 def __getattr__(name):
@@ -87,5 +89,15 @@ def run_simulation(cfg: Config, dataset=None, model=None, **kw):
     run_simulation`; `kw`: device, params, batch_schedule). Returns the
     history."""
     from .simulation.simulator import run_simulation as _run
+
+    return _run(cfg, dataset, model, **kw)
+
+
+def run_async_simulation(cfg: Config, dataset=None, model=None, **kw):
+    """Staleness-weighted asynchronous FL of `cfg` (`simulation.
+    async_simulator.run_async_simulation`; `kw`: device, params,
+    batch_idx). Returns
+    the history."""
+    from .simulation.async_simulator import run_async_simulation as _run
 
     return _run(cfg, dataset, model, **kw)

@@ -125,6 +125,9 @@ class FaultSpec:
         return bool(self.crash or self.flap
                     or any(getattr(self, f) > 0.0 for f in _PROB_FIELDS))
 
+    def any_client_faults(self) -> bool:
+        return self.client_dropout > 0.0 or self.client_straggler > 0.0
+
     def link_rng(self, src: int, dst: int, seq: int) -> random.Random:
         """One fresh RNG per (sender, receiver, link sequence) triple: fault
         draws never depend on wall clock, thread interleaving or other

@@ -455,7 +455,8 @@ class CodecPolicy:
 
     def __init__(self, type_map: dict, ratio: float = 0.05, bits: int = 8,
                  val_bits: int = 32, error_feedback: bool = True,
-                 secagg_premask_ratio: Optional[float] = None):
+                 secagg_premask_ratio: Optional[float] = None,
+                 field_prime: Optional[int] = None):
         from ..mpc.finite import DEFAULT_PRIME
 
         self.type_map = {t: k for t, k in type_map.items() if k is not None}
@@ -470,7 +471,7 @@ class CodecPolicy:
         #: the SecAgg client's pre-mask sparsifier ratio, carried as in the
         #: JAX policy (the client reads it from its own config)
         self.secagg_premask_ratio = secagg_premask_ratio
-        self.field_prime = DEFAULT_PRIME
+        self.field_prime = int(field_prime or DEFAULT_PRIME)
         # anchors exist ONLY for sparse_topk delta mode: a qsgd/dense-only
         # policy must not pay a full-model digest + 4-deep model ring per
         # peer on every broadcast for a codec that can never consume them

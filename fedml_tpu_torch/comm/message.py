@@ -19,6 +19,10 @@ from . import serialization
 ARG_TYPE = "msg_type"
 ARG_SENDER = "sender"
 ARG_RECEIVER = "receiver"
+ARG_MODEL_PARAMS = "model_params"
+ARG_NUM_SAMPLES = "num_samples"
+ARG_CLIENT_STATUS = "client_status"
+ARG_ROUND = "round_idx"
 
 # trace-context headers, the JAX package's keys
 ARG_TRACE_ID = "_trace_id"

@@ -76,8 +76,7 @@ class RetryPolicy:
       jitter        — +/- fraction of each wait (decorrelates retry storms)
       deadline_s    — total wall-clock budget per message
       rpc_timeout_s — per-RPC deadline for deadline-capable transports
-                      (gRPC, not ported: validated and kept so a JAX
-                      package config loads unchanged)
+                      (gRPC: `comm/grpc_transport.py` sends with it)
       dedup_window  — per-sender count of remembered sequence numbers
       seed          — jitter RNG seed (per-rank offset added internally)
     """

@@ -4,6 +4,7 @@ trainer on the card (data-parallel over an intra-silo mesh when given
 one), the hierarchical composition (`hierarchical.py`) and the
 kill–restart soak harness."""
 from .client import FedClientManager
+from .hierarchical import partition_devices, run_hierarchical, silo_mesh
 from .message_define import *  # noqa: F401,F403
 from .secagg_manager import SecAggClientManager, SecAggServerManager
 from .server import FedAggregator, FedServerManager
@@ -11,5 +12,6 @@ from .trainer import SiloTrainer
 
 __all__ = [
     "FedClientManager", "FedServerManager", "FedAggregator", "SiloTrainer",
-    "SecAggServerManager", "SecAggClientManager",
+    "SecAggServerManager", "SecAggClientManager", "run_hierarchical",
+    "partition_devices", "silo_mesh",
 ]

@@ -4,11 +4,12 @@ Real data is read from `data_args.data_cache_dir` when it is there: the
 LEAF JSON directories (MNIST, femnist, shakespeare), the CIFAR python
 pickle batches, the TFF h5 sets (`tff_h5.py`), the folder-image, landmarks
 CSV and tabular CSV sets (`folder_csv.py`) and a pre-exported
-`<name>.npz`; sklearn's bundled digits set is real data available
-offline. Any other set falls back to a shape-faithful synthetic task: a
-Gaussian mixture for classification, next-token sequences for the token
-tasks, one class-coloured square an image for segmentation, and sparse
-bags of words for stackoverflow_lr's tags. numpy only: shards,
+`<name>.npz`; scikit-learn's handwritten digits are real data available
+offline (the package holds a copy of their arrays, `digits.npz`). Any
+other set falls back to a shape-faithful synthetic task: a Gaussian
+mixture for classification, next-token sequences for the token tasks,
+one class-coloured square an image for segmentation, and sparse bags of
+words for stackoverflow_lr's tags. numpy only: shards,
 partitions, labels and vocabularies are bitwise those of the JAX module
 for the same config.
 """
@@ -163,14 +164,14 @@ def _synthetic_for(name: str, cfg: Config) -> FedDataset:
 
 
 def _digits(cfg: Config) -> FedDataset:
-    """sklearn's bundled handwritten digits (1,797 8x8 grayscale images,
-    10 classes): real data available offline. Deterministic 80/20 split.
-    sklearn is imported here, so the package imports without it."""
-    from sklearn.datasets import load_digits
-
-    d = load_digits()
-    x = (d.data.astype(np.float32) / 16.0).reshape(-1, 8, 8, 1)
-    y = d.target.astype(np.int64)
+    """scikit-learn's handwritten digits (1,797 8x8 grayscale images of
+    0-16, 10 classes): real data available offline. The arrays are
+    `load_digits()`'s `data` and `target`, exported into `digits.npz`
+    beside this module (as uint8; the same values), so the port needs no
+    scikit-learn. Deterministic 80/20 split."""
+    d = np.load(Path(__file__).with_name("digits.npz"))
+    x = (d["data"].astype(np.float32) / 16.0).reshape(-1, 8, 8, 1)
+    y = d["target"].astype(np.int64)
     rng = np.random.RandomState(cfg.common_args.random_seed)
     order = rng.permutation(len(y))
     x, y = x[order], y[order]

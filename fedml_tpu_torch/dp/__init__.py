@@ -28,6 +28,7 @@ from ..utils import metrics as mx
 from .accountant import RDPAccountant
 from .mechanisms import (
     add_gaussian_noise, add_laplace_noise, gaussian_sigma, laplace_scale,
+    make_mechanism,
 )
 
 Tree = Any

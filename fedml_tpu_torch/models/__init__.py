@@ -1,0 +1,1 @@
+from .hub import create, init_params  # noqa: F401

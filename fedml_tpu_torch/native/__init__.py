@@ -91,6 +91,18 @@ def _load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+def available() -> bool:
+    """Whether every host library (`_LIBS`) builds and loads here. The
+    libraries have no fallback, so a False here means the wire CRC,
+    SecAgg's finite field and the edge trainers raise when used."""
+    try:
+        for name in _LIBS:
+            _load(name)
+    except (OSError, RuntimeError):
+        return False
+    return True
+
+
 def crc32c(data) -> int:
     """CRC-32C of a bytes-like object (bytes, bytearray, memoryview; read
     in place). ctypes releases the GIL for the call."""

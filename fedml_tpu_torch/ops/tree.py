@@ -1,8 +1,9 @@
 """Arithmetic over nested dicts, tuples and lists of tensors: what the
 round engine, its plugins and the cross-silo aggregator need of
 `fedml_tpu/ops/tree.py` (map, add, sub, scale, leaves, zeros-like, the f32
-dot product and norm, the global norm clip, stack, the weighted mean over
-a stacked axis)."""
+dot product, squared norm and norm, the global norm clip, cast, stack,
+unstack and index along a stacked axis, the weighted mean over it, and
+the flattening to one vector)."""
 from __future__ import annotations
 
 from typing import Any, Callable, Mapping
@@ -44,16 +45,20 @@ def tree_zeros_like(t: Tree) -> Tree:
     return tree_map(torch.zeros_like, t)
 
 
-def tree_vdot(a: Tree, b: Tree) -> torch.Tensor:
+def tree_dot(a: Tree, b: Tree) -> torch.Tensor:
     """The f32 dot product of two matching trees (bf16 leaves upcast, so
     norms do not saturate)."""
     return sum(torch.dot(x.reshape(-1).float(), y.reshape(-1).float())
                for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
 
+def tree_sq_norm(t: Tree) -> torch.Tensor:
+    return tree_dot(t, t)
+
+
 def tree_norm(t: Tree) -> torch.Tensor:
     """The global L2 norm of a tree, summed in f32 over every leaf."""
-    return torch.sqrt(tree_vdot(t, t))
+    return torch.sqrt(tree_sq_norm(t))
 
 
 def tree_clip_by_global_norm(t: Tree, max_norm) -> Tree:
@@ -64,11 +69,25 @@ def tree_clip_by_global_norm(t: Tree, max_norm) -> Tree:
     return tree_scale(t, scale)
 
 
+def tree_cast(t: Tree, dtype: torch.dtype) -> Tree:
+    return tree_map(lambda x: x.to(dtype), t)
+
 
 def tree_stack(trees: list) -> Tree:
     """[tree, tree, ...] -> one tree with a leading stacked axis on every
     leaf."""
     return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def tree_unstack(stacked: Tree) -> list:
+    """The inverse of `tree_stack`: one tree per index of the leading
+    axis."""
+    n = tree_leaves(stacked)[0].shape[0]
+    return [tree_index(stacked, i) for i in range(n)]
+
+
+def tree_index(stacked: Tree, i) -> Tree:
+    return tree_map(lambda x: x[i], stacked)
 
 
 def tree_weighted_mean(stacked: Tree, weights: torch.Tensor) -> Tree:
@@ -83,3 +102,23 @@ def tree_weighted_mean(stacked: Tree, weights: torch.Tensor) -> Tree:
         return (x * wb).sum(dim=0)
 
     return tree_map(mean_leaf, stacked)
+
+
+def tree_flatten_to_vector(t: Tree) -> tuple[torch.Tensor, Callable]:
+    """(the leaves raveled into one 1-D vector in `tree_leaves` order, the
+    function that puts such a vector back into `t`'s structure and leaf
+    shapes)."""
+    leaves = tree_leaves(t)
+    shapes = [x.shape for x in leaves]
+    vec = (torch.cat([x.reshape(-1) for x in leaves]) if leaves
+           else torch.zeros(0))
+
+    def unflatten(v: torch.Tensor) -> Tree:
+        chunks, off = [], 0
+        for shape in shapes:
+            chunks.append(v[off:off + shape.numel()].reshape(shape))
+            off += shape.numel()
+        parts = iter(chunks)
+        return tree_map(lambda _x: next(parts), t)
+
+    return vec, unflatten

@@ -104,7 +104,7 @@ import torch
 
 from ..core.algorithm import FedAlgorithm, ServerState
 from ..ops import keys
-from ..ops.tree import tree_leaves, tree_map, tree_vdot
+from ..ops.tree import tree_dot, tree_leaves, tree_map
 from ..utils import xla_ledger
 from . import mesh as mesh_mod
 
@@ -182,7 +182,7 @@ def _client_health(upds, agg, loss_per_client: torch.Tensor,
         sq += torch.bmm(u2[:, None, :], u2[:, :, None]).reshape(m)
         dots += u2 @ a.reshape(-1).float()
     norms = torch.sqrt(torch.clamp(sq, min=0.0))
-    agg_norm = torch.sqrt(torch.clamp(tree_vdot(agg, agg), min=0.0))
+    agg_norm = torch.sqrt(torch.clamp(tree_dot(agg, agg), min=0.0))
     cosine = dots / torch.clamp(norms * agg_norm, min=1e-12)
     cohort = loss_sum.float() / torch.clamp(count, min=1.0)
     return {"update_norm": norms, "cosine": cosine,

@@ -365,6 +365,13 @@ class FedMLInferenceRunner:
             raise ConnectionError(
                 f"chaos: replica {rank} killed after {n} streamed tokens")
 
+    @property
+    def metrics_url(self) -> str:
+        """This replica's /metrics scrape URL: what a `FleetCollector`
+        roster entry (`utils/obsfleet.py`) wants for this process."""
+        host = self._server.server_address[0]
+        return f"http://{host}:{self.port}/metrics"
+
     def run(self) -> None:
         log.info("serving on :%d (/predict, /ready, /info)",
                  self.port)

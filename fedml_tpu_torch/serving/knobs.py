@@ -73,6 +73,15 @@ KNOBS = {
 }
 
 
+def knob_names() -> set[str]:
+    return set(KNOBS)
+
+
+def consumer_knobs(consumer: str) -> set[str]:
+    """Knob names owned by one consumer surface ("predictor" / "fleet")."""
+    return {k for k, spec in KNOBS.items() if spec["consumer"] == consumer}
+
+
 def validate_serve_args(extra: dict) -> None:
     """Validate (and normalize, in place) a `serve_args` knob dict.
 

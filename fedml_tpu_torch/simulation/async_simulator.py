@@ -255,6 +255,7 @@ class AsyncSimulator:
 
 
 def run_async_simulation(cfg: Config, dataset=None, model=None, *,
-                         device=None, params=None) -> list[dict]:
+                         device=None, params=None,
+                         batch_idx=None) -> list[dict]:
     return AsyncSimulator(cfg, dataset, model, device=device,
-                          params=params).run()
+                          params=params).run(batch_idx=batch_idx)

@@ -1,16 +1,20 @@
 """Process-local counters, gauges and fixed-bucket histograms.
 
-A trimmed copy of `fedml_tpu/utils/metrics.py`: the instruments the
-decode engine, the serving runner and the health tracker call (`inc`,
-`set_gauge`, `observe`, `AtomicCounter`) and `snapshot()`, under
-the same metric names, so `utils/prometheus.py` renders them on
-`/metrics` as the JAX package does. Instruments are guarded by one lock each: the engine thread
-and request threads both write them.
+A copy of `fedml_tpu/utils/metrics.py`'s registry: the instruments
+(`Counter`, `Gauge`, `Histogram`, `AtomicCounter`), the module helpers
+(`counter`, `gauge`, `histogram`, `inc`, `set_gauge`, `observe`, `timer`,
+`snapshot`, `reset`) and the windowed percentile of two snapshots, under
+the same metric names and snapshot layout, so `utils/prometheus.py`
+renders them on `/metrics` as the JAX package does. Instruments are
+guarded by one lock each: the engine thread and request threads both
+write them.
 """
 from __future__ import annotations
 
 import bisect
+import contextlib
 import threading
+import time
 from typing import Optional, Sequence
 
 # latency buckets in seconds, 1 µs .. 60 s, ~1-2-5 per decade (the JAX
@@ -119,6 +123,22 @@ def percentile_from_counts(edges: Sequence[float], counts: Sequence[int],
     return observed_max if observed_max is not None else edges[-1]
 
 
+def percentile_from_snapshots(before: dict, after: dict, key: str,
+                              q: float) -> Optional[float]:
+    """q-quantile of one histogram over a measurement window: the bucket
+    count deltas between two cumulative `snapshot()` dicts (`before` may
+    lack the histogram); None when `after` lacks it or the window is
+    empty."""
+    ha = (after.get("histograms") or {}).get(key)
+    if not ha:
+        return None
+    hb = (before.get("histograms") or {}).get(key)
+    counts = [a - (hb["counts"][i] if hb else 0)
+              for i, a in enumerate(ha["counts"])]
+    return percentile_from_counts(ha["edges"], counts, q,
+                                  observed_max=ha.get("max"))
+
+
 class AtomicCounter:
     """Lock-protected up/down counter for in-flight accounting (the
     serving runner's queue depth). `gauge` names a registry gauge updated
@@ -162,6 +182,12 @@ class MetricsRegistry:
                             f"{type(inst).__name__}, requested {cls.__name__}")
         return inst
 
+    def counter(self, name: str) -> Counter:
+        return self._get(name, Counter)
+
+    def gauge(self, name: str) -> Gauge:
+        return self._get(name, Gauge)
+
     def histogram(self, name: str,
                   buckets: Sequence[float] = LATENCY_BUCKETS_S) -> Histogram:
         return self._get(name, Histogram, buckets)
@@ -181,21 +207,54 @@ class MetricsRegistry:
                 out["histograms"][name] = inst.snapshot()
         return out
 
+    def reset(self) -> None:
+        """Drop every instrument; a writer still holding one writes into
+        it harmlessly, and new lookups start clean."""
+        with self._lock:
+            self._instruments = {}
+
 
 registry = MetricsRegistry()
 
 
+def counter(name: str) -> Counter:
+    return registry.counter(name)
+
+
+def gauge(name: str) -> Gauge:
+    return registry.gauge(name)
+
+
+def histogram(name: str,
+              buckets: Sequence[float] = LATENCY_BUCKETS_S) -> Histogram:
+    return registry.histogram(name, buckets)
+
+
 def inc(name: str, n: int = 1) -> None:
-    registry._get(name, Counter).inc(n)
+    registry.counter(name).inc(n)
 
 
 def set_gauge(name: str, v: float) -> None:
-    registry._get(name, Gauge).set(v)
+    registry.gauge(name).set(v)
 
 
 def observe(name: str, v: float) -> None:
-    registry._get(name, Histogram).observe(v)
+    registry.histogram(name).observe(v)
 
 
 def snapshot() -> dict:
     return registry.snapshot()
+
+
+def reset() -> None:
+    registry.reset()
+
+
+@contextlib.contextmanager
+def timer(name: str):
+    """Time the block into histogram `name`, in seconds."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        registry.histogram(name).observe(time.perf_counter() - t0)

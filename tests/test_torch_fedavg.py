@@ -12,6 +12,7 @@ parameter update, the repo's rule for rounds.
 import os
 import sys
 import types
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -91,6 +92,27 @@ def test_loader_bitwise(dataset, extra, tmp_path):
     assert got.num_classes == want.num_classes
     assert got.synthetic == want.synthetic
     assert got.client_class_stats == want.client_class_stats
+
+
+def test_digits_copy_is_sklearns_and_needs_no_sklearn(tmp_path, monkeypatch):
+    """The port's `data/digits.npz` holds scikit-learn's digits arrays
+    (the same values), and the loader reads them where scikit-learn
+    cannot be imported: the real set, never the synthetic fallback."""
+    from sklearn.datasets import load_digits
+
+    d = load_digits()
+    blob = np.load(Path(loader.__file__).with_name("digits.npz"))
+    np.testing.assert_array_equal(blob["data"].astype(d.data.dtype), d.data)
+    np.testing.assert_array_equal(blob["target"], d.target)
+    cfg = Config.from_dict({"data_args": {"dataset": "digits",
+                                          "data_cache_dir": str(tmp_path)}})
+    want = loader.load(cfg)
+    monkeypatch.setitem(sys.modules, "sklearn", None)
+    monkeypatch.setitem(sys.modules, "sklearn.datasets", None)
+    got = loader.load(cfg)
+    assert not got.synthetic
+    np.testing.assert_array_equal(got.x_train, want.x_train)
+    np.testing.assert_array_equal(got.y_test, want.y_test)
 
 
 def test_config_round_trips_like_jax():
